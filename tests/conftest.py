@@ -58,3 +58,11 @@ def read_abundance(path):
             est.append(float(p[3]))
             tpm.append(float(p[4]))
     return names, np.array(lens), np.array(eff), np.array(est), np.array(tpm)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (kernel tests of kallisto_tpu_torch); "
+        "skips without one",
+    )

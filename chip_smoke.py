@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- `quant` on paired-end reads through the
-per-read path -- on the card, and holds every CUDA kernel of that path
-against its plain PyTorch version:
+Drives the port's main path -- `quant` on paired-end reads: the per-read
+path while the fragment-length distribution is learned, then the compact
+steady state (turbo batches reduced to a key table) -- on the card, and
+holds every CUDA kernel of that path against its plain PyTorch version:
 
 1. device: requires CUDA, prints the card's name and power limit, builds
    the kernels (one nvcc per source, in parallel);
@@ -16,12 +17,22 @@ against its plain PyTorch version:
    plain versions on the CPU, at the main path's batch shape (2x100 bp and
    76 bp reads with random Ns, ragged lengths and reads shorter than k):
    every field must be equal;
-4. golden bytes: `quant` paired and `--single -l 180 -s 20` on tests/data,
-   abundance.tsv byte-equal to tests/golden, run stats 10000/9413/7174;
+3b. kernels D (pseudoalign_turbo), E (key_histogram), F (gather_exemplars)
+   and B with the compact key layout against their plain versions on the
+   card: a paired turbo batch at the main path's Bp = 262,144 with sparse
+   Ns, a ragged-length batch, a single-end batch, a bitmask (N-dense)
+   batch, and keys with min_range 50, the strand tail and the position
+   rank; every field, key and table entry must be equal;
+4. golden bytes: `quant` paired, `--single -l 180 -s 20` and the half-mapped
+   `-l 180 -s 20` pairs on tests/data, abundance.tsv byte-equal to
+   tests/golden, run stats 10000/9413/7174, and the routes: per-read batches
+   only for the paired run, turbo batches (no fallback) for the others;
 5. the main path at realistic size: `quant` of the 1M pairs on the card
-   with every launch count set to 0 just before and read just after; checks
-   of its output, and a CPU re-run of the first 65,536 pairs with equal EC
-   counts;
+   with every launch count set to 0 just before and read just after, the
+   kernels A-F all launched; checks of its output; the same pairs again
+   with every batch per read (equal EC counts and sets); the first 65,536
+   pairs with batch 8192 and an FLD goal of 1000 on the card and on the CPU
+   (equal EC counts and sets, turbo batches on both);
 6. kernel C (em_step) on the main path's EM problem: the whole EM on the
    card against the plain version on the CPU, bitwise equal alpha and equal
    rounds;
@@ -46,6 +57,8 @@ N_GENES = 10000
 N_PAIRS = 1_000_000
 READ_LEN = 100
 CPU_RERUN_PAIRS = 65536
+# batch counts by route in run_quant's timings
+ROUTES = ("full", "turbo", "compact", "fallback")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the scalar
 # (non-tensor) float32 rate, used here for integer operations, and float64.
@@ -108,6 +121,192 @@ def ragged_batch(codes, lens_full, k, rng, fastx):
     rb = fastx.ReadBatch(codes=codes, lens=lens)
     return fastx._read_batch_to_packed(rb, k)
 
+
+
+def _sparse_n_batch(codes, lens, k, rng, fastx, n_frac):
+    """PackedBatch of `codes` (rows shorter than lens padded with N) with
+    a fraction n_frac of in-read bases set to N."""
+    import numpy as np
+
+    codes = codes.copy()
+    L = codes.shape[1]
+    codes[rng.random(codes.shape) < n_frac] = 4
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 4
+    return fastx._read_batch_to_packed(
+        fastx.ReadBatch(codes=codes, lens=lens.astype(np.int32)), k)
+
+
+def _equal_sides(torch, pa, a, b, what):
+    for f in pa.SideResult._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        check(x.dtype == y.dtype and torch.equal(x, y), f"{what}: {f} equal")
+
+
+def _equal_tables(torch, a, b, what):
+    """Key tables equal: meta rows, then occupied rows in first_idx order
+    (both versions write them in that order, so the whole tables match)."""
+    check(torch.equal(a, b), f"{what}: key table equal "
+          f"(n_uniq {int(a[0, 0])})")
+
+
+def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
+    """Kernels D, E, F and B with the compact key layout against their
+    plain PyTorch versions, both on the card, on main-path shapes.  Returns
+    {name: (ms, plain_ms, (bound_ms, bound_by), library_ms)} and B's
+    compact-layout time."""
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.quant.pipeline import (
+        _bucket_size, _pad_rows, _turbo_exceptions, _uniform_len)
+
+    rng = np.random.default_rng(99)
+    Bp = rb1.n  # the default batch: 262,144 pairs
+    out = {}
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def turbo_inputs(bs, Bp):
+        exc = _turbo_exceptions(bs, Bp)
+        check(exc is not None, "the batch's N positions fit the aux vector")
+        rl = _uniform_len(*bs)
+        aux = turbo.make_aux(bs[0].n, rl or 0, exc)
+        packed = [put(_pad_rows(b.packed, Bp)) for b in bs]
+        lens = None
+        if rl is None:
+            lens = put(np.concatenate(
+                [_pad_rows(b.lens.astype(np.uint16), Bp) for b in bs]))
+        return packed, put(aux), lens, bs[0].Lp, rl or 0
+
+    def plain_d(packed, aux, lens, L, rl):
+        codes, lens_v = turbo.codes_and_lens_plain(packed, aux, lens, L, rl)
+        return pa._pseudoalign_core(didx, codes, lens_v, k, 16), codes, lens_v
+
+    # -- D on the main path's paired batch: 2x100 bp, Bp = 262,144, Ns
+    full_len = np.full(Bp, 100, np.int32)
+    bs = [_sparse_n_batch(rb.codes, full_len, k, rng, fastx, 5e-4)
+          for rb in (rb1, rb2)]
+    packed, aux, lens, L, rl = turbo_inputs(bs, Bp)
+    check(0 < rl < L, f"uniform length {rl} trims the padded {L}")
+    Lc = rl
+    R = min(16, Lc - k + 1)
+    g = pa.SideResult(*kernels.pseudoalign_turbo(didx, packed, aux, lens, k, L,
+                                                 rl, R))
+    c, codes, lens_v = plain_d(packed, aux, lens, L, rl)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, g, c, f"kernel D paired Bp={Bp}")
+    canon, _, valid = pa.rolling_canonical_kmers(codes, lens_v, k)
+    _, hit, _ = pa.lookup_kmers(didx, canon, valid)
+    n_valid, n_hit = int(valid.sum()), int(hit.sum())
+    n_has, n_win = int(c.has_hits.sum()), canon.numel()
+    del canon, valid, hit, codes, lens_v
+    ms_d = cuda_ms(lambda: kernels.pseudoalign_turbo(
+        didx, packed, aux, lens, k, L, rl, R), 10, torch)
+    plain_ms_d = cuda_ms(lambda: plain_d(packed, aux, lens, L, rl), 3, torch)
+    in_bytes = sum(p.numel() for p in packed) + 8 * aux.numel()
+    out_bytes = 2 * Bp * (4 * R + 4 * 6 + 3)
+    table_bytes = 32 * (2 * n_valid + n_hit + 4 * n_has)
+    out["pseudoalign_turbo"] = (ms_d, plain_ms_d, bound(
+        in_bytes + out_bytes + table_bytes, 250 * n_win, PEAK_INT_OPS), None)
+    log(f"kernel D: {ms_d:.3f} ms (plain on card {plain_ms_d:.3f} ms), "
+        f"reads={2 * Bp} Lc={Lc} windows={n_win} valid={n_valid} "
+        f"hits={n_hit} with hits={n_has} N exceptions={int((aux[4:] < 2**62).sum())}")
+
+    # -- B (compact layout, options off as on the main path), E and F on it
+    r1, r2 = pa.SideResult(*(a[:Bp] for a in g)), pa.SideResult(*(a[Bp:] for a in g))
+    spec0 = pa.KeySpec(k=k)
+    h, fl = pa.compact_key_hash(r1, r2, spec0, didx)
+    hp, flp = pa.key_hash_plain(r1, r2, spec0, didx)
+    torch.cuda.synchronize()
+    check(torch.equal(h, hp) and torch.equal(fl, flp),
+          "kernel B compact keys (options off): equal")
+    ms_b = cuda_ms(lambda: pa.compact_key_hash(r1, r2, spec0, didx), 20, torch)
+    K = Bp + 1
+    ck = pa.key_histogram(h, fl, K)
+    ckp = pa.key_histogram_plain(h, fl, K)
+    torch.cuda.synchronize()
+    _equal_tables(torch, ck, ckp, f"kernel E paired Bp={Bp}")
+    n_uniq = int(ck[0, 0])
+    ms_e = cuda_ms(lambda: kernels.key_histogram(h, fl, K), 20, torch)
+    plain_ms_e = cuda_ms(lambda: pa.key_histogram_plain(h, fl, K), 5, torch)
+    h0 = h[:, 0].contiguous()
+    lib_e = cuda_ms(lambda: torch.unique(h0, return_counts=True), 20, torch)
+    bytes_e = 12 * Bp + 8 * n_uniq + 40 * (K + 1)
+    out["key_histogram"] = (ms_e, plain_ms_e, bound(bytes_e, 0, PEAK_INT_OPS),
+                            lib_e)
+    log(f"kernel E: {ms_e:.4f} ms (plain on card {plain_ms_e:.3f} ms, "
+        f"torch.unique {lib_e:.4f} ms), B={Bp} n_uniq={n_uniq} K={K}")
+    idx = ck[1 : n_uniq + 1, 3].contiguous()
+    ex = pa.gather_exemplars(idx, r1, r2, spec0)
+    exp = pa.gather_exemplars_plain(idx, r1, r2, spec0)
+    torch.cuda.synchronize()
+    check(torch.equal(ex, exp), f"kernel F: {n_uniq} exemplar rows equal")
+    ms_f = cuda_ms(lambda: kernels.gather_exemplars(idx, r1, r2, spec0), 20,
+                   torch)
+    plain_ms_f = cuda_ms(lambda: pa.gather_exemplars_plain(idx, r1, r2, spec0),
+                         5, torch)
+    bytes_f = 8 * n_uniq + 2 * 4 * ex.numel()
+    out["gather_exemplars"] = (ms_f, plain_ms_f,
+                               bound(bytes_f, 0, PEAK_INT_OPS), None)
+    log(f"kernel F: {ms_f:.4f} ms (plain on card {plain_ms_f:.4f} ms), "
+        f"{n_uniq} rows x {ex.shape[1]}")
+
+    # -- every key option on: min_range 50, strand tail, position rank
+    depth = pa.pf_probe_depth(index)
+    spec = pa.KeySpec(k=k, min_range=50, strand_key=True, pos_fl=180,
+                      pos_depth=depth)
+    for tag, a, b in (("paired", r1, r2), ("single", r1, None)):
+        hx, fx = pa.compact_key_hash(a, b, spec, didx)
+        hxp, fxp = pa.key_hash_plain(a, b, spec, didx)
+        torch.cuda.synchronize()
+        check(torch.equal(hx, hxp) and torch.equal(fx, fxp),
+              f"kernel B {tag}, min_range 50 + strand + position: keys equal")
+        exo = pa.gather_exemplars(idx, a, b, spec)
+        check(torch.equal(exo, pa.gather_exemplars_plain(idx, a, b, spec)),
+              f"kernel F {tag}, every option: exemplar rows equal")
+    ms_bx = cuda_ms(lambda: pa.compact_key_hash(r1, r2, spec, didx), 20, torch)
+    log(f"kernel B compact keys: {ms_b:.4f} ms options off, {ms_bx:.4f} ms "
+        f"with min_range + strand + position rank (paired, B={Bp})")
+    out["read_keys_compact"] = {"options_off_ms": ms_b, "all_options_ms": ms_bx}
+    del g, c, r1, r2, h, fl, ck, ckp, packed, aux
+
+    # -- ragged lengths (varlen), single-end, and the bitmask (N-dense)
+    # route, each on 65,536 reads (the bitmask route's slices hold up to
+    # 131,072)
+    n = min(65536, Bp)
+    lens_r = rb1.lens[:n].copy()
+    short = rng.random(n) < 0.2
+    lens_r[short] = rng.integers(k, 101, int(short.sum()))
+    vb = [_sparse_n_batch(rb.codes[:n], lens_r, k, rng, fastx, 5e-4)
+          for rb in (rb1, rb2)]
+    for tag, bsx in (("varlen paired", vb), ("single", vb[:1])):
+        packed, aux, lens, L, rl = turbo_inputs(bsx, n)
+        Lc = rl if 0 < rl < L else L
+        R = min(16, Lc - k + 1)
+        gx = pa.SideResult(*kernels.pseudoalign_turbo(
+            didx, packed, aux, lens, k, L, rl, R))
+        cx, _, _ = plain_d(packed, aux, lens, L, rl)
+        torch.cuda.synchronize()
+        _equal_sides(torch, pa, gx, cx, f"kernel D {tag}")
+        ra, rb_ = (pa.SideResult(*(a[:n] for a in gx)),
+                   pa.SideResult(*(a[n:] for a in gx)) if len(bsx) == 2 else None)
+        hx, fx = pa.compact_key_hash(ra, rb_, spec, didx)
+        _equal_tables(torch, pa.key_histogram(hx, fx, n + 1),
+                      pa.key_histogram_plain(hx, fx, n + 1), f"kernel E {tag}")
+    nb = [_sparse_n_batch(rb.codes[:n], lens_r, k, rng, fastx, 2e-3)
+          for rb in (rb1, rb2)]
+    args = [t for b in nb for t in pa.upload_batch(b, dev)]
+    kw = dict(k=k, L=nb[0].Lp, max_keys=n + 1, min_range=50, strand_key=True,
+              pos_fl=180, pos_depth=depth)
+    gr1, gr2, gck = pa.pseudoalign_pair_compact_packed(didx, *args, **kw)
+    pr1 = pa.pseudoalign_batch_packed_plain(didx, *args[:3], k, nb[0].Lp)
+    pr2 = pa.pseudoalign_batch_packed_plain(didx, *args[3:], k, nb[0].Lp)
+    hp, flp = pa.key_hash_plain(pr1, pr2, spec, didx)
+    pck = pa.key_histogram_plain(hp, flp, n + 1)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, gr1, pr1, "bitmask route mate 1")
+    _equal_sides(torch, pa, gr2, pr2, "bitmask route mate 2")
+    _equal_tables(torch, gck, pck, "bitmask route")
+    return out
 
 def main(argv=None):
     import argparse
@@ -172,7 +371,7 @@ def main(argv=None):
         log(f"index build (numpy): {index_build_s:.1f} s, "
             f"{index.num_kmers} k-mers, {index.num_trans} targets")
         t0 = time.perf_counter()
-        didx = pa.device_index_from_host(index, dev)
+        didx = pa.device_index_from_host(index, dev, with_pos_tables=True)
         torch.cuda.synchronize()
         log(f"device tables: {didx.nbytes() / 1e9:.3f} GB, p={didx.p}, layout + "
             f"upload {time.perf_counter() - t0:.1f} s")
@@ -260,6 +459,13 @@ def main(argv=None):
         log(f"kernel B: {ms_b:.3f} ms (plain on card {plain_b:.3f} ms)")
         del side_gpu, side_cpu, stats_a, g_in, didx_cpu
 
+        # ---------------------------- 3b. kernels D, E, F and B extended
+        log("== phase 3b: kernels D, E, F and B (compact keys) against "
+            "their plain versions on the card")
+        k3b = phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2,
+                       k, dev)
+        del rb1, rb2
+
         # ------------------------------------------------ 4. golden bytes
         log("== phase 4: golden bytes on the card")
         data = os.path.join(here, "tests", "data")
@@ -271,6 +477,9 @@ def main(argv=None):
             ("paired", "quant_paired", dict(files=pf)),
             ("single", "quant_single", dict(
                 files=pf[:1], single_end=True, fld_mean=180, fld_sd=20)),
+            ("halfmapped", "quant_halfmapped", dict(
+                files=[pf[0], os.path.join(data, "halfmapped_2.fastq.gz")],
+                fld_mean=180, fld_sd=20)),
         ):
             out = os.path.join(work, f"golden_{name}")
             res = run_quant(Options(output_dir=out, batch_size=4096, **kw),
@@ -278,10 +487,18 @@ def main(argv=None):
             mine = open(os.path.join(out, "abundance.tsv")).read()
             want = open(os.path.join(golden, gdir, "abundance.tsv")).read()
             check(mine == want, f"{name}: abundance.tsv byte-equal to {gdir}")
+            routes = {r: res.timings[r] for r in ROUTES}
             if name == "paired":
                 check((res.num_processed, res.num_pseudoaligned,
                        res.num_unique) == (10000, 9413, 7174),
                       "paired run stats 10000 / 9413 / 7174")
+                check(routes["full"] > 0 and routes["turbo"] == 0
+                      and routes["compact"] == routes["fallback"] == 0,
+                      f"{name}: per-read batches only {routes}")
+            else:
+                check(routes["turbo"] > 0 and routes["fallback"] == 0
+                      and routes["full"] == 0,
+                      f"{name}: turbo batches, no fallback {routes}")
 
         # -------------------------------------- 5. main path, full size
         log("== phase 5: main path at realistic size")
@@ -306,20 +523,54 @@ def main(argv=None):
               <= 1e-6 * res.num_pseudoaligned,
               f"est_counts sum {tot:.3f} within 1e-6 of "
               f"{res.num_pseudoaligned}")
-        log(f"quant wall {quant_s:.1f} s = {n_pairs / quant_s:,.0f} pairs/s, "
-            f"EM {res.em.n_rounds} rounds; host seconds by phase: "
-            + json.dumps(res.timings))
+        routes = {r: res.timings[r] for r in ROUTES}
+        check(routes["turbo"] > 0 and routes["full"] > 0
+              and routes["fallback"] == 0,
+              f"main path: FLD batches per read, then turbo {routes}")
+        n_uniq_mean = res.timings["n_uniq_sum"] / max(routes["turbo"], 1)
+        log(f"quant wall {quant_s:.2f} s = {n_pairs / quant_s:,.0f} pairs/s, "
+            f"EM {res.em.n_rounds} rounds; routes {routes}, n_uniq max "
+            f"{res.timings['n_uniq_max']} mean {n_uniq_mean:.1f} per turbo "
+            "batch; host seconds by phase: " + json.dumps(res.timings))
+
+        # the same pairs with every batch per read
+        os.environ["KALLISTO_TPU_FLEN_GOAL"] = str(10 * n_pairs)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rfull = run_quant(Options(files=[r1p, r2p], plaintext=True),
+                              index=index, device=dev)
+            torch.cuda.synchronize()
+            full_s = time.perf_counter() - t0
+        finally:
+            del os.environ["KALLISTO_TPU_FLEN_GOAL"]
+        check(rfull.timings["turbo"] == 0,
+              "per-read rerun: no turbo batch")
+        check(np.array_equal(res.counts, rfull.counts)
+              and [s.tolist() for s in res.ec_sets]
+              == [s.tolist() for s in rfull.ec_sets],
+              "main path: EC counts and sets equal to the all-per-read run")
+        log(f"all-per-read run: {full_s:.2f} s = {n_pairs / full_s:,.0f} "
+            "pairs/s; host seconds by phase: " + json.dumps(rfull.timings))
 
         sub1 = os.path.join(work, "sub_1.fastq.gz")
         sub2 = os.path.join(work, "sub_2.fastq.gz")
         truncate_fastq(r1p, sub1, n_sub)
         truncate_fastq(r2p, sub2, n_sub)
-        rg = run_quant(Options(files=[sub1, sub2]), index=index, device=dev)
-        rc = run_quant(Options(files=[sub1, sub2]), index=index, device="cpu")
+        os.environ["KALLISTO_TPU_FLEN_GOAL"] = "1000"
+        try:
+            sub_opt = Options(files=[sub1, sub2], batch_size=8192)
+            rg = run_quant(sub_opt, index=index, device=dev)
+            rc = run_quant(sub_opt, index=index, device="cpu")
+        finally:
+            del os.environ["KALLISTO_TPU_FLEN_GOAL"]
+        check(rg.timings["turbo"] > 0 and rc.timings["turbo"] > 0,
+              f"first {n_sub} pairs: turbo batches on the card "
+              f"({rg.timings['turbo']}) and on the CPU ({rc.timings['turbo']})")
         check(np.array_equal(rg.counts, rc.counts)
               and [s.tolist() for s in rg.ec_sets]
               == [s.tolist() for s in rc.ec_sets],
-              f"first {n_sub} pairs: EC counts equal, card vs CPU")
+              f"first {n_sub} pairs: EC counts and sets equal, card vs CPU")
 
         # --------------------------------------------------- 6. kernel C
         log("== phase 6: kernel C on the main path's EM problem")
@@ -376,9 +627,27 @@ def main(argv=None):
                  ms=ms_c, plain_ms=plain_c, bound_ms=bound_c[0],
                  bound_by=bound_c[1], library_ms=None),
         ]
+        for name, src, replaces in (
+                ("pseudoalign_turbo", "pseudoalign.cu",
+                 "kallisto_tpu/ops/turbo.py:131"),
+                ("key_histogram", "compact.cu",
+                 "kallisto_tpu/ops/pseudoalign.py:733"),
+                ("gather_exemplars", "compact.cu",
+                 "kallisto_tpu/quant/pipeline.py:495")):
+            ms, plain, bnd, lib = k3b[name]
+            rows.append(dict(
+                name=name, route="cuda", source=csrc + src, replaces=replaces,
+                launches=launches[name], max_abs_err=0.0, ms=ms,
+                plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=lib))
         log(json.dumps({
             "index_build_s": index_build_s, "quant_s": quant_s,
-            "pairs_per_s": n_pairs / quant_s,
+            "pairs_per_s": n_pairs / quant_s, "routes": routes,
+            "n_uniq_max": res.timings["n_uniq_max"],
+            "n_uniq_mean": n_uniq_mean, "per_read_quant_s": full_s,
+            "per_read_pairs_per_s": n_pairs / full_s,
+            "per_read_phases_s": rfull.timings,
+            "read_keys_compact_ms": k3b["read_keys_compact"],
             "n_pairs": n_pairs, "n_genes": n_genes, "em_rounds": res.em.n_rounds,
             "em_s": res.timings["em_s"], "em_loop_step_ms": loop_ms,
             "quant_phases_s": res.timings,

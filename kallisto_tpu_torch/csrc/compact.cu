@@ -1,0 +1,271 @@
+// Kernels E and F of the compact steady state.
+//
+// Kernel E, key_histogram, replaces kallisto_tpu/ops/pseudoalign.py
+// _compact_keys (:733) and _ck_flat (:789): B read keys -> the flat
+// [K+1, 5] int64 table whose row 0 is [n_uniq, n_fail = 0, 0, 0, 0] and
+// whose rows 1..min(n_uniq, K) are [h0, h1, occ, first_idx, flags] of each
+// distinct key.  As in JAX the dedup rides on h[:, 0] alone (two keys equal
+// in h0 merge; h0 already hashes every key column), a key's payload is
+// idx * 128 + flags and a key keeps its minimum payload, which gives its
+// first read and that read's flags; both hash words come from that read.
+// n_uniq is exact even past K.
+//
+// It is not a copy of the TPU's sort network.  Design:
+//   1. insert: an open-addressing table of S >= 2B slots (a power of two)
+//      with linear probing.  Each read claims its h0's slot with a 64-bit
+//      atomicCAS on the key word (the all-ones word marks an empty slot; a
+//      read whose h0 is all ones goes to the extra slot S), then atomicAdds
+//      the slot's count and atomicMins its payload.
+//   2. count: a read is its key's first read when the slot's payload >> 7
+//      is its own index; each block of 1024 reads counts its first reads.
+//   3. scan: one block turns the block counts into exclusive offsets and
+//      writes n_uniq into the meta row.
+//   4. write: each block ranks its first reads by a block-wide prefix sum;
+//      the key with global rank r goes to row 1 + r when r < K.
+// So occupied rows come out in ascending first_idx (read order), which is
+// deterministic.  JAX orders them by ascending signed h0; the host
+// (quant/ecmap.py process_compact) stable-sorts by first_idx either way, so
+// the outputs are identical.  Rows past min(n_uniq, K) are zero.
+//
+// What bounds E on the H100: bytes.  Per read it reads 12 B of input (h0 and
+// flags; h1 only for first reads) and touches about three random 32 B
+// sectors of the table (key, count, payload) in pass 1 and two in passes
+// 2 and 4; it writes 40 B per distinct key.  The table for a 262,144-read
+// batch is 12 MB, inside the 50 MB L2, so the random sectors mostly stay on
+// chip.  Atomics on one hot key (the no-hit key of padding reads) serialise
+// in the L2; at realistic size they are a small share of a batch.
+//
+// Kernel F, gather_exemplars, replaces the exemplar gathers of the compact
+// path, kallisto_tpu/quant/pipeline.py _gather_pair_exemplars (:495) and
+// _gather_single_exemplars (:524): for read indices idx it writes the int32
+// key rows the host resolver reads -- rows1, rows2 (paired), flags with the
+// min_range veto bits, [f_block, f_strand] per mate with strand_key or the
+// position key, [f_upos, f_rpos] per mate with the position key.  One
+// thread per output element.  Bound: bytes, n * width * 4 written plus one
+// sector read per gathered field; a few thousand keys per batch make it a
+// launch-sized kernel.
+
+#include <cuda_runtime.h>
+
+#define KT_EMPTY 0xFFFFFFFFFFFFFFFFULL
+#define KT_SCAN_THREADS 1024
+#define KT_FULL 0xffffffffu
+
+// ------------------------------------------------------------- kernel E
+
+__global__ void kt_insert(const long long* __restrict__ h,
+                          const int* __restrict__ flags, long long B,
+                          unsigned long long* keys, unsigned int* occ,
+                          unsigned long long* pay, long long S,
+                          int* __restrict__ read_slot) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= B) return;
+    const unsigned long long h0 = (unsigned long long)h[2 * i];
+    long long s = S;
+    if (h0 != KT_EMPTY) {
+        s = (long long)(h0 & (unsigned long long)(S - 1));
+        while (true) {
+            const unsigned long long prev = atomicCAS(&keys[s], KT_EMPTY, h0);
+            if (prev == KT_EMPTY || prev == h0) break;
+            s = (s + 1) & (S - 1);
+        }
+    }
+    atomicAdd(&occ[s], 1u);
+    atomicMin(&pay[s], (unsigned long long)i * 128ULL +
+                           (unsigned long long)(unsigned int)flags[i]);
+    read_slot[i] = (int)s;
+}
+
+__device__ __forceinline__ int kt_is_first(const unsigned long long* pay,
+                                           const int* read_slot,
+                                           long long i, long long B) {
+    return i < B && (long long)(pay[read_slot[i]] >> 7) == i;
+}
+
+__global__ void kt_count_first(const unsigned long long* __restrict__ pay,
+                               const int* __restrict__ read_slot, long long B,
+                               int* __restrict__ block_count) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const int c = __syncthreads_count(kt_is_first(pay, read_slot, i, B));
+    if (threadIdx.x == 0) block_count[blockIdx.x] = c;
+}
+
+// Exclusive prefix sum of v over the block; *total gets the block's sum.
+// blockDim.x must be a multiple of 32, at most 1024.
+__device__ int kt_block_scan(int v, int* total) {
+    __shared__ int warp_sum[32];
+    const int lane = threadIdx.x & 31;
+    const int wid = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+    int x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(KT_FULL, x, o);
+        if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sum[wid] = x;
+    __syncthreads();
+    if (wid == 0) {
+        int w = lane < nw ? warp_sum[lane] : 0;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(KT_FULL, w, o);
+            if (lane >= o) w += y;
+        }
+        warp_sum[lane] = w;
+    }
+    __syncthreads();
+    const int off = wid ? warp_sum[wid - 1] : 0;
+    *total = warp_sum[nw - 1];
+    __syncthreads();  // warp_sum is reused by the next call
+    return off + x - v;
+}
+
+__global__ void kt_scan_counts(int* block_count, long long nb,
+                               long long* __restrict__ ck) {
+    long long carry = 0;
+    for (long long base = 0; base < nb; base += blockDim.x) {
+        const long long j = base + threadIdx.x;
+        const int v = j < nb ? block_count[j] : 0;
+        int total;
+        const int ex = kt_block_scan(v, &total);
+        if (j < nb) block_count[j] = (int)(carry + ex);
+        carry += total;
+    }
+    if (threadIdx.x == 0) ck[0] = carry;  // meta row: n_uniq
+}
+
+__global__ void kt_write_rows(const long long* __restrict__ h,
+                              const unsigned int* __restrict__ occ,
+                              const unsigned long long* __restrict__ pay,
+                              const int* __restrict__ read_slot, long long B,
+                              const int* __restrict__ block_offset,
+                              long long K, long long* __restrict__ ck) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const int first = kt_is_first(pay, read_slot, i, B);
+    int total;
+    const long long r =
+        (long long)block_offset[blockIdx.x] + kt_block_scan(first, &total);
+    if (first && r < K) {
+        const int s = read_slot[i];
+        long long* row = ck + 5 * (1 + r);
+        row[0] = h[2 * i];
+        row[1] = h[2 * i + 1];
+        row[2] = (long long)occ[s];
+        row[3] = i;
+        row[4] = (long long)(pay[s] & 127ULL);
+    }
+}
+
+extern "C" int key_histogram(const void* h, const void* flags, long long B,
+                             long long K, void* keys, void* occ, void* pay,
+                             long long S, void* read_slot, void* block_count,
+                             void* ck, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (K < 1 || S < 2 || (S & (S - 1)) != 0 || (B > 0 && S < 2 * B))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaMemsetAsync(ck, 0, (size_t)(K + 1) * 5 * 8, st);
+    if (e != cudaSuccess) return (int)e;
+    if (B <= 0) return 0;
+    if ((e = cudaMemsetAsync(keys, 0xFF, (size_t)(S + 1) * 8, st)) ||
+        (e = cudaMemsetAsync(occ, 0, (size_t)(S + 1) * 4, st)) ||
+        (e = cudaMemsetAsync(pay, 0xFF, (size_t)(S + 1) * 8, st)))
+        return (int)e;
+    const int T = KT_SCAN_THREADS;
+    const long long nb = (B + T - 1) / T;
+    kt_insert<<<(unsigned int)((B + 255) / 256), 256, 0, st>>>(
+        (const long long*)h, (const int*)flags, B, (unsigned long long*)keys,
+        (unsigned int*)occ, (unsigned long long*)pay, S, (int*)read_slot);
+    kt_count_first<<<(unsigned int)nb, T, 0, st>>>(
+        (const unsigned long long*)pay, (const int*)read_slot, B,
+        (int*)block_count);
+    kt_scan_counts<<<1, T, 0, st>>>((int*)block_count, nb, (long long*)ck);
+    kt_write_rows<<<(unsigned int)nb, T, 0, st>>>(
+        (const long long*)h, (const unsigned int*)occ,
+        (const unsigned long long*)pay, (const int*)read_slot, B,
+        (const int*)block_count, K, (long long*)ck);
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- kernel F
+
+// One mate's SideResult fields (layout shared with ops/kernels.py KeySide
+// and csrc/read_keys.cu).
+struct KeySide {
+    const int* rows;               // [B, R]
+    const unsigned char* has;      // [B] bool
+    const unsigned char* ovf;      // [B] bool
+    const int* upos;
+    const int* rpos;
+    const int* block;
+    const unsigned char* strand;   // [B] bool
+    const int* rng;
+    int R;
+};
+
+__device__ __forceinline__ int kt_veto(const KeySide& s, long long r, int k,
+                                       int min_range) {
+    return min_range > 1 && s.has[r] && s.rng[r] + k < min_range;
+}
+
+__global__ void gather_exemplars_kernel(KeySide s1, KeySide s2, int paired,
+                                        const long long* __restrict__ idx,
+                                        long long n, long long Bsrc, int k,
+                                        int min_range, int tail_bs,
+                                        int tail_pos, int Wd,
+                                        int* __restrict__ out) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= n * Wd) return;
+    const long long i = t / Wd;
+    int c = (int)(t - i * Wd);
+    const long long r = idx[i];
+    if (r < 0 || r >= Bsrc) {
+        out[t] = 0;
+        return;
+    }
+    int v;
+    const int ns = paired ? 2 : 1;
+    if (c < s1.R) {
+        v = s1.rows[r * s1.R + c];
+    } else if (paired && c < s1.R + s2.R) {
+        v = s2.rows[r * s2.R + (c - s1.R)];
+    } else {
+        c -= s1.R + (paired ? s2.R : 0);
+        if (c == 0) {
+            v = (int)s1.has[r] + 4 * (int)s1.ovf[r] +
+                16 * kt_veto(s1, r, k, min_range);
+            if (paired)
+                v += 2 * (int)s2.has[r] + 8 * (int)s2.ovf[r] +
+                     32 * kt_veto(s2, r, k, min_range);
+        } else {
+            c -= 1;
+            if (tail_bs && c < 2 * ns) {
+                const KeySide& s = (c >> 1) ? s2 : s1;
+                v = (c & 1) ? (int)s.strand[r] : s.block[r];
+            } else {
+                if (tail_bs) c -= 2 * ns;
+                const KeySide& s = (c >> 1) ? s2 : s1;
+                v = (c & 1) ? s.rpos[r] : s.upos[r];
+            }
+        }
+    }
+    out[t] = v;
+}
+
+extern "C" int gather_exemplars(const KeySide* s1, const KeySide* s2,
+                                const void* idx, long long n, long long Bsrc,
+                                int k, int min_range, int tail_bs,
+                                int tail_pos, int Wd, void* out,
+                                void* stream) {
+    if (n <= 0) return 0;
+    const int paired = s2 != 0;
+    const int ns = paired ? 2 : 1;
+    const int want = s1->R + (paired ? s2->R : 0) + 1 +
+                     (tail_bs ? 2 * ns : 0) + (tail_pos ? 2 * ns : 0);
+    if (Wd != want || (tail_pos && !tail_bs)) return (int)cudaErrorInvalidValue;
+    KeySide none = *s1;
+    const long long total = n * Wd;
+    gather_exemplars_kernel<<<(unsigned int)((total + 255) / 256), 256, 0,
+                              (cudaStream_t)stream>>>(
+        *s1, paired ? *s2 : none, paired, (const long long*)idx, n, Bsrc, k,
+        min_range, tail_bs, tail_pos, Wd, (int*)out);
+    return (int)cudaGetLastError();
+}

@@ -1,25 +1,42 @@
-// Kernel A: pseudoalign_side -- per-read k-mer -> sorted distinct EC rows.
+// Kernels A and D: per-read k-mer -> sorted distinct EC rows.
 //
-// Replaces the JAX device program kallisto_tpu/ops/pseudoalign.py
-// pseudoalign_batch_packed (:479) with its body: unpack_codes_device (:469),
-// rolling_canonical_kmers (:385), the bucketed lookup_kmers (:316-382, with
-// _mix64_jnp :109) and _pseudoalign_core (:504-564).  Outputs are the ten
-// SideResult fields, equal in every bit to the plain PyTorch version in
-// kallisto_tpu_torch/ops/pseudoalign.py.
+// Kernel A, pseudoalign_side, replaces the JAX device program
+// kallisto_tpu/ops/pseudoalign.py pseudoalign_batch_packed (:479) with its
+// body: unpack_codes_device (:469), rolling_canonical_kmers (:385), the
+// bucketed lookup_kmers (:316-382, with _mix64_jnp :109) and
+// _pseudoalign_core (:504-564).
 //
-// Design: one warp per read (grid-stride over reads).  The warp unpacks the
-// read's 2-bit codes and N bitmask into shared memory, then walks the
-// W = Lp - k + 1 windows in chunks of 32 (one window per lane).  Each lane
-// builds its window's forward and reverse-complement k-mers directly from
-// the shared codes, takes canon = min(f, r), mixes it with splitmix64 and
-// runs the fixed-depth (6-step) lower_bound inside its hash bucket.  The
-// window's EC row goes to shared memory; ballots give has_hits, the leftmost
-// hit (its slot and orientation come over a shuffle) and the last hit.  The
-// R = min(16, W) smallest distinct rows then come from R rounds of masked
-// warp minimum (__reduce_min_sync) over the shared rows, and one more pass
-// decides `overflow` exactly as _pseudoalign_core :534-536.
+// Kernel D, pseudoalign_turbo, replaces the decode and core of the turbo
+// steady state, kallisto_tpu/ops/turbo.py pair_turbo_core (:104) and
+// single_turbo_core (:254) as reached through pseudoalign_pair_turbo(_varlen)
+// and pseudoalign_single_turbo(_varlen) (:131-150, :268-289):
+// _codes_and_lens (:74, with _codes_from_packed, pseudoalign.py:924) and the
+// same _pseudoalign_core.  It takes one or two mates' packed codes without an
+// N bitmask, and an aux vector [rlen, n_real, 0, 0, N positions ascending,
+// INT64_MAX pad]; each read finds its own N positions by binary search, its
+// length is (read % Bp < n_real) ? (lens ? lens[read] : rlen) : 0, and with
+// 0 < rl < Lp only the first rl columns count.  Exception indices address the
+// padded [ns*Bp, Lp] matrix (row stride Lp), so an exception at a column >= rl
+// is dropped by the trim.
 //
-// What bounds it on the H100: the random reads into the k-mer table.  Per
+// Both produce the ten SideResult fields, equal in every bit to the plain
+// PyTorch versions in kallisto_tpu_torch/ops/pseudoalign.py and ops/turbo.py.
+// They share one per-read device function; only the decode into shared
+// memory differs.
+//
+// Design: one warp per read (grid-stride over reads).  The warp decodes the
+// read's codes into shared memory, then walks the W = Lc - k + 1 windows in
+// chunks of 32 (one window per lane).  Each lane builds its window's forward
+// and reverse-complement k-mers directly from the shared codes, takes
+// canon = min(f, r), mixes it with splitmix64 and runs the fixed-depth
+// (6-step) lower_bound inside its hash bucket.  The window's EC row goes to
+// shared memory; ballots give has_hits, the leftmost hit (its slot and
+// orientation come over a shuffle) and the last hit.  The R = min(16, W)
+// smallest distinct rows then come from R rounds of masked warp minimum
+// (__reduce_min_sync) over the shared rows, and one more pass decides
+// `overflow` exactly as _pseudoalign_core :534-536.
+//
+// What bounds them on the H100: the random reads into the k-mer table.  Per
 // valid window: one 32-byte sector of bucket_start, the 1-4 sectors of the
 // bucket's sorted keys that the binary search touches (a bucket holds < 64
 // keys, <= 512 contiguous bytes), and for a hit one sector of kmer_ec.  At
@@ -30,11 +47,15 @@
 // bytes), invalid windows skip the lookup entirely, the search stops as
 // soon as its range is empty, and all 32 lanes of a warp issue their
 // lookups together so the memory system sees 32 independent requests per
-// warp.  A simple kernel that is right comes first; see PERF.md.
+// warp.  Kernel D also trims the padding columns that a byte-aligned Lp
+// adds (rl < Lp), which removes their probes, and reads 25 bytes per
+// 100 bp read instead of 25 + 13.  A simple kernel that is right comes
+// first; see PERF.md.
 //
 // Trap kept on purpose: a read without hits still reports f_strand from
 // window 0's lookup slot (JAX argmax of an all-false row is 0), so window 0
-// is always looked up (with q = mix64(0) when it is invalid).
+// is always looked up (with q = mix64(0) when it is invalid).  Padding reads
+// of kernel D have length 0 and follow the same rule.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +73,19 @@ struct IndexView {
     const int* ec;                    // [N] EC row, -1 = wildcard
     long long N;
     int p;
+};
+
+struct SideOut {
+    int* rows;                        // [B, R]
+    int* n_rows;
+    unsigned char* has_hits;
+    unsigned char* overflow;
+    int* f_uid;
+    int* f_block;
+    int* f_upos;
+    int* f_rpos;
+    unsigned char* f_strand;
+    int* rng;
 };
 
 __device__ __forceinline__ unsigned long long kt_mix64(unsigned long long x) {
@@ -84,22 +118,110 @@ __device__ __forceinline__ long long kt_lookup(const IndexView& ix,
     return lo < ix.N - 1 ? lo : ix.N - 1;
 }
 
+// One read, one warp: codes (W + k - 1 of them) are in shared memory;
+// wrows is W ints of shared scratch.  Writes the read's SideResult row.
+__device__ void kt_side_read(const IndexView& ix,
+                             const unsigned char* codes, int* wrows,
+                             long long read, int len, int W, int k, int R,
+                             const SideOut& o) {
+    const int lane = threadIdx.x & 31;
+    int has = 0, first = 0, last = 0;
+    long long fidx = 0;
+    int ffw = 0;
+    for (int base = 0; base < W; base += 32) {
+        const int w = base + lane;
+        int hit = 0;
+        long long idx = 0;
+        int isfw = 0;
+        if (w < W) {
+            unsigned long long f = 0, r = 0;
+            int bad = 0;
+            for (int d = 0; d < k; ++d) {
+                const int c = codes[w + d];
+                bad |= c >> 2;
+                const unsigned long long cc = (unsigned long long)(c & 3);
+                f = (f << 2) | cc;
+                r |= (3ULL - cc) << (2 * d);
+            }
+            const int valid = !bad && (w + k <= len);
+            isfw = f <= r;
+            int ecv = -1;
+            if (valid || w == 0) {
+                const unsigned long long q =
+                    kt_mix64(valid ? (isfw ? f : r) : 0ULL);
+                idx = kt_lookup(ix, q);
+                hit = valid && ix.hkeys[idx] == q;
+                if (hit) ecv = ix.ec[idx];
+            }
+            wrows[w] = (hit && ecv >= 0) ? ecv : KT_INT32_MAX;
+        }
+        const unsigned int hb = __ballot_sync(KT_FULL, hit);
+        // window 0 stands in for the first hit of a read without hits
+        const int src = hb ? __ffs(hb) - 1 : 0;
+        const long long sidx = __shfl_sync(KT_FULL, idx, src);
+        const int sfw = __shfl_sync(KT_FULL, isfw, src);
+        if ((base == 0) || (hb && !has)) {
+            fidx = sidx;
+            ffw = sfw;
+        }
+        if (hb) {
+            if (!has) first = base + src;
+            has = 1;
+            last = base + 31 - __clz(hb);
+        }
+    }
+    __syncwarp();
+
+    // R smallest distinct non-empty rows: R rounds of masked warp minimum
+    int prev = -1, nr = 0;
+    for (int s = 0; s < R; ++s) {
+        int m = KT_INT32_MAX;
+        if (prev != KT_INT32_MAX) {
+            for (int w = lane; w < W; w += 32) {
+                const int v = wrows[w];
+                if (v > prev && v < m) m = v;
+            }
+            m = __reduce_min_sync(KT_FULL, m);
+        }
+        if (lane == 0) o.rows[read * R + s] = m;
+        if (m != KT_INT32_MAX) {
+            prev = m;
+            ++nr;
+        } else {
+            prev = KT_INT32_MAX;  // nothing left: fill the rest
+        }
+    }
+    // overflow: a distinct row beyond the R smallest (core :534-536).
+    // Only possible when all R rounds found a row; prev is then the R-th.
+    int ov = 0;
+    if (nr == R) {
+        for (int w = lane; w < W; w += 32) {
+            const int v = wrows[w];
+            ov |= (v > prev) && (v != KT_INT32_MAX);
+        }
+    }
+    ov = __any_sync(KT_FULL, ov);
+
+    if (lane == 0) {
+        o.n_rows[read] = nr;
+        o.has_hits[read] = (unsigned char)has;
+        o.overflow[read] = (unsigned char)ov;
+        o.f_strand[read] = (unsigned char)(ffw == (int)(ix.fw[fidx] != 0));
+        o.f_uid[read] = has ? ix.uid[fidx] : -1;
+        o.f_block[read] = has ? ix.block[fidx] : -1;
+        o.f_upos[read] = has ? ix.pos[fidx] : -1;
+        o.f_rpos[read] = has ? first : -1;
+        o.rng[read] = has ? last - first : -1;
+    }
+    __syncwarp();
+}
+
 __global__ void pseudoalign_side_kernel(
     IndexView ix,
     const unsigned char* __restrict__ packed,  // [B, Lp/4]
     const unsigned char* __restrict__ nmask,   // [B, Lp/8]
     const int* __restrict__ lens,              // [B]
-    int B, int Lp, int k, int R, int warp_bytes,
-    int* __restrict__ rows,                    // [B, R]
-    int* __restrict__ n_rows,
-    unsigned char* __restrict__ has_hits,
-    unsigned char* __restrict__ overflow,
-    int* __restrict__ f_uid,
-    int* __restrict__ f_block,
-    int* __restrict__ f_upos,
-    int* __restrict__ f_rpos,
-    unsigned char* __restrict__ f_strand,
-    int* __restrict__ rng) {
+    int B, int Lp, int k, int R, int warp_bytes, SideOut o) {
     extern __shared__ int kt_smem[];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -121,98 +243,126 @@ __global__ void pseudoalign_side_kernel(
             codes[j] = (unsigned char)(isn ? 4 : c);
         }
         __syncwarp();
-        const int len = lens[read];
-
-        int has = 0, first = 0, last = 0;
-        long long fidx = 0;
-        int ffw = 0;
-        for (int base = 0; base < W; base += 32) {
-            const int w = base + lane;
-            int hit = 0;
-            long long idx = 0;
-            int isfw = 0;
-            if (w < W) {
-                unsigned long long f = 0, r = 0;
-                int bad = 0;
-                for (int d = 0; d < k; ++d) {
-                    const int c = codes[w + d];
-                    bad |= c >> 2;
-                    const unsigned long long cc = (unsigned long long)(c & 3);
-                    f = (f << 2) | cc;
-                    r |= (3ULL - cc) << (2 * d);
-                }
-                const int valid = !bad && (w + k <= len);
-                isfw = f <= r;
-                int ecv = -1;
-                if (valid || w == 0) {
-                    const unsigned long long q =
-                        kt_mix64(valid ? (isfw ? f : r) : 0ULL);
-                    idx = kt_lookup(ix, q);
-                    hit = valid && ix.hkeys[idx] == q;
-                    if (hit) ecv = ix.ec[idx];
-                }
-                wrows[w] = (hit && ecv >= 0) ? ecv : KT_INT32_MAX;
-            }
-            const unsigned int hb = __ballot_sync(KT_FULL, hit);
-            // window 0 stands in for the first hit of a read without hits
-            const int src = hb ? __ffs(hb) - 1 : 0;
-            const long long sidx = __shfl_sync(KT_FULL, idx, src);
-            const int sfw = __shfl_sync(KT_FULL, isfw, src);
-            if ((base == 0) || (hb && !has)) {
-                fidx = sidx;
-                ffw = sfw;
-            }
-            if (hb) {
-                if (!has) first = base + src;
-                has = 1;
-                last = base + 31 - __clz(hb);
-            }
-        }
-        __syncwarp();
-
-        // R smallest distinct non-empty rows: R rounds of masked warp minimum
-        int prev = -1, nr = 0;
-        for (int s = 0; s < R; ++s) {
-            int m = KT_INT32_MAX;
-            if (prev != KT_INT32_MAX) {
-                for (int w = lane; w < W; w += 32) {
-                    const int v = wrows[w];
-                    if (v > prev && v < m) m = v;
-                }
-                m = __reduce_min_sync(KT_FULL, m);
-            }
-            if (lane == 0) rows[read * R + s] = m;
-            if (m != KT_INT32_MAX) {
-                prev = m;
-                ++nr;
-            } else {
-                prev = KT_INT32_MAX;  // nothing left: fill the rest
-            }
-        }
-        // overflow: a distinct row beyond the R smallest (core :534-536).
-        // Only possible when all R rounds found a row; prev is then the R-th.
-        int ov = 0;
-        if (nr == R) {
-            for (int w = lane; w < W; w += 32) {
-                const int v = wrows[w];
-                ov |= (v > prev) && (v != KT_INT32_MAX);
-            }
-        }
-        ov = __any_sync(KT_FULL, ov);
-
-        if (lane == 0) {
-            n_rows[read] = nr;
-            has_hits[read] = (unsigned char)has;
-            overflow[read] = (unsigned char)ov;
-            f_strand[read] = (unsigned char)(ffw == (int)(ix.fw[fidx] != 0));
-            f_uid[read] = has ? ix.uid[fidx] : -1;
-            f_block[read] = has ? ix.block[fidx] : -1;
-            f_upos[read] = has ? ix.pos[fidx] : -1;
-            f_rpos[read] = has ? first : -1;
-            rng[read] = has ? last - first : -1;
-        }
-        __syncwarp();
+        kt_side_read(ix, codes, wrows, read, lens[read], W, k, R, o);
     }
+}
+
+__global__ void pseudoalign_turbo_kernel(
+    IndexView ix,
+    const unsigned char* __restrict__ p1,      // [Bp, Lp/4] mate 1
+    const unsigned char* __restrict__ p2,      // [Bp, Lp/4] mate 2 or null
+    const long long* __restrict__ aux,         // [4 + n_exc]
+    long long n_exc,
+    const unsigned short* __restrict__ lens,   // [ns*Bp] or null
+    long long Bp, int ns, int Lp, int Lc, int k, int R, int warp_bytes,
+    SideOut o) {
+    extern __shared__ int kt_smem[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int wpb = blockDim.x >> 5;
+    const int W = Lc - k + 1;
+    const int code_bytes = (Lc + 15) & ~15;
+    unsigned char* codes = (unsigned char*)kt_smem + (long long)warp * warp_bytes;
+    int* wrows = (int*)(codes + code_bytes);
+    const int LB = Lp >> 2;
+    const long long rlen = aux[0];
+    const long long n_real = aux[1];
+    const long long* exc = aux + 4;
+    const long long B = Bp * ns;
+
+    for (long long read = (long long)blockIdx.x * wpb + warp; read < B;
+         read += (long long)gridDim.x * wpb) {
+        const long long row = read % Bp;
+        const unsigned char* pk = (read < Bp ? p1 : p2) + row * LB;
+        for (int j = lane; j < Lc; j += 32)
+            codes[j] = (unsigned char)((pk[j >> 2] >> ((j & 3) * 2)) & 3);
+        __syncwarp();
+        // this read's N positions: [lo_key, lo_key + Lp) in the sorted list
+        const long long lo_key = read * (long long)Lp;
+        long long a = 0, n = n_exc;
+        while (n > 0) {
+            const long long half = n >> 1;
+            if (exc[a + half] < lo_key) {
+                a += half + 1;
+                n -= half + 1;
+            } else {
+                n = half;
+            }
+        }
+        for (long long e = a + lane; e < n_exc; e += 32) {
+            const long long col = exc[e] - lo_key;
+            if (col >= Lp) break;
+            if (col < Lc) codes[col] = 4;
+        }
+        __syncwarp();
+        int len = 0;
+        if (row < n_real) len = lens ? (int)lens[read] : (int)rlen;
+        kt_side_read(ix, codes, wrows, read, len, W, k, R, o);
+    }
+}
+
+static int kt_index_view(IndexView* ix, const void* hkeys,
+                         const void* bucket_start, const void* uid,
+                         const void* pos, const void* fw, const void* block,
+                         const void* ec, long long N, int p) {
+    if (N <= 0 || p < 1 || p > 63) return (int)cudaErrorInvalidValue;
+    ix->hkeys = (const unsigned long long*)hkeys;
+    ix->bucket_start = (const int*)bucket_start;
+    ix->uid = (const int*)uid;
+    ix->pos = (const int*)pos;
+    ix->fw = (const unsigned char*)fw;
+    ix->block = (const int*)block;
+    ix->ec = (const int*)ec;
+    ix->N = N;
+    ix->p = p;
+    return 0;
+}
+
+static SideOut kt_side_out(void* rows, void* n_rows, void* has_hits,
+                           void* overflow, void* f_uid, void* f_block,
+                           void* f_upos, void* f_rpos, void* f_strand,
+                           void* rng) {
+    SideOut o;
+    o.rows = (int*)rows;
+    o.n_rows = (int*)n_rows;
+    o.has_hits = (unsigned char*)has_hits;
+    o.overflow = (unsigned char*)overflow;
+    o.f_uid = (int*)f_uid;
+    o.f_block = (int*)f_block;
+    o.f_upos = (int*)f_upos;
+    o.f_rpos = (int*)f_rpos;
+    o.f_strand = (unsigned char*)f_strand;
+    o.rng = (int*)rng;
+    return o;
+}
+
+// Warps per block and the per-warp shared bytes for Lc code columns;
+// returns 0 when one warp's share does not fit.
+template <typename K>
+static int kt_launch_shape(K kernel, int Lc, int W, int* wpb_out,
+                           int* warp_bytes_out, long long* smem_out) {
+    const int code_bytes = (Lc + 15) & ~15;
+    const int warp_bytes = (code_bytes + 4 * W + 15) & ~15;
+    const int max_smem = 227 * 1024;
+    int wpb = 4;
+    while (wpb > 1 && wpb * warp_bytes > max_smem) wpb >>= 1;
+    const long long smem = (long long)wpb * warp_bytes;
+    if (smem > max_smem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    *wpb_out = wpb;
+    *warp_bytes_out = warp_bytes;
+    *smem_out = smem;
+    return 0;
+}
+
+static unsigned int kt_blocks(long long B, int wpb) {
+    long long blocks = (B + wpb - 1) / wpb;
+    if (blocks > 1048576) blocks = 1048576;
+    return (unsigned int)blocks;
 }
 
 extern "C" int pseudoalign_side(
@@ -225,41 +375,57 @@ extern "C" int pseudoalign_side(
     void* f_uid, void* f_block, void* f_upos, void* f_rpos,
     void* f_strand, void* rng, void* stream) {
     if (B <= 0) return 0;
-    if (N <= 0 || Lp < k || (Lp & 7) != 0 || R <= 0 || R > Lp - k + 1 ||
-        k > 32 || p < 1 || p > 63)
+    if (Lp < k || (Lp & 7) != 0 || R <= 0 || R > Lp - k + 1 || k > 32)
         return (int)cudaErrorInvalidValue;
     IndexView ix;
-    ix.hkeys = (const unsigned long long*)hkeys;
-    ix.bucket_start = (const int*)bucket_start;
-    ix.uid = (const int*)uid;
-    ix.pos = (const int*)pos;
-    ix.fw = (const unsigned char*)fw;
-    ix.block = (const int*)block;
-    ix.ec = (const int*)ec;
-    ix.N = N;
-    ix.p = p;
+    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
+                            N, p);
+    if (err) return err;
     const int W = Lp - k + 1;
-    const int code_bytes = (Lp + 15) & ~15;
-    const int warp_bytes = (code_bytes + 4 * W + 15) & ~15;
-    const int max_smem = 227 * 1024;
-    int wpb = 4;
-    while (wpb > 1 && wpb * warp_bytes > max_smem) wpb >>= 1;
-    const long long smem = (long long)wpb * warp_bytes;
-    if (smem > max_smem) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            pseudoalign_side_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    long long blocks = ((long long)B + wpb - 1) / wpb;
-    if (blocks > 1048576) blocks = 1048576;
-    pseudoalign_side_kernel<<<(unsigned int)blocks, wpb * 32, (size_t)smem,
+    int wpb, warp_bytes;
+    long long smem;
+    err = kt_launch_shape(pseudoalign_side_kernel, Lp, W, &wpb, &warp_bytes,
+                          &smem);
+    if (err) return err;
+    pseudoalign_side_kernel<<<kt_blocks(B, wpb), wpb * 32, (size_t)smem,
                               (cudaStream_t)stream>>>(
         ix, (const unsigned char*)packed, (const unsigned char*)nmask,
-        (const int*)lens, B, Lp, k, R, warp_bytes, (int*)rows, (int*)n_rows,
-        (unsigned char*)has_hits, (unsigned char*)overflow, (int*)f_uid,
-        (int*)f_block, (int*)f_upos, (int*)f_rpos, (unsigned char*)f_strand,
-        (int*)rng);
+        (const int*)lens, B, Lp, k, R, warp_bytes,
+        kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
+                    f_rpos, f_strand, rng));
+    return (int)cudaGetLastError();
+}
+
+extern "C" int pseudoalign_turbo(
+    const void* hkeys, const void* bucket_start, const void* uid,
+    const void* pos, const void* fw, const void* block, const void* ec,
+    long long N, int p,
+    const void* p1, const void* p2, const void* aux, long long n_exc,
+    const void* lens, long long Bp, int ns, int Lp, int rl, int k, int R,
+    void* rows, void* n_rows, void* has_hits, void* overflow,
+    void* f_uid, void* f_block, void* f_upos, void* f_rpos,
+    void* f_strand, void* rng, void* stream) {
+    if (Bp <= 0) return 0;
+    const int Lc = (rl > 0 && rl < Lp) ? rl : Lp;
+    if (ns < 1 || ns > 2 || (ns == 2 && p2 == 0) || n_exc < 0 ||
+        Lc < k || (Lp & 3) != 0 || R <= 0 || R > Lc - k + 1 || k > 32)
+        return (int)cudaErrorInvalidValue;
+    IndexView ix;
+    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
+                            N, p);
+    if (err) return err;
+    const int W = Lc - k + 1;
+    int wpb, warp_bytes;
+    long long smem;
+    err = kt_launch_shape(pseudoalign_turbo_kernel, Lc, W, &wpb, &warp_bytes,
+                          &smem);
+    if (err) return err;
+    pseudoalign_turbo_kernel<<<kt_blocks(Bp * ns, wpb), wpb * 32,
+                               (size_t)smem, (cudaStream_t)stream>>>(
+        ix, (const unsigned char*)p1, (const unsigned char*)p2,
+        (const long long*)aux, n_exc, (const unsigned short*)lens, Bp, ns, Lp,
+        Lc, k, R, warp_bytes,
+        kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
+                    f_rpos, f_strand, rng));
     return (int)cudaGetLastError();
 }

@@ -77,7 +77,8 @@ class FastqStream:
     def __init__(self, path: str):
         self.path = path
         self._fh = _open_maybe_gz(path)
-        self._tail = b""
+        self._tail = b""       # the partial line after the last newline
+        self._lines: List[bytes] = []  # complete lines not yet handed out
         self._eof = False
         self._records_out = 0
 
@@ -85,34 +86,29 @@ class FastqStream:
         self._fh.close()
 
     def _read_lines(self, n_records: int) -> List[bytes]:
-        """Return up to 4*n_records complete lines (joined across chunks)."""
+        """Return up to 4*n_records complete lines (joined across chunks),
+        whole records only; lines read beyond that wait for the next call,
+        so every batch but the last holds exactly n_records."""
         need = 4 * n_records
-        lines: List[bytes] = []
-        while len(lines) < need and not self._eof:
+        while len(self._lines) < need and not self._eof:
             chunk = self._fh.read(1 << 22)
             if not chunk:
                 self._eof = True
                 if self._tail:
-                    lines.extend(self._tail.split(b"\n"))
+                    self._lines.extend(self._tail.split(b"\n"))
                     self._tail = b""
                 break
-            data = self._tail + chunk
-            parts = data.split(b"\n")
+            parts = (self._tail + chunk).split(b"\n")
             self._tail = parts.pop()
-            lines.extend(parts)
-        # drop trailing empty line fragments at EOF
-        while lines and lines[-1] == b"":
-            lines.pop()
-        # only hand back whole records; stash remainder back into tail
-        extra = len(lines) % 4 if self._eof else max(len(lines) - need, len(lines) % 4)
-        if extra and not self._eof:
-            put_back = lines[len(lines) - extra:]
-            del lines[len(lines) - extra:]
-            # put_back holds complete lines; the stashed tail (a partial line,
-            # possibly empty) must stay separated from them by a newline
-            self._tail = b"\n".join(put_back) + b"\n" + self._tail
-        elif extra and self._eof:
-            del lines[len(lines) - extra:]  # truncated record at EOF: drop
+            self._lines.extend(parts)
+        if self._eof:
+            # drop trailing empty line fragments and a truncated record
+            while self._lines and self._lines[-1] == b"":
+                self._lines.pop()
+            del self._lines[len(self._lines) - len(self._lines) % 4:]
+        take = min(need, len(self._lines) - len(self._lines) % 4)
+        lines = self._lines[:take]
+        del self._lines[:take]
         return lines
 
     def next_batch(self, n_records: int) -> Optional[ReadBatch]:

@@ -6,6 +6,7 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build
 happens at first use, into ``kallisto_tpu_torch/_kbuild/`` (gitignored),
 with one ``nvcc`` per source, all started together; a library is named by
 the hash of its source and flags, so an unchanged source is not rebuilt.
+Several kernels may share a source (A and D; E and F).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
@@ -38,6 +39,9 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
     # to its plain version
     "em_step": ("em.cu", ("--fmad=false",)),
+    "pseudoalign_turbo": ("pseudoalign.cu", ()),
+    "key_histogram": ("compact.cu", ()),
+    "gather_exemplars": ("compact.cu", ()),
 }
 
 _NVCC_FLAGS = (
@@ -48,17 +52,40 @@ _NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+
+
+class KeySide(ctypes.Structure):
+    """One mate's SideResult pointers (struct KeySide in csrc/read_keys.cu
+    and csrc/compact.cu)."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "rows", "has", "ovf", "upos", "rpos", "block", "strand", "rng")] + [
+        ("R", ctypes.c_int)]
+
+
+class KeyOpts(ctypes.Structure):
+    """Key options (struct KeyOpts in csrc/read_keys.cu)."""
+
+    _fields_ = [("pf_ptr", ctypes.c_void_p), ("pf_base", ctypes.c_void_p),
+                ("NP", ctypes.c_longlong)] + [
+        (f, ctypes.c_int) for f in (
+            "k", "min_range", "strand_key", "pos_fl", "pos_depth")]
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_SIDE = ctypes.POINTER(KeySide)
 _ARGTYPES = {
     "pseudoalign_side": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_I] * 4
     + [_P] * 10 + [_P],
-    "read_keys": [_P, _I, _P, _P, _P, _I, _P, _P] + [_P] * 8
-    + [_I, _I, _P, _P, _P],
+    "pseudoalign_turbo": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_LL, _P, _LL]
+    + [_I] * 5 + [_P] * 10 + [_P],
+    "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
     "em_step": [_P] * 11 + [_I, _I, _I, _P],
+    "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL, _P, _P, _P, _P],
+    "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
 }
 
 
@@ -80,15 +107,16 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Tuple[str, list]:
-    src, extra = SOURCES[name]
+def _lib_path(unit: Tuple[str, Tuple[str, ...]]) -> Tuple[str, list]:
+    src, extra = unit
     src_path = os.path.join(CSRC, src)
     flags = list(_NVCC_FLAGS) + list(extra)
     h = hashlib.sha256()
     with open(src_path, "rb") as f:
         h.update(f.read())
     h.update(" ".join(flags).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(src)[0]
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
     return out, [src_path] + flags
 
 
@@ -97,49 +125,52 @@ def build_all() -> float:
     Returns the wall seconds spent."""
     t0 = time.perf_counter()
     with _lock:
-        todo = [n for n in SOURCES if n not in _libs]
+        todo = sorted({u for u in SOURCES.values() if u not in _libs})
         if not todo:
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = []
-        for name in todo:
-            out, args = _lib_path(name)
+        for unit in todo:
+            out, args = _lib_path(unit)
             if os.path.exists(out):
-                procs.append((name, out, None, None))
+                procs.append((unit, out, None, None))
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
             p = subprocess.Popen(
                 [_nvcc()] + args + ["-o", tmp],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             )
-            procs.append((name, out, tmp, p))
+            procs.append((unit, out, tmp, p))
         errors = []
-        for name, out, tmp, p in procs:
+        for unit, out, tmp, p in procs:
             if p is None:
                 continue
             so, se = p.communicate()
             log = (so + se).decode(errors="replace").strip()
             if p.returncode != 0:
-                errors.append(f"nvcc failed for {name}:\n{log}")
+                errors.append(f"nvcc failed for {unit[0]}:\n{log}")
                 continue
             if log:
-                print(f"[kernels] {name}: {log}", flush=True)
+                print(f"[kernels] {unit[0]}: {log}", flush=True)
             os.replace(tmp, out)
         if errors:
             raise RuntimeError("\n".join(errors))
-        for name, out, _, _ in procs:
+        for unit, out, _, _ in procs:
             lib = ctypes.CDLL(out)
-            fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
+            for name, u in SOURCES.items():
+                if u == unit:
+                    fn = getattr(lib, name)
+                    fn.argtypes = _ARGTYPES[name]
+                    fn.restype = ctypes.c_int
+            _libs[unit] = lib
     return time.perf_counter() - t0
 
 
 def _fn(name: str):
-    if name not in _libs:
+    unit = SOURCES[name]
+    if unit not in _libs:
         build_all()
-    return getattr(_libs[name], name)
+    return getattr(_libs[unit], name)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -185,27 +216,10 @@ def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
     _check(packed, "packed", torch.uint8, (B, L // 4), dev)
     _check(nmask, "nmask", torch.uint8, (B, L // 8), dev)
     _check(lens, "lens", torch.int32, (B,), dev)
-    N = int(didx.kmer_hkeys.shape[0])
-    _check(didx.kmer_hkeys, "kmer_hkeys", torch.int64, (N,), dev)
-    _check(didx.bucket_start, "bucket_start", torch.int32,
-           ((1 << didx.p) + 1,), dev)
-    for nm in ("kmer_uid", "kmer_pos", "kmer_block", "kmer_ec"):
-        _check(getattr(didx, nm), nm, torch.int32, (N,), dev)
-    _check(didx.kmer_fw, "kmer_fw", torch.bool, (N,), dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    b8 = dict(dtype=torch.bool, device=dev)
-    out = (
-        torch.empty((B, R), **i32), torch.empty(B, **i32),
-        torch.empty(B, **b8), torch.empty(B, **b8),
-        torch.empty(B, **i32), torch.empty(B, **i32), torch.empty(B, **i32),
-        torch.empty(B, **i32), torch.empty(B, **b8), torch.empty(B, **i32),
-    )
-    fn = _fn("pseudoalign_side")
-    err = fn(
-        _ptr(didx.kmer_hkeys), _ptr(didx.bucket_start), _ptr(didx.kmer_uid),
-        _ptr(didx.kmer_pos), _ptr(didx.kmer_fw), _ptr(didx.kmer_block),
-        _ptr(didx.kmer_ec), N, didx.p,
-        _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R,
+    ix = _index_args(didx)
+    out = _side_outputs(B, R, dev)
+    err = _fn("pseudoalign_side")(
+        *ix, _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R,
         *[_ptr(t) for t in out], _stream(),
     )
     _raise_on(err, "pseudoalign_side")
@@ -213,44 +227,182 @@ def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
     return out
 
 
+def _index_args(didx) -> tuple:
+    """Checked device-index pointers (+ N, p) for kernels A and D."""
+    dev = didx.kmer_hkeys.device
+    N = int(didx.kmer_hkeys.shape[0])
+    _check(didx.kmer_hkeys, "kmer_hkeys", torch.int64, (N,), dev)
+    _check(didx.bucket_start, "bucket_start", torch.int32,
+           ((1 << didx.p) + 1,), dev)
+    for nm in ("kmer_uid", "kmer_pos", "kmer_block", "kmer_ec"):
+        _check(getattr(didx, nm), nm, torch.int32, (N,), dev)
+    _check(didx.kmer_fw, "kmer_fw", torch.bool, (N,), dev)
+    return (
+        _ptr(didx.kmer_hkeys), _ptr(didx.bucket_start), _ptr(didx.kmer_uid),
+        _ptr(didx.kmer_pos), _ptr(didx.kmer_fw), _ptr(didx.kmer_block),
+        _ptr(didx.kmer_ec), N, didx.p,
+    )
+
+
+def _side_outputs(B: int, R: int, dev) -> tuple:
+    """Empty SideResult fields for B reads with R row slots."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    return (
+        torch.empty((B, R), **i32), torch.empty(B, **i32),
+        torch.empty(B, **b8), torch.empty(B, **b8),
+        torch.empty(B, **i32), torch.empty(B, **i32), torch.empty(B, **i32),
+        torch.empty(B, **i32), torch.empty(B, **b8), torch.empty(B, **i32),
+    )
+
+
+# ---------------------------------------------------------------- kernel D
+
+
+def pseudoalign_turbo(didx, sides, aux: torch.Tensor,
+                      lens: Optional[torch.Tensor], k: int, L: int, rl: int,
+                      R: int):
+    """Kernel D on one or two mates' packed codes (`sides`, each [Bp, L/4]
+    uint8) with the aux vector [4 + n] int64 (N positions ascending) and,
+    for a mixed-length batch, lens [ns * Bp] uint16.  Returns the ten
+    SideResult fields for the ns * Bp reads, mate 1 first."""
+    dev = didx.kmer_hkeys.device
+    ns = len(sides)
+    if ns not in (1, 2):
+        raise ValueError("kernel D takes one or two mates")
+    Bp = int(sides[0].shape[0])
+    Lc = rl if 0 < rl < L else L
+    if L % 4 or Lc < k or not 0 < R <= Lc - k + 1:
+        raise ValueError(f"bad shape: L={L} rl={rl} k={k} R={R}")
+    for j, p in enumerate(sides):
+        _check(p, f"packed{j + 1}", torch.uint8, (Bp, L // 4), dev)
+    if aux.dim() != 1 or aux.shape[0] < 4:
+        raise ValueError("aux must be [4 + n] int64")
+    _check(aux, "aux", torch.int64, None, dev)
+    if lens is not None:
+        _check(lens, "lens", torch.uint16, (ns * Bp,), dev)
+    ix = _index_args(didx)
+    out = _side_outputs(ns * Bp, R, dev)
+    err = _fn("pseudoalign_turbo")(
+        *ix, _ptr(sides[0]), _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
+        int(aux.shape[0]) - 4, _ptr(lens), Bp, ns, L, rl, k, R,
+        *[_ptr(t) for t in out], _stream(),
+    )
+    _raise_on(err, "pseudoalign_turbo")
+    LAUNCHES["pseudoalign_turbo"] += 1
+    return out
+
+
 # ---------------------------------------------------------------- kernel B
 
 
-def read_keys(s1, s2, k: int):
-    """Kernel B.  Paired (s2 given): returns (h [B, 2] int64, tl [B] int32);
-    single-end: (h, None)."""
-    dev = s1.rows.device
-    B, R1 = (int(x) for x in s1.rows.shape)
-    _check(s1.rows, "rows1", torch.int32, (B, R1), dev)
+def _key_side(s, name: str, dev, B: int, with_fields: bool) -> KeySide:
+    """Checked KeySide of one mate; the first-hit fields and rng are
+    passed only when the kernel reads them."""
+    R = int(s.rows.shape[1]) if s.rows.dim() == 2 else -1
+    _check(s.rows, "rows" + name, torch.int32, (B, R), dev)
     for nm in ("has_hits", "overflow"):
-        _check(getattr(s1, nm), nm + "1", torch.bool, (B,), dev)
+        _check(getattr(s, nm), nm + name, torch.bool, (B,), dev)
+    ks = KeySide(rows=_ptr(s.rows), has=_ptr(s.has_hits),
+                 ovf=_ptr(s.overflow), R=R)
+    if with_fields:
+        for nm in ("f_upos", "f_rpos", "f_block", "rng"):
+            _check(getattr(s, nm), nm + name, torch.int32, (B,), dev)
+        _check(s.f_strand, "f_strand" + name, torch.bool, (B,), dev)
+        ks.upos, ks.rpos, ks.block = _ptr(s.f_upos), _ptr(s.f_rpos), _ptr(s.f_block)
+        ks.strand, ks.rng = _ptr(s.f_strand), _ptr(s.rng)
+    return ks
+
+
+def read_keys(s1, s2, k: int, min_range: int = 0, strand_key: bool = False,
+              pos=None, want_tl: bool = True):
+    """Kernel B.  Returns (h [B, 2] int64, tl [B] int32 or None, flags [B]
+    int32).  tl is the mapPair fragment length (paired and want_tl only).
+    With every option off the key is the per-read one; min_range > 1 adds
+    the veto bits, strand_key the first-hit (block, strand) tail, and pos =
+    (pf_ptr, pf_base, fl, depth) the tail and the position rank."""
+    dev = s1.rows.device
+    B = int(s1.rows.shape[0])
+    paired = s2 is not None
+    fields = paired or min_range > 1 or strand_key or pos is not None
+    ks1 = _key_side(s1, "1", dev, B, fields)
+    ks2 = _key_side(s2, "2", dev, B, fields) if paired else None
+    opts = KeyOpts(k=k, min_range=min_range, strand_key=int(bool(strand_key)),
+                   pos_fl=-1, pos_depth=0)
+    if pos is not None:
+        pf_ptr, pf_base, fl, depth = pos
+        _check(pf_ptr, "pf_ptr", torch.int32, None, dev)
+        _check(pf_base, "pf_base", torch.int32, None, dev)
+        opts.pf_ptr, opts.pf_base = _ptr(pf_ptr), _ptr(pf_base)
+        opts.NP = int(pf_base.shape[0]) // 2
+        opts.pos_fl, opts.pos_depth = int(fl), int(depth)
     h = torch.empty((B, 2), dtype=torch.int64, device=dev)
-    tl = None
-    if s2 is not None:
-        R2 = int(s2.rows.shape[1])
-        _check(s2.rows, "rows2", torch.int32, (B, R2), dev)
-        for s, m in ((s1, "1"), (s2, "2")):
-            for nm in ("f_upos", "f_rpos", "f_block"):
-                _check(getattr(s, nm), nm + m, torch.int32, (B,), dev)
-            for nm in ("has_hits", "overflow", "f_strand"):
-                _check(getattr(s, nm), nm + m, torch.bool, (B,), dev)
-        tl = torch.empty(B, dtype=torch.int32, device=dev)
-        args = (
-            _ptr(s1.rows), R1, _ptr(s1.has_hits), _ptr(s1.overflow),
-            _ptr(s2.rows), R2, _ptr(s2.has_hits), _ptr(s2.overflow),
-            _ptr(s1.f_upos), _ptr(s1.f_rpos), _ptr(s1.f_block),
-            _ptr(s1.f_strand), _ptr(s2.f_upos), _ptr(s2.f_rpos),
-            _ptr(s2.f_block), _ptr(s2.f_strand),
-        )
-    else:
-        args = (
-            _ptr(s1.rows), R1, _ptr(s1.has_hits), _ptr(s1.overflow),
-            None, 0, None, None,
-        ) + (None,) * 8
-    err = _fn("read_keys")(*args, k, B, _ptr(h), _ptr(tl), _stream())
+    flags = torch.empty(B, dtype=torch.int32, device=dev)
+    tl = (torch.empty(B, dtype=torch.int32, device=dev)
+          if paired and want_tl else None)
+    err = _fn("read_keys")(
+        ctypes.byref(ks1), ctypes.byref(ks2) if paired else None,
+        ctypes.byref(opts), B, _ptr(h), _ptr(tl), _ptr(flags), _stream())
     _raise_on(err, "read_keys")
     LAUNCHES["read_keys"] += 1
-    return h, tl
+    return h, tl, flags
+
+
+# ---------------------------------------------------------------- kernel E
+
+
+def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.Tensor:
+    """Kernel E: the flat [K+1, 5] int64 key table of B read keys (see
+    ops/pseudoalign.py key_histogram_plain for the layout)."""
+    dev = h.device
+    B = int(h.shape[0])
+    _check(h, "h", torch.int64, (B, 2), dev)
+    _check(flags, "flags", torch.int32, (B,), dev)
+    if K < 1:
+        raise ValueError("K must be >= 1")
+    S = 2
+    while S < 2 * B:
+        S <<= 1
+    keys = torch.empty(S + 1, dtype=torch.int64, device=dev)
+    occ = torch.empty(S + 1, dtype=torch.int32, device=dev)
+    pay = torch.empty(S + 1, dtype=torch.int64, device=dev)
+    slot = torch.empty(max(B, 1), dtype=torch.int32, device=dev)
+    counts = torch.empty(max((B + 1023) // 1024, 1), dtype=torch.int32,
+                         device=dev)
+    ck = torch.empty((K + 1, 5), dtype=torch.int64, device=dev)
+    err = _fn("key_histogram")(
+        _ptr(h), _ptr(flags), B, K, _ptr(keys), _ptr(occ), _ptr(pay), S,
+        _ptr(slot), _ptr(counts), _ptr(ck), _stream())
+    _raise_on(err, "key_histogram")
+    LAUNCHES["key_histogram"] += 1
+    return ck
+
+
+# ---------------------------------------------------------------- kernel F
+
+
+def gather_exemplars(idx: torch.Tensor, s1, s2, spec) -> torch.Tensor:
+    """Kernel F: int32 key rows [n, W] of reads `idx` (int64 [n], any row
+    of the SideResult) in the layout of ops/pseudoalign.py
+    gather_exemplars_plain; spec is its KeySpec."""
+    dev = s1.rows.device
+    B = int(s1.rows.shape[0])
+    n = int(idx.shape[0])
+    _check(idx, "idx", torch.int64, (n,), dev)
+    ks1 = _key_side(s1, "1", dev, B, True)
+    ks2 = _key_side(s2, "2", dev, B, True) if s2 is not None else None
+    ns = 1 if s2 is None else 2
+    tail_bs = bool(spec.strand_key or spec.pos_key)
+    W = (ks1.R + (ks2.R if ks2 is not None else 0) + 1
+         + (2 * ns if tail_bs else 0) + (2 * ns if spec.pos_key else 0))
+    out = torch.empty((n, W), dtype=torch.int32, device=dev)
+    err = _fn("gather_exemplars")(
+        ctypes.byref(ks1), ctypes.byref(ks2) if ks2 is not None else None,
+        _ptr(idx), n, B, spec.k, spec.min_range, int(tail_bs),
+        int(spec.pos_key), W, _ptr(out), _stream())
+    _raise_on(err, "gather_exemplars")
+    LAUNCHES["gather_exemplars"] += 1
+    return out
 
 
 # ---------------------------------------------------------------- kernel C

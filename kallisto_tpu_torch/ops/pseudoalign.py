@@ -122,6 +122,11 @@ class DeviceIndex(NamedTuple):
     kmer_block: torch.Tensor    # [N] int32
     kmer_ec: torch.Tensor       # [N] int32 EC row, -1 = empty/wildcard
     p: int                      # bucket bits
+    # FLD position-filter threshold tables (None unless the run needs the
+    # filter; see pos_filter_rank): per-block offsets, then the sorted
+    # fl-independent bases, forward table then reverse table
+    pf_ptr: Optional[torch.Tensor] = None   # [NB+1] int32
+    pf_base: Optional[torch.Tensor] = None  # [2*NP] int32
 
     def nbytes(self) -> int:
         return sum(
@@ -139,9 +144,57 @@ def cached_probe_layout(index) -> ProbeLayout:
     return lay
 
 
-def device_index_from_host(index, device=None) -> DeviceIndex:
+def pf_probe_depth(index) -> int:
+    """Fixed binary-search depth for the FLD position-filter tables: enough
+    steps for the largest block's threshold list."""
+    cards = np.diff(index.bp_ptr)
+    maxc = int(cards.max()) if cards.shape[0] else 0
+    return max(int(np.ceil(np.log2(maxc + 1))), 1) if maxc else 1
+
+
+def pos_tables_from_host(index):
+    """Per-block sorted FLD-position-filter base tables (+ probe depth).
+
+    The filter's keep decision for transcript t via the first-hit k-mer in
+    block b is a threshold test on one per-read scalar (g- = upos - rpos
+    for forward-mapping reads, g+ = upos + rpos for reverse), with
+    thresholds base(b, t) -/+ fl where base does not depend on fl (see
+    quant/filters.py FldPositionFilter, reference: ProcessReads.cpp:
+    1094-1136 + KmerIndex::findPosition, src/KmerIndex.cpp:2174-2292).
+    Sorting each block's bases lets a fixed-depth search compute the
+    read's RANK among them; reads with equal (rows, block, strand, rank)
+    share the filtered set, so the rank makes the filter a per-key one.
+
+    Returns (pf_ptr [NB+1] int32, pf_base [2*NP] int32 fw||rv, depth).
+    """
+    NB = index.bp_ptr.shape[0] - 1
+    raw = index.bp_pos.astype(np.int64)
+    t0 = raw & 0x7FFFFFFF
+    trsense = (raw >> 31) == 0
+    lenT = index.target_lens[index.bp_tx].astype(np.int64)
+    rstart = index.bp_rstart.astype(np.int64)
+    rstop = index.bp_rstop.astype(np.int64)
+    k = index.k
+    # forward (csense=1): keep <=> g- <= base - fl
+    base_fw = np.where(trsense, lenT - (t0 - rstart) - 1, t0 + rstop - 1 + k)
+    # reverse (csense=0): keep <=> g+ >= base + fl
+    base_rv = np.where(trsense, -(t0 - rstart) - k, t0 + rstop - lenT)
+    blk = np.repeat(np.arange(NB, dtype=np.int64), np.diff(index.bp_ptr))
+    lim = np.int64(2**31 - 1)
+    fw = np.clip(base_fw, -lim, lim)[np.lexsort((base_fw, blk))]
+    rv = np.clip(base_rv, -lim, lim)[np.lexsort((base_rv, blk))]
+    return (
+        index.bp_ptr.astype(np.int32),
+        np.concatenate([fw, rv]).astype(np.int32),
+        pf_probe_depth(index),
+    )
+
+
+def device_index_from_host(index, device=None,
+                           with_pos_tables: bool = False) -> DeviceIndex:
     """Put the index tables on `device` (default: the card; raises without
-    one unless device='cpu')."""
+    one unless device='cpu').  with_pos_tables adds the FLD position-filter
+    tables (pf_ptr, pf_base) that the position key column reads."""
     from .. import resolve_device
 
     dev = resolve_device(device)
@@ -155,6 +208,10 @@ def device_index_from_host(index, device=None) -> DeviceIndex:
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    pf_ptr = pf_base = None
+    if with_pos_tables:
+        ptr, base, _ = pos_tables_from_host(index)
+        pf_ptr, pf_base = put(ptr), put(base)
     return DeviceIndex(
         kmer_hkeys=put(layout.mk.view(np.int64)),
         bucket_start=put(layout.bucket_start.astype(np.int32)),
@@ -164,6 +221,8 @@ def device_index_from_host(index, device=None) -> DeviceIndex:
         kmer_block=put(kmer_block),
         kmer_ec=put(kmer_ec),
         p=int(layout.p),
+        pf_ptr=pf_ptr,
+        pf_base=pf_base,
     )
 
 
@@ -306,7 +365,8 @@ def pseudoalign_batch_packed_plain(didx, packed, nmask, lens, k: int, L: int,
 def _hash_columns_128(cols) -> torch.Tensor:
     """Two 64-bit FNV/splitmix column hashes -> [B, 2] int64 (uint64 bits).
 
-    Columns are non-negative int32 values widened to int64."""
+    Columns are int32 values sign-extended to 64 bits (JAX's
+    astype(uint64) of an int32)."""
     B = cols[0].shape[0]
     dev = cols[0].device
     h1 = torch.full((B,), _s64(0xCBF29CE484222325), dtype=torch.int64, device=dev)
@@ -323,17 +383,120 @@ def _hash_columns_128(cols) -> torch.Tensor:
     return torch.stack([h1, h2], dim=1)
 
 
-def _pair_flags(s1: SideResult, s2: SideResult) -> torch.Tensor:
-    return (
+class KeySpec(NamedTuple):
+    """What a read key carries beyond its rows and hit/overflow flags.
+
+    min_range > 1 adds per-mate veto bits (16/32) to the flags; strand_key
+    (or the position column) adds each mate's first-hit (block, strand);
+    pos_fl >= 0 adds the FLD position-filter rank column, searched to
+    pos_depth steps.  With every option off this is the per-read key."""
+
+    k: int = 0
+    min_range: int = 0
+    strand_key: bool = False
+    pos_fl: int = -1
+    pos_depth: int = 0
+
+    @property
+    def pos_key(self) -> bool:
+        return self.pos_fl >= 0
+
+
+def _pair_flags(s1: SideResult, s2: SideResult, k: int = 0,
+                min_range: int = 0) -> torch.Tensor:
+    """Hit/overflow flags, plus per-mate min_range veto bits (16/32) when a
+    min_range filter is active (reference: MinCollector::intersectECs range
+    check, MinCollector.cpp:497)."""
+    fl = (
         s1.has_hits.to(torch.int32)
         + 2 * s2.has_hits.to(torch.int32)
         + 4 * s1.overflow.to(torch.int32)
         + 8 * s2.overflow.to(torch.int32)
     )
+    if min_range > 1:
+        v1 = s1.has_hits & (s1.rng + k < min_range)
+        v2 = s2.has_hits & (s2.rng + k < min_range)
+        fl = fl + 16 * v1.to(torch.int32) + 32 * v2.to(torch.int32)
+    return fl
 
 
-def _single_flags(s1: SideResult) -> torch.Tensor:
-    return s1.has_hits.to(torch.int32) + 4 * s1.overflow.to(torch.int32)
+def _single_flags(s1: SideResult, k: int = 0, min_range: int = 0) -> torch.Tensor:
+    fl = s1.has_hits.to(torch.int32) + 4 * s1.overflow.to(torch.int32)
+    if min_range > 1:
+        v1 = s1.has_hits & (s1.rng + k < min_range)
+        fl = fl + 16 * v1.to(torch.int32)
+    return fl
+
+
+def pos_filter_rank(didx: DeviceIndex, s: SideResult, fl: int,
+                    depth: int) -> torch.Tensor:
+    """Rank of a read's fragment coordinate among its first-hit block's
+    position-filter thresholds (-1 for reads without hits): a fixed-depth
+    binary search; upper and lower bound meet through the integer identity
+    #{x <= t} = #{x < t + 1}.  Plain version of the rank kernel B computes
+    in the same thread as the key."""
+    NP = didx.pf_base.shape[0] // 2
+    b = torch.clamp(s.f_block, min=0).to(torch.int64)
+    lo0 = didx.pf_ptr[b]
+    hi = didx.pf_ptr[b + 1]
+    off = torch.where(s.f_strand, 0, NP)
+    target = torch.where(
+        s.f_strand,
+        s.f_upos - s.f_rpos + fl,       # rank = #{base < g- + fl}
+        s.f_upos + s.f_rpos - fl + 1,   # rank = #{base <= g+ - fl}
+    )
+    lo = lo0
+    for _ in range(depth):
+        cond = lo < hi
+        mid = (lo + hi) >> 1
+        v = didx.pf_base[torch.clamp(mid + off, max=2 * NP - 1).to(torch.int64)]
+        right = cond & (v < target)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(cond & ~right, mid, hi)
+    return torch.where(s.has_hits, lo - lo0, -1).to(torch.int32)
+
+
+def pos_col_pair(didx: DeviceIndex, s1: SideResult, s2: SideResult, fl: int,
+                 depth: int) -> torch.Tensor:
+    """Pair position column: the filter applies only when exactly one mate
+    mapped (reference: ProcessReads.cpp:1094, `!paired || v1.empty() ||
+    v2.empty()`); other pairs get -1 so their keys stay unsplit."""
+    applies = s1.has_hits ^ s2.has_hits
+    r1 = pos_filter_rank(didx, s1, fl, depth)
+    r2 = pos_filter_rank(didx, s2, fl, depth)
+    return torch.where(applies, torch.where(s1.has_hits, r1, r2), -1)
+
+
+def key_columns(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
+                didx: Optional[DeviceIndex] = None):
+    """(key columns in hash order, flag column): rows1, rows2 (paired),
+    flags, then the [f_block, f_strand] tail of each mate when strand_key
+    or the position column is on, then the position rank."""
+    cols = [s1.rows[:, i] for i in range(s1.rows.shape[1])]
+    sides = [s1]
+    if s2 is not None:
+        cols += [s2.rows[:, i] for i in range(s2.rows.shape[1])]
+        sides.append(s2)
+        flags = _pair_flags(s1, s2, spec.k, spec.min_range)
+    else:
+        flags = _single_flags(s1, spec.k, spec.min_range)
+    cols.append(flags)
+    if spec.strand_key or spec.pos_key:
+        for s in sides:
+            cols += [s.f_block, s.f_strand.to(torch.int32)]
+    if spec.pos_key:
+        if s2 is not None:
+            cols.append(pos_col_pair(didx, s1, s2, spec.pos_fl, spec.pos_depth))
+        else:
+            cols.append(pos_filter_rank(didx, s1, spec.pos_fl, spec.pos_depth))
+    return cols, flags
+
+
+def key_hash_plain(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
+                   didx: Optional[DeviceIndex] = None):
+    """Plain version of kernel B's key: (h [B, 2] int64, flags [B] int32)."""
+    cols, flags = key_columns(s1, s2, spec, didx)
+    return _hash_columns_128(cols), flags
 
 
 def pair_fragment_lengths_plain(s1: SideResult, s2: SideResult, k: int) -> torch.Tensor:
@@ -351,17 +514,77 @@ def pair_fragment_lengths_plain(s1: SideResult, s2: SideResult, k: int) -> torch
 
 
 def read_keys_plain(s1: SideResult, s2: Optional[SideResult], k: int):
-    """Plain PyTorch version of kernel B: (h [B, 2] int64, tl [B] int32 or
-    None for single-end)."""
-    if s2 is None:
-        cols = [s1.rows[:, i] for i in range(s1.rows.shape[1])]
-        return _hash_columns_128(cols + [_single_flags(s1)]), None
-    cols = (
-        [s1.rows[:, i] for i in range(s1.rows.shape[1])]
-        + [s2.rows[:, i] for i in range(s2.rows.shape[1])]
-        + [_pair_flags(s1, s2)]
+    """Plain PyTorch version of kernel B on the per-read key: (h [B, 2]
+    int64, tl [B] int32 or None for single-end)."""
+    h, _ = key_hash_plain(s1, s2, KeySpec())
+    return h, None if s2 is None else pair_fragment_lengths_plain(s1, s2, k)
+
+
+def key_histogram_plain(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.Tensor:
+    """Plain version of kernel E: dedup B read keys on h[:, 0] alone into
+    the flat [K+1, 5] int64 table.
+
+    Row 0 is the meta row [n_uniq, n_fail = 0, 0, 0, 0]; rows 1..min(n_uniq,
+    K) hold [h0, h1, occ, first_idx, flags] of each distinct key in
+    ascending first_idx (read) order, the rest is zero.  Reads equal in h0
+    share a key (h0 is already a hash of every key column); a key's row
+    takes both hash words and its flags from its first read, found as the
+    minimum of the payload idx * 128 + flags."""
+    B = h.shape[0]
+    dev = h.device
+    uniq, inv = torch.unique(h[:, 0], return_inverse=True)
+    n = int(uniq.shape[0])
+    pay = torch.arange(B, dtype=torch.int64, device=dev) * 128 + flags.to(torch.int64)
+    firstpay = torch.full((n,), 2**63 - 1, dtype=torch.int64, device=dev)
+    firstpay = firstpay.scatter_reduce(0, inv, pay, "amin")
+    occ = torch.bincount(inv, minlength=n)
+    order = torch.argsort(firstpay)
+    first = (firstpay >> 7)[order]
+    ck = torch.zeros((K + 1, 5), dtype=torch.int64, device=dev)
+    ck[0, 0] = n
+    m = min(n, K)
+    rows = torch.stack(
+        [h[first, 0], h[first, 1], occ[order], first, (firstpay & 127)[order]],
+        dim=1,
     )
-    return _hash_columns_128(cols), pair_fragment_lengths_plain(s1, s2, k)
+    ck[1 : m + 1] = rows[:m]
+    return ck
+
+
+def unflatten_ck_host(arr: np.ndarray):
+    """Host view of a flat key table: (uniq_h [K, 2] int64, occ int32,
+    first_idx int32, flags int32, n_uniq int)."""
+    meta, rows = arr[0], arr[1:]
+    return (
+        np.ascontiguousarray(rows[:, :2]),
+        rows[:, 2].astype(np.int32),
+        rows[:, 3].astype(np.int32),
+        rows[:, 4].astype(np.int32),
+        int(meta[0]),
+    )
+
+
+def gather_exemplars_plain(idx: torch.Tensor, s1: SideResult,
+                           s2: Optional[SideResult], spec: KeySpec) -> torch.Tensor:
+    """Plain version of kernel F: the int32 key rows of reads `idx` in the
+    layout the host resolver reads (quant/ecmap.py _resolve_key): rows1,
+    rows2 (paired), flags with the veto bits, the [f_block, f_strand] tail
+    per mate with strand_key or the position key, the [f_upos, f_rpos]
+    tail per mate with the position key."""
+    sides = [SideResult(*(t[idx] for t in s1))]
+    if s2 is not None:
+        sides.append(SideResult(*(t[idx] for t in s2)))
+        flags = _pair_flags(sides[0], sides[1], spec.k, spec.min_range)
+    else:
+        flags = _single_flags(sides[0], spec.k, spec.min_range)
+    cols = [s.rows for s in sides] + [flags[:, None]]
+    if spec.strand_key or spec.pos_key:
+        for s in sides:
+            cols += [s.f_block[:, None], s.f_strand.to(torch.int32)[:, None]]
+    if spec.pos_key:
+        for s in sides:
+            cols += [s.f_upos[:, None], s.f_rpos[:, None]]
+    return torch.cat(cols, dim=1).to(torch.int32)
 
 
 # ------------------------------------------------------------ entry points
@@ -383,8 +606,44 @@ def pseudoalign_batch_packed(didx: DeviceIndex, packed: torch.Tensor,
 def read_keys(s1: SideResult, s2: Optional[SideResult], k: int):
     """(128-bit read keys [B, 2] int64, fragment lengths [B] int32 or None)."""
     if s1.rows.is_cuda:
-        return kernels.read_keys(s1, s2, k)
+        h, tl, _ = kernels.read_keys(s1, s2, k)
+        return h, tl
     return read_keys_plain(s1, s2, k)
+
+
+def compact_key_hash(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
+                     didx: Optional[DeviceIndex] = None):
+    """The steady-state key of each read (kernel B with the compact key
+    layout): (h [B, 2] int64, flags [B] int32).  didx carries the
+    position-filter tables when spec.pos_key."""
+    if spec.pos_key and (didx is None or didx.pf_ptr is None):
+        raise ValueError("the position key column needs didx with pos tables")
+    if s1.rows.is_cuda:
+        pos = None
+        if spec.pos_key:
+            pos = (didx.pf_ptr, didx.pf_base, spec.pos_fl, spec.pos_depth)
+        h, _, flags = kernels.read_keys(
+            s1, s2, spec.k, min_range=spec.min_range,
+            strand_key=spec.strand_key, pos=pos, want_tl=False)
+        return h, flags
+    return key_hash_plain(s1, s2, spec, didx)
+
+
+def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.Tensor:
+    """Per-batch key table [K+1, 5] int64 (see key_histogram_plain)."""
+    if h.is_cuda:
+        return kernels.key_histogram(h, flags, K)
+    return key_histogram_plain(h, flags, K)
+
+
+def gather_exemplars(idx: torch.Tensor, s1: SideResult,
+                     s2: Optional[SideResult], spec: KeySpec) -> torch.Tensor:
+    """Key rows of first-seen keys' exemplar reads (see
+    gather_exemplars_plain); idx may name any row of the SideResult,
+    padding rows included."""
+    if s1.rows.is_cuda:
+        return kernels.gather_exemplars(idx, s1, s2, spec)
+    return gather_exemplars_plain(idx, s1, s2, spec)
 
 
 def pair_key_hash(s1: SideResult, s2: SideResult) -> torch.Tensor:
@@ -400,16 +659,66 @@ def pair_fragment_lengths(s1: SideResult, s2: SideResult, k: int) -> torch.Tenso
     return read_keys(s1, s2, k)[1]
 
 
+def compact_pair_keys(s1: SideResult, s2: SideResult, max_keys: int = 16384,
+                      k: int = 0, min_range: int = 0, strand_key: bool = False,
+                      didx: Optional[DeviceIndex] = None, pos_fl: int = -1,
+                      pos_depth: int = 0) -> torch.Tensor:
+    """Per-batch key table of pairs, flat [max_keys+1, 5] int64.  With
+    min_range/strand_key/pos_fl the key carries the filter inputs (veto
+    bits, first-hit block+strand, position rank), so per-read filters
+    become per-key operations on the host."""
+    spec = KeySpec(k, min_range, strand_key, pos_fl, pos_depth)
+    h, flags = compact_key_hash(s1, s2, spec, didx)
+    return key_histogram(h, flags, max_keys)
+
+
+def compact_single_keys(s1: SideResult, max_keys: int = 16384, k: int = 0,
+                        min_range: int = 0, strand_key: bool = False,
+                        didx: Optional[DeviceIndex] = None, pos_fl: int = -1,
+                        pos_depth: int = 0) -> torch.Tensor:
+    spec = KeySpec(k, min_range, strand_key, pos_fl, pos_depth)
+    h, flags = compact_key_hash(s1, None, spec, didx)
+    return key_histogram(h, flags, max_keys)
+
+
+def pseudoalign_pair_compact_packed(didx: DeviceIndex, p1, n1, l1, p2, n2, l2,
+                                    k: int, L: int, max_rows: int = 16,
+                                    max_keys: int = 16384, min_range: int = 0,
+                                    strand_key: bool = False, pos_fl: int = -1,
+                                    pos_depth: int = 0):
+    """Steady-state pair step on bitmask batches (the route for batches
+    with more Ns than the aux vector holds): kernel A on each mate, then
+    the key table.  Returns (r1, r2, ck [max_keys+1, 5])."""
+    r1 = pseudoalign_batch_packed(didx, p1, n1, l1, k, L, max_rows)
+    r2 = pseudoalign_batch_packed(didx, p2, n2, l2, k, L, max_rows)
+    ck = compact_pair_keys(r1, r2, max_keys, k, min_range, strand_key, didx,
+                           pos_fl, pos_depth)
+    return r1, r2, ck
+
+
+def pseudoalign_single_compact_packed(didx: DeviceIndex, p1, n1, l1, k: int,
+                                      L: int, max_rows: int = 16,
+                                      max_keys: int = 16384, min_range: int = 0,
+                                      strand_key: bool = False,
+                                      pos_fl: int = -1, pos_depth: int = 0):
+    r1 = pseudoalign_batch_packed(didx, p1, n1, l1, k, L, max_rows)
+    ck = compact_single_keys(r1, max_keys, k, min_range, strand_key, didx,
+                             pos_fl, pos_depth)
+    return r1, ck
+
+
 def upload_batch(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(packed, nmask, lens) of a PackedBatch as tensors on `device`."""
+    return (to_device(batch.packed, device, np.uint8),
+            to_device(batch.nmask, device, np.uint8),
+            to_device(batch.lens, device, np.int32))
+
+
+def to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on `device` (through pinned memory and an
+    asynchronous copy on the card)."""
     dev = torch.device(device)
-    nb = dev.type == "cuda"
-
-    def put(a, dtype):
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
-        if nb:
-            t = t.pin_memory()
-        return t.to(dev, non_blocking=nb)
-
-    return (put(batch.packed, np.uint8), put(batch.nmask, np.uint8),
-            put(batch.lens, np.int32))
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t

@@ -52,8 +52,46 @@ class _GrowCounts:
     def __len__(self):
         return self.n
 
+    def add_at(self, idx: np.ndarray, occ: np.ndarray) -> None:
+        np.add.at(self._a, idx, occ)
+
     def array(self) -> np.ndarray:
         return self._a[: self.n].copy()
+
+
+class _SortedCache128:
+    """Batch-lookup map from 128-bit hashes to int64 values.
+
+    Keys live as a V16 (memcmp-ordered void) sorted array; a whole
+    batch's worth of lookups is one searchsorted.  Inserts re-sort
+    (microseconds up to millions of keys, once per batch at most).
+    """
+
+    def __init__(self):
+        self._keys = np.empty(0, "V16")
+        self._vals = np.empty(0, np.int64)
+
+    @staticmethod
+    def _as_void(h: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(h).view("V16").reshape(-1)
+
+    def lookup(self, h: np.ndarray):
+        """h: [n, 2] int64 -> (values [n] int64, found [n] bool)."""
+        q = self._as_void(h)
+        if self._keys.shape[0] == 0:
+            return np.empty(q.shape[0], np.int64), np.zeros(q.shape[0], bool)
+        pos = np.searchsorted(self._keys, q)
+        pos_c = np.minimum(pos, self._keys.shape[0] - 1)
+        found = self._keys[pos_c] == q
+        return self._vals[pos_c], found
+
+    def insert(self, h: np.ndarray, vals: np.ndarray) -> None:
+        q = self._as_void(h)
+        keys = np.concatenate([self._keys, q])
+        vv = np.concatenate([self._vals, vals.astype(np.int64)])
+        o = np.argsort(keys, kind="stable")
+        self._keys = keys[o]
+        self._vals = vv[o]
 
 
 class EcResolver:
@@ -92,6 +130,16 @@ class EcResolver:
         self._key_cache: Dict[bytes, Optional[np.ndarray]] = {}
         # cache: 128-bit device key hash -> resolved transcript set (or None)
         self._hash_cache: Dict[bytes, Optional[np.ndarray]] = {}
+        # 128-bit key hash -> EC id cache of the compact path (-1 = resolves
+        # to no set); lookups and inserts are batch numpy operations
+        self._ec_cache = _SortedCache128()
+        # optional per-key filter of the compact path, applied after
+        # resolution: fn(u, flags, tail_cols, paired) -> set | None.  Compact
+        # keys carry the filter inputs (min_range veto bits in flags; first-
+        # hit block/strand and position columns in the tail), so filtering
+        # per KEY equals filtering per read; per-read keys have no tail and
+        # no veto bits, which makes it a no-op for them.
+        self.compact_postfilter = None
 
     # -- EC id management ------------------------------------------------
 
@@ -150,9 +198,10 @@ class EcResolver:
     ) -> Optional[np.ndarray]:
         """Resolve one deduplicated read key -> transcript set (None = none).
 
-        key layout: [rows1 (R), rows2 (R if paired), flags] where flags bit0 =
-        mate1 had any k-mer hit, bit1 = mate2 did.  Implements the non-strict
-        paired intersection (reference: MinCollector::intersectKmers,
+        key layout: [rows1 (R), rows2 (R if paired), flags, tail...] where
+        flags bit0 = mate1 had any k-mer hit, bit1 = mate2 did; the tail
+        (compact keys only) feeds compact_postfilter.  Implements the
+        non-strict paired intersection (reference: MinCollector::intersectKmers,
         src/MinCollector.cpp:160-218): a mate with hits but an empty EC
         intersection vetoes the fragment; a mate with no hits at all defers
         to the other mate.
@@ -167,13 +216,19 @@ class EcResolver:
             rows2 = key[R : 2 * R]
             rows2 = rows2[rows2 != INT32_MAX]
             flags = int(key[2 * R])
+            tail = key[2 * R + 1 :]
             hits1, hits2 = bool(flags & 1), bool(flags & 2)
         else:
             rows2 = np.empty(0, np.int32)
             flags = int(key[R])
+            tail = key[R + 1 :]
             hits1, hits2 = bool(flags & 1), False
 
         u = self.resolve_rows(rows1, hits1, rows2, hits2, paired, do_union)
+        if self.compact_postfilter is not None:
+            u = self.compact_postfilter(u, flags, tail, paired)
+            if u is not None and u.shape[0] == 0:
+                u = None
         self._key_cache[kb] = u
         return u
 
@@ -267,6 +322,43 @@ class EcResolver:
                 )
         uniq_sets = [self._hash_cache[kb] for kb in hkeys]
         return inverse.reshape(-1).copy(), uniq_sets
+
+    def process_compact(
+        self,
+        uniq_h: np.ndarray,     # [K, 2] int64
+        occ: np.ndarray,        # [K] int32
+        first_idx: np.ndarray,  # [K] int32
+        fetch_exemplars,
+        R: int,
+        paired: bool,
+        do_union: bool = False,
+    ) -> None:
+        """Count a batch from its device-side key table.
+
+        EC ids are assigned in first-occurrence read order, identical to the
+        per-read path: keys are taken in ascending first_idx (a stable sort,
+        so the table's own row order does not matter), and only first-seen
+        keys are resolved, from exemplars fetched by `fetch_exemplars(read
+        indices) -> key matrix`.
+        """
+        valid = np.flatnonzero(occ > 0)
+        order = valid[np.argsort(first_idx[valid], kind="stable")]
+        h = np.ascontiguousarray(uniq_h[order])
+        vals, found = self._ec_cache.lookup(h)
+        new_pos = np.flatnonzero(~found)
+        if new_pos.size:
+            keys = fetch_exemplars(first_idx[order[new_pos]])
+            newvals = np.empty(new_pos.shape[0], np.int64)
+            for j in range(new_pos.shape[0]):
+                u = self._resolve_key(keys[j], R, paired, do_union)
+                newvals[j] = self.ec_id_for(u) if u is not None else -1
+            self._ec_cache.insert(h[new_pos], newvals)
+            vals = vals.copy()
+            vals[new_pos] = newvals
+        occ_o = occ[order].astype(np.int64)
+        m = vals >= 0
+        self.counts.add_at(vals[m], occ_o[m])
+        self.num_mapped += int(occ_o[m].sum())
 
     def count_batch(
         self,

@@ -1,20 +1,34 @@
 """End-to-end quantification: FASTQ -> device pseudoalignment -> EC counts
 -> EM -> abundance outputs.
 
-Port of kallisto_tpu/quant/pipeline.py, cut down to its per-read ("full")
-path for every batch (JAX pipeline.py:925-938 dispatch, :1277-1343 host
-side; single-end: the "full" branches of dispatch_single/process_single).
-Per batch, kernel A reduces each mate to its EC rows and first hit,
-kernel B hashes each pair into a 128-bit key and computes its mapPair
-fragment length, and the host resolves first-seen keys, applies the
-filters and counts ECs in read order.  FLD learning, overflow recovery,
---min-range, the FLD position filter, strand filters and priors are here;
-the EM runs on the device through kernel C.
+Port of kallisto_tpu/quant/pipeline.py with two routes per batch:
+
+- **full** (per read; JAX pipeline.py:925-938, :1277-1343): kernel A
+  reduces each mate to its EC rows and first hit, kernel B hashes each
+  read into a 128-bit key and computes its mapPair fragment length, and
+  the host resolves first-seen keys, applies the filters and counts ECs
+  in read order.  Paired batches take it while the fragment-length
+  distribution (FLD) is learned, and every batch whose compact table
+  overflows takes it again.
+- **compact steady state** (JAX :858-924, :1183-1276 and the single-end
+  twins :1345-1535): a padded "turbo" batch goes through kernel D (both
+  mates in one launch), kernel B with the compact key layout (min_range
+  veto bits, first-hit block/strand and the FLD position rank ride in the
+  key) and kernel E, which reduces it to a key table on the card; the
+  host fetches the occupied rows, resolves each first-seen DISTINCT KEY
+  once from exemplar rows that kernel F gathers, and applies the filters
+  per key.  Batches with more Ns than the aux vector holds go through
+  kernels A, B and E on bitmask slices instead ("compact").
+
+`timings` counts processed batches by route (`full`, `turbo`, `compact`,
+`fallback` -- a compact table that overflowed and was redone per read)
+and records `n_uniq_max` / `n_uniq_sum` over the turbo batches.  The EM
+runs on the device through kernel C.
 
 Not ported yet (each raises NotImplementedError): bias, bootstraps,
-pseudobam/genomebam, long reads, several devices, and the TPU package's
-compact / anchor / host-wave-1 routes, which are speed paths with the same
-outputs as this one.
+pseudobam/genomebam, long reads, several devices.  The JAX package's host
+wave 1 and two-wave anchor kernel are speed paths in front of the turbo
+route with the same outputs; they are not ported yet either.
 """
 
 import os
@@ -25,6 +39,7 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from .. import KALLISTO_COMPAT_VERSION, resolve_device
 from ..common import MAX_FRAG_LEN, Options, REFERENCE_INDEX_VERSION
@@ -32,12 +47,20 @@ from ..index import load_index
 from ..index.build import TpuIndex
 from ..io import writers
 from ..io.fastx import PackedBatch, packed_paired_batches, packed_single_batches
+from ..ops import turbo
 from ..ops.host_fallback import host_side_rows
 from ..ops.pseudoalign import (
+    KeySpec,
     SideResult,
     device_index_from_host,
+    gather_exemplars,
+    pf_probe_depth,
     pseudoalign_batch_packed,
+    pseudoalign_pair_compact_packed,
+    pseudoalign_single_compact_packed,
     read_keys,
+    to_device,
+    unflatten_ck_host,
     upload_batch,
 )
 from .ecmap import EcResolver
@@ -52,6 +75,16 @@ from .fld import (
 )
 
 _FLEN_GOAL = 10000  # reference: ProcessReads.cpp:985
+_FALLBACK_CAP = 1 << 17  # max reads per per-read or bitmask slice
+_CK_PREFIX = 2049  # meta row + 2048 key rows: the first fetch of a table
+_pad_pats: dict = {}
+
+
+def _flen_goal() -> int:
+    """FLD subsample size; KALLISTO_TPU_FLEN_GOAL overrides it (the tests
+    and the smoke run use a small goal to reach the compact route on small
+    inputs)."""
+    return int(os.environ.get("KALLISTO_TPU_FLEN_GOAL", _FLEN_GOAL))
 
 
 def _log(msg: str, end: str = "\n"):
@@ -76,14 +109,25 @@ class QuantResult:
     timings: dict
 
 
-def _check_supported(opt: Options) -> None:
+def _resolve_n_devices(opt: Options, dev: torch.device) -> int:
+    """How many devices to spread read batches over.  `-t N` asks for up
+    to N devices (the reference's -t is thread parallelism over read
+    batches, src/ProcessReads.cpp:307-320); the CPU counts as one."""
+    n = opt.n_devices
+    if n == 0 and opt.threads > 1:
+        have = torch.cuda.device_count() if dev.type == "cuda" else 1
+        n = min(opt.threads, have)
+    return max(n, 1)
+
+
+def _check_supported(opt: Options, dev: torch.device) -> None:
     unported = [
         (opt.bias, "--bias"),
         (opt.bootstrap > 0, "bootstraps (-b)"),
         (opt.pseudobam, "--pseudobam"),
         (opt.genomebam, "--genomebam"),
         (opt.long_read, "--long"),
-        (opt.n_devices > 1 or opt.threads > 1, "several devices (-t > 1)"),
+        (_resolve_n_devices(opt, dev) > 1, "several devices"),
     ]
     for flag, what in unported:
         if flag:
@@ -92,30 +136,166 @@ def _check_supported(opt: Options) -> None:
             )
 
 
-def _pair_exemplars(s1: SideResult, s2: SideResult):
-    """Exemplar fetcher for first-seen pair keys: the key layout of the
-    JAX full path ([rows1 (R), rows2 (R), flags], int32), by host indexing
-    of the once-fetched side arrays."""
-    flags = (
-        s1.has_hits.astype(np.int32) + 2 * s2.has_hits.astype(np.int32)
-        + 4 * s1.overflow.astype(np.int32) + 8 * s2.overflow.astype(np.int32)
-    )
+def _padding_nmask_patterns(Lp: int) -> np.ndarray:
+    """[Lp+1, Lp/8] nmask rows of N-free reads of each length (the reader
+    marks padding positions as N; an N-free read of length l has exactly
+    the bits >= l set)."""
+    pats = _pad_pats.get(Lp)
+    if pats is None:
+        j = np.arange(Lp)
+        bits = (j[None, :] >= np.arange(Lp + 1)[:, None]).astype(np.uint8)
+        pats = np.packbits(bits, axis=1, bitorder="little")
+        _pad_pats[Lp] = pats
+    return pats
+
+
+def _bucket_size(n: int, lo: int = 8192) -> int:
+    """A batch size rounded up to a power of two (padding reads are masked
+    through the aux vector)."""
+    p = lo
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _pad_rows(a: np.ndarray, Bp: int) -> np.ndarray:
+    if a.shape[0] == Bp:
+        return a
+    pad = np.zeros((Bp - a.shape[0],) + a.shape[1:], a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def _fetch_ck(ck: torch.Tensor) -> np.ndarray:
+    """Fetch a key table: a small prefix first, then exactly the occupied
+    rows when the batch had more distinct keys than the prefix holds
+    (occupied rows are always the leading ones), so the bytes fetched
+    follow n_uniq, not the table's capacity."""
+    pre = ck[:_CK_PREFIX].cpu().numpy()
+    n_uniq = int(pre[0, 0])
+    if n_uniq <= _CK_PREFIX - 1:
+        return pre
+    K = int(ck.shape[0]) - 1
+    if n_uniq >= K:  # overflowed table: the caller falls back anyway
+        return ck.cpu().numpy()
+    return ck[: n_uniq + 1].cpu().numpy()
+
+
+def _turbo_exceptions(batches, Bp: int) -> Optional[np.ndarray]:
+    """In-read N positions as flat indices into the PADDED concatenated
+    [len(batches)*Bp, Lp] code matrix, ascending (None = more than
+    turbo.EXC_CAP; the caller takes the bitmask route).  Padding rows need
+    none: the aux n_real field zeroes their lengths."""
+    Lp = batches[0].Lp
+    pats = _padding_nmask_patterns(Lp)
+    parts = []
+    total = 0
+    for s, b in enumerate(batches):
+        nm = b.nmask.reshape(b.lens.shape[0], -1)
+        if not np.array_equal(nm, pats[b.lens]):
+            bits = np.unpackbits(nm, axis=1, bitorder="little")[:, :Lp]
+            bits[np.arange(Lp)[None, :] >= b.lens[:, None]] = 0
+            r, c = np.nonzero(bits)
+            parts.append((s * Bp + r.astype(np.int64)) * Lp + c)
+            total += parts[-1].size
+            if total > turbo.EXC_CAP:
+                return None
+    if not parts:
+        return np.empty(0, np.int64)
+    return np.concatenate(parts)
+
+
+def _slice_packed(b: PackedBatch, lo: int, hi: int) -> PackedBatch:
+    return PackedBatch(b.packed[lo:hi], b.nmask[lo:hi], b.lens[lo:hi], b.Lp)
+
+
+def _split_first_pair_batch(it, head: int = 65536):
+    """Re-emit a paired batch stream with a small first batch: FLD learning
+    runs it per read, and capping it at `head` pairs lets the steady state
+    start early while later batches stay large."""
+    first = next(it, None)
+    if first is None:
+        return
+    b1, b2 = first
+    if b1.n > head:
+        yield _slice_packed(b1, 0, head), _slice_packed(b2, 0, head)
+        yield _slice_packed(b1, head, b1.n), _slice_packed(b2, head, b2.n)
+    else:
+        yield first
+    yield from it
+
+
+def _uniform_len(*batches) -> Optional[int]:
+    if not batches or batches[0].lens.size == 0:
+        return None
+    l0 = int(batches[0].lens[0])
+    for b in batches:
+        if not (b.lens == l0).all():
+            return None
+    return l0
+
+
+def _exemplar_fetcher(r1: SideResult, r2: Optional[SideResult],
+                      spec: KeySpec):
+    """Exemplar fetcher: one gather on the device (kernel F) returns the key
+    rows of first-seen keys, in the layout of the batch's keys (per-read:
+    rows and flags; compact: plus veto bits, block/strand and upos/rpos
+    tails)."""
+    B = int(r1.rows.shape[0])
 
     def fetch(idx: np.ndarray) -> np.ndarray:
-        return np.concatenate(
-            [s1.rows[idx], s2.rows[idx], flags[idx][:, None]], axis=1
-        )
+        idx = np.asarray(idx, np.int64)
+        if idx.size and (idx.min() < 0 or idx.max() >= B):
+            raise ValueError("exemplar index outside the batch")
+        t = to_device(idx, r1.rows.device)
+        return gather_exemplars(t, r1, r2, spec).cpu().numpy()
 
     return fetch
 
 
-def _single_exemplars(s1: SideResult):
-    flags = s1.has_hits.astype(np.int32) + 4 * s1.overflow.astype(np.int32)
+def _make_compact_postfilter(strand_filter, pos_filter=None):
+    """Per-key filter of the compact path, applied after resolution.
 
-    def fetch(idx: np.ndarray) -> np.ndarray:
-        return np.concatenate([s1.rows[idx], flags[idx][:, None]], axis=1)
+    flags bits 16/32 = per-mate min_range veto (reference:
+    MinCollector::intersectECs range check, MinCollector.cpp:497-507); the
+    tail carries each mate's first-hit (block, strand) [+ (upos, rpos) when
+    the FLD position filter is active].  Filter order matches the
+    reference: position feasibility first, then strand specificity
+    (ProcessReads.cpp:1094-1176).  Per-read keys have no tail and no veto
+    bits, so this is a no-op for them."""
 
-    return fetch
+    def post(u, flags, tail, paired):
+        if flags & 16 or flags & 32:
+            return None
+        if u is None or tail.shape[0] == 0:
+            return u
+        if paired:
+            if pos_filter is not None and bool(flags & 1) != bool(flags & 2):
+                m = 0 if flags & 1 else 1
+                u = pos_filter.apply_one(
+                    u, int(tail[2 * m]), bool(tail[2 * m + 1]),
+                    int(tail[4 + 2 * m]), int(tail[5 + 2 * m]),
+                )
+                if u is None or u.shape[0] == 0:
+                    return None
+            if strand_filter is not None:
+                u = strand_filter.apply_one(
+                    u, bool(flags & 1), int(tail[0]), bool(tail[1]),
+                    bool(flags & 2), int(tail[2]), bool(tail[3]),
+                )
+            return u
+        if pos_filter is not None and flags & 1:
+            u = pos_filter.apply_one(
+                u, int(tail[0]), bool(tail[1]), int(tail[2]), int(tail[3])
+            )
+            if u is None or u.shape[0] == 0:
+                return None
+        if strand_filter is not None:
+            u = strand_filter.apply_one(
+                u, bool(flags & 1), int(tail[0]), bool(tail[1])
+            )
+        return u
+
+    return post
 
 
 def _apply_overflow_fallback(
@@ -148,19 +328,27 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
               device=None) -> QuantResult:
     """Quantify `opt.files` against `index` on `device` (default: the card;
     raises without one unless device='cpu')."""
-    _check_supported(opt)
     dev = resolve_device(device)
+    _check_supported(opt, dev)
     start_time = time.strftime("%a %b %d %H:%M:%S %Y")
     # host wall seconds by phase: index upload, FASTQ read + pack, upload +
     # kernel enqueue, device->host fetch (includes waiting for the
-    # kernels), host resolution/filters/counting, the whole read loop, EM
+    # kernels), host resolution/filters/counting, the whole read loop, EM;
+    # then batch counts by route and the turbo batches' distinct keys
     timings = dict.fromkeys(
         ("index_upload_s", "read_s", "dispatch_s", "fetch_s", "resolve_s",
          "pseudoalign_s", "em_s"), 0.0)
+    timings.update(dict.fromkeys(
+        ("full", "turbo", "compact", "fallback", "n_uniq_max", "n_uniq_sum"),
+        0))
     t0 = time.perf_counter()
     if index is None:
         index = load_index(opt.index_path)
-    didx = device_index_from_host(index, dev)
+    pos_filter: Optional[FldPositionFilter] = None
+    if opt.fld_mean > 0 and not opt.single_overhang:
+        pos_filter = FldPositionFilter(index, fl=int(opt.fld_mean))
+    didx = device_index_from_host(index, dev,
+                                  with_pos_tables=pos_filter is not None)
     timings["index_upload_s"] = time.perf_counter() - t0
     resolver = EcResolver(index)
     k = index.k
@@ -168,19 +356,37 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     paired = opt.paired
     estimate_fld = paired and opt.fld_mean == 0.0
     flens = np.zeros(MAX_FRAG_LEN, np.int64)
+    flen_goal = _flen_goal()
     fl_samples: List[np.ndarray] = []  # eligible lengths in READ order
     tlencount = 0
     num_processed = 0
 
-    pos_filter: Optional[FldPositionFilter] = None
-    if opt.fld_mean > 0 and not opt.single_overhang:
-        pos_filter = FldPositionFilter(index, fl=int(opt.fld_mean))
     strand_filter: Optional[StrandFilter] = None
     if opt.strand in ("fr", "rf"):
         strand_filter = StrandFilter(index, opt.strand)
 
-    def dispatch(b1: PackedBatch, b2: Optional[PackedBatch]):
-        """Enqueue one batch on the device (asynchronous on the card)."""
+    # compact-path filter routing: min_range, strand and the position
+    # filter become part of each read's KEY (veto bits, first-hit
+    # block/strand, position rank) and the resolver applies them once per
+    # key, so these filters do not force the per-read route
+    spec = KeySpec(
+        k=k,
+        min_range=opt.min_range if opt.min_range > 1 else 0,
+        strand_key=strand_filter is not None,
+        pos_fl=int(opt.fld_mean) if pos_filter is not None else -1,
+        pos_depth=pf_probe_depth(index) if pos_filter is not None else 0,
+    )
+    key_kw = dict(min_range=spec.min_range, strand_key=spec.strand_key,
+                  pos_fl=spec.pos_fl, pos_depth=spec.pos_depth)
+    if spec.strand_key or spec.min_range or spec.pos_key:
+        resolver.compact_postfilter = _make_compact_postfilter(
+            strand_filter, pos_filter
+        )
+
+    def dispatch_full(b1: PackedBatch, b2: Optional[PackedBatch],
+                      want_tl: bool):
+        """Enqueue one batch on the per-read route (asynchronous on the
+        card)."""
         r1 = pseudoalign_batch_packed(didx, *upload_batch(b1, dev), k=k, L=b1.Lp)
         r2 = None
         if b2 is not None:
@@ -188,11 +394,122 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                 didx, *upload_batch(b2, dev), k=k, L=b2.Lp
             )
         h, tl = read_keys(r1, r2, k)
-        return b1, b2, r1, r2, h, tl
+        return ("full", b1, b2, r1, r2, h, tl if want_tl else None)
+
+    def dispatch_compact(b1: PackedBatch, b2: Optional[PackedBatch]):
+        """Enqueue one batch on the compact route: a turbo batch when its Ns
+        fit the aux vector, else bitmask slices.  Each key table holds one
+        more row than its batch has reads, so it cannot overflow (a read
+        contributes at most one key); _fetch_ck moves only occupied rows."""
+        sides = (b1,) if b2 is None else (b1, b2)
+        Bp = _bucket_size(b1.n)
+        exc = _turbo_exceptions(sides, Bp)
+        rl = _uniform_len(*sides)
+        aux = None if exc is None else turbo.make_aux(b1.n, rl or 0, exc)
+        lens = None
+        if aux is not None and (rl is None or rl < k):
+            if max(int(b.lens.max()) for b in sides) >= 65536:
+                aux = None
+            else:
+                lens = to_device(np.concatenate(
+                    [_pad_rows(b.lens.astype(np.uint16), Bp) for b in sides]),
+                    dev)
+        if aux is not None:
+            # The JAX package tries host wave 1 and then the two-wave anchor
+            # kernel on a uniform-length batch (pipeline.py:869-898); neither
+            # is ported yet, so it takes turbo with rl -- the route JAX
+            # itself re-dispatches to when an anchor batch overflows (:1198);
+            # tests/test_anchor.py holds the anchor kernel equal to it.
+            # Mixed lengths take turbo_varlen, as in JAX (:899-911).
+            packed = [to_device(_pad_rows(b.packed, Bp), dev, np.uint8)
+                      for b in sides]
+            auxt = to_device(aux, dev)
+            kw = dict(k=k, L=b1.Lp, max_keys=Bp + 1, **key_kw)
+            if b2 is None:
+                if lens is None:
+                    r1, ck = turbo.pseudoalign_single_turbo(
+                        didx, packed[0], auxt, rl=rl, **kw)
+                else:
+                    r1, ck = turbo.pseudoalign_single_turbo_varlen(
+                        didx, packed[0], auxt, lens, **kw)
+                return ("turbo", b1, None, r1, None, ck)
+            if lens is None:
+                r1, r2, ck = turbo.pseudoalign_pair_turbo(
+                    didx, packed[0], packed[1], auxt, rl=rl, **kw)
+            else:
+                r1, r2, ck = turbo.pseudoalign_pair_turbo_varlen(
+                    didx, packed[0], packed[1], auxt, lens, **kw)
+            return ("turbo", b1, b2, r1, r2, ck)
+        # N-dense batch: the bitmask kernels in memory-bounded slices
+        subs = []
+        for lo in range(0, b1.n, _FALLBACK_CAP):
+            hi = min(lo + _FALLBACK_CAP, b1.n)
+            sb1 = _slice_packed(b1, lo, hi)
+            kw = dict(k=k, L=b1.Lp, max_keys=hi - lo + 1, **key_kw)
+            if b2 is None:
+                r1, ck = pseudoalign_single_compact_packed(
+                    didx, *upload_batch(sb1, dev), **kw)
+                subs.append(("compact", sb1, None, r1, None, ck))
+            else:
+                sb2 = _slice_packed(b2, lo, hi)
+                r1, r2, ck = pseudoalign_pair_compact_packed(
+                    didx, *upload_batch(sb1, dev), *upload_batch(sb2, dev),
+                    **kw)
+                subs.append(("compact", sb1, sb2, r1, r2, ck))
+        return ("multi", b1, subs)
+
+    def dispatch(b1: PackedBatch, b2: Optional[PackedBatch], want_fld: bool):
+        """Route one batch (JAX dispatch_pair :831 / dispatch_single :1345):
+        the compact route once FLD learning is over (paired) or unless
+        --union is on (single-end); the per-read route otherwise."""
+        if b2 is None:
+            compact = not opt.do_union
+        else:
+            compact = not want_fld and b1.Lp == b2.Lp
+        if compact:
+            return dispatch_compact(b1, b2)
+        return dispatch_full(b1, b2, want_fld)
 
     def process(ctx):
+        nonlocal num_processed
+        if ctx[0] == "multi":
+            for sub in ctx[2]:
+                process(sub)
+            return
+        if ctx[0] == "full":
+            process_full(ctx)
+            timings["full"] += 1
+            return
+        route, b1, b2, r1, r2, ck = ctx
+        t1 = time.perf_counter()
+        arr = _fetch_ck(ck)
+        t2 = time.perf_counter()
+        timings["fetch_s"] += t2 - t1
+        uniq_h, occ, first_idx, flags, n_uniq = unflatten_ck_host(arr)
+        if route == "turbo":
+            timings["n_uniq_max"] = max(timings["n_uniq_max"], n_uniq)
+            timings["n_uniq_sum"] += n_uniq
+        if n_uniq <= occ.shape[0] and not (flags[occ > 0] & 12).any():
+            resolver.process_compact(
+                uniq_h, occ, first_idx, _exemplar_fetcher(r1, r2, spec),
+                int(r1.rows.shape[1]), paired=paired, do_union=opt.do_union,
+            )
+            num_processed += b1.n
+            timings[route] += 1
+            timings["resolve_s"] += time.perf_counter() - t2
+            return
+        # rare: a read exceeded R distinct rows or the batch exceeded its
+        # key table -- redo this batch per read, in memory-bounded slices
+        timings["fallback"] += 1
+        for lo in range(0, b1.n, _FALLBACK_CAP):
+            hi = min(lo + _FALLBACK_CAP, b1.n)
+            process_full(dispatch_full(
+                _slice_packed(b1, lo, hi),
+                None if b2 is None else _slice_packed(b2, lo, hi), False))
+
+    def process_full(ctx):
         nonlocal num_processed, tlencount
-        b1, b2, r1, r2, h, tl = ctx
+        _, b1, b2, r1, r2, h, tl = ctx
         t1 = time.perf_counter()
         # one device->host copy of each per-read array per batch (waits for
         # the batch's kernels)
@@ -202,10 +519,9 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         tl_h = tl.cpu().numpy() if tl is not None else None
         t2 = time.perf_counter()
         timings["fetch_s"] += t2 - t1
-        R = int(s1.rows.shape[1])
-        fetch = _pair_exemplars(s1, s2) if paired else _single_exemplars(s1)
         read_uidx, uniq_sets = resolver.resolve_batch_hashed(
-            hh, fetch, R, paired=paired, do_union=opt.do_union,
+            hh, _exemplar_fetcher(r1, r2, KeySpec()), int(s1.rows.shape[1]),
+            paired=paired, do_union=opt.do_union,
         )
         _apply_overflow_fallback(
             resolver, index, read_uidx, uniq_sets, opt.do_union, (s1, b1),
@@ -253,7 +569,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                 )
         read_ec, read_card = resolver.count_batch(final_idx, final_sets)
         num_processed += b1.n
-        if tl_h is not None and estimate_fld and tlencount < _FLEN_GOAL:
+        if tl_h is not None and tlencount < flen_goal:
             ok = (
                 (tl_h > 0)
                 & (tl_h < MAX_FRAG_LEN)
@@ -261,7 +577,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                 & s1.has_hits
                 & s2.has_hits
             )
-            take = np.flatnonzero(ok)[: _FLEN_GOAL - tlencount]
+            take = np.flatnonzero(ok)[: flen_goal - tlencount]
             fl_samples.append(tl_h[take].astype(np.int64))
             tlencount += take.shape[0]
         timings["resolve_s"] += time.perf_counter() - t2
@@ -281,6 +597,8 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             for b in packed_paired_batches(
                 opt.files[i], opt.files[i + 1], opt.batch_size, k)
         )
+        if estimate_fld:
+            batch_iter = _split_first_pair_batch(batch_iter)
     else:
         _log("[quant] running in single-end mode")
         if opt.fld_mean <= 0 or opt.fld_sd <= 0:
@@ -294,13 +612,21 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     _log("[quant] finding pseudoalignments for the reads ...", end="")
     t0 = time.perf_counter()
     # pipelined loop, depth 2: the next batch's kernels run on the card
-    # while the oldest batch resolves on the host
+    # while the oldest batch resolves on the host.  While the FLD is being
+    # learned, every pending batch is processed before the next dispatch,
+    # so the batch that reaches the goal is the last one sent per read
+    # (JAX pipeline.py:1688-1697, the route without a host probe).
     pend = deque()
     t_read = time.perf_counter()
     for b1, b2 in batch_iter:
         t1 = time.perf_counter()
         timings["read_s"] += t1 - t_read
-        pend.append(dispatch(b1, b2))
+        if estimate_fld and tlencount < flen_goal:
+            while pend:
+                process(pend.popleft())
+            t1 = time.perf_counter()
+        want_fld = estimate_fld and tlencount < flen_goal
+        pend.append(dispatch(b1, b2, want_fld))
         timings["dispatch_s"] += time.perf_counter() - t1
         if len(pend) > 1:
             process(pend.popleft())

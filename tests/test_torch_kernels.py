@@ -4,7 +4,8 @@ Each test runs a kernel on the card and the plain version on the CPU on
 the same seeded inputs (the bundled transcriptome's index and reads, plus
 random reads with Ns, ragged lengths and reads shorter than k) and
 requires equality: every SideResult field and every key bit for kernels
-A and B, bitwise alpha and equal rounds for kernel C.  They need a CUDA
+A, B and D, every table entry and exemplar row for kernels E and F,
+bitwise alpha and equal rounds for kernel C.  They need a CUDA
 card and skip without one; this file imports no JAX, so it also runs where
 JAX is absent:
 
@@ -146,3 +147,121 @@ def test_wrappers_refuse_cpu_tensors_and_count_launches(cuda, port_index):
     pa.read_keys(s, None, K)
     assert kernels.LAUNCHES["pseudoalign_side"] == 1
     assert kernels.LAUNCHES["read_keys"] == 1
+
+
+def _turbo_case(index, single, varlen, dev):
+    """One turbo batch (Bp > n, Ns through the aux vector, uniform length
+    50 < Lp = 56 or ragged lengths) as tensors on `dev`."""
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.quant.pipeline import (
+        _bucket_size, _pad_rows, _turbo_exceptions, _uniform_len)
+
+    L = 50
+    bs = [_random_batch(index, 3000, L, s) for s in ((11,) if single else (11, 12))]
+    if not varlen:
+        for b in bs:  # the ragged reads of _random_batch get full length
+            b.lens[:] = L
+    Bp = _bucket_size(3000, lo=256)
+    exc = _turbo_exceptions(bs, Bp)
+    rl = _uniform_len(*bs)
+    aux = turbo.make_aux(3000, rl or 0, exc)
+    packed = [torch.from_numpy(_pad_rows(b.packed, Bp)).to(dev) for b in bs]
+    lens = None
+    if varlen:
+        lens = torch.from_numpy(np.concatenate(
+            [_pad_rows(b.lens.astype(np.uint16), Bp) for b in bs])).to(dev)
+    return packed, torch.from_numpy(aux).to(dev), lens, bs[0].Lp, rl or 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single,varlen", [(False, False), (False, True),
+                                           (True, False), (True, True)])
+def test_kernel_d_matches_plain(cuda, port_index, single, varlen):
+    from kallisto_tpu_torch.ops import turbo
+
+    dg = pa.device_index_from_host(port_index, cuda)
+    dc = pa.device_index_from_host(port_index, "cpu")
+    out = {}
+    for dev, d in ((cuda, dg), ("cpu", dc)):
+        packed, aux, lens, L, rl = _turbo_case(port_index, single, varlen, dev)
+        out[str(dev)] = turbo.turbo_sides(d, packed, aux, lens, K, L, 16, rl)
+    g, c = out[str(cuda)], out["cpu"]
+    assert bool(c.has_hits.any())
+    for f in pa.SideResult._fields:
+        a, b = getattr(g, f).cpu(), getattr(c, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [True, False])
+def test_kernel_b_compact_layout_matches_plain(cuda, port_index, paired):
+    depth = pa.pf_probe_depth(port_index)
+    spec = pa.KeySpec(k=K, min_range=50, strand_key=True, pos_fl=180,
+                      pos_depth=depth)
+    res = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev, with_pos_tables=True)
+        bs = _batches(port_index)
+        s1 = _sides(d, bs["rand100"], dev)
+        s2 = _sides(d, _random_batch(port_index, 5000, 100, 9), dev) \
+            if paired else None
+        res[str(dev)] = pa.compact_key_hash(s1, s2, spec, d)
+    (hg, fg), (hc, fc) = res[str(cuda)], res["cpu"]
+    assert torch.equal(hg.cpu(), hc) and torch.equal(fg.cpu(), fc)
+    assert bool((fc & 16).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_", [1, 100, 6000])
+def test_kernel_e_matches_plain(cuda, K_):
+    rng = np.random.default_rng(K_)
+    pool = rng.integers(-2**63, 2**63 - 1, (3000, 2), dtype=np.int64)
+    pool[1, 0] = pool[0, 0]
+    pool[2, 0] = -1  # the all-ones word: the table's empty marker
+    h = pool[rng.integers(0, 3000, 20000)]
+    flags = (np.abs(h[:, 0]) % 64).astype(np.int32)
+    th, tf = torch.from_numpy(h), torch.from_numpy(flags)
+    before = kernels.LAUNCHES["key_histogram"]
+    g = pa.key_histogram(th.to(cuda), tf.to(cuda), K_)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["key_histogram"] == before + 1
+    assert torch.equal(g.cpu(), pa.key_histogram_plain(th, tf, K_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [True, False])
+@pytest.mark.parametrize("mr,sk,pk", [(0, False, False), (50, False, False),
+                                      (0, True, False), (50, True, True)])
+def test_kernel_f_matches_plain(cuda, port_index, paired, mr, sk, pk):
+    spec = pa.KeySpec(k=K, min_range=mr, strand_key=sk,
+                      pos_fl=180 if pk else -1)
+    idx = np.random.default_rng(4).integers(0, 5000, 700)
+    res = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        bs = _batches(port_index)
+        s1 = _sides(d, bs["rand100"], dev)
+        s2 = _sides(d, bs["rand76"], dev) if paired else None
+        res[str(dev)] = pa.gather_exemplars(
+            torch.from_numpy(idx).to(dev), s1, s2, spec)
+    assert torch.equal(res[str(cuda)].cpu(), res["cpu"])
+
+
+@pytest.mark.cuda
+def test_compact_route_on_the_card_is_golden(cuda, port_index, tmp_path):
+    from kallisto_tpu_torch.common import Options
+    from kallisto_tpu_torch.quant.pipeline import run_quant
+
+    kernels.reset_launches()
+    out = str(tmp_path / "single")
+    res = run_quant(Options(
+        files=[os.path.join(DATA, "reads_1.fastq.gz")], single_end=True,
+        fld_mean=180, fld_sd=20, output_dir=out, batch_size=4096),
+        index=port_index, device=cuda)
+    assert res.timings["turbo"] > 0 and res.timings["full"] == 0
+    for name in ("pseudoalign_turbo", "read_keys", "key_histogram",
+                 "gather_exemplars", "em_step"):
+        assert kernels.LAUNCHES[name] > 0, name
+    with open(os.path.join(out, "abundance.tsv")) as f, open(os.path.join(
+            DATA, "..", "golden", "quant_single", "abundance.tsv")) as g:
+        assert f.read() == g.read()

@@ -18,6 +18,7 @@ from kallisto_tpu.common import Options as JOptions
 from kallisto_tpu.quant.pipeline import run_quant as jrun_quant
 from kallisto_tpu_torch.common import Options
 from kallisto_tpu_torch.index import build_index, save_index
+from kallisto_tpu_torch.ops import turbo as turbo_mod
 from kallisto_tpu_torch.quant.pipeline import run_quant
 
 # The test workers share the machine's cores: one intra-op thread per
@@ -64,14 +65,32 @@ GOLDEN_CASES = {
 }
 
 
+# With an explicit -l no fragment lengths are learned, so these runs take
+# the compact steady state from their first batch (turbo batches); paired
+# runs without -l stay per read ("full") because their 10,000 pairs never
+# reach the FLD goal.
+COMPACT_CASES = {"single", "single_r2", "halfmapped", "halfmapped_fr"}
+
+
+def _routes(res):
+    return {r: res.timings[r] for r in ("full", "turbo", "compact", "fallback")}
+
+
 @pytest.mark.parametrize("case", sorted(GOLDEN_CASES))
 def test_abundance_byte_equal_to_golden(port_index, tmp_path, case):
     kw, golden = GOLDEN_CASES[case]
     out = str(tmp_path / case)
-    run_quant(Options(output_dir=out, batch_size=4096, **kw),
-              index=port_index, device="cpu")
+    res = run_quant(Options(output_dir=out, batch_size=4096, **kw),
+                    index=port_index, device="cpu")
     assert _read(os.path.join(out, "abundance.tsv")) == \
         _read(os.path.join(GOLDEN, golden))
+    routes = _routes(res)
+    if case in COMPACT_CASES:
+        assert routes["turbo"] > 0 and routes["full"] == 0, routes
+        assert 0 < res.timings["n_uniq_max"] <= res.timings["n_uniq_sum"]
+    else:
+        assert routes["full"] > 0 and routes["turbo"] == 0, routes
+    assert routes["compact"] == routes["fallback"] == 0, routes
 
 
 def test_dlist_abundance_byte_equal_to_golden(tmp_path):
@@ -134,12 +153,124 @@ def test_batch_size_invariance(port_index):
 
 @pytest.mark.parametrize("opt", [
     dict(bias=True), dict(bootstrap=2), dict(pseudobam=True),
-    dict(long_read=True), dict(threads=2),
+    dict(long_read=True), dict(n_devices=2),
 ])
 def test_unported_options_raise(port_index, opt):
     with pytest.raises(NotImplementedError):
         run_quant(Options(files=[R1, R2], **opt), index=port_index,
                   device="cpu")
+
+
+def test_threads_run_on_one_device(port_index, tmp_path):
+    """-t N asks for up to N devices; the CPU is one, so -t 4 runs there
+    and gives the same bytes as without -t."""
+    out = str(tmp_path / "t4")
+    run_quant(Options(files=[R1, R2], output_dir=out, threads=4,
+                      batch_size=4096), index=port_index, device="cpu")
+    assert _read(os.path.join(out, "abundance.tsv")) == \
+        _read(os.path.join(GOLDEN, "quant_paired", "abundance.tsv"))
+
+
+STEADY_CASES = {
+    "plain": dict(),
+    "min_range": dict(min_range=50),
+    "fr": dict(strand="fr"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEADY_CASES))
+def test_paired_steady_state_matches_jax_and_per_read(port_index, tmp_path,
+                                                      monkeypatch, case):
+    """Paired runs that leave FLD learning after 1000 fragment lengths and
+    take the turbo route for the rest: abundance.tsv byte-equal to the JAX
+    package's run under the same settings (device path, no host probe),
+    EC counts and EC sets equal to the port's own all-per-read run."""
+    kw = dict(files=[R1, R2], batch_size=1024, **STEADY_CASES[case])
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
+    monkeypatch.setenv("KALLISTO_TPU_FLEN_GOAL", "1000")
+    out = str(tmp_path / "port")
+    res = run_quant(Options(output_dir=out, **kw), index=port_index,
+                    device="cpu")
+    routes = _routes(res)
+    assert routes["turbo"] > 0 and routes["full"] > 0, routes
+    assert routes["fallback"] == routes["compact"] == 0, routes
+    jout = str(tmp_path / "jax")
+    jrun_quant(JOptions(output_dir=jout, plaintext=True, **kw),
+               index=port_index)
+    assert _read(os.path.join(out, "abundance.tsv")) == \
+        _read(os.path.join(jout, "abundance.tsv"))
+    monkeypatch.setenv("KALLISTO_TPU_FLEN_GOAL", "1000000")
+    full = run_quant(Options(**kw), index=port_index, device="cpu")
+    assert _routes(full)["turbo"] == 0
+    np.testing.assert_array_equal(res.counts, full.counts)
+    assert [s.tolist() for s in res.ec_sets] == \
+        [s.tolist() for s in full.ec_sets]
+
+
+def test_n_dense_batches_take_the_compact_route(port_index, tmp_path,
+                                                monkeypatch):
+    """Reads with Ns and an aux vector that holds none: every batch with
+    an N goes through the bitmask kernels (the compact route) and gives
+    the same bytes as the turbo route and the JAX package."""
+    import gzip
+
+    rng = np.random.default_rng(17)
+    src = gzip.open(R1, "rt").read().split("\n")
+    for i in range(1, len(src), 4):
+        if src[i] and rng.random() < 0.05:
+            s = list(src[i])
+            for j in rng.integers(0, len(s), 2):
+                s[j] = "N"
+            src[i] = "".join(s)
+    fq = str(tmp_path / "n_reads.fastq.gz")
+    with gzip.open(fq, "wt") as f:
+        f.write("\n".join(src))
+    kw = dict(files=[fq], single_end=True, fld_mean=180, fld_sd=20,
+              batch_size=4096)
+    outs = {}
+    for route in ("turbo", "compact"):
+        if route == "compact":
+            monkeypatch.setattr(turbo_mod, "EXC_CAP", 0)
+        out = str(tmp_path / route)
+        res = run_quant(Options(output_dir=out, **kw), index=port_index,
+                        device="cpu")
+        routes = _routes(res)
+        assert routes[route] > 0 and routes["full"] == 0, routes
+        outs[route] = _read(os.path.join(out, "abundance.tsv"))
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
+    jout = str(tmp_path / "jax")
+    jrun_quant(JOptions(output_dir=jout, plaintext=True, **kw),
+               index=port_index)
+    assert outs["compact"] == outs["turbo"] == \
+        _read(os.path.join(jout, "abundance.tsv"))
+
+
+DLIST_CASES = {
+    "quant_dlist_mix": (dict(dlist_paths=[os.path.join(DATA, "dlist.fasta")]),
+                        9567),
+    "quant_dlist_D3": (dict(dlist_paths=[os.path.join(DATA, "dlist.fasta")],
+                            dlist_overhang=3), 9566),
+    "quant_dlist_multi": (dict(dlist_paths=[
+        os.path.join(DATA, "dlist_part1.fasta"),
+        os.path.join(DATA, "dlist_part2.fasta")]), 9567),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DLIST_CASES))
+def test_dlist_goldens_with_contaminants(tmp_path, case):
+    """The D-list goldens over two file pairs (bundled reads + 200
+    contaminant pairs), as tests/test_dlist.py builds them."""
+    ikw, n_aligned = DLIST_CASES[case]
+    index = build_index([os.path.join(DATA, "transcripts.fasta.gz")], k=31,
+                        **ikw)
+    out = str(tmp_path / case)
+    res = run_quant(Options(
+        files=[R1, R2, os.path.join(DATA, "contam_1.fastq.gz"),
+               os.path.join(DATA, "contam_2.fastq.gz")],
+        output_dir=out, plaintext=True), index=index, device="cpu")
+    assert res.num_pseudoaligned == n_aligned
+    assert _read(os.path.join(out, "abundance.tsv")) == \
+        _read(os.path.join(GOLDEN, case, "abundance.tsv"))
 
 
 def test_cli_index_and_quant_on_cpu(port_index, tmp_path):

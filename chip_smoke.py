@@ -5,8 +5,10 @@
 
 Drives the port's main path -- `quant` on paired-end reads: the per-read
 path while the fragment-length distribution is learned, then the compact
-steady state (turbo batches reduced to a key table) -- on the card, and
-holds every CUDA kernel of that path against its plain PyTorch version:
+steady state (turbo batches reduced to a key table) -- and `quant --bias
+-b 100` (hexamers per read, the bias EM, 100 bootstraps through the
+batched EM) on the card, and holds every CUDA kernel of those paths
+against its plain PyTorch version:
 
 1. device: requires CUDA, prints the card's name and power limit, builds
    the kernels (one nvcc per source, in parallel);
@@ -23,19 +25,40 @@ holds every CUDA kernel of that path against its plain PyTorch version:
    Ns, a ragged-length batch, a single-end batch, a bitmask (N-dense)
    batch, and keys with min_range 50, the strand tail and the position
    rank; every field, key and table entry must be equal;
+3c. kernel H (bias_hexamers) against its plain version on the card, on the
+   phase-3 pairs (mate 1 from kernel A, valid = mate 2's has_hits): equal;
 4. golden bytes: `quant` paired, `--single -l 180 -s 20` and the half-mapped
    `-l 180 -s 20` pairs on tests/data, abundance.tsv byte-equal to
    tests/golden, run stats 10000/9413/7174, and the routes: per-read batches
    only for the paired run, turbo batches (no fallback) for the others;
+4b. `-b 20` on tests/data: the reference replicates' distribution checks
+   (tests/golden/quant_bs) and bs_abundance_*.tsv byte-equal between the
+   card and the CPU; `--bias` paired and single-end: abundance.tsv and the
+   observed hexamers equal between the card and the CPU; `--bias -l 180
+   -s 20` paired with the bias goal cut to 3,000 reads and 1,024-read
+   batches, so that batches go turbo after the goal: the same, with turbo
+   batches on both;
 5. the main path at realistic size: `quant` of the 1M pairs on the card
    with every launch count set to 0 just before and read just after, the
-   kernels A-F all launched; checks of its output; the same pairs again
+   kernels A, B, D, E, F and G all launched; checks of its output; the
+   same pairs again
    with every batch per read (equal EC counts and sets); the first 65,536
    pairs with batch 8192 and an FLD goal of 1000 on the card and on the CPU
    (equal EC counts and sets, turbo batches on both);
-6. kernel C (em_step) on the main path's EM problem: the whole EM on the
-   card against the plain version on the CPU, bitwise equal alpha and equal
-   rounds;
+5b. the slice at realistic size: `quant --bias -b 100 --plaintext` of the
+   same pairs with the launch counts set to 0 just before and read just
+   after, kernels G and H launched; hexamers counted, effective lengths
+   changed, 100 replicates that each conserve the aligned mass, EC counts
+   and sets equal to phase 5's;
+6. kernel G (em_step_batch) with one replicate, the main EM, on the main
+   path's EM problem: the whole EM on the card against the plain version
+   on the CPU, bitwise equal alpha and equal rounds; one update timed;
+6b. kernel G on the same problem with replicates: 8 resampled from phase
+   5's counts, the whole batched EM on the card bitwise equal to the plain
+   version on the CPU with equal rounds per replicate; then one update of
+   100 replicates with frozen, updating and zeroing replicates mixed,
+   bitwise equal to the plain version on the CPU; then 100 replicates'
+   EM on the card, timed;
 7. one `kernels` JSON line, then the result line.
 
 Any failed check raises, which ends the run with a non-zero exit and no
@@ -59,6 +82,9 @@ READ_LEN = 100
 CPU_RERUN_PAIRS = 65536
 # batch counts by route in run_quant's timings
 ROUTES = ("full", "turbo", "compact", "fallback")
+# the main path's kernels (phase 5); H runs under --bias, G also under -b N
+MAIN_PATH_KERNELS = ("pseudoalign_side", "read_keys", "em_step_batch",
+                     "pseudoalign_turbo", "key_histogram", "gather_exemplars")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the scalar
 # (non-tensor) float32 rate, used here for integer operations, and float64.
@@ -75,6 +101,20 @@ def check(cond, what):
     if not cond:
         raise AssertionError(f"check failed: {what}")
     log(f"  ok: {what}")
+
+
+def est_counts_of(path):
+    """The est_counts column of an abundance.tsv."""
+    import numpy as np
+
+    with open(path) as f:
+        next(f)
+        return np.array([float(line.split("\t")[3]) for line in f])
+
+
+def read_file(path):
+    with open(path) as f:
+        return f.read()
 
 
 def cuda_ms(fn, reps, torch):
@@ -97,6 +137,17 @@ def bound(nbytes, nops, op_rate):
     tb = nbytes / PEAK_BYTES * 1e3
     to = nops / op_rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def em_bound(Bb, T, E, M):
+    """Kernel G's bound for one update of Bb running replicates: alpha,
+    singletons, next and counts per replicate, the shared inv_eff and CSR
+    (flat_tx, tx_ec, both pointer arrays), mode and the change counts;
+    about 4 float64 operations per flat entry and pass, 3 per EC and 10
+    per transcript."""
+    nbytes = (8 * Bb * (3 * T + E) + 8 * T + 8 * M + 8 * (T + E + 2)
+              + 8 * Bb)
+    return bound(nbytes, Bb * (4 * M + 3 * E + 10 * T), PEAK_F64)
 
 
 def truncate_fastq(src, dst, n_records):
@@ -156,7 +207,7 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     compact-layout time."""
     from kallisto_tpu_torch.ops import turbo
     from kallisto_tpu_torch.quant.pipeline import (
-        _bucket_size, _pad_rows, _turbo_exceptions, _uniform_len)
+        _pad_rows, _turbo_exceptions, _uniform_len)
 
     rng = np.random.default_rng(99)
     Bp = rb1.n  # the default batch: 262,144 pairs
@@ -308,6 +359,143 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     _equal_tables(torch, gck, pck, "bitmask route")
     return out
 
+
+def phase_4b(np, run_quant, Options, tidx, pf, golden, work, dev):
+    """Bootstraps and bias on tests/data, card against CPU."""
+    n_bs = 20
+    outs = {}
+    for where in (dev, "cpu"):
+        out = os.path.join(work, f"bs_{where}")
+        res = run_quant(Options(files=pf, bootstrap=n_bs, batch_size=10000,
+                                plaintext=True, output_dir=out),
+                        index=tidx, device=where)
+        outs[str(where)] = (res, out)
+    (rg, og), (rc, oc) = outs[str(dev)], outs["cpu"]
+    mine = rg.bootstraps
+    check(mine.shape == (n_bs, tidx.num_trans)
+          and np.allclose(mine.sum(axis=1), rg.counts.sum(), rtol=1e-6),
+          f"-b {n_bs}: replicates conserve the aligned mass")
+    # the distribution checks of tests/test_bootstrap.py against the
+    # reference's 20 replicates
+    ref = np.stack([est_counts_of(os.path.join(
+        golden, "quant_bs", f"bs_abundance_{b}.tsv")) for b in range(n_bs)])
+    se = np.maximum(ref.std(axis=0), mine.std(axis=0)) / np.sqrt(n_bs)
+    big = ref.mean(axis=0) > 10
+    check((np.abs(ref.mean(axis=0) - mine.mean(axis=0))[big]
+           < 5 * se[big] + 1.0).all(),
+          "-b 20: replicate means agree with tests/golden/quant_bs")
+    nz = (ref.std(axis=0) > 1.0) & (mine.std(axis=0) > 1.0)
+    ratio = mine.std(axis=0)[nz] / ref.std(axis=0)[nz]
+    check(nz.any() and (ratio > 1 / 3).all() and (ratio < 3).all(),
+          "-b 20: replicate spreads within 3x of tests/golden/quant_bs")
+    check(all(read_file(os.path.join(og, f"bs_abundance_{b}.tsv"))
+              == read_file(os.path.join(oc, f"bs_abundance_{b}.tsv"))
+              for b in range(n_bs)),
+          "-b 20: bs_abundance_{0..19}.tsv byte-equal, card vs CPU")
+    check(np.array_equal(rg.bootstraps, rc.bootstraps),
+          "-b 20: replicates bitwise equal, card vs CPU")
+    from kallisto_tpu_torch.quant import pipeline
+
+    l180 = dict(fld_mean=180, fld_sd=20)
+    # the last case cuts the bias goal to 3,000 reads, as the depth test of
+    # tests/test_torch_bias.py does, so that batches go turbo after it
+    for case, (name, goal, kw) in enumerate((
+            ("paired", None, dict(files=pf, batch_size=4096)),
+            ("single", None, dict(files=pf[:1], single_end=True,
+                                  batch_size=4096, **l180)),
+            ("paired -l 180, goal 3000", 3000,
+             dict(files=pf, batch_size=1024, **l180)))):
+        got = {}
+        goal0 = pipeline._BIAS_GOAL
+        pipeline._BIAS_GOAL = goal or goal0
+        try:
+            for where in (dev, "cpu"):
+                out = os.path.join(work, f"bias_{case}_{where}")
+                res = run_quant(Options(bias=True, plaintext=True,
+                                        output_dir=out, **kw),
+                                index=tidx, device=where)
+                got[str(where)] = (res, read_file(
+                    os.path.join(out, "abundance.tsv")))
+        finally:
+            pipeline._BIAS_GOAL = goal0
+        (rg, tg), (rc, tc) = got[str(dev)], got["cpu"]
+        check(rg.bias5.sum() > 0 and np.array_equal(rg.bias5, rc.bias5)
+              and tg == tc,
+              f"--bias {name}: {int(rg.bias5.sum())} hexamers equal and "
+              "abundance.tsv byte-equal, card vs CPU")
+        if goal:
+            check(rg.bias5.sum() >= goal and rg.timings["turbo"] > 0
+                  and rc.timings["turbo"] > 0,
+                  f"--bias {name}: turbo batches after the goal on the card "
+                  f"({rg.timings['turbo']}) and on the CPU "
+                  f"({rc.timings['turbo']})")
+
+
+def phase_6b(torch, np, emq, bsq, kernels, problem, res, dev):
+    """Kernel G with replicates on the main path's EM problem.  Returns
+    (kernel row fields, summary fields)."""
+    seeds = bsq.bootstrap_seeds(42, 8)
+    cb = np.stack([bsq.resample_counts(res.counts, s) for s in seeds])
+    eg = emq.run_em_batch(problem, cb, res.eff_lens, device=dev)
+    ec = emq.run_em_batch(problem, cb, res.eff_lens, device="cpu")
+    check(np.array_equal(eg.n_rounds, ec.n_rounds),
+          f"8 replicates: rounds equal per replicate ({eg.n_rounds.tolist()})")
+    check(np.array_equal(eg.alpha, ec.alpha)
+          and np.array_equal(eg.alpha_before_zeroes, ec.alpha_before_zeroes),
+          "8 replicates: alpha bitwise equal, card vs CPU")
+    err = float(np.max(np.abs(eg.alpha - ec.alpha)))
+
+    n_bs = 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resampled = np.stack([bsq.resample_counts(res.counts, s)
+                          for s in bsq.bootstrap_seeds(42, n_bs)])
+    t1 = time.perf_counter()
+    eb = emq.run_em_batch(problem, resampled, res.eff_lens, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rounds = int(eb.n_rounds.max()) + 1  # launches of G in this run
+    sa_b, mc_b = emq.em_inputs(problem, resampled)
+    prob = emq.device_em_problem(problem, sa_b, mc_b, 1.0 / res.eff_lens, dev)
+    alpha = torch.from_numpy(eb.alpha_before_zeroes).to(dev)
+    # one update at the bootstrap shape with replicates frozen, updating
+    # and zeroing (the converged alphas hold values below the zeroing
+    # limit), against the plain version on the CPU
+    mixed = np.arange(n_bs, dtype=np.int32) % 3
+    ng, cg = kernels.em_step_batch(alpha, prob,
+                                   torch.from_numpy(mixed).to(dev))
+    prob_cpu = emq.device_em_problem(problem, sa_b, mc_b, 1.0 / res.eff_lens,
+                                     "cpu")
+    npl, cpl = emq.em_step_batch_plain(alpha.cpu(), prob_cpu,
+                                       torch.from_numpy(mixed))
+    n_zeroed = int((eb.alpha_before_zeroes[mixed == 2] < 1e-8).sum())
+    check(n_zeroed > 0 and torch.equal(ng.cpu(), npl)
+          and torch.equal(cg.cpu(), cpl),
+          f"kernel G, one update of {n_bs} replicates (modes 0/1/2 mixed, "
+          f"{n_zeroed} values zeroed): next and change counts bitwise equal "
+          "to the plain version on the CPU")
+    err = max(err, float((ng.cpu() - npl).abs().max()))
+    del ng, cg, npl, cpl, prob_cpu
+    mode = torch.ones(n_bs, dtype=torch.int32, device=dev)
+    step = kernels.bind_em_step(prob)  # as the EM loop launches it
+    ms = cuda_ms(lambda: step(alpha, mode), 20, torch)
+    plain = cuda_ms(lambda: emq.em_step_batch_plain(alpha, prob, mode), 5,
+                    torch)
+    T, E = problem.num_trans, prob.num_multi
+    M = int(prob.flat_tx.shape[0])
+    bnd = em_bound(n_bs, T, E, M)
+    log(f"kernel G: {ms:.4f} ms per round of {n_bs} replicates (plain on "
+        f"card {plain:.3f} ms); bootstraps: resampling {t1 - t0:.3f} s, "
+        f"batched EM {t2 - t1:.3f} s over {rounds} rounds "
+        f"({(t2 - t1) / rounds * 1e3:.4f} ms per round with the host read of "
+        f"the change counts), replicate rounds {int(eb.n_rounds.min())}-"
+        f"{int(eb.n_rounds.max())}; T={T} E={E} M={M}")
+    summary = {"bs100_resample_s": t1 - t0, "bs100_em_s": t2 - t1,
+               "bs100_rounds": rounds,
+               "bs100_round_ms": (t2 - t1) / rounds * 1e3}
+    return (ms, plain, bnd, err), summary
+
+
 def main(argv=None):
     import argparse
 
@@ -334,6 +522,7 @@ def main(argv=None):
     from kallisto_tpu_torch.io import fastx
     from kallisto_tpu_torch.ops import kernels
     from kallisto_tpu_torch.ops import pseudoalign as pa
+    from kallisto_tpu_torch.quant import bootstrap as bsq
     from kallisto_tpu_torch.quant import em as emq
     from kallisto_tpu_torch.quant.pipeline import run_quant
     from kallisto_tpu_torch.utils.benchdata import generate_paired
@@ -457,7 +646,30 @@ def main(argv=None):
         log(f"kernel A: {ms_a:.3f} ms (plain on card {plain_a:.3f} ms), "
             f"B={B} Lp={pb1.Lp} windows={n_win} valid={n_valid} hits={n_hit}")
         log(f"kernel B: {ms_b:.3f} ms (plain on card {plain_b:.3f} ms)")
-        del side_gpu, side_cpu, stats_a, g_in, didx_cpu
+
+        # ------------------------------------------------- 3c. kernel H
+        log(f"== phase 3c: kernel H against its plain version "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        bt = pa.bias_tables_from_host(index, dev)
+        valid = s2g.has_hits
+        hx = pa.bias_hexamers(bt, s1g, valid, k)
+        hxp = pa.bias_hexamers_plain(bt, s1g, valid, k)
+        torch.cuda.synchronize()
+        n_hx = int((hxp >= 0).sum())
+        check(torch.equal(hx, hxp),
+              f"kernel H: {B} hexamer ids equal ({n_hx} reads with one)")
+        ms_h = cuda_ms(lambda: kernels.bias_hexamers(bt, s1g, valid, k), 20,
+                       torch)
+        plain_h = cuda_ms(lambda: pa.bias_hexamers_plain(bt, s1g, valid, k),
+                          5, torch)
+        # per read four int32 and three bool fields in, one int32 out; per
+        # read with a hit and a valid mate one sector each of block_start,
+        # block_end, unitig_seq_off and unitig_seq
+        n_ok = int((s1g.has_hits & valid).sum())
+        bound_h = bound(B * (4 * 4 + 3 + 4) + 32 * 4 * n_ok, 0, PEAK_INT_OPS)
+        log(f"kernel H: {ms_h:.4f} ms (plain on card {plain_h:.3f} ms), "
+            f"B={B}, {n_ok} reads with hits on both mates")
+        del side_gpu, side_cpu, stats_a, g_in, didx_cpu, hx, hxp, valid, bt
 
         # ---------------------------- 3b. kernels D, E, F and B extended
         log("== phase 3b: kernels D, E, F and B (compact keys) against "
@@ -500,8 +712,13 @@ def main(argv=None):
                       and routes["full"] == 0,
                       f"{name}: turbo batches, no fallback {routes}")
 
+        log(f"== phase 4b: bootstraps and bias, card against CPU "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        phase_4b(np, run_quant, Options, tidx, pf, golden, work, dev)
+
         # -------------------------------------- 5. main path, full size
-        log("== phase 5: main path at realistic size")
+        log(f"== phase 5: main path at realistic size "
+            f"({time.perf_counter() - t_start:.0f} s)")
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -511,8 +728,9 @@ def main(argv=None):
         quant_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         log(f"launches on the main path: {launches}")
-        for name, n in launches.items():
-            check(n > 0, f"main path launched {name} ({n} times)")
+        for name in MAIN_PATH_KERNELS:
+            check(launches[name] > 0,
+                  f"main path launched {name} ({launches[name]} times)")
         check(res.num_processed == n_pairs,
               f"num_processed {res.num_processed} == {n_pairs}")
         share = res.num_pseudoaligned / res.num_processed
@@ -571,11 +789,70 @@ def main(argv=None):
               and [s.tolist() for s in rg.ec_sets]
               == [s.tolist() for s in rc.ec_sets],
               f"first {n_sub} pairs: EC counts and sets equal, card vs CPU")
+        del rg, rc
 
-        # --------------------------------------------------- 6. kernel C
-        log("== phase 6: kernel C on the main path's EM problem")
+        # ------------------------------- 5b. --bias -b 100, full size
+        log(f"== phase 5b: quant --bias -b 100 at realistic size "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        n_bs = 100
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rbias = run_quant(Options(files=[r1p, r2p], bias=True,
+                                  bootstrap=n_bs, plaintext=True,
+                                  output_dir=os.path.join(work, "bias_bs")),
+                          index=index, device=dev)
+        torch.cuda.synchronize()
+        bias_quant_s = time.perf_counter() - t0
+        launches_b = dict(kernels.LAUNCHES)
+        log(f"launches on the --bias -b {n_bs} path: {launches_b}")
+        for name in ("bias_hexamers", "em_step_batch", "pseudoalign_side",
+                     "read_keys"):
+            check(launches_b[name] > 0,
+                  f"--bias -b {n_bs} launched {name} ({launches_b[name]} "
+                  "times)")
+        n_al = rbias.num_pseudoaligned
+        check(rbias.bias5.sum() > 0,
+              f"{int(rbias.bias5.sum())} hexamers counted")
+        check(not np.allclose(rbias.eff_lens, res.eff_lens),
+              "bias-corrected effective lengths differ from phase 5's")
+        check(rbias.bootstraps.shape == (n_bs, index.num_trans)
+              and np.isfinite(rbias.bootstraps).all()
+              and (np.abs(rbias.bootstraps.sum(axis=1) - n_al)
+                   <= 1e-6 * n_al).all(),
+              f"{n_bs} replicates of {index.num_trans} targets, each sums to "
+              f"{n_al} within 1e-6")
+        check(np.array_equal(rbias.counts, res.counts)
+              and [s.tolist() for s in rbias.ec_sets]
+              == [s.tolist() for s in res.ec_sets],
+              "--bias run (every batch per read): EC counts and sets equal "
+              "to phase 5's")
+        routes_b = {r: rbias.timings[r] for r in ROUTES}
+        tb = rbias.timings
+        untimed = bias_quant_s - sum(tb[key] for key in (
+            "index_upload_s", "pseudoalign_s", "em_problem_s",
+            "bias_tables_s", "em_s", "bootstrap_s", "write_s"))
+        log(f"--bias -b {n_bs} wall {bias_quant_s:.2f} s (outputs written), "
+            f"em_s {tb['em_s']:.3f} ({rbias.em.n_rounds} rounds), "
+            f"bias_update_s {tb['bias_update_s']:.3f}, bias_tables_s "
+            f"{tb['bias_tables_s']:.3f}, em_problem_s {tb['em_problem_s']:.3f}"
+            f", bootstrap_s {tb['bootstrap_s']:.3f}, write_s "
+            f"{tb['write_s']:.3f}, not timed {untimed:.3f}; routes "
+            f"{routes_b}; host seconds by phase: " + json.dumps(tb))
+        bias_timings = rbias.timings
+        del rbias
+
+        # ------------------------------------ 6. kernel G, one replicate
+        log(f"== phase 6: kernel G with one replicate (the main EM) on the "
+            f"main path's EM problem ({time.perf_counter() - t_start:.0f} s)")
         problem = emq.build_em_problem(res.ec_sets, index.num_trans)
-        emg = emq.run_em(problem, res.counts, res.eff_lens, device=dev)
+        em_walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emg = emq.run_em(problem, res.counts, res.eff_lens, device=dev)
+            em_walls.append(time.perf_counter() - t0)
+        em_wall_s = statistics.median(em_walls)
         emc = emq.run_em(problem, res.counts, res.eff_lens, device="cpu")
         check(emg.n_rounds == emc.n_rounds,
               f"EM rounds equal ({emg.n_rounds})")
@@ -583,31 +860,41 @@ def main(argv=None):
               and np.array_equal(emg.alpha_before_zeroes,
                                  emc.alpha_before_zeroes),
               "EM alpha bitwise equal, card vs CPU")
-        err_c = float(np.max(np.abs(emg.alpha - emc.alpha)))
-        T = problem.num_trans
-        sa = np.zeros(T)
-        sa[problem.singleton_tx] = res.counts[problem.singleton_ec]
-        prob = emq.device_em_problem(
-            problem, sa, res.counts[problem.multi_ec_ids].astype(np.float64),
-            1.0 / res.eff_lens, dev)
-        alpha = torch.from_numpy(emg.alpha_before_zeroes).to(dev)
-        ms_c = cuda_ms(lambda: kernels.em_step(alpha, prob, False), 50, torch)
-        plain_c = cuda_ms(lambda: emq.em_step_plain(alpha, prob, False), 10,
-                          torch)
-        M, E = int(prob.flat_tx.shape[0]), prob.num_multi
-        bytes_c = 8 * T * 4 + 8 * (T + 1) + 8 * (E + 1) + 8 * E + 8 * M + 4
-        bound_c = bound(bytes_c, 4 * M + 10 * T, PEAK_F64)
+        err_1 = float(np.max(np.abs(emg.alpha - emc.alpha)))
+        sa, mc = emq.em_inputs(problem, res.counts[None])
+        prob = emq.device_em_problem(problem, sa, mc, 1.0 / res.eff_lens, dev)
+        alpha = torch.from_numpy(emg.alpha_before_zeroes[None]).to(dev)
+        mode = torch.ones(1, dtype=torch.int32, device=dev)
+        step = kernels.bind_em_step(prob)  # as the EM loop launches it
+        ms_1 = cuda_ms(lambda: step(alpha, mode), 50, torch)
+        plain_1 = cuda_ms(lambda: emq.em_step_batch_plain(alpha, prob, mode),
+                          10, torch)
+        T, E = problem.num_trans, prob.num_multi
+        M = int(prob.flat_tx.shape[0])
+        bound_1 = em_bound(1, T, E, M)
         t0 = time.perf_counter()
         for _ in range(200):
-            _, ch = kernels.em_step(alpha, prob, False)
-            int(ch.item())
+            _, ch = step(alpha, mode)
+            ch.cpu()
         loop_ms = (time.perf_counter() - t0) / 200 * 1e3
-        log(f"kernel C: {ms_c:.4f} ms per update (plain on card "
-            f"{plain_c:.4f} ms); loop step with the host read of the change "
-            f"count: {loop_ms:.4f} ms; T={T} E={E} M={M}")
+        log(f"kernel G, one replicate: {ms_1:.4f} ms per update (plain on "
+            f"card {plain_1:.4f} ms); loop step with the host read of the "
+            f"change count: {loop_ms:.4f} ms; whole EM {em_wall_s * 1e3:.2f} "
+            f"ms over {emg.n_rounds + 1} updates (median of 5: "
+            f"{', '.join(f'{w * 1e3:.2f}' for w in em_walls)}); "
+            f"T={T} E={E} M={M}")
+
+        # -------------------------------------------------- 6b. kernel G
+        log(f"== phase 6b: kernel G on the main path's EM problem "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        (ms_g, plain_g, bound_g, err_g), bs_summary = phase_6b(
+            torch, np, emq, bsq, kernels, problem, res, dev)
 
         # ----------------------------------------------------- 7. summary
         csrc = "kallisto_tpu_torch/csrc/"
+        # kernel G has two rows: the main EM (one replicate, K8; launches
+        # of phase 5) and the bootstraps (100 replicates, K15; launches of
+        # the --bias -b 100 run, main EM included)
         rows = [
             dict(name="pseudoalign_side", route="cuda",
                  source=csrc + "pseudoalign.cu",
@@ -621,11 +908,11 @@ def main(argv=None):
                  launches=launches["read_keys"], max_abs_err=0.0,
                  ms=ms_b, plain_ms=plain_b, bound_ms=bound_b[0],
                  bound_by=bound_b[1], library_ms=None),
-            dict(name="em_step", route="cuda", source=csrc + "em.cu",
+            dict(name="em_step_batch", route="cuda", source=csrc + "em.cu",
                  replaces="kallisto_tpu/quant/em.py:112",
-                 launches=launches["em_step"], max_abs_err=err_c,
-                 ms=ms_c, plain_ms=plain_c, bound_ms=bound_c[0],
-                 bound_by=bound_c[1], library_ms=None),
+                 launches=launches["em_step_batch"], max_abs_err=err_1,
+                 ms=ms_1, plain_ms=plain_1, bound_ms=bound_1[0],
+                 bound_by=bound_1[1], library_ms=None, replicates=1),
         ]
         for name, src, replaces in (
                 ("pseudoalign_turbo", "pseudoalign.cu",
@@ -640,6 +927,19 @@ def main(argv=None):
                 launches=launches[name], max_abs_err=0.0, ms=ms,
                 plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
                 library_ms=lib))
+        # G with replicates and H: launches of the --bias -b 100 run
+        rows += [
+            dict(name="em_step_batch", route="cuda", source=csrc + "em.cu",
+                 replaces="kallisto_tpu/quant/em.py:236",
+                 launches=launches_b["em_step_batch"], max_abs_err=err_g,
+                 ms=ms_g, plain_ms=plain_g, bound_ms=bound_g[0],
+                 bound_by=bound_g[1], library_ms=None, replicates=100),
+            dict(name="bias_hexamers", route="cuda", source=csrc + "bias.cu",
+                 replaces="kallisto_tpu/ops/pseudoalign.py:1172",
+                 launches=launches_b["bias_hexamers"], max_abs_err=0.0,
+                 ms=ms_h, plain_ms=plain_h, bound_ms=bound_h[0],
+                 bound_by=bound_h[1], library_ms=None),
+        ]
         log(json.dumps({
             "index_build_s": index_build_s, "quant_s": quant_s,
             "pairs_per_s": n_pairs / quant_s, "routes": routes,
@@ -650,7 +950,10 @@ def main(argv=None):
             "read_keys_compact_ms": k3b["read_keys_compact"],
             "n_pairs": n_pairs, "n_genes": n_genes, "em_rounds": res.em.n_rounds,
             "em_s": res.timings["em_s"], "em_loop_step_ms": loop_ms,
+            "em_wall_s": em_wall_s,
             "quant_phases_s": res.timings,
+            "bias_bs100_quant_s": bias_quant_s,
+            "bias_bs100_phases_s": bias_timings, **bs_summary,
             "kernel_build_s": build_s, "n_targets": index.num_trans,
             "n_kmers": index.num_kmers, "card": smi,
             "smoke_s": time.perf_counter() - t_start,

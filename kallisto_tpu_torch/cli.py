@@ -2,6 +2,8 @@
 
     python -m kallisto_tpu_torch.cli index -i idx.npz transcripts.fasta.gz
     python -m kallisto_tpu_torch.cli quant -i idx.npz -o out r1.fq.gz r2.fq.gz
+    python -m kallisto_tpu_torch.cli quant -i idx.npz -o out -b 100 --seed 42 \
+        --bias --plaintext r1.fq.gz r2.fq.gz
 
 Mirrors the `index` and `quant` subcommands of kallisto_tpu/cli.py (the
 reference's src/main.cpp) for what the port supports.  `--device` picks
@@ -54,14 +56,18 @@ def _cmd_quant(args):
         single_end=args.single,
         fld_mean=args.fragment_length,
         fld_sd=args.sd,
+        bootstrap=args.bootstrap_samples,
+        seed=args.seed,
         plaintext=args.plaintext,
         write_index=args.write_index,
         single_overhang=args.single_overhang,
+        bias=args.bias,
         strand=strand,
         do_union=args.union,
         min_range=args.min_range,
         priors=args.priors or "",
         verbose=args.verbose,
+        threads=args.threads,
         batch_size=args.batch_size,
         call=" ".join(sys.argv),
     )
@@ -92,14 +98,19 @@ def main(argv=None):
     p.add_argument("--single", action="store_true")
     p.add_argument("-l", "--fragment-length", type=float, default=0.0)
     p.add_argument("-s", "--sd", type=float, default=0.0)
+    p.add_argument("-b", "--bootstrap-samples", type=int, default=0)
+    p.add_argument("--seed", type=int, default=42)
     p.add_argument("--plaintext", action="store_true")
     p.add_argument("--write-index", action="store_true")
     p.add_argument("--single-overhang", action="store_true")
     p.add_argument("--fr-stranded", action="store_true")
     p.add_argument("--rf-stranded", action="store_true")
+    p.add_argument("--bias", action="store_true")
     p.add_argument("--union", action="store_true")
     p.add_argument("-m", "--min-range", type=int, default=1)
     p.add_argument("-p", "--priors", default=None)
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="devices to spread read batches over (runs on one)")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--batch-size", type=int, default=1 << 18,
                    help="reads per device batch")

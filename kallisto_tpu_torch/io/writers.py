@@ -6,6 +6,7 @@ counts.txt).  Doubles are formatted exactly like C++ `ostream <<` defaults
 reference on identical values.
 """
 
+import os
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -95,3 +96,19 @@ def write_counts(path: str, counts: np.ndarray) -> None:
     with open(path, "w") as f:
         for ec, c in enumerate(counts):
             f.write(f"{ec}\t{int(c)}\n")
+
+
+def write_bootstrap_tsv(
+    out_dir: str,
+    b: int,
+    target_names: Sequence[str],
+    lengths: np.ndarray,
+    eff_lens: np.ndarray,
+    alpha: np.ndarray,
+    tpm: np.ndarray,
+) -> None:
+    """bs_abundance_{b}.tsv of one bootstrap replicate (--plaintext)."""
+    write_abundance_tsv(
+        os.path.join(out_dir, f"bs_abundance_{b}.tsv"),
+        target_names, lengths, eff_lens, alpha, tpm,
+    )

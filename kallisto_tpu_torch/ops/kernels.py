@@ -36,12 +36,13 @@ BUILD_DIR = os.path.join(_PKG, "_kbuild")
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "pseudoalign_side": ("pseudoalign.cu", ()),
     "read_keys": ("read_keys.cu", ()),
-    # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
-    # to its plain version
-    "em_step": ("em.cu", ("--fmad=false",)),
     "pseudoalign_turbo": ("pseudoalign.cu", ()),
     "key_histogram": ("compact.cu", ()),
     "gather_exemplars": ("compact.cu", ()),
+    # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
+    # to its plain version
+    "em_step_batch": ("em.cu", ("--fmad=false",)),
+    "bias_hexamers": ("bias.cu", ()),
 }
 
 _NVCC_FLAGS = (
@@ -83,9 +84,10 @@ _ARGTYPES = {
     "pseudoalign_turbo": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_LL, _P, _LL]
     + [_I] * 5 + [_P] * 10 + [_P],
     "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
-    "em_step": [_P] * 11 + [_I, _I, _I, _P],
     "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL, _P, _P, _P, _P],
     "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
+    "em_step_batch": [_P] * 12 + [_I] * 4 + [_P],
+    "bias_hexamers": [_P] * 11 + [_LL, _LL, _I, _P, _P],
 }
 
 
@@ -405,33 +407,94 @@ def gather_exemplars(idx: torch.Tensor, s1, s2, spec) -> torch.Tensor:
     return out
 
 
-# ---------------------------------------------------------------- kernel C
+# ---------------------------------------------------------------- kernel G
 
 
-def em_step(alpha: torch.Tensor, prob, zero_input: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel C: one EM update from `alpha` (the final-round zeroing applied
-    to it first when zero_input).  `prob` is a DeviceEmProblem.  Returns
-    (next_alpha [T] f64, changed [1] int32 -- the change count, on the card)."""
-    dev = alpha.device
+def bind_em_step(prob):
+    """Kernel G over `prob`, a DeviceEmProblem with [Bb, T] singletons,
+    [Bb, E] counts and [T] or [Bb, T] inv_eff (the main EM is Bb = 1).
+    Checks the problem's tensors once and returns step(alpha, mode) ->
+    (next [Bb, T] f64, changed [Bb] int32 -- the change counts, on the
+    card): one EM update of every replicate whose mode is not 0 (2: from
+    its zeroed alpha); a frozen replicate's row is copied.  step checks
+    only alpha and mode: the EM loop calls it once per round, and at
+    Bb = 1 checking the whole problem each time costs the host more than
+    the update costs the card."""
+    dev = prob.flat_tx.device
     T, E = prob.num_trans, prob.num_multi
     M = int(prob.flat_tx.shape[0])
-    _check(alpha, "alpha", torch.float64, (T,), dev)
-    _check(prob.singleton_alpha, "singleton_alpha", torch.float64, (T,), dev)
-    _check(prob.inv_eff, "inv_eff", torch.float64, (T,), dev)
+    if prob.singleton_alpha.dim() != 2:
+        raise ValueError("singleton_alpha must be [Bb, T]")
+    Bb = int(prob.singleton_alpha.shape[0])
+    _check(prob.singleton_alpha, "singleton_alpha", torch.float64, (Bb, T), dev)
+    _check(prob.multi_counts, "multi_counts", torch.float64, (Bb, E), dev)
+    batched_eff = prob.inv_eff.dim() == 2
+    _check(prob.inv_eff, "inv_eff", torch.float64,
+           (Bb, T) if batched_eff else (T,), dev)
     _check(prob.flat_tx, "flat_tx", torch.int32, (M,), dev)
     _check(prob.ec_ptr, "ec_ptr", torch.int64, (E + 1,), dev)
-    _check(prob.multi_counts, "multi_counts", torch.float64, (E,), dev)
     _check(prob.tx_ptr, "tx_ptr", torch.int64, (T + 1,), dev)
     _check(prob.tx_ec, "tx_ec", torch.int32, (M,), dev)
-    nxt = torch.empty(T, dtype=torch.float64, device=dev)
-    scale = torch.empty(max(E, 1), dtype=torch.float64, device=dev)
-    changed = torch.empty(1, dtype=torch.int32, device=dev)
-    err = _fn("em_step")(
-        _ptr(alpha), _ptr(nxt), _ptr(prob.singleton_alpha), _ptr(prob.inv_eff),
-        _ptr(prob.flat_tx), _ptr(prob.ec_ptr), _ptr(prob.multi_counts),
-        _ptr(prob.tx_ptr), _ptr(prob.tx_ec), _ptr(scale), _ptr(changed),
-        T, E, int(bool(zero_input)), _stream(),
+    fn = _fn("em_step_batch")
+
+    def step(alpha: torch.Tensor, mode: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        _check(alpha, "alpha", torch.float64, (Bb, T), dev)
+        _check(mode, "mode", torch.int32, (Bb,), dev)
+        nxt = torch.empty((Bb, T), dtype=torch.float64, device=dev)
+        scale = torch.empty(max(Bb * E, 1), dtype=torch.float64, device=dev)
+        changed = torch.empty(Bb, dtype=torch.int32, device=dev)
+        err = fn(
+            _ptr(alpha), _ptr(nxt), _ptr(prob.singleton_alpha),
+            _ptr(prob.inv_eff), _ptr(prob.flat_tx), _ptr(prob.ec_ptr),
+            _ptr(prob.multi_counts), _ptr(prob.tx_ptr), _ptr(prob.tx_ec),
+            _ptr(scale), _ptr(mode), _ptr(changed), Bb, T, E,
+            int(batched_eff), _stream(),
+        )
+        _raise_on(err, "em_step_batch")
+        LAUNCHES["em_step_batch"] += 1
+        return nxt, changed
+
+    return step
+
+
+def em_step_batch(alpha: torch.Tensor, prob, mode: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G, one update: bind_em_step(prob)(alpha, mode)."""
+    return bind_em_step(prob)(alpha, mode)
+
+
+# ---------------------------------------------------------------- kernel H
+
+
+def bias_hexamers(bt, s1, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Kernel H: the 5' hexamer id [B] int32 of each read from mate 1's
+    SideResult `s1` (-1 where `valid & has_hits` fails or the context
+    leaves the block); `bt` is a BiasTables on the card."""
+    dev = s1.f_block.device
+    B = int(s1.f_block.shape[0])
+    for nm in ("f_block", "f_upos", "f_rpos", "f_uid"):
+        _check(getattr(s1, nm), nm, torch.int32, (B,), dev)
+    for nm in ("f_strand", "has_hits"):
+        _check(getattr(s1, nm), nm, torch.bool, (B,), dev)
+    _check(valid, "valid", torch.bool, (B,), dev)
+    NB = int(bt.block_start.shape[0])
+    _check(bt.block_start, "block_start", torch.int32, (NB,), dev)
+    _check(bt.block_end, "block_end", torch.int32, (NB,), dev)
+    _check(bt.useq_off, "useq_off", torch.int64, None, dev)
+    _check(bt.useq, "useq", torch.uint8, None, dev)
+    S = int(bt.useq.shape[0])
+    if S < 6:
+        raise ValueError("unitig sequences shorter than one hexamer")
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    err = _fn("bias_hexamers")(
+        _ptr(s1.f_block), _ptr(s1.f_upos), _ptr(s1.f_rpos), _ptr(s1.f_uid),
+        _ptr(s1.f_strand), _ptr(s1.has_hits), _ptr(valid),
+        _ptr(bt.block_start), _ptr(bt.block_end), _ptr(bt.useq_off),
+        _ptr(bt.useq), S, B, k, _ptr(out), _stream(),
     )
-    _raise_on(err, "em_step")
-    LAUNCHES["em_step"] += 1
-    return nxt, changed
+    _raise_on(err, "bias_hexamers")
+    LAUNCHES["bias_hexamers"] += 1
+    return out

@@ -587,7 +587,77 @@ def gather_exemplars_plain(idx: torch.Tensor, s1: SideResult,
     return torch.cat(cols, dim=1).to(torch.int32)
 
 
+class BiasTables(NamedTuple):
+    """Device tables for 5' hexamer extraction (bias correction)."""
+
+    block_start: torch.Tensor  # [NB] int32 first k-mer pos of mosaic block
+    block_end: torch.Tensor    # [NB] int32 exclusive end
+    useq: torch.Tensor         # [sum len] uint8 unitig base codes
+    useq_off: torch.Tensor     # [U+1] int64
+
+
+def bias_tables_from_host(index, device=None) -> BiasTables:
+    """The bias tables on `device` (default: the card; raises without one
+    unless device='cpu'); uploaded only for --bias runs."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    return BiasTables(
+        block_start=put(index.block_start, np.int32),
+        block_end=put(index.block_end, np.int32),
+        useq=put(index.unitig_seq, np.uint8),
+        useq_off=put(index.unitig_seq_off, np.int64),
+    )
+
+
+def bias_hexamers_plain(bt: BiasTables, s1: SideResult, valid: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel H: per-read upstream hexamer id (or
+    -1), from mate 1's first hit.
+
+    reference: MinCollector::countBias getPreSeq (src/MinCollector.cpp:
+    684-721): fragment-start context on the unitig, pre=2/post=4; the
+    forward case reads the 6-mer reverse-complemented, the reverse case
+    forward (hexamerToInt revcomp flag)."""
+    pre, post = 2, 4
+    blk = torch.clamp(s1.f_block, min=0).to(torch.int64)
+    cstart = bt.block_start[blk]
+    clen = bt.block_end[blk] - cstart
+    pos = s1.f_upos - cstart
+    p = s1.f_rpos
+    base = bt.useq_off[torch.clamp(s1.f_uid, min=0).to(torch.int64)]
+    fw_ok = s1.f_strand & (pos - p >= pre)
+    rc_ok = (~s1.f_strand) & (clen - 1 - pos - p >= pre)
+    start_fw = base + (s1.f_upos - p - pre)
+    start_rc = base + (s1.f_upos + p + k - post)
+    start = torch.where(fw_ok, start_fw, start_rc)
+    start = torch.clamp(start, 0, bt.useq.shape[0] - 6)
+    hex_fw = torch.zeros_like(s1.f_upos)
+    hex_rc = torch.zeros_like(s1.f_upos)
+    for m in range(6):
+        c = bt.useq[start + m].to(torch.int32)
+        hex_fw = hex_fw | ((3 - c) << (2 * m))       # revcomp read
+        hex_rc = hex_rc | (c << (2 * (5 - m)))       # forward read
+    ok = valid & s1.has_hits
+    neg = torch.full_like(hex_fw, -1)
+    return torch.where(ok & fw_ok, hex_fw,
+                       torch.where(ok & rc_ok, hex_rc, neg))
+
+
 # ------------------------------------------------------------ entry points
+
+
+def bias_hexamers(bt: BiasTables, s1: SideResult, valid: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """5' hexamer id [B] int32 of each read (see bias_hexamers_plain)."""
+    if s1.f_block.is_cuda:
+        return kernels.bias_hexamers(bt, s1, valid, k)
+    return bias_hexamers_plain(bt, s1, valid, k)
+
 
 
 def pseudoalign_batch_packed(didx: DeviceIndex, packed: torch.Tensor,

@@ -23,12 +23,23 @@ Port of kallisto_tpu/quant/pipeline.py with two routes per batch:
 `timings` counts processed batches by route (`full`, `turbo`, `compact`,
 `fallback` -- a compact table that overflowed and was redone per read)
 and records `n_uniq_max` / `n_uniq_sum` over the turbo batches.  The EM
-runs on the device through kernel C.
+runs on the device through kernel G, with one replicate.
 
-Not ported yet (each raises NotImplementedError): bias, bootstraps,
-pseudobam/genomebam, long reads, several devices.  The JAX package's host
-wave 1 and two-wave anchor kernel are speed paths in front of the turbo
-route with the same outputs; they are not ported yet either.
+--bias (JAX :840, :937, :1327-1331, :1348, :1402, :1570-1574,
+:1830-1860): until _BIAS_GOAL counted reads, batches go per read and
+kernel H gives each read's 5' hexamer from mate 1's first hit; the host
+counts them in read order, and the EM calls quant/bias.py's
+update_eff_lens at iterations 50 and 550.  -b N (JAX :1881-1892): N
+multinomial resamples of the EC counts through one batched EM on the card
+(kernel G), on the post-bias effective lengths; outputs are
+bs_abundance_{b}.tsv under --plaintext, else abundance.h5 where h5py is
+installed (without h5py a warning says that abundance.h5 was not
+written).
+
+Not ported yet (each raises NotImplementedError): pseudobam/genomebam,
+long reads, several devices.  The JAX package's host wave 1 and two-wave
+anchor kernel are speed paths in front of the turbo route with the same
+outputs; they are not ported yet either.
 """
 
 import os
@@ -52,6 +63,8 @@ from ..ops.host_fallback import host_side_rows
 from ..ops.pseudoalign import (
     KeySpec,
     SideResult,
+    bias_hexamers,
+    bias_tables_from_host,
     device_index_from_host,
     gather_exemplars,
     pf_probe_depth,
@@ -63,6 +76,8 @@ from ..ops.pseudoalign import (
     unflatten_ck_host,
     upload_batch,
 )
+from .bias import NUM_6MERS, TranscriptHexamers, update_eff_lens
+from .bootstrap import run_bootstraps
 from .ecmap import EcResolver
 from .em import EmResult, build_em_problem, counts_to_tpm, read_priors, run_em
 from .filters import FldPositionFilter, StrandFilter
@@ -75,6 +90,7 @@ from .fld import (
 )
 
 _FLEN_GOAL = 10000  # reference: ProcessReads.cpp:985
+_BIAS_GOAL = 1000000  # reference: ProcessReads.h:178 maxBiasCount
 _FALLBACK_CAP = 1 << 17  # max reads per per-read or bitmask slice
 _CK_PREFIX = 2049  # meta row + 2048 key rows: the first fetch of a table
 _pad_pats: dict = {}
@@ -107,6 +123,8 @@ class QuantResult:
     num_unique: int
     fld: np.ndarray
     timings: dict
+    bias5: Optional[np.ndarray] = None       # [4096] observed hexamers
+    bootstraps: Optional[np.ndarray] = None  # [n_bootstrap, T]
 
 
 def _resolve_n_devices(opt: Options, dev: torch.device) -> int:
@@ -122,8 +140,6 @@ def _resolve_n_devices(opt: Options, dev: torch.device) -> int:
 
 def _check_supported(opt: Options, dev: torch.device) -> None:
     unported = [
-        (opt.bias, "--bias"),
-        (opt.bootstrap > 0, "bootstraps (-b)"),
         (opt.pseudobam, "--pseudobam"),
         (opt.genomebam, "--genomebam"),
         (opt.long_read, "--long"),
@@ -333,11 +349,15 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     start_time = time.strftime("%a %b %d %H:%M:%S %Y")
     # host wall seconds by phase: index upload, FASTQ read + pack, upload +
     # kernel enqueue, device->host fetch (includes waiting for the
-    # kernels), host resolution/filters/counting, the whole read loop, EM;
-    # then batch counts by route and the turbo batches' distinct keys
+    # kernels), host resolution/filters/counting, the whole read loop, the
+    # EM problem build, the transcript hexamer tables of --bias, EM
+    # (bias_update_s of it in update_eff_lens), the bootstrap EM, the
+    # output files; then batch counts by route and the turbo batches'
+    # distinct keys
     timings = dict.fromkeys(
         ("index_upload_s", "read_s", "dispatch_s", "fetch_s", "resolve_s",
-         "pseudoalign_s", "em_s"), 0.0)
+         "pseudoalign_s", "em_problem_s", "bias_tables_s", "em_s",
+         "bias_update_s", "bootstrap_s", "write_s"), 0.0)
     timings.update(dict.fromkeys(
         ("full", "turbo", "compact", "fallback", "n_uniq_max", "n_uniq_sum"),
         0))
@@ -349,9 +369,12 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         pos_filter = FldPositionFilter(index, fl=int(opt.fld_mean))
     didx = device_index_from_host(index, dev,
                                   with_pos_tables=pos_filter is not None)
+    bt = bias_tables_from_host(index, dev) if opt.bias else None
     timings["index_upload_s"] = time.perf_counter() - t0
     resolver = EcResolver(index)
     k = index.k
+    bias5 = np.zeros(NUM_6MERS, np.int64)
+    bias_total = 0
 
     paired = opt.paired
     estimate_fld = paired and opt.fld_mean == 0.0
@@ -384,9 +407,11 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         )
 
     def dispatch_full(b1: PackedBatch, b2: Optional[PackedBatch],
-                      want_tl: bool):
+                      want_tl: bool, want_bias: bool = False):
         """Enqueue one batch on the per-read route (asynchronous on the
-        card)."""
+        card); with want_bias kernel H adds each read's 5' hexamer, from
+        mate 1 of a pair whose mate 2 has hits (JAX :937) or of any
+        single-end read (:1403)."""
         r1 = pseudoalign_batch_packed(didx, *upload_batch(b1, dev), k=k, L=b1.Lp)
         r2 = None
         if b2 is not None:
@@ -394,7 +419,12 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                 didx, *upload_batch(b2, dev), k=k, L=b2.Lp
             )
         h, tl = read_keys(r1, r2, k)
-        return ("full", b1, b2, r1, r2, h, tl if want_tl else None)
+        hx = None
+        if want_bias:
+            valid = r2.has_hits if r2 is not None else torch.ones_like(
+                r1.has_hits)
+            hx = bias_hexamers(bt, r1, valid, k)
+        return ("full", b1, b2, r1, r2, h, tl if want_tl else None, hx)
 
     def dispatch_compact(b1: PackedBatch, b2: Optional[PackedBatch]):
         """Enqueue one batch on the compact route: a turbo batch when its Ns
@@ -461,14 +491,17 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     def dispatch(b1: PackedBatch, b2: Optional[PackedBatch], want_fld: bool):
         """Route one batch (JAX dispatch_pair :831 / dispatch_single :1345):
         the compact route once FLD learning is over (paired) or unless
-        --union is on (single-end); the per-read route otherwise."""
+        --union is on (single-end), and once --bias has counted its goal;
+        the per-read route otherwise.  want_bias reads the hexamers counted
+        by the batches processed so far."""
+        want_bias = opt.bias and bias_total < _BIAS_GOAL
         if b2 is None:
-            compact = not opt.do_union
+            compact = not opt.do_union and not want_bias
         else:
-            compact = not want_fld and b1.Lp == b2.Lp
+            compact = not want_fld and not want_bias and b1.Lp == b2.Lp
         if compact:
             return dispatch_compact(b1, b2)
-        return dispatch_full(b1, b2, want_fld)
+        return dispatch_full(b1, b2, want_fld, want_bias)
 
     def process(ctx):
         nonlocal num_processed
@@ -508,8 +541,8 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                 None if b2 is None else _slice_packed(b2, lo, hi), False))
 
     def process_full(ctx):
-        nonlocal num_processed, tlencount
-        _, b1, b2, r1, r2, h, tl = ctx
+        nonlocal num_processed, tlencount, bias_total
+        _, b1, b2, r1, r2, h, tl, hx = ctx
         t1 = time.perf_counter()
         # one device->host copy of each per-read array per batch (waits for
         # the batch's kernels)
@@ -517,6 +550,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         s2 = r2.to_numpy() if r2 is not None else None
         hh = h.cpu().numpy()
         tl_h = tl.cpu().numpy() if tl is not None else None
+        hx_h = hx.cpu().numpy() if hx is not None else None
         t2 = time.perf_counter()
         timings["fetch_s"] += t2 - t1
         read_uidx, uniq_sets = resolver.resolve_batch_hashed(
@@ -569,6 +603,11 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                 )
         read_ec, read_card = resolver.count_batch(final_idx, final_sets)
         num_processed += b1.n
+        if hx_h is not None and bias_total < _BIAS_GOAL:
+            # a batch that crosses the goal is counted whole, as in JAX
+            m = (read_ec >= 0) & (hx_h >= 0)
+            np.add.at(bias5, hx_h[m], 1)
+            bias_total += int(m.sum())
         if tl_h is not None and tlencount < flen_goal:
             ok = (
                 (tl_h > 0)
@@ -611,11 +650,15 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         )
     _log("[quant] finding pseudoalignments for the reads ...", end="")
     t0 = time.perf_counter()
-    # pipelined loop, depth 2: the next batch's kernels run on the card
-    # while the oldest batch resolves on the host.  While the FLD is being
-    # learned, every pending batch is processed before the next dispatch,
-    # so the batch that reaches the goal is the last one sent per read
-    # (JAX pipeline.py:1688-1697, the route without a host probe).
+    # pipelined loop: up to two batches stay pending (dispatched, their
+    # kernels running on the card) while the oldest resolves on the host,
+    # as in JAX (pipeline.py:1695-1697, :1717-1719).  The depth is part of
+    # the routing: a batch's want_fld / want_bias are read at dispatch from
+    # the batches processed by then, so it decides how many batches go per
+    # read after the bias goal is reached.  While the FLD is being learned,
+    # every pending batch is processed before the next dispatch, so the
+    # batch that reaches the goal is the last one sent per read (JAX
+    # :1688-1694, the route without a host probe).
     pend = deque()
     t_read = time.perf_counter()
     for b1, b2 in batch_iter:
@@ -628,13 +671,15 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         want_fld = estimate_fld and tlencount < flen_goal
         pend.append(dispatch(b1, b2, want_fld))
         timings["dispatch_s"] += time.perf_counter() - t1
-        if len(pend) > 1:
+        if len(pend) > 2:
             process(pend.popleft())
         t_read = time.perf_counter()
     while pend:
         process(pend.popleft())
     timings["pseudoalign_s"] = time.perf_counter() - t0
     _log(" done")
+    if opt.bias:
+        _log("[quant] learning parameters for sequence specific bias")
     _log(
         f"[quant] processed {num_processed:,} reads, "
         f"{resolver.num_mapped:,} reads pseudoaligned"
@@ -656,22 +701,50 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     fl_means = get_frag_len_means(index.target_lens, mean_fl_trunc)
     eff_lens = calc_eff_lens(index.target_lens, fl_means)
 
+    t0 = time.perf_counter()
     counts = resolver.counts_array()
     problem = build_em_problem(resolver.ec_sets, index.num_trans)
+    timings["em_problem_s"] = time.perf_counter() - t0
+    bias_update = None
+    if opt.bias:
+        t0 = time.perf_counter()
+        hxcache = TranscriptHexamers(index)
+        timings["bias_tables_s"] = time.perf_counter() - t0
+
+        def bias_update(alpha, cur_eff):
+            t1 = time.perf_counter()
+            out = update_eff_lens(fl_means, bias5, hxcache, index.target_lens,
+                                  alpha, cur_eff, opt.strand)
+            timings["bias_update_s"] += time.perf_counter() - t1
+            return out
+
     priors = read_priors(opt.priors, index.num_trans) if opt.priors else None
     _log("[   em] quantifying the abundances ...", end="")
     t0 = time.perf_counter()
     em = run_em(problem, counts, eff_lens, n_iter=10000, min_rounds=50,
-                priors=priors, device=dev)
+                priors=priors, bias_update=bias_update, device=dev)
     timings["em_s"] = time.perf_counter() - t0
     _log(" done")
     _log(
         "[   em] the Expectation-Maximization algorithm ran for "
         f"{em.n_rounds:,} rounds"
     )
+    if opt.bias:
+        eff_lens = em.eff_lens
     tpm = counts_to_tpm(em.alpha, eff_lens)
     num_pseudoaligned = int(counts.sum())
     num_unique = resolver.num_unique_reads()
+
+    bootstraps: Optional[np.ndarray] = None
+    if opt.bootstrap > 0 and num_pseudoaligned > 0:
+        t0 = time.perf_counter()
+        bootstraps = run_bootstraps(problem, counts, eff_lens, opt.bootstrap,
+                                    opt.seed, device=dev)
+        timings["bootstrap_s"] = time.perf_counter() - t0
+    elif opt.bootstrap > 0:
+        # nothing aligned: the reference writes the (empty) main EM result
+        # for every bootstrap (main.cpp:2732-2743)
+        bootstraps = np.tile(em.alpha, (opt.bootstrap, 1))
 
     result = QuantResult(
         target_names=index.target_names,
@@ -688,9 +761,12 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         num_unique=num_unique,
         fld=fld,
         timings=timings,
+        bias5=bias5 if opt.bias else None,
+        bootstraps=bootstraps,
     )
 
     if opt.output_dir:
+        t0 = time.perf_counter()
         # off-list (D-list) pseudo-targets are excluded from abundance
         # outputs (reference: only onlist targets are reported)
         nl = index.num_onlist
@@ -700,8 +776,47 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             result.target_names[:nl], result.target_lens[:nl],
             eff_lens[:nl], em.alpha[:nl], tpm[:nl],
         )
+        if bootstraps is not None and opt.plaintext:
+            for b in range(bootstraps.shape[0]):
+                writers.write_bootstrap_tsv(
+                    opt.output_dir, b, result.target_names[:nl],
+                    result.target_lens[:nl], eff_lens[:nl], bootstraps[b][:nl],
+                    counts_to_tpm(bootstraps[b], eff_lens)[:nl],
+                )
         if not opt.plaintext:
-            _log("[quant] HDF5 output is not ported yet; wrote abundance.tsv")
+            from ..io.h5 import HAVE_H5PY, write_abundance_h5
+
+            if HAVE_H5PY:
+                write_abundance_h5(
+                    os.path.join(opt.output_dir, "abundance.h5"),
+                    est_counts=em.alpha[:nl],
+                    target_names=result.target_names[:nl],
+                    lengths=result.target_lens[:nl],
+                    eff_lens=eff_lens[:nl],
+                    fld=fld,
+                    bias_observed=(
+                        bias5.astype(np.int32) if opt.bias
+                        else np.ones(NUM_6MERS, np.int32)
+                    ),
+                    bias_normalized=(
+                        em.post_bias if opt.bias and em.post_bias is not None
+                        else np.ones(NUM_6MERS, np.float64)
+                    ),
+                    num_bootstrap=opt.bootstrap,
+                    num_processed=num_processed,
+                    kallisto_version=KALLISTO_COMPAT_VERSION,
+                    index_version=REFERENCE_INDEX_VERSION,
+                    start_time=start_time,
+                    call=opt.call,
+                    bootstraps=(
+                        bootstraps[:, :nl] if bootstraps is not None else None
+                    ),
+                )
+            else:
+                _log("[~warn] h5py is not installed: abundance.h5"
+                     + (f" and its {opt.bootstrap} bootstraps"
+                        if opt.bootstrap > 0 else "")
+                     + " not written (--plaintext writes them as text)")
         writers.write_run_info(
             os.path.join(opt.output_dir, "run_info.json"),
             n_targets=index.num_onlist,
@@ -719,4 +834,5 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             writers.write_counts(
                 os.path.join(opt.output_dir, "counts.txt"), counts
             )
+        timings["write_s"] = time.perf_counter() - t0
     return result

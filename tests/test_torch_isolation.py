@@ -31,9 +31,9 @@ def test_port_has_the_slice_modules():
               "utils.simtx", "utils.benchdata", "index.kmers",
               "index.sanitize", "index.build", "index.format",
               "ops.pseudoalign", "ops.kernels", "ops.host_fallback",
-              "ops.turbo",
+              "ops.turbo", "io.h5",
               "quant.ecmap", "quant.fld", "quant.filters", "quant.em",
-              "quant.pipeline"):
+              "quant.bias", "quant.bootstrap", "quant.pipeline"):
         assert f"kallisto_tpu_torch.{m}" in mods, m
 
 

@@ -5,7 +5,8 @@ the same seeded inputs (the bundled transcriptome's index and reads, plus
 random reads with Ns, ragged lengths and reads shorter than k) and
 requires equality: every SideResult field and every key bit for kernels
 A, B and D, every table entry and exemplar row for kernels E and F,
-bitwise alpha and equal rounds for kernel C.  They need a CUDA
+every hexamer id for kernel H, bitwise alpha and equal rounds for
+kernel G (the main EM and the bootstraps).  They need a CUDA
 card and skip without one; this file imports no JAX, so it also runs where
 JAX is absent:
 
@@ -119,6 +120,8 @@ def test_kernel_b_matches_plain(cuda, port_index, paired):
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_priors", [False, True])
 def test_kernel_c_em_bitwise(cuda, use_priors):
+    """The main EM (kernel G with one replicate) on the card is bitwise
+    the plain version's on the CPU."""
     rng = np.random.default_rng(7)
     T = 300
     ec_sets = [np.array([t], np.int32) for t in range(0, T, 3)]
@@ -260,8 +263,83 @@ def test_compact_route_on_the_card_is_golden(cuda, port_index, tmp_path):
         index=port_index, device=cuda)
     assert res.timings["turbo"] > 0 and res.timings["full"] == 0
     for name in ("pseudoalign_turbo", "read_keys", "key_histogram",
-                 "gather_exemplars", "em_step"):
+                 "gather_exemplars", "em_step_batch"):
         assert kernels.LAUNCHES[name] > 0, name
     with open(os.path.join(out, "abundance.tsv")) as f, open(os.path.join(
             DATA, "..", "golden", "quant_single", "abundance.tsv")) as g:
         assert f.read() == g.read()
+
+
+def _batch_problem(Bb, seed):
+    """A random EC structure and Bb resampled count vectors; replicate 0
+    keeps only its singleton counts, so it converges first and is frozen
+    while the others run."""
+    rng = np.random.default_rng(seed)
+    T = 300
+    ec_sets = [np.array([t], np.int32) for t in range(0, T, 3)]
+    for _ in range(400):
+        n = int(rng.integers(2, 12))
+        ec_sets.append(np.unique(rng.choice(T, n, replace=False)).astype(np.int32))
+    counts = rng.integers(0, 500, len(ec_sets)).astype(np.float64)
+    counts_b = np.stack([rng.multinomial(int(counts.sum()),
+                                         counts / counts.sum())
+                         for _ in range(Bb)]).astype(np.float64)
+    problem = emq.build_em_problem(ec_sets, T)
+    counts_b[0, problem.multi_ec_ids] = 0
+    return problem, counts_b, rng.uniform(50, 3000, T), rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched_eff", [False, True])
+def test_kernel_g_step_bitwise(cuda, batched_eff):
+    problem, counts_b, eff, rng = _batch_problem(6, 21)
+    T = problem.num_trans
+    sa_b, mc_b = emq.em_inputs(problem, counts_b)
+    inv = 1.0 / (eff[None, :] * rng.uniform(0.8, 1.2, (6, T))
+                 if batched_eff else eff)
+    alpha = rng.uniform(0, 50, (6, T))
+    alpha[:, ::5] = 1e-9
+    mode = np.array([1, 0, 2, 1, 2, 0], np.int32)
+    out = {}
+    for dev in (cuda, "cpu"):
+        prob = emq.device_em_problem(problem, sa_b, mc_b, inv, dev)
+        out[str(dev)] = emq.em_step_batch(
+            torch.from_numpy(alpha).to(dev), prob,
+            torch.from_numpy(mode).to(dev))
+    (ng, cg), (nc, cc) = out[str(cuda)], out["cpu"]
+    assert torch.equal(ng.cpu(), nc) and torch.equal(cg.cpu(), cc)
+    assert int(cc[1]) == 0 and torch.equal(nc[1], torch.from_numpy(alpha[1]))
+
+
+@pytest.mark.cuda
+def test_kernel_g_whole_batch_em_bitwise(cuda):
+    """8 replicates to convergence: replicate 0 stops first and stays
+    frozen while the others run; bitwise alpha, alpha_before_zeroes and
+    equal rounds, card against CPU."""
+    problem, counts_b, eff, _ = _batch_problem(8, 22)
+    before = kernels.LAUNCHES["em_step_batch"]
+    g = emq.run_em_batch(problem, counts_b, eff, device=cuda)
+    launched = kernels.LAUNCHES["em_step_batch"] - before
+    c = emq.run_em_batch(problem, counts_b, eff, device="cpu")
+    assert np.array_equal(g.n_rounds, c.n_rounds)
+    assert launched == int(c.n_rounds.max()) + 1
+    assert g.n_rounds[0] < g.n_rounds[1:].min()
+    assert np.array_equal(g.alpha, c.alpha)
+    assert np.array_equal(g.alpha_before_zeroes, c.alpha_before_zeroes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [True, False])
+def test_kernel_h_matches_plain(cuda, port_index, paired):
+    bs = _batches(port_index)
+    res = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        s1 = _sides(d, bs["bundled_1"], dev)
+        valid = _sides(d, bs["bundled_2"], dev).has_hits if paired \
+            else torch.ones_like(s1.has_hits)
+        bt = pa.bias_tables_from_host(port_index, dev)
+        res[str(dev)] = pa.bias_hexamers(bt, s1, valid, K)
+    g, c = res[str(cuda)], res["cpu"]
+    assert g.dtype == c.dtype == torch.int32
+    assert torch.equal(g.cpu(), c) and bool((c >= 0).any())

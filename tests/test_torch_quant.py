@@ -152,8 +152,7 @@ def test_batch_size_invariance(port_index):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(bias=True), dict(bootstrap=2), dict(pseudobam=True),
-    dict(long_read=True), dict(n_devices=2),
+    dict(pseudobam=True), dict(long_read=True), dict(n_devices=2),
 ])
 def test_unported_options_raise(port_index, opt):
     with pytest.raises(NotImplementedError):
@@ -311,3 +310,54 @@ def test_cli_default_device_needs_a_card(tmp_path):
     )
     assert p.returncode != 0
     assert "device='cpu'" in p.stderr or "--device cpu" in p.stderr
+
+
+@pytest.fixture(scope="module")
+def index_file(port_index, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("idx") / "idx.npz")
+    save_index(port_index, path)
+    return path
+
+
+def test_cli_threads_flag_gives_golden_bytes(index_file, tmp_path):
+    """-t/--threads is accepted and, on one device, changes nothing."""
+    from kallisto_tpu_torch import cli
+
+    out = str(tmp_path / "t4")
+    assert cli.main(["quant", "-i", index_file, "-o", out, "-t", "4",
+                     "--device", "cpu", "--plaintext", R1, R2]) == 0
+    assert _read(os.path.join(out, "abundance.tsv")) == \
+        _read(os.path.join(GOLDEN, "quant_paired", "abundance.tsv"))
+
+
+def test_cli_bootstrap_bias_seed_equal_run_quant(port_index, index_file,
+                                                 tmp_path):
+    """-b 2 --seed 7 --bias through the CLI writes what run_quant writes
+    with the same options (run_info.json but its start time and call)."""
+    from kallisto_tpu_torch import cli
+
+    out = str(tmp_path / "cli")
+    assert cli.main(["quant", "-i", index_file, "-o", out, "-t", "4",
+                     "-b", "2", "--seed", "7", "--bias", "--plaintext",
+                     "--device", "cpu", R1, R2]) == 0
+    direct = str(tmp_path / "direct")
+    res = run_quant(Options(files=[R1, R2], output_dir=direct, threads=4,
+                            bootstrap=2, seed=7, bias=True, plaintext=True),
+                    index=port_index, device="cpu")
+    assert res.bootstraps.shape == (2, port_index.num_trans)
+    assert res.bias5 is not None and res.bias5.sum() > 0
+    names = ["abundance.tsv", "bs_abundance_0.tsv", "bs_abundance_1.tsv"]
+    assert sorted(os.listdir(out)) == sorted(names + ["run_info.json"])
+    for name in names:
+        assert _read(os.path.join(out, name)) == \
+            _read(os.path.join(direct, name)), name
+
+    def info(d):
+        return [ln for ln in _read(os.path.join(d, "run_info.json")).split("\n")
+                if '"start_time"' not in ln and '"call"' not in ln]
+
+    assert info(out) == info(direct)
+    assert '\t"n_bootstraps": 2,' in info(out)
+    seed42 = run_quant(Options(files=[R1, R2], bootstrap=2, bias=True),
+                       index=port_index, device="cpu")
+    assert not np.array_equal(seed42.bootstraps, res.bootstraps)

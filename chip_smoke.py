@@ -5,10 +5,11 @@
 
 Drives the port's main path -- `quant` on paired-end reads: the per-read
 path while the fragment-length distribution is learned, then the compact
-steady state (turbo batches reduced to a key table) -- and `quant --bias
--b 100` (hexamers per read, the bias EM, 100 bootstraps through the
-batched EM) on the card, and holds every CUDA kernel of those paths
-against its plain PyTorch version:
+steady state (uniform-length turbo batches through the two-wave anchor
+kernel, reduced to a key table) --, `quant --bias -b 100` (hexamers per
+read, the bias EM, 100 bootstraps through the batched EM) and `bus -x
+10xv2` on the card, and holds every CUDA kernel of those paths against its
+plain PyTorch version:
 
 1. device: requires CUDA, prints the card's name and power limit, builds
    the kernels (one nvcc per source, in parallel);
@@ -27,6 +28,13 @@ against its plain PyTorch version:
    rank; every field, key and table entry must be equal;
 3c. kernel H (bias_hexamers) against its plain version on the card, on the
    phase-3 pairs (mate 1 from kernel A, valid = mate 2's has_hits): equal;
+3d. kernel I (pseudoalign_anchor) against its plain version on the card,
+   at the main path's shapes (262,144 pairs of 100 bp padded to 104, 4
+   anchors, sparse Ns), paired and single-end: every field and n_fail
+   equal, and with kernels B and E the key table (n_fail in its meta row)
+   equal; against kernel D on the same batch: rows, row counts, hits,
+   overflow flags and the key table equal; both forms timed, and kernel
+   B's single-end form on I's reads (bus's chunk);
 4. golden bytes: `quant` paired, `--single -l 180 -s 20` and the half-mapped
    `-l 180 -s 20` pairs on tests/data, abundance.tsv byte-equal to
    tests/golden, run stats 10000/9413/7174, and the routes: per-read batches
@@ -38,18 +46,33 @@ against its plain PyTorch version:
    -s 20` paired with the bias goal cut to 3,000 reads and 1,024-read
    batches, so that batches go turbo after the goal: the same, with turbo
    batches on both;
+4c. `bus` goldens on the card, indexes built by index/build.py:
+   output.bus, matrix.ec and the other files the JAX tests compare, and
+   the run stats, byte-equal to tests/golden for bus10xv2, bus_batch_bulk,
+   bus_batch_10x, bus_inleaved, bus_rx, bus_smartseq3, bus_dfk, bus_aa_f0
+   and bus_distinguish;
 5. the main path at realistic size: `quant` of the 1M pairs on the card
    with every launch count set to 0 just before and read just after, the
-   kernels A, B, D, E, F and G all launched; checks of its output; the
+   kernels A, B, I, E, F and G all launched; checks of its output; the
    same pairs again
-   with every batch per read (equal EC counts and sets); the first 65,536
-   pairs with batch 8192 and an FLD goal of 1000 on the card and on the CPU
-   (equal EC counts and sets, turbo batches on both);
+   with every batch per read (equal EC counts and sets); kernel D's path:
+   the first 65,536 pairs, mate 1 cut to mixed lengths (96-100 bp), with
+   batch 8192 and an FLD goal of 1000, so that the turbo batches take
+   kernel D, on the card (counts set to 0 just before, D launched, I not)
+   and on the CPU (equal EC counts and sets);
 5b. the slice at realistic size: `quant --bias -b 100 --plaintext` of the
    same pairs with the launch counts set to 0 just before and read just
    after, kernels G and H launched; hexamers counted, effective lengths
    changed, 100 replicates that each conserve the aligned mass, EC counts
    and sets equal to phase 5's;
+5c. `bus -x 10xv2` at realistic size: 1M reads, read 1 a 16 bp barcode
+   from a 4,096-barcode pool plus a 10 bp UMI, read 2 the cDNA (phase 5's
+   mate-1 reads: sense-strand 100 bp, as a 10xv2 read 2 is; the 10xv2
+   strand filter would drop the antisense mate 2), 262,144-read chunks,
+   launch counts set to 0 just before and read just after, kernel I
+   launched; then the same input with the anchor route bypassed (the
+   smoke replaces _BusRun._anchor_single and _anchor_pair): output.bus and
+   matrix.ec byte-equal and the run stats equal;
 6. kernel G (em_step_batch) with one replicate, the main EM, on the main
    path's EM problem: the whole EM on the card against the plain version
    on the CPU, bitwise equal alpha and equal rounds; one update timed;
@@ -82,9 +105,11 @@ READ_LEN = 100
 CPU_RERUN_PAIRS = 65536
 # batch counts by route in run_quant's timings
 ROUTES = ("full", "turbo", "compact", "fallback")
+# chunk counts by route, and kernel I's wave-2 reads, in run_bus's timings
+BUS_ROUTES = ("anchor", "full", "fallback", "wave2_reads")
 # the main path's kernels (phase 5); H runs under --bias, G also under -b N
 MAIN_PATH_KERNELS = ("pseudoalign_side", "read_keys", "em_step_batch",
-                     "pseudoalign_turbo", "key_histogram", "gather_exemplars")
+                     "pseudoalign_anchor", "key_histogram", "gather_exemplars")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the scalar
 # (non-tensor) float32 rate, used here for integer operations, and float64.
@@ -114,6 +139,11 @@ def est_counts_of(path):
 
 def read_file(path):
     with open(path) as f:
+        return f.read()
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
         return f.read()
 
 
@@ -150,10 +180,17 @@ def em_bound(Bb, T, E, M):
     return bound(nbytes, Bb * (4 * M + 3 * E + 10 * T), PEAK_F64)
 
 
-def truncate_fastq(src, dst, n_records):
+def truncate_fastq(src, dst, n_records, ragged=False):
+    """The first n_records of a FASTQ; with ragged, record i loses its last
+    i % 5 bases (mixed read lengths)."""
     with gzip.open(src, "rb") as f, gzip.open(dst, "wb", compresslevel=1) as g:
-        for _ in range(4 * n_records):
-            g.write(f.readline())
+        for i in range(n_records):
+            lines = [f.readline() for _ in range(4)]
+            cut = i % 5 if ragged else 0
+            if cut:
+                for j in (1, 3):
+                    lines[j] = lines[j].rstrip(b"\n")[:-cut] + b"\n"
+            g.write(b"".join(lines))
 
 
 def ragged_batch(codes, lens_full, k, rng, fastx):
@@ -360,6 +397,262 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     return out
 
 
+def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
+    """Kernel I against its plain version and kernel D, both on the card,
+    at the main path's shapes.  Returns, for the paired and the single-end
+    form, the kernel row's fields (ms, plain_ms, (bound_ms, bound_by)) and
+    the wave-2 share, and kernel B's single-end ms on I's reads."""
+    from kallisto_tpu_torch.ops import anchor, turbo
+    from kallisto_tpu_torch.quant.pipeline import _pad_rows, _turbo_exceptions
+
+    rng = np.random.default_rng(77)
+    Bp = rb1.n  # the default batch: 262,144 pairs
+    rl = READ_LEN
+    bs = [_sparse_n_batch(rb.codes, np.full(Bp, rl, np.int32), k, rng, fastx,
+                          5e-4) for rb in (rb1, rb2)]
+    exc = _turbo_exceptions(bs, Bp)
+    check(exc is not None, "the batch's N positions fit the aux vector")
+    L = bs[0].Lp
+    aux = torch.from_numpy(turbo.make_aux(Bp, rl, exc)).to(dev)
+    packed = [torch.from_numpy(np.ascontiguousarray(_pad_rows(b.packed, Bp)))
+              .to(dev) for b in bs]
+    na, R, K = anchor.n_anchors_for(rl, k), 16, Bp + 1
+    spec0 = pa.KeySpec(k=k)
+
+    def plain_i(sides):
+        codes, _ = turbo.codes_and_lens_plain(sides, aux, None, L, rl)
+        real = anchor._real_rows(aux, Bp, len(sides))
+        return anchor.anchor_side_plain(didx, codes, rl, real, k, R, na)
+
+    out = {}
+    for tag, sides in (("paired", packed), ("single", packed[:1])):
+        B2 = len(sides) * Bp
+        gi, gf = kernels.pseudoalign_anchor(didx, sides, aux, k, L, rl, R, na)
+        g = pa.SideResult(*gi)
+        c, cf = plain_i(sides)
+        torch.cuda.synchronize()
+        _equal_sides(torch, pa, g, c, f"kernel I {tag} Bp={Bp}")
+        check(torch.equal(gf, cf), f"kernel I {tag}: n_fail equal "
+              f"({int(cf)} of {B2} reads in wave 2)")
+        # I + B + E against the plain versions, n_fail in the meta row
+        split = (lambda r: (pa.SideResult(*(a[:Bp] for a in r)),
+                            pa.SideResult(*(a[Bp:] for a in r)))) \
+            if len(sides) == 2 else (lambda r: (r, None))
+        c1, c2 = split(c)
+        hp, flp = pa.key_hash_plain(c1, c2, spec0, didx)
+        pck = pa.key_histogram_plain(hp, flp, K)
+        pck[0, 1] = cf[0]
+        kw = dict(k=k, L=L, rl=rl, n_anchors=na, max_keys=K)
+        if len(sides) == 2:
+            ack = anchor.pseudoalign_pair_anchor(didx, *sides, aux, **kw)[2]
+        else:
+            ack = anchor.pseudoalign_single_anchor(didx, sides[0], aux, **kw)[1]
+        torch.cuda.synchronize()
+        _equal_tables(torch, ack, pck, f"kernels I + B + E {tag}")
+        # against kernel D on the same batch
+        d = turbo.turbo_sides(didx, sides, aux, None, k, L, R, rl)
+        torch.cuda.synchronize()
+        for f in ("rows", "n_rows", "has_hits", "overflow"):
+            check(torch.equal(getattr(g, f), getattr(d, f)),
+                  f"kernel I {tag}: {f} equal to kernel D's")
+        d1, d2 = split(d)
+        hd, fld = pa.compact_key_hash(d1, d2, spec0, didx)
+        dck = pa.key_histogram(hd, fld, K)
+        a1, a2 = split(g)
+        ha, fla = pa.compact_key_hash(a1, a2, spec0, didx)
+        check(torch.equal(pa.key_histogram(ha, fla, K), dck),
+              f"kernel I {tag}: key table equal to kernel D's "
+              f"(n_uniq {int(dck[0, 0])})")
+
+        # time and bound
+        ms = cuda_ms(lambda: kernels.pseudoalign_anchor(
+            didx, sides, aux, k, L, rl, R, na), 10, torch)
+        plain_ms = cuda_ms(lambda: plain_i(sides), 3, torch)
+        codes, _ = turbo.codes_and_lens_plain(sides, aux, None, L, rl)
+        real = anchor._real_rows(aux, Bp, len(sides))
+        w1 = anchor.anchor_wave1_plain(didx, codes, rl, real, k, na)
+        fail = ~w1.ok & real
+        canon, _, valid = pa.rolling_canonical_kmers(
+            codes[fail], torch.full((int(fail.sum()),), rl,
+                                    dtype=torch.int32, device=dev), k)
+        _, hit, _ = pa.lookup_kmers(didx, canon, valid)
+        n_has2 = int(hit.any(dim=1).sum())
+        n_ok, n_fail = int(w1.ok.sum()), int(fail.sum())
+        # per valid anchor a bucket_start and a key sector, per hit anchor
+        # its uid, pos, fw and block sectors, per verified read two
+        # block_ec8 rows; per wave-2 read kernel D's per-window sectors;
+        # packed codes and aux read, the SideResult rows written
+        table = 32 * (2 * int(w1.valid.sum()) + 4 * int(w1.hit.sum())
+                      + 2 * n_ok + 2 * int(valid.sum()) + int(hit.sum())
+                      + 4 * n_has2)
+        io = (sum(p.numel() for p in sides) + 8 * aux.numel()
+              + B2 * (4 * R + 4 * 6 + 3) + 8)
+        bnd = bound(table + io, 250 * (B2 * na + canon.numel()), PEAK_INT_OPS)
+        del codes, canon, valid, hit, w1
+        log(f"kernel I {tag}: {ms:.3f} ms (plain on card {plain_ms:.3f} ms), "
+            f"reads={B2} Lc={rl} anchors={na} verified={n_ok} wave 2="
+            f"{n_fail} ({n_fail / B2:.4f}); bound {bnd[0]:.4f} ms ({bnd[1]})")
+        out[tag] = ((ms, plain_ms, bnd), n_fail / B2)
+        if tag == "single":
+            # kernel B single-end on I's reads: bus's per-chunk key launch
+            ms_b1 = cuda_ms(lambda: kernels.read_keys(g, None, k), 20, torch)
+            log(f"kernel B single-end on {Bp} reads: {ms_b1:.4f} ms")
+    return out, ms_b1
+
+
+# golden dir, index, options (a file name for batch files), compared files
+BUS_GOLDENS = (
+    ("bus10xv2", "tx", dict(files=["sc_reads_1.fastq.gz",
+                                   "sc_reads_2.fastq.gz"],
+                            technology="10xv2", batch_size=20000),
+     ("output.bus", "matrix.ec", "transcripts.txt")),
+    ("bus_batch_bulk", "tx", dict(batch=(
+        ("sampleA", "bulkb0_1.fastq.gz", "bulkb0_2.fastq.gz"),
+        ("sampleB", "bulkb1_1.fastq.gz", "bulkb1_2.fastq.gz")),
+        batch_size=700),
+     ("output.bus", "matrix.ec", "matrix.cells", "matrix.sample.barcodes",
+      "flens.txt")),
+    ("bus_batch_10x", "tx", dict(batch=(
+        ("cellA", "sc_b0_1.fastq.gz", "sc_b0_2.fastq.gz"),
+        ("cellB", "sc_b1_1.fastq.gz", "sc_b1_2.fastq.gz")),
+        technology="10xv2"), ("output.bus", "matrix.ec", "matrix.cells")),
+    ("bus_inleaved", "tx", dict(files=["interleaved_10x.fastq.gz"],
+                                technology="10xv2", inleaved=True,
+                                batch_size=500), ("output.bus", "matrix.ec")),
+    ("bus_rx", "tx", dict(files=["rx_R1.fastq.gz", "rx_R2.fastq.gz"],
+                          technology="0,0,16:RX:1,0,0"),
+     ("output.bus", "matrix.ec")),
+    ("bus_smartseq3", "tx", dict(
+        files=["ss3_I1.fastq.gz", "ss3_I2.fastq.gz", "ss3_R1.fastq.gz",
+               "ss3_R2.fastq.gz"], technology="SMARTSEQ3", batch_size=1024),
+     ("output.bus", "matrix.ec", "transcripts.txt", "flens.txt")),
+    ("bus_dfk", "tx_dlist", dict(files=["dfk_reads.fastq.gz"],
+                                 technology="bulk", single_end=True,
+                                 dfk_onlist=True),
+     ("output.bus", "matrix.ec")),
+    ("bus_aa_f0", "aa", dict(files=["virus_nn_frame0.fastq.gz"],
+                             technology="bulk", aa=True),
+     ("output.bus", "matrix.ec", "matrix.cells", "matrix.sample.barcodes")),
+    ("bus_distinguish", "colors", dict(
+        files=["distinguish_reads.fastq.gz"], technology="bulk",
+        bus_num=True, single_end=True, k=7),
+     ("output.bus", "matrix.ec", "transcripts.txt")),
+)
+
+
+def phase_4c(Options, build_index, run_bus, tidx, data, golden, work, dev):
+    """The bus goldens on the card.  Returns the chunks by route."""
+    def d(*names):
+        return [os.path.join(data, n) for n in names]
+
+    indexes = {
+        "tx": lambda: tidx,
+        "tx_dlist": lambda: build_index(d("transcripts.fasta.gz"), k=31,
+                                        dlist_paths=d("dlist.fasta")),
+        "aa": lambda: build_index(d("aa_ref.fasta"), k=7, aa=True),
+        "colors": lambda: build_index(
+            d("distinguish_colors.fasta"), k=7,
+            dlist_paths=d("distinguish_polyA.fasta"), distinguish=True),
+    }
+    routes = dict.fromkeys(BUS_ROUTES, 0)
+    for name, iname, kw, files in BUS_GOLDENS:
+        kw = dict(kw)
+        out = os.path.join(work, name)
+        if "files" in kw:
+            kw["files"] = d(*kw["files"])
+        if "batch" in kw:
+            bf = os.path.join(work, f"{name}.batch.txt")
+            with open(bf, "w") as f:
+                for row in kw.pop("batch"):
+                    f.write(" ".join([row[0]] + d(*row[1:])) + "\n")
+            kw["batch_file"] = bf
+        res = run_bus(Options(output_dir=out, **kw), index=indexes[iname](),
+                      device=dev)
+        same = [fn for fn in files
+                if read_bytes(os.path.join(out, fn))
+                == read_bytes(os.path.join(golden, name, fn))]
+        check(len(same) == len(files),
+              f"bus {name}: {', '.join(files)} byte-equal to tests/golden")
+        gi = os.path.join(golden, name, "run_info.json")
+        if os.path.exists(gi):
+            mine = json.loads(read_file(os.path.join(out, "run_info.json")))
+            want = json.loads(read_file(gi))
+            keys = ("n_targets", "n_processed", "n_pseudoaligned", "n_unique")
+            check(all(mine[x] == want[x] for x in keys),
+                  f"bus {name}: run stats equal to tests/golden "
+                  f"({', '.join(str(want[x]) for x in keys)})")
+        for r in routes:
+            routes[r] += res.timings[r]
+    log(f"bus goldens: chunks by route {routes}")
+    return routes
+
+
+def phase_5c(torch, np, kernels, Options, run_bus, index, cdna, n_reads,
+             work, dev):
+    """`bus -x 10xv2` of n_reads at realistic size, then the same input
+    with the anchor route bypassed.  Returns (launches, summary)."""
+    from kallisto_tpu_torch.sc import bus as busmod
+    from kallisto_tpu_torch.utils.benchdata import generate_10x_r1
+
+    r1 = os.path.join(work, "bus_r1.fastq.gz")
+    t0 = time.perf_counter()
+    generate_10x_r1(r1, n_reads)
+    log(f"read 1: {n_reads} barcodes + UMIs, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(tag):
+        out = os.path.join(work, f"bus_{tag}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = run_bus(Options(files=[r1, cdna], technology="10xv2",
+                              output_dir=out), index=index, device=dev)
+        torch.cuda.synchronize()
+        return res, out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    res, out, wall, launches = run("anchor")
+    log(f"launches on the bus path: {launches}")
+    check(launches["pseudoalign_anchor"] > 0,
+          f"bus launched pseudoalign_anchor "
+          f"({launches['pseudoalign_anchor']} times)")
+    t = res.timings
+    routes = {r: t[r] for r in BUS_ROUTES}
+    check(res.num_processed == n_reads and t["anchor"] > 0,
+          f"bus: {res.num_processed} reads, chunks by route {routes}")
+    share = res.num_pseudoaligned / res.num_processed
+    check(share > 0.5, f"bus: aligned share {share:.4f} > 0.5")
+    log(f"bus wall {wall:.2f} s = {n_reads / wall:,.0f} reads/s, "
+        f"{len(res.ec_sets)} ECs; host seconds by phase: " + json.dumps(t))
+    saved = (busmod._BusRun._anchor_pair, busmod._BusRun._anchor_single)
+    busmod._BusRun._anchor_pair = lambda self, *a: None
+    busmod._BusRun._anchor_single = lambda self, *a: None
+    try:
+        rres, rout, rwall, rlaunches = run("per_read")
+    finally:
+        busmod._BusRun._anchor_pair, busmod._BusRun._anchor_single = saved
+    check(rlaunches["pseudoalign_anchor"] == 0 and rres.timings["full"] > 0,
+          "bus with the anchor route bypassed: kernel A only "
+          f"({rlaunches['pseudoalign_side']} launches)")
+    for fn in ("output.bus", "matrix.ec"):
+        check(read_bytes(os.path.join(out, fn))
+              == read_bytes(os.path.join(rout, fn)),
+              f"bus: {fn} byte-equal, anchor route vs per read")
+    stats = (res.num_processed, res.num_pseudoaligned, res.num_unique,
+             res.bclen, res.umilen)
+    check(stats == (rres.num_processed, rres.num_pseudoaligned,
+                    rres.num_unique, rres.bclen, rres.umilen),
+          f"bus: run stats equal, anchor route vs per read {stats}")
+    log(f"bus per read: {rwall:.2f} s = {n_reads / rwall:,.0f} reads/s; "
+        "host seconds by phase: " + json.dumps(rres.timings))
+    summary = {"bus_s": wall, "bus_reads_per_s": n_reads / wall,
+               "bus_routes": routes, "bus_phases_s": t,
+               "bus_per_read_s": rwall,
+               "bus_per_read_reads_per_s": n_reads / rwall,
+               "bus_per_read_phases_s": rres.timings,
+               "bus_stats": stats}
+    return launches, summary
+
+
 def phase_4b(np, run_quant, Options, tidx, pf, golden, work, dev):
     """Bootstraps and bias on tests/data, card against CPU."""
     n_bs = 20
@@ -525,6 +818,7 @@ def main(argv=None):
     from kallisto_tpu_torch.quant import bootstrap as bsq
     from kallisto_tpu_torch.quant import em as emq
     from kallisto_tpu_torch.quant.pipeline import run_quant
+    from kallisto_tpu_torch.sc.bus import run_bus
     from kallisto_tpu_torch.utils.benchdata import generate_paired
     from kallisto_tpu_torch.utils.simtx import generate_transcriptome
 
@@ -676,6 +970,12 @@ def main(argv=None):
             "their plain versions on the card")
         k3b = phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2,
                        k, dev)
+
+        # ---------------------------------------------- 3d. kernel I
+        log(f"== phase 3d: kernel I against its plain version and kernel D "
+            f"on the card ({time.perf_counter() - t_start:.0f} s)")
+        k3d, ms_b_single = phase_3d(torch, np, pa, kernels, fastx, didx,
+                                    rb1, rb2, k, dev)
         del rb1, rb2
 
         # ------------------------------------------------ 4. golden bytes
@@ -716,6 +1016,11 @@ def main(argv=None):
             f"({time.perf_counter() - t_start:.0f} s)")
         phase_4b(np, run_quant, Options, tidx, pf, golden, work, dev)
 
+        log(f"== phase 4c: bus goldens on the card "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        bus_golden_routes = phase_4c(Options, build_index, run_bus, tidx,
+                                     data, golden, work, dev)
+
         # -------------------------------------- 5. main path, full size
         log(f"== phase 5: main path at realistic size "
             f"({time.perf_counter() - t_start:.0f} s)")
@@ -741,10 +1046,15 @@ def main(argv=None):
               <= 1e-6 * res.num_pseudoaligned,
               f"est_counts sum {tot:.3f} within 1e-6 of "
               f"{res.num_pseudoaligned}")
-        routes = {r: res.timings[r] for r in ROUTES}
+        routes = {r: res.timings[r] for r in ROUTES + ("wave2_reads",)}
         check(routes["turbo"] > 0 and routes["full"] > 0
               and routes["fallback"] == 0,
               f"main path: FLD batches per read, then turbo {routes}")
+        check(launches["pseudoalign_anchor"] == routes["turbo"]
+              and launches["pseudoalign_turbo"] == 0,
+              f"main path: the turbo batches went through kernel I "
+              f"({launches['pseudoalign_anchor']} launches, "
+              f"{routes['wave2_reads']} reads in wave 2), none through D")
         n_uniq_mean = res.timings["n_uniq_sum"] / max(routes["turbo"], 1)
         log(f"quant wall {quant_s:.2f} s = {n_pairs / quant_s:,.0f} pairs/s, "
             f"EM {res.em.n_rounds} rounds; routes {routes}, n_uniq max "
@@ -773,18 +1083,30 @@ def main(argv=None):
 
         sub1 = os.path.join(work, "sub_1.fastq.gz")
         sub2 = os.path.join(work, "sub_2.fastq.gz")
-        truncate_fastq(r1p, sub1, n_sub)
+        # kernel D's path: mate 1 of mixed lengths, so that the turbo
+        # batches take kernel D
+        truncate_fastq(r1p, sub1, n_sub, ragged=True)
         truncate_fastq(r2p, sub2, n_sub)
         os.environ["KALLISTO_TPU_FLEN_GOAL"] = "1000"
         try:
             sub_opt = Options(files=[sub1, sub2], batch_size=8192)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
             rg = run_quant(sub_opt, index=index, device=dev)
+            torch.cuda.synchronize()
+            launches_d = dict(kernels.LAUNCHES)
             rc = run_quant(sub_opt, index=index, device="cpu")
         finally:
             del os.environ["KALLISTO_TPU_FLEN_GOAL"]
+        log(f"launches on mixed-length pairs: {launches_d}")
         check(rg.timings["turbo"] > 0 and rc.timings["turbo"] > 0,
               f"first {n_sub} pairs: turbo batches on the card "
               f"({rg.timings['turbo']}) and on the CPU ({rc.timings['turbo']})")
+        check(launches_d["pseudoalign_turbo"] == rg.timings["turbo"]
+              and launches_d["pseudoalign_anchor"] == 0,
+              f"first {n_sub} pairs, mixed lengths: the turbo batches went "
+              f"through kernel D ({launches_d['pseudoalign_turbo']} "
+              "launches), none through I")
         check(np.array_equal(rg.counts, rc.counts)
               and [s.tolist() for s in rg.ec_sets]
               == [s.tolist() for s in rc.ec_sets],
@@ -841,6 +1163,13 @@ def main(argv=None):
             f"{routes_b}; host seconds by phase: " + json.dumps(tb))
         bias_timings = rbias.timings
         del rbias
+
+        # ---------------------------------- 5c. bus -x 10xv2, full size
+        log(f"== phase 5c: bus -x 10xv2 at realistic size "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        launches_bus, bus_summary = phase_5c(
+            torch, np, kernels, Options, run_bus, index, r1p, n_pairs, work,
+            dev)
 
         # ------------------------------------ 6. kernel G, one replicate
         log(f"== phase 6: kernel G with one replicate (the main EM) on the "
@@ -914,19 +1243,48 @@ def main(argv=None):
                  ms=ms_1, plain_ms=plain_1, bound_ms=bound_1[0],
                  bound_by=bound_1[1], library_ms=None, replicates=1),
         ]
-        for name, src, replaces in (
+        # kernel D: launches of its own path (phase 5's mixed-length run);
+        # the main path's count beside it
+        for name, src, replaces, n in (
                 ("pseudoalign_turbo", "pseudoalign.cu",
-                 "kallisto_tpu/ops/turbo.py:131"),
+                 "kallisto_tpu/ops/turbo.py:131",
+                 launches_d["pseudoalign_turbo"]),
                 ("key_histogram", "compact.cu",
-                 "kallisto_tpu/ops/pseudoalign.py:733"),
+                 "kallisto_tpu/ops/pseudoalign.py:733",
+                 launches["key_histogram"]),
                 ("gather_exemplars", "compact.cu",
-                 "kallisto_tpu/quant/pipeline.py:495")):
+                 "kallisto_tpu/quant/pipeline.py:495",
+                 launches["gather_exemplars"])):
             ms, plain, bnd, lib = k3b[name]
             rows.append(dict(
                 name=name, route="cuda", source=csrc + src, replaces=replaces,
-                launches=launches[name], max_abs_err=0.0, ms=ms,
+                launches=n, max_abs_err=0.0, ms=ms,
                 plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
-                library_ms=lib))
+                library_ms=lib, main_path_launches=launches[name]))
+        # kernel I has two rows: paired (quant, launches of phase 5) and
+        # single-end (bus, launches of phase 5c)
+        for form, replaces, n in (
+                ("paired", "kallisto_tpu/ops/anchor.py:218",
+                 launches["pseudoalign_anchor"]),
+                ("single", "kallisto_tpu/ops/anchor.py:249",
+                 launches_bus["pseudoalign_anchor"])):
+            (ms_i, plain_i, bound_i), share = k3d[form]
+            rows.append(dict(
+                name="pseudoalign_anchor", route="cuda",
+                source=csrc + "pseudoalign.cu", replaces=replaces,
+                launches=n, max_abs_err=0.0, ms=ms_i, plain_ms=plain_i,
+                bound_ms=bound_i[0], bound_by=bound_i[1], library_ms=None,
+                mates=2 if form == "paired" else 1, wave2_share=share))
+        # the bus run's kernel time from this run's per-launch times: I and
+        # B at the chunk's shape, F at phase 3b's
+        bus_busy = {
+            "pseudoalign_anchor": launches_bus["pseudoalign_anchor"]
+            * k3d["single"][0][0],
+            "read_keys": launches_bus["read_keys"] * ms_b_single,
+            "gather_exemplars": launches_bus["gather_exemplars"]
+            * k3b["gather_exemplars"][0]}
+        log(f"bus kernel ms (launches x ms): {bus_busy}, sum "
+            f"{sum(bus_busy.values()):.3f} ms of {bus_summary['bus_s']:.2f} s")
         # G with replicates and H: launches of the --bias -b 100 run
         rows += [
             dict(name="em_step_batch", route="cuda", source=csrc + "em.cu",
@@ -954,6 +1312,9 @@ def main(argv=None):
             "quant_phases_s": res.timings,
             "bias_bs100_quant_s": bias_quant_s,
             "bias_bs100_phases_s": bias_timings, **bs_summary,
+            "read_keys_single_ms": ms_b_single, "bus_kernel_ms": bus_busy,
+            "bus_launches": launches_bus,
+            "bus_golden_routes": bus_golden_routes, **bus_summary,
             "kernel_build_s": build_s, "n_targets": index.num_trans,
             "n_kmers": index.num_kmers, "card": smi,
             "smoke_s": time.perf_counter() - t_start,

@@ -4,11 +4,14 @@
     python -m kallisto_tpu_torch.cli quant -i idx.npz -o out r1.fq.gz r2.fq.gz
     python -m kallisto_tpu_torch.cli quant -i idx.npz -o out -b 100 --seed 42 \
         --bias --plaintext r1.fq.gz r2.fq.gz
+    python -m kallisto_tpu_torch.cli bus -i idx.npz -o out -x 10xv2 \
+        R1.fq.gz R2.fq.gz
 
-Mirrors the `index` and `quant` subcommands of kallisto_tpu/cli.py (the
-reference's src/main.cpp) for what the port supports.  `--device` picks
-the card (default) or the CPU; without a card the default raises.  The
-.npz index format is shared with the JAX package both ways.
+Mirrors the `index`, `quant` and `bus` subcommands of kallisto_tpu/cli.py
+(the reference's src/main.cpp), flags and exit codes, for what the port
+supports.  `--device` picks the card (default) or the CPU; without a card
+the default raises.  The .npz index format is shared with the JAX package
+both ways.
 """
 
 import argparse
@@ -74,6 +77,66 @@ def _cmd_quant(args):
     run_quant(opt, device=args.device)
 
 
+def _cmd_bus(args):
+    from .common import Options
+    from .sc.bus import run_bus
+    from .sc.technologies import TECHNOLOGY_LIST
+
+    if args.list:
+        print("List of supported single-cell technologies\n\nshort name\n%s"
+              % "\n".join(TECHNOLOGY_LIST))
+        return
+    if not args.technology and not args.batch:
+        # reference: without -x, only batch/bulk modes are valid
+        # (src/main.cpp:1056-1059)
+        sys.exit('Error: the technology must be specified via -x, use "bulk" '
+                 "for regular RNA-seq reads")
+    if args.batch and args.reads:
+        sys.exit("Error: cannot specify batch mode and supply read files")
+    if args.num and args.bam:
+        sys.exit("Error: --num is incompatible with --bam")
+    if not args.batch and not args.reads:
+        sys.exit("Error: Missing read files")
+    strand = None
+    if args.fr_stranded:
+        strand = "fr"
+    elif args.rf_stranded:
+        strand = "rf"
+    opt = Options(
+        index_path=args.index,
+        output_dir=args.output_dir,
+        technology=args.technology,
+        files=args.reads,
+        strand=strand,
+        unstranded=args.unstranded,
+        single_end=args.single_end,
+        bus_paired=args.bus_paired,
+        bus_num=args.num,
+        max_num_reads=args.num_reads,
+        aa=args.aa,
+        batch_file=args.batch or "",
+        batch_barcodes=args.batch_barcodes,
+        inleaved=args.inleaved,
+        tag=args.tag or "",
+        bam=args.bam,
+        long_read=args.long,
+        threshold=args.threshold,
+        dfk_onlist=args.dfk_onlist,
+        do_union=args.union,
+        verbose=args.verbose,
+        threads=args.threads,
+        batch_size=args.batch_size,
+        call=" ".join(sys.argv),
+    )
+    res = run_bus(opt, device=args.device)
+    if res.num_pseudoaligned == 0:
+        sys.exit(1)
+    if opt.max_num_reads and res.num_processed < opt.max_num_reads:
+        print(f"Note: Number of reads processed is less than --numReads: "
+              f"{opt.max_num_reads}, returning 1", file=sys.stderr)
+        sys.exit(1)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="kallisto-tpu-torch",
@@ -118,6 +181,38 @@ def main(argv=None):
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("reads", nargs="+")
     p.set_defaults(fn=_cmd_quant)
+
+    p = sub.add_parser("bus", help="generate BUS files for single-cell data")
+    p.add_argument("-i", "--index", required=True)
+    p.add_argument("-o", "--output-dir", required=True)
+    p.add_argument("-x", "--technology", default="")
+    p.add_argument("-l", "--list", action="store_true")
+    p.add_argument("-B", "--batch", default=None)
+    p.add_argument("-b", "--bam", action="store_true")
+    p.add_argument("-T", "--tag", default=None)
+    p.add_argument("--aa", action="store_true")
+    p.add_argument("-n", "--num", action="store_true")
+    p.add_argument("-N", "--numReads", type=int, default=0, dest="num_reads")
+    p.add_argument("--fr-stranded", action="store_true")
+    p.add_argument("--rf-stranded", action="store_true")
+    p.add_argument("--unstranded", action="store_true")
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="devices to spread read chunks over (runs on one)")
+    p.add_argument("--single", action="store_true", dest="single_end")
+    p.add_argument("--paired", action="store_true", dest="bus_paired")
+    p.add_argument("--long", action="store_true")
+    p.add_argument("-r", "--threshold", type=float, default=0.8)
+    p.add_argument("--inleaved", action="store_true")
+    p.add_argument("--batch-barcodes", action="store_true")
+    p.add_argument("--dfk-onlist", action="store_true")
+    p.add_argument("--union", action="store_true")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--batch-size", type=int, default=1 << 18,
+                   help="reads per device batch")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("reads", nargs="*")
+    p.set_defaults(fn=_cmd_bus)
 
     args = parser.parse_args(argv)
     if not args.cmd:

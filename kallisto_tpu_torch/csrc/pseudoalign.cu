@@ -1,4 +1,4 @@
-// Kernels A and D: per-read k-mer -> sorted distinct EC rows.
+// Kernels A, D and I: per-read k-mer -> sorted distinct EC rows.
 //
 // Kernel A, pseudoalign_side, replaces the JAX device program
 // kallisto_tpu/ops/pseudoalign.py pseudoalign_batch_packed (:479) with its
@@ -56,6 +56,40 @@
 // window 0's lookup slot (JAX argmax of an all-false row is 0), so window 0
 // is always looked up (with q = mix64(0) when it is invalid).  Padding reads
 // of kernel D have length 0 and follow the same rule.
+//
+// Kernel I, pseudoalign_anchor, replaces the two-wave anchor program,
+// kallisto_tpu/ops/anchor.py _anchor_canon (:66), _anchor_side (:85) and
+// _apply_aux (:189) as reached through pseudoalign_pair_anchor (:218) and
+// pseudoalign_single_anchor (:249); the keys and the table after it are
+// kernels B and E.  It takes kernel D's inputs (uniform length: rlen and
+// n_real from the aux vector) and shares its decode.  Per read, one warp:
+//   wave 1 -- lanes 0..n_anchors-1 (32 at a time) each build one anchor's
+//     window w_j = (wlast * j) / (n_anchors - 1), wlast = max(rlen - k, 0),
+//     look it up (anchor 0 even when invalid, for f_strand), and read its
+//     uid, pos, fw and block on a hit.  __all_sync gives "every anchor hits
+//     one unitig on one strand at upos_0 + sgn * w_j"; warp min/max give
+//     the block range [blo, bhi].  A verified read (also blo >= 0, the
+//     range within two 8-wide rows of block_ec8, the read real and >= k
+//     long) takes the sorted distinct block ECs of that range, 16 lanes
+//     loading the two rows and R rounds of __reduce_min_sync; its first
+//     hit is anchor 0 with f_rpos = 0 and rng = wlast.
+//   wave 2 -- any other real read of length >= k goes straight on into
+//     kt_side_read, kernel D's per-read core.  JAX packs these reads into a
+//     fixed-size sub-batch with a stable argsort, for the TPU's static
+//     shapes; a warp per read needs neither.  The core's rows number
+//     min(R, W); a one-slot row fills all R slots, as JAX's broadcast does
+//     (the wrapper refuses 1 < min(R, W) < R, where JAX raises).
+//   n_fail -- wave-2 reads, counted per block in shared memory and added
+//     once per block into an int64 on the card (the anchor functions put
+//     it in the key table's meta row).  There is no wave-2 capacity: JAX's
+//     overflow marker and redo exist only for its fixed-size sub-batch.
+// What bounds it: the same random table reads as D, for n_anchors lookups
+// per verified read instead of W, plus D's per-window reads for the
+// wave-2 share (51 % of reads on the smoke's simulated 2x100 bp data).
+// What the design does about it: verified reads cost n_anchors lookups
+// and two 32-byte block_ec8 rows; a failing read pays what kernel D pays
+// and nothing more (no second pass, no compaction).  Warps of verified and
+// failing reads finish at different times; balancing them is later work.
 
 #include <cuda_runtime.h>
 
@@ -119,11 +153,12 @@ __device__ __forceinline__ long long kt_lookup(const IndexView& ix,
 }
 
 // One read, one warp: codes (W + k - 1 of them) are in shared memory;
-// wrows is W ints of shared scratch.  Writes the read's SideResult row.
+// wrows is W ints of shared scratch.  Writes the read's SideResult row: R
+// row slots at a row stride of RS >= R.
 __device__ void kt_side_read(const IndexView& ix,
                              const unsigned char* codes, int* wrows,
                              long long read, int len, int W, int k, int R,
-                             const SideOut& o) {
+                             int RS, const SideOut& o) {
     const int lane = threadIdx.x & 31;
     int has = 0, first = 0, last = 0;
     long long fidx = 0;
@@ -183,7 +218,7 @@ __device__ void kt_side_read(const IndexView& ix,
             }
             m = __reduce_min_sync(KT_FULL, m);
         }
-        if (lane == 0) o.rows[read * R + s] = m;
+        if (lane == 0) o.rows[read * RS + s] = m;
         if (m != KT_INT32_MAX) {
             prev = m;
             ++nr;
@@ -243,8 +278,41 @@ __global__ void pseudoalign_side_kernel(
             codes[j] = (unsigned char)(isn ? 4 : c);
         }
         __syncwarp();
-        kt_side_read(ix, codes, wrows, read, lens[read], W, k, R, o);
+        kt_side_read(ix, codes, wrows, read, lens[read], W, k, R, R, o);
     }
+}
+
+// Kernel D's decode (also kernel I's): row `row` of one mate's packed
+// codes, first Lc columns, into the warp's shared codes; this read's N
+// positions [read * Lp, read * Lp + Lp) are found in the sorted exception
+// list by binary search and set to 4 (columns >= Lc are dropped).
+__device__ void kt_turbo_decode(unsigned char* codes,
+                                const unsigned char* __restrict__ packed,
+                                const long long* __restrict__ exc,
+                                long long n_exc, long long read,
+                                long long row, int Lp, int Lc) {
+    const int lane = threadIdx.x & 31;
+    const unsigned char* pk = packed + row * (Lp >> 2);
+    for (int j = lane; j < Lc; j += 32)
+        codes[j] = (unsigned char)((pk[j >> 2] >> ((j & 3) * 2)) & 3);
+    __syncwarp();
+    const long long lo_key = read * (long long)Lp;
+    long long a = 0, n = n_exc;
+    while (n > 0) {
+        const long long half = n >> 1;
+        if (exc[a + half] < lo_key) {
+            a += half + 1;
+            n -= half + 1;
+        } else {
+            n = half;
+        }
+    }
+    for (long long e = a + lane; e < n_exc; e += 32) {
+        const long long col = exc[e] - lo_key;
+        if (col >= Lp) break;
+        if (col < Lc) codes[col] = 4;
+    }
+    __syncwarp();
 }
 
 __global__ void pseudoalign_turbo_kernel(
@@ -264,7 +332,6 @@ __global__ void pseudoalign_turbo_kernel(
     const int code_bytes = (Lc + 15) & ~15;
     unsigned char* codes = (unsigned char*)kt_smem + (long long)warp * warp_bytes;
     int* wrows = (int*)(codes + code_bytes);
-    const int LB = Lp >> 2;
     const long long rlen = aux[0];
     const long long n_real = aux[1];
     const long long* exc = aux + 4;
@@ -273,32 +340,171 @@ __global__ void pseudoalign_turbo_kernel(
     for (long long read = (long long)blockIdx.x * wpb + warp; read < B;
          read += (long long)gridDim.x * wpb) {
         const long long row = read % Bp;
-        const unsigned char* pk = (read < Bp ? p1 : p2) + row * LB;
-        for (int j = lane; j < Lc; j += 32)
-            codes[j] = (unsigned char)((pk[j >> 2] >> ((j & 3) * 2)) & 3);
-        __syncwarp();
-        // this read's N positions: [lo_key, lo_key + Lp) in the sorted list
-        const long long lo_key = read * (long long)Lp;
-        long long a = 0, n = n_exc;
-        while (n > 0) {
-            const long long half = n >> 1;
-            if (exc[a + half] < lo_key) {
-                a += half + 1;
-                n -= half + 1;
-            } else {
-                n = half;
-            }
-        }
-        for (long long e = a + lane; e < n_exc; e += 32) {
-            const long long col = exc[e] - lo_key;
-            if (col >= Lp) break;
-            if (col < Lc) codes[col] = 4;
-        }
-        __syncwarp();
+        kt_turbo_decode(codes, read < Bp ? p1 : p2, exc, n_exc, read, row, Lp,
+                        Lc);
         int len = 0;
         if (row < n_real) len = lens ? (int)lens[read] : (int)rlen;
-        kt_side_read(ix, codes, wrows, read, len, W, k, R, o);
+        kt_side_read(ix, codes, wrows, read, len, W, k, R, R, o);
     }
+}
+
+// Kernel I: one warp per read of the ns*Bp turbo reads (see the file header).
+__global__ void pseudoalign_anchor_kernel(
+    IndexView ix,
+    const int* __restrict__ be8,               // [n_be8] block_ec8, flat
+    long long n_be8,
+    const unsigned char* __restrict__ p1,      // [Bp, Lp/4] mate 1
+    const unsigned char* __restrict__ p2,      // [Bp, Lp/4] mate 2 or null
+    const long long* __restrict__ aux,         // [4 + n_exc]
+    long long n_exc, long long Bp, int ns, int Lp, int Lc, int k, int R,
+    int Rc, int n_anchors, int warp_bytes, SideOut o,
+    unsigned long long* __restrict__ n_fail) {
+    extern __shared__ int kt_smem[];
+    __shared__ unsigned int blk_fail;
+    if (threadIdx.x == 0) blk_fail = 0;
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int wpb = blockDim.x >> 5;
+    const int W = Lc - k + 1;
+    const int code_bytes = (Lc + 15) & ~15;
+    unsigned char* codes = (unsigned char*)kt_smem + (long long)warp * warp_bytes;
+    int* wrows = (int*)(codes + code_bytes);
+    const int rlen = (int)aux[0];
+    const long long n_real = aux[1];
+    const long long* exc = aux + 4;
+    const long long B = Bp * ns;
+    const int long_enough = rlen >= k;
+    const int wlast = rlen - k > 0 ? rlen - k : 0;
+    const int n_gaps = n_anchors - 1;
+
+    for (long long read = (long long)blockIdx.x * wpb + warp; read < B;
+         read += (long long)gridDim.x * wpb) {
+        const long long row = read % Bp;
+        kt_turbo_decode(codes, read < Bp ? p1 : p2, exc, n_exc, read, row, Lp,
+                        Lc);
+        const int real = row < n_real;
+
+        // wave 1: one anchor per lane, 32 at a time
+        int all_ok = 1, blo = KT_INT32_MAX, bhi = -KT_INT32_MAX - 1;
+        int uid0 = 0, upos0 = 0, str0 = 0, blk0 = 0, sgn = 1;
+        for (int base = 0; base < n_anchors; base += 32) {
+            const int j = base + lane;
+            const int act = j < n_anchors;
+            int hit = 0, uid = -1, upos = 0, strand = 0, blk = 0, w = 0;
+            if (act) {
+                w = (int)(((long long)wlast * j) / n_gaps);
+                unsigned long long f = 0, r = 0;
+                int bad = 0;
+                for (int d = 0; d < k; ++d) {
+                    const int c = codes[w + d];
+                    bad |= c >> 2;
+                    const unsigned long long cc = (unsigned long long)(c & 3);
+                    f = (f << 2) | cc;
+                    r |= (3ULL - cc) << (2 * d);
+                }
+                const int valid = !bad && long_enough && real;
+                const int isfw = f <= r;
+                // anchor 0 is looked up even when invalid: its strand
+                // stands in for f_strand of reads without a result
+                if (valid || j == 0) {
+                    const unsigned long long q =
+                        kt_mix64(valid ? (isfw ? f : r) : 0ULL);
+                    const long long idx = kt_lookup(ix, q);
+                    hit = valid && ix.hkeys[idx] == q;
+                    strand = isfw == (int)(ix.fw[idx] != 0);
+                    if (hit) {
+                        uid = ix.uid[idx];
+                        upos = ix.pos[idx];
+                        blk = ix.block[idx];
+                    }
+                }
+                blo = min(blo, blk);
+                bhi = max(bhi, blk);
+            }
+            if (base == 0) {
+                uid0 = __shfl_sync(KT_FULL, uid, 0);
+                upos0 = __shfl_sync(KT_FULL, upos, 0);
+                str0 = __shfl_sync(KT_FULL, strand, 0);
+                blk0 = __shfl_sync(KT_FULL, blk, 0);
+                sgn = str0 ? 1 : -1;
+            }
+            const int lane_ok = !act || (hit && uid == uid0 && strand == str0 &&
+                                         upos == upos0 + sgn * w);
+            all_ok &= __all_sync(KT_FULL, lane_ok);
+        }
+        blo = __reduce_min_sync(KT_FULL, blo);
+        bhi = __reduce_max_sync(KT_FULL, bhi);
+        const int ok = all_ok && (bhi >> 3) <= (blo >> 3) + 1 && blo >= 0 &&
+                       real && long_enough;
+
+        if (ok) {
+            // the stretch's distinct block ECs: two 8-wide rows of block_ec8
+            // restricted to block ids [blo, bhi], R rounds of warp minimum
+            const int r0 = blo >> 3;
+            int v = KT_INT32_MAX;
+            if (lane < 16) {
+                const long long fid = (long long)r0 * 8 + lane;
+                if (fid >= blo && fid <= bhi && fid < n_be8) {
+                    const int c = be8[fid];
+                    if (c >= 0) v = c;
+                }
+            }
+            int prev = -1, nr = 0;
+            const int Rv = R < 16 ? R : 16;
+            for (int s = 0; s < Rv; ++s) {
+                const int m = __reduce_min_sync(KT_FULL,
+                                                v > prev ? v : KT_INT32_MAX);
+                if (lane == 0) o.rows[read * R + s] = m;
+                if (m != KT_INT32_MAX) {
+                    prev = m;
+                    ++nr;
+                }
+            }
+            for (int s = Rv + lane; s < R; s += 32)
+                o.rows[read * R + s] = KT_INT32_MAX;
+            const int ov = __any_sync(KT_FULL, v > prev && v != KT_INT32_MAX);
+            if (lane == 0) {
+                o.n_rows[read] = nr;
+                o.has_hits[read] = 1;
+                o.overflow[read] = (unsigned char)ov;
+                o.f_uid[read] = uid0;
+                o.f_block[read] = blk0;
+                o.f_upos[read] = upos0;
+                o.f_rpos[read] = 0;
+                o.f_strand[read] = (unsigned char)str0;
+                o.rng[read] = wlast;
+            }
+        } else if (real && long_enough) {
+            // wave 2, inline: every window of this read
+            kt_side_read(ix, codes, wrows, read, rlen, W, k, Rc, R, o);
+            if (lane == 0) {
+                // a one-slot core row fills every slot (JAX's broadcast)
+                for (int s = Rc; s < R; ++s)
+                    o.rows[read * R + s] = o.rows[read * R];
+                atomicAdd(&blk_fail, 1u);
+            }
+        } else {
+            // padding reads (and every read when rlen < k)
+            for (int s = lane; s < R; s += 32)
+                o.rows[read * R + s] = KT_INT32_MAX;
+            if (lane == 0) {
+                o.n_rows[read] = 0;
+                o.has_hits[read] = 0;
+                o.overflow[read] = 0;
+                o.f_uid[read] = -1;
+                o.f_block[read] = -1;
+                o.f_upos[read] = -1;
+                o.f_rpos[read] = -1;
+                o.f_strand[read] = (unsigned char)str0;
+                o.rng[read] = -1;
+            }
+        }
+        __syncwarp();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && blk_fail)
+        atomicAdd(n_fail, (unsigned long long)blk_fail);
 }
 
 static int kt_index_view(IndexView* ix, const void* hkeys,
@@ -427,5 +633,45 @@ extern "C" int pseudoalign_turbo(
         Lc, k, R, warp_bytes,
         kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
                     f_rpos, f_strand, rng));
+    return (int)cudaGetLastError();
+}
+
+extern "C" int pseudoalign_anchor(
+    const void* hkeys, const void* bucket_start, const void* uid,
+    const void* pos, const void* fw, const void* block, const void* ec,
+    long long N, int p, const void* block_ec8, long long n_be8,
+    const void* p1, const void* p2, const void* aux, long long n_exc,
+    long long Bp, int ns, int Lp, int rl, int k, int R, int n_anchors,
+    void* rows, void* n_rows, void* has_hits, void* overflow,
+    void* f_uid, void* f_block, void* f_upos, void* f_rpos,
+    void* f_strand, void* rng, void* n_fail, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t e = cudaMemsetAsync(n_fail, 0, 8, st);
+    if (e != cudaSuccess) return (int)e;
+    if (Bp <= 0) return 0;
+    const int Lc = (rl > 0 && rl < Lp) ? rl : Lp;
+    const int W = Lc - k + 1;
+    const int Rc = R < W ? R : W;
+    if (ns < 1 || ns > 2 || (ns == 2 && p2 == 0) || n_exc < 0 ||
+        Lc < k || (Lp & 3) != 0 || R <= 0 || (Rc != R && Rc != 1) ||
+        k > 32 || n_anchors < 2 || n_be8 < 16)
+        return (int)cudaErrorInvalidValue;
+    IndexView ix;
+    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
+                            N, p);
+    if (err) return err;
+    int wpb, warp_bytes;
+    long long smem;
+    err = kt_launch_shape(pseudoalign_anchor_kernel, Lc, W, &wpb, &warp_bytes,
+                          &smem);
+    if (err) return err;
+    pseudoalign_anchor_kernel<<<kt_blocks(Bp * ns, wpb), wpb * 32,
+                                (size_t)smem, st>>>(
+        ix, (const int*)block_ec8, n_be8, (const unsigned char*)p1,
+        (const unsigned char*)p2, (const long long*)aux, n_exc, Bp, ns, Lp,
+        Lc, k, R, Rc, n_anchors, warp_bytes,
+        kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
+                    f_rpos, f_strand, rng),
+        (unsigned long long*)n_fail);
     return (int)cudaGetLastError();
 }

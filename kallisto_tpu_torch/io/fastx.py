@@ -56,10 +56,13 @@ class ReadBatch:
 
     codes: [n, max_len] uint8 in {0..4}; positions >= lens[i] are 4.
     lens:  [n] int32 read lengths.
+    comments: the FASTQ header after its first space or tab, per read
+    (only read with keep_comments).
     """
 
     codes: np.ndarray
     lens: np.ndarray
+    comments: Optional[List[bytes]] = None
 
     @property
     def n(self) -> int:
@@ -74,8 +77,9 @@ class FastqStream:
     matrix.  Orders of magnitude faster than per-record Python loops.
     """
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, keep_comments: bool = False):
         self.path = path
+        self.keep_comments = keep_comments
         self._fh = _open_maybe_gz(path)
         self._tail = b""       # the partial line after the last newline
         self._lines: List[bytes] = []  # complete lines not yet handed out
@@ -149,11 +153,23 @@ class FastqStream:
         buf = np.full((len(seqs), max_len), 4, dtype=np.uint8)
         for i, s in enumerate(seqs):
             buf[i, : lens[i]] = BASE_CODE[np.frombuffer(s, dtype=np.uint8)]
-        return ReadBatch(codes=buf, lens=lens)
+        comments = None
+        if self.keep_comments:
+            # kseq semantics: comment = header after the first whitespace
+            # (reference: FastqSequenceReader comments path,
+            # src/ProcessReads.cpp:3216-3245)
+            comments = []
+            for ln in headers:
+                sp = ln.find(b" ")
+                tb = ln.find(b"\t")
+                cut = min(x for x in (sp, tb, len(ln)) if x >= 0)
+                comments.append(ln[cut + 1:] if cut < len(ln) else b"")
+        return ReadBatch(codes=buf, lens=lens, comments=comments)
 
 
-def single_batches(path: str, batch_reads: int) -> Iterator[ReadBatch]:
-    s = FastqStream(path)
+def single_batches(path: str, batch_reads: int,
+                   keep_comments: bool = False) -> Iterator[ReadBatch]:
+    s = FastqStream(path, keep_comments=keep_comments)
     try:
         while True:
             b = s.next_batch(batch_reads)

@@ -90,6 +90,13 @@ def write_ec_list(path: str, ec_sets: Iterable[np.ndarray]) -> None:
             f.write(f"{ec}\t{','.join(str(int(t)) for t in s)}\n")
 
 
+def write_transcripts(path: str, names: Sequence[str]) -> None:
+    """transcripts.txt of `bus`: one target name per line."""
+    with open(path, "w") as f:
+        for n in names:
+            f.write(f"{n}\n")
+
+
 def write_counts(path: str, counts: np.ndarray) -> None:
     """counts.txt written by --write-index (reference: MinCollector::write
     via ProcessReads.cpp:243-249): `ec_id<TAB>count` per line."""

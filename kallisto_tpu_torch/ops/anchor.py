@@ -1,0 +1,259 @@
+"""Two-wave anchor pseudoalignment of uniform-length turbo batches.
+
+Port of kallisto_tpu/ops/anchor.py.  Kernel D (ops/turbo.py) looks up
+every k-mer window of every read; the reference resolves most reads with a
+handful of lookups by jumping along unitig stretches (src/KmerIndex.cpp:
+1776-1887).  The anchor evaluation is the data-parallel form of that jump:
+
+wave 1 -- look up n_anchors windows per read, w_j = (wlast * j) //
+(n_anchors - 1) with wlast = max(rlen - k, 0), so consecutive anchors are
+at most k apart.  If every anchor hits one unitig on one strand at exactly
+the interpolated positions (upos_j == upos_0 + sgn * w_j), the anchors'
+overlapping windows chain into read[0 : wlast + k] == that unitig stretch,
+so every window of the read hits it.  The read's distinct EC rows are then
+the block ECs of the contiguous block-id range [blo, bhi] (blocks are
+unitig-major and position-ascending, asserted when the index is put on
+the device), read from two 8-wide rows of block_ec8; its first hit is
+anchor 0 with f_rpos = 0 and rng = wlast.
+
+wave 2 -- every other real read at least k long is evaluated window by
+window, as kernel D evaluates it.  n_fail counts them and goes to the key
+table's meta row.  In the JAX package wave 2 is a fixed-size sub-batch
+for the TPU's static shapes: failures past its capacity mark the table
+overflowed and the caller redoes the batch through kernel D.  Here a warp
+per read needs no capacity, so every read gets its real result and no
+table is marked; JAX's wave2_cap / wave2_denom arguments are not taken.
+
+Row width: a verified read has R = max_rows slots; the wave-2 core gives
+min(max_rows, W) with W = Lc - k + 1.  JAX merges the two by broadcasting,
+which works when they are equal or the core has one slot (that slot fills
+every slot) and raises ValueError ("Incompatible shapes for broadcasting")
+otherwise, i.e. for k + 1 < Lc < k + max_rows - 1.  These functions do the
+same (`row_width_ok` says which lengths have an anchor route).
+
+On the card wave 1 and wave 2 are kernel I (csrc/pseudoalign.cu
+pseudoalign_anchor), followed by kernel B's compact keys and kernel E's
+table; on the CPU each is its plain PyTorch version.
+"""
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from . import kernels
+from .pseudoalign import (
+    INT32_MAX,
+    DeviceIndex,
+    SideResult,
+    _pseudoalign_core,
+    compact_pair_keys,
+    compact_single_keys,
+    lookup_kmers,
+)
+from .turbo import _split, codes_and_lens_plain
+
+
+def n_anchors_for(Lp: int, k: int) -> int:
+    """Anchor count: interior anchors keep every gap <= k."""
+    span = max(Lp - k, 0)
+    return max(2, -(-span // k) + 1)
+
+
+def row_width_ok(Lc: int, k: int, max_rows: int = 16) -> bool:
+    """Whether reads of Lc code columns have an anchor route: the wave-2
+    row width min(max_rows, Lc - k + 1) is max_rows or 1."""
+    return Lc >= k and min(max_rows, Lc - k + 1) in (1, max_rows)
+
+
+def _check_row_width(Lc: int, k: int, max_rows: int) -> int:
+    Rc = min(max_rows, Lc - k + 1)
+    if not row_width_ok(Lc, k, max_rows):
+        raise ValueError(
+            f"Incompatible shapes for broadcasting: wave-2 rows {Rc} and "
+            f"verified rows {max_rows} (Lc={Lc}, k={k})")
+    return Rc
+
+
+def _anchor_canon(codes: torch.Tensor, w: int, k: int):
+    """Canonical k-mer of the window at column w of every read: (canon
+    int64, is_fw, clean = window free of N codes)."""
+    sl = codes[:, w : w + k]
+    c = (sl & 3).to(torch.int64)
+    f = torch.zeros(codes.shape[0], dtype=torch.int64, device=codes.device)
+    r = torch.zeros_like(f)
+    for d in range(k):
+        f = (f << 2) | c[:, d]
+        r = r | ((3 - c[:, d]) << (2 * d))
+    is_fw = f <= r
+    return torch.where(is_fw, f, r), is_fw, ~(sl >= 4).any(dim=1)
+
+
+class Wave1(NamedTuple):
+    """Wave 1 of every read: the verified flag and the anchors' lookups
+    ([B2, n_anchors] each, anchor j at column ws[j])."""
+
+    ok: torch.Tensor
+    ws: list
+    valid: torch.Tensor
+    hit: torch.Tensor
+    uid: torch.Tensor
+    upos: torch.Tensor
+    strand: torch.Tensor
+    blk: torch.Tensor
+
+
+def anchor_wave1_plain(didx: DeviceIndex, codes: torch.Tensor, rlen: int,
+                       real: torch.Tensor, k: int, n_anchors: int) -> Wave1:
+    """Plain version of kernel I's wave 1 (JAX _anchor_side :88-123)."""
+    wlast = max(rlen - k, 0)
+    ws = [(wlast * j) // (n_anchors - 1) for j in range(n_anchors)]
+    parts = [_anchor_canon(codes, w, k) for w in ws]
+    canA = torch.stack([p[0] for p in parts], dim=1)
+    fwA = torch.stack([p[1] for p in parts], dim=1)
+    long_enough = rlen >= k
+    validA = torch.stack([p[2] for p in parts], dim=1) & long_enough \
+        & real[:, None]
+    idxA, hitA, _ = lookup_kmers(didx, canA, validA)
+    neg1 = torch.full_like(idxA, -1, dtype=torch.int32)
+    zero = torch.zeros_like(neg1)
+    uidA = torch.where(hitA, didx.kmer_uid[idxA], neg1)
+    uposA = torch.where(hitA, didx.kmer_pos[idxA], zero)
+    strandA = fwA == didx.kmer_fw[idxA]
+    blkA = torch.where(hitA, didx.kmer_block[idxA], zero)
+
+    ok = hitA.all(dim=1)
+    ok &= (uidA == uidA[:, :1]).all(dim=1)
+    ok &= (strandA == strandA[:, :1]).all(dim=1)
+    sgn = torch.where(strandA[:, 0], 1, -1).to(torch.int32)
+    for j in range(1, n_anchors):
+        ok &= uposA[:, j] == uposA[:, 0] + sgn * ws[j]
+    blo = blkA.amin(dim=1)
+    bhi = blkA.amax(dim=1)
+    r0 = blo >> 3
+    ok &= (bhi >> 3) <= r0 + 1   # candidates fit in two 8-wide rows
+    ok &= blo >= 0
+    ok &= real & long_enough
+    return Wave1(ok, ws, validA, hitA, uidA, uposA, strandA, blkA)
+
+
+def anchor_side_plain(didx: DeviceIndex, codes: torch.Tensor, rlen: int,
+                      real: torch.Tensor, k: int, max_rows: int,
+                      n_anchors: int) -> Tuple[SideResult, torch.Tensor]:
+    """Plain version of kernel I on decoded codes [B2, Lc] (JAX
+    _anchor_side, every wave-2 read evaluated).  Returns (SideResult with
+    max_rows slots, n_fail [1] int64)."""
+    B2, Lc = codes.shape
+    dev = codes.device
+    R = max_rows
+    Rc = _check_row_width(Lc, k, R)
+    wlast = max(rlen - k, 0)
+    long_enough = rlen >= k
+    w1 = anchor_wave1_plain(didx, codes, rlen, real, k, n_anchors)
+    ok, uidA, uposA, strandA, blkA = w1.ok, w1.uid, w1.upos, w1.strand, w1.blk
+    blo = blkA.amin(dim=1)
+    bhi = blkA.amax(dim=1)
+    r0 = blo >> 3
+
+    # verified rows: distinct sorted block ECs over [blo, bhi]
+    nb8 = didx.block_ec8.shape[0]
+    rc = torch.clamp(r0, 0, nb8 - 2).to(torch.int64)  # rows of ok reads
+    cand = torch.cat([didx.block_ec8[rc], didx.block_ec8[rc + 1]], dim=1)
+    fid = (r0 * 8)[:, None] + torch.arange(16, dtype=torch.int32, device=dev)
+    inr = (fid >= blo[:, None]) & (fid <= bhi[:, None])
+    big = torch.full_like(cand, INT32_MAX)
+    vr = torch.where(inr & (cand >= 0), cand, big)
+    slots = []
+    prev = torch.full((B2,), -1, dtype=torch.int32, device=dev)
+    for _ in range(min(R, 16)):
+        cur = torch.where(vr > prev[:, None], vr, big).amin(dim=1)
+        slots.append(cur)
+        prev = torch.where(cur != INT32_MAX, cur, prev)
+    while len(slots) < R:
+        slots.append(torch.full((B2,), INT32_MAX, dtype=torch.int32,
+                                device=dev))
+    rows_v = torch.stack(slots, dim=1)
+    ovf_v = ((vr > prev[:, None]) & (vr != INT32_MAX)).any(dim=1)
+
+    neg = torch.full((B2,), -1, dtype=torch.int32, device=dev)
+    rows = torch.where(ok[:, None], rows_v, torch.full_like(rows_v, INT32_MAX))
+    n_rows = torch.where(ok, (rows_v != INT32_MAX).sum(dim=1).to(torch.int32),
+                         torch.zeros_like(neg))
+    out = SideResult(
+        rows=rows, n_rows=n_rows, has_hits=ok.clone(), overflow=ok & ovf_v,
+        f_uid=torch.where(ok, uidA[:, 0], neg),
+        f_block=torch.where(ok, blkA[:, 0], neg),
+        f_upos=torch.where(ok, uposA[:, 0], neg),
+        f_rpos=torch.where(ok, torch.zeros_like(neg), neg),
+        f_strand=strandA[:, 0].clone(),
+        rng=torch.where(ok, torch.full_like(neg, wlast), neg),
+    )
+
+    # wave 2: every failing read, in read order, through the full core
+    fail = (~ok) & real & long_enough
+    sel = torch.nonzero(fail).squeeze(1)
+    if sel.numel():
+        lens = torch.full((sel.shape[0],), rlen, dtype=torch.int32, device=dev)
+        core = _pseudoalign_core(didx, codes[sel], lens, k, R)
+        for name, a, b in zip(SideResult._fields, out, core):
+            if name == "rows" and Rc < R:
+                b = b.expand(-1, R)   # a one-slot core row fills every slot
+            a[sel] = b
+    n_fail = fail.sum().reshape(1).to(torch.int64)
+    return out, n_fail
+
+
+def _real_rows(aux: torch.Tensor, B: int, ns: int) -> torch.Tensor:
+    side_idx = torch.arange(ns * B, dtype=torch.int64, device=aux.device) % B
+    return side_idx < aux[1]
+
+
+def anchor_sides(didx: DeviceIndex, sides, aux: torch.Tensor, k: int, L: int,
+                 max_rows: int, n_anchors: int,
+                 rl: int = 0) -> Tuple[SideResult, torch.Tensor]:
+    """Kernel I (or its plain version): the SideResult of every read of the
+    concatenated mates ([ns * Bp] rows, max_rows slots) and n_fail."""
+    if sides[0].is_cuda:
+        out, n_fail = kernels.pseudoalign_anchor(didx, sides, aux, k, L, rl,
+                                                 max_rows, n_anchors)
+        return SideResult(*out), n_fail
+    codes, _ = codes_and_lens_plain(sides, aux, None, L, rl)
+    real = _real_rows(aux, sides[0].shape[0], len(sides))
+    return anchor_side_plain(didx, codes, int(aux[0]), real, k, max_rows,
+                             n_anchors)
+
+
+def _with_n_fail(ck: torch.Tensor, n_fail: torch.Tensor) -> torch.Tensor:
+    ck[0, 1:2].copy_(n_fail)  # meta row: [n_uniq, n_fail, 0, 0, 0]
+    return ck
+
+
+def pseudoalign_pair_anchor(
+    didx: DeviceIndex, p1: torch.Tensor, p2: torch.Tensor, aux: torch.Tensor,
+    k: int, L: int, max_rows: int = 16, max_keys: int = 32768,
+    n_anchors: int = 2, min_range: int = 0, strand_key: bool = False,
+    rl: int = 0, pos_fl: int = -1, pos_depth: int = 0,
+):
+    """Uniform-length pair batch through the anchor kernel, then kernel B's
+    compact keys and kernel E's table.  Returns (r1, r2, ck [max_keys+1,
+    5]) with n_fail in ck[0, 1]."""
+    B = p1.shape[0]
+    side, n_fail = anchor_sides(didx, (p1, p2), aux, k, L, max_rows,
+                                n_anchors, rl)
+    r1, r2 = _split(side, B)
+    ck = compact_pair_keys(r1, r2, max_keys, k, min_range, strand_key, didx,
+                           pos_fl, pos_depth)
+    return r1, r2, _with_n_fail(ck, n_fail)
+
+
+def pseudoalign_single_anchor(
+    didx: DeviceIndex, p1: torch.Tensor, aux: torch.Tensor, k: int, L: int,
+    max_rows: int = 16, max_keys: int = 32768, n_anchors: int = 2,
+    min_range: int = 0, strand_key: bool = False, rl: int = 0,
+    pos_fl: int = -1, pos_depth: int = 0,
+):
+    """Single-end twin of pseudoalign_pair_anchor: (r1, ck)."""
+    side, n_fail = anchor_sides(didx, (p1,), aux, k, L, max_rows, n_anchors,
+                                rl)
+    ck = compact_single_keys(side, max_keys, k, min_range, strand_key, didx,
+                             pos_fl, pos_depth)
+    return side, _with_n_fail(ck, n_fail)

@@ -6,7 +6,7 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build
 happens at first use, into ``kallisto_tpu_torch/_kbuild/`` (gitignored),
 with one ``nvcc`` per source, all started together; a library is named by
 the hash of its source and flags, so an unchanged source is not rebuilt.
-Several kernels may share a source (A and D; E and F).
+Several kernels may share a source (A, D and I; E and F).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
@@ -37,6 +37,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "pseudoalign_side": ("pseudoalign.cu", ()),
     "read_keys": ("read_keys.cu", ()),
     "pseudoalign_turbo": ("pseudoalign.cu", ()),
+    "pseudoalign_anchor": ("pseudoalign.cu", ()),
     "key_histogram": ("compact.cu", ()),
     "gather_exemplars": ("compact.cu", ()),
     # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
@@ -83,6 +84,8 @@ _ARGTYPES = {
     + [_P] * 10 + [_P],
     "pseudoalign_turbo": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_LL, _P, _LL]
     + [_I] * 5 + [_P] * 10 + [_P],
+    "pseudoalign_anchor": [_P] * 7 + [_LL, _I, _P, _LL] + [_P] * 3
+    + [_LL, _LL] + [_I] * 6 + [_P] * 11 + [_P],
     "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
     "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL, _P, _P, _P, _P],
     "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
@@ -293,6 +296,48 @@ def pseudoalign_turbo(didx, sides, aux: torch.Tensor,
     _raise_on(err, "pseudoalign_turbo")
     LAUNCHES["pseudoalign_turbo"] += 1
     return out
+
+
+# ---------------------------------------------------------------- kernel I
+
+
+def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
+                       rl: int, R: int, n_anchors: int):
+    """Kernel I, the two-wave anchor kernel, on one or two mates' packed
+    codes (`sides`, each [Bp, L/4] uint8) with the aux vector [4 + n]
+    int64.  R is the row width of every read (max_rows); the wave-2 core
+    gives min(R, Lc - k + 1) rows, which must be R or 1 (a one-slot row
+    fills every slot).  Returns the ten SideResult fields for the ns * Bp
+    reads, mate 1 first, and n_fail ([1] int64, reads of wave 2)."""
+    dev = didx.kmer_hkeys.device
+    ns = len(sides)
+    if ns not in (1, 2):
+        raise ValueError("kernel I takes one or two mates")
+    Bp = int(sides[0].shape[0])
+    Lc = rl if 0 < rl < L else L
+    Rc = min(R, Lc - k + 1)
+    if L % 4 or Lc < k or R < 1 or Rc not in (1, R) or n_anchors < 2:
+        raise ValueError(f"bad shape: L={L} rl={rl} k={k} R={R} "
+                         f"n_anchors={n_anchors}")
+    for j, p in enumerate(sides):
+        _check(p, f"packed{j + 1}", torch.uint8, (Bp, L // 4), dev)
+    if aux.dim() != 1 or aux.shape[0] < 4:
+        raise ValueError("aux must be [4 + n] int64")
+    _check(aux, "aux", torch.int64, None, dev)
+    be8 = didx.block_ec8
+    _check(be8, "block_ec8", torch.int32, (be8.shape[0], 8), dev)
+    ix = _index_args(didx)
+    out = _side_outputs(ns * Bp, R, dev)
+    n_fail = torch.empty(1, dtype=torch.int64, device=dev)
+    err = _fn("pseudoalign_anchor")(
+        *ix, _ptr(be8), int(be8.numel()), _ptr(sides[0]),
+        _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
+        int(aux.shape[0]) - 4, Bp, ns, L, rl, k, R, n_anchors,
+        *[_ptr(t) for t in out], _ptr(n_fail), _stream(),
+    )
+    _raise_on(err, "pseudoalign_anchor")
+    LAUNCHES["pseudoalign_anchor"] += 1
+    return out, n_fail
 
 
 # ---------------------------------------------------------------- kernel B

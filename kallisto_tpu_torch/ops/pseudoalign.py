@@ -121,6 +121,9 @@ class DeviceIndex(NamedTuple):
     kmer_fw: torch.Tensor       # [N] bool
     kmer_block: torch.Tensor    # [N] int32
     kmer_ec: torch.Tensor       # [N] int32 EC row, -1 = empty/wildcard
+    # [ceil((NB+9)/8), 8] int32: block_ec padded to 8-wide rows (-1 pad);
+    # the anchor kernel fetches a verified stretch's ECs as two rows
+    block_ec8: torch.Tensor
     p: int                      # bucket bits
     # FLD position-filter threshold tables (None unless the run needs the
     # filter; see pos_filter_rank): per-block offsets, then the sorted
@@ -130,7 +133,7 @@ class DeviceIndex(NamedTuple):
 
     def nbytes(self) -> int:
         return sum(
-            t.numel() * t.element_size() for t in self[:7]
+            t.numel() * t.element_size() for t in self[:8]
         )
 
 
@@ -200,6 +203,18 @@ def device_index_from_host(index, device=None,
     dev = resolve_device(device)
     layout = cached_probe_layout(index)
     order = layout.order
+    # anchor-kernel invariant: block ids are unitig-major and consecutive
+    # ascending with position, so a verified unitig stretch maps to the
+    # contiguous block-id range [block(p_lo), block(p_hi)]
+    bu = index.block_uid
+    if bu.shape[0] > 1:
+        assert ((np.diff(bu.astype(np.int64)) > 0)
+                | (np.diff(index.block_start.astype(np.int64)) > 0)).all(), \
+            "mosaic blocks must be unitig-major, position-ascending"
+    NB = index.block_ec.shape[0]
+    nb8 = ((NB + 9) + 7) // 8
+    be8 = np.full(nb8 * 8, -1, np.int32)
+    be8[:NB] = index.block_ec
     kmer_block = index.kmer_block[order].astype(np.int32)
     kmer_ec = np.where(
         kmer_block >= 0, index.block_ec[np.maximum(kmer_block, 0)], -1
@@ -220,6 +235,7 @@ def device_index_from_host(index, device=None,
         kmer_fw=put(index.kmer_fw[order].astype(bool)),
         kmer_block=put(kmer_block),
         kmer_ec=put(kmer_ec),
+        block_ec8=put(be8.reshape(nb8, 8)),
         p=int(layout.p),
         pf_ptr=pf_ptr,
         pf_base=pf_base,
@@ -529,7 +545,8 @@ def key_histogram_plain(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.T
     ascending first_idx (read) order, the rest is zero.  Reads equal in h0
     share a key (h0 is already a hash of every key column); a key's row
     takes both hash words and its flags from its first read, found as the
-    minimum of the payload idx * 128 + flags."""
+    minimum of the payload idx * 128 + flags.  The anchor route writes its
+    wave-2 count into n_fail afterwards (ops/anchor.py)."""
     B = h.shape[0]
     dev = h.device
     uniq, inv = torch.unique(h[:, 0], return_inverse=True)
@@ -562,6 +579,12 @@ def unflatten_ck_host(arr: np.ndarray):
         rows[:, 4].astype(np.int32),
         int(meta[0]),
     )
+
+
+def ck_n_fail(arr: np.ndarray) -> int:
+    """The anchor kernel's wave-2 read count from a key table's meta row
+    (0 for other tables)."""
+    return int(arr[0, 1])
 
 
 def gather_exemplars_plain(idx: torch.Tensor, s1: SideResult,

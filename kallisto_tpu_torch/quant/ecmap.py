@@ -95,11 +95,19 @@ class _SortedCache128:
 
 
 class EcResolver:
-    def __init__(self, index):
+    def __init__(self, index, mask_offlist: bool = True,
+                 dfk_onlist: bool = False):
         self.ec_ptr = index.ec_ptr
         self.ec_tx = index.ec_tx
         self.num_onlist = index.num_onlist
-        self.has_offlist = index.num_onlist < index.num_trans
+        # mask_offlist=False keeps raw sets (the --aa 6-frame combiner needs
+        # to see off-list members before masking, MinCollector.cpp:51-71)
+        self.has_offlist = mask_offlist and index.num_onlist < index.num_trans
+        # --dfk-onlist: D-list members are not intersected away; a fragment
+        # touching the D-list keeps a sentinel target (= num_onlist) unless
+        # ALL its members are off-list (reference: includeDList,
+        # src/MinCollector.cpp:37-42,147-151,190-193; ProcessReads.cpp:1713-1722)
+        self.dfk_onlist = dfk_onlist
         # shades: targets named "<color>_shade_<variant>" from a --distinguish
         # index.  Detected from names exactly like the reference's load path
         # (src/KmerIndex.cpp:1506-1517).
@@ -257,6 +265,15 @@ class EcResolver:
             else:
                 u = u1
         else:
+            if self.dfk_onlist and (
+                (u1 >= self.num_onlist).any() or (u2 >= self.num_onlist).any()
+            ):
+                # includeDList: a shared sentinel keeps D-list-touching
+                # fragments alive through the intersection
+                # (reference: src/MinCollector.cpp:37-42)
+                s = np.int32(self.num_onlist)
+                u1 = np.union1d(u1, [s]).astype(u1.dtype)
+                u2 = np.union1d(u2, [s]).astype(u2.dtype)
             if self.use_shade:
                 # shades never participate in the cross-mate intersection
                 # (MinCollector.cpp:194-195; no-op unless do_union)
@@ -281,9 +298,15 @@ class EcResolver:
                     u = np.union1d(u, keep).astype(np.int32)
 
         # off-list mask (u &= onlist_sequences, ProcessReads.cpp:1072);
-        # a no-op until D-list support adds off-list pseudo-targets
+        # a no-op without D-list (off-list) pseudo-targets
         if u is not None and self.has_offlist:
-            u = u[u < self.num_onlist]
+            masked = u[u < self.num_onlist]
+            if (self.dfk_onlist and masked.shape[0] != u.shape[0]
+                    and masked.shape[0] > 0):
+                # re-add the sentinel when a D-list member was stripped but
+                # not every member was (reference: ProcessReads.cpp:1713-1722)
+                masked = np.append(masked, np.int32(self.num_onlist))
+            u = masked
         if u is not None and u.shape[0] == 0:
             u = None
         return u

@@ -20,10 +20,12 @@ Port of kallisto_tpu/quant/pipeline.py with two routes per batch:
   per key.  Batches with more Ns than the aux vector holds go through
   kernels A, B and E on bitmask slices instead ("compact").
 
-`timings` counts processed batches by route (`full`, `turbo`, `compact`,
-`fallback` -- a compact table that overflowed and was redone per read)
-and records `n_uniq_max` / `n_uniq_sum` over the turbo batches.  The EM
-runs on the device through kernel G, with one replicate.
+`timings` counts processed batches by route (`full`, `turbo` -- through
+the anchor kernel or kernel D --, `compact`, `fallback` -- a compact table
+that overflowed and was redone per read), the anchor kernel's wave-2
+reads (`wave2_reads`), and records `n_uniq_max` / `n_uniq_sum` over the
+turbo batches.  The EM runs on the device through kernel G, with one
+replicate.
 
 --bias (JAX :840, :937, :1327-1331, :1348, :1402, :1570-1574,
 :1830-1860): until _BIAS_GOAL counted reads, batches go per read and
@@ -36,10 +38,20 @@ bs_abundance_{b}.tsv under --plaintext, else abundance.h5 where h5py is
 installed (without h5py a warning says that abundance.h5 was not
 written).
 
+A uniform-length turbo batch goes through the two-wave anchor kernel I
+(ops/anchor.py; JAX :884-898, :1368) in place of kernel D: a few lookups
+verify whole unitig stretches and only the other reads pay per-window
+work.  Kernel I evaluates every failing read itself, so the port has no
+wave-2 capacity: JAX's capacity hints (_W2_HINTS, JAX :223-292) and its
+redo of an overflowing batch through kernel D (:1186-1204, :1466-1470)
+exist for the TPU's fixed-size wave-2 sub-batch and are not copied.
+Mixed lengths, and the lengths whose wave-2 row width has no anchor
+route (ops/anchor.py row_width_ok), take kernel D.
+
 Not ported yet (each raises NotImplementedError): pseudobam/genomebam,
-long reads, several devices.  The JAX package's host wave 1 and two-wave
-anchor kernel are speed paths in front of the turbo route with the same
-outputs; they are not ported yet either.
+long reads, several devices.  The JAX package's host wave 1 is a speed
+path in front of the anchor route with the same outputs; it is not ported
+yet either.
 """
 
 import os
@@ -58,13 +70,14 @@ from ..index import load_index
 from ..index.build import TpuIndex
 from ..io import writers
 from ..io.fastx import PackedBatch, packed_paired_batches, packed_single_batches
-from ..ops import turbo
+from ..ops import anchor, turbo
 from ..ops.host_fallback import host_side_rows
 from ..ops.pseudoalign import (
     KeySpec,
     SideResult,
     bias_hexamers,
     bias_tables_from_host,
+    ck_n_fail,
     device_index_from_host,
     gather_exemplars,
     pf_probe_depth,
@@ -352,15 +365,15 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     # kernels), host resolution/filters/counting, the whole read loop, the
     # EM problem build, the transcript hexamer tables of --bias, EM
     # (bias_update_s of it in update_eff_lens), the bootstrap EM, the
-    # output files; then batch counts by route and the turbo batches'
-    # distinct keys
+    # output files; then batch counts by route, the anchor kernel's wave-2
+    # reads and the turbo batches' distinct keys
     timings = dict.fromkeys(
         ("index_upload_s", "read_s", "dispatch_s", "fetch_s", "resolve_s",
          "pseudoalign_s", "em_problem_s", "bias_tables_s", "em_s",
          "bias_update_s", "bootstrap_s", "write_s"), 0.0)
     timings.update(dict.fromkeys(
-        ("full", "turbo", "compact", "fallback", "n_uniq_max", "n_uniq_sum"),
-        0))
+        ("full", "turbo", "compact", "fallback", "wave2_reads", "n_uniq_max",
+         "n_uniq_sum"), 0))
     t0 = time.perf_counter()
     if index is None:
         index = load_index(opt.index_path)
@@ -445,31 +458,39 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                     [_pad_rows(b.lens.astype(np.uint16), Bp) for b in sides]),
                     dev)
         if aux is not None:
-            # The JAX package tries host wave 1 and then the two-wave anchor
-            # kernel on a uniform-length batch (pipeline.py:869-898); neither
-            # is ported yet, so it takes turbo with rl -- the route JAX
-            # itself re-dispatches to when an anchor batch overflows (:1198);
-            # tests/test_anchor.py holds the anchor kernel equal to it.
-            # Mixed lengths take turbo_varlen, as in JAX (:899-911).
+            # A uniform-length batch takes the two-wave anchor kernel, as in
+            # JAX without host wave 1 (pipeline.py:884-898, :1368).  The
+            # lengths whose wave-2 row width has no anchor route, where JAX
+            # raises, take kernel D with rl, and mixed lengths
+            # turbo_varlen (:899-911).
             packed = [to_device(_pad_rows(b.packed, Bp), dev, np.uint8)
                       for b in sides]
             auxt = to_device(aux, dev)
             kw = dict(k=k, L=b1.Lp, max_keys=Bp + 1, **key_kw)
-            if b2 is None:
-                if lens is None:
-                    r1, ck = turbo.pseudoalign_single_turbo(
-                        didx, packed[0], auxt, rl=rl, **kw)
-                else:
-                    r1, ck = turbo.pseudoalign_single_turbo_varlen(
+            if lens is not None:
+                if b2 is None:
+                    out = turbo.pseudoalign_single_turbo_varlen(
                         didx, packed[0], auxt, lens, **kw)
-                return ("turbo", b1, None, r1, None, ck)
-            if lens is None:
-                r1, r2, ck = turbo.pseudoalign_pair_turbo(
-                    didx, packed[0], packed[1], auxt, rl=rl, **kw)
+                else:
+                    out = turbo.pseudoalign_pair_turbo_varlen(
+                        didx, packed[0], packed[1], auxt, lens, **kw)
+            elif anchor.row_width_ok(rl, k):
+                akw = dict(kw, n_anchors=anchor.n_anchors_for(rl, k), rl=rl)
+                if b2 is None:
+                    out = anchor.pseudoalign_single_anchor(
+                        didx, packed[0], auxt, **akw)
+                else:
+                    out = anchor.pseudoalign_pair_anchor(
+                        didx, packed[0], packed[1], auxt, **akw)
+            elif b2 is None:
+                out = turbo.pseudoalign_single_turbo(
+                    didx, packed[0], auxt, rl=rl, **kw)
             else:
-                r1, r2, ck = turbo.pseudoalign_pair_turbo_varlen(
-                    didx, packed[0], packed[1], auxt, lens, **kw)
-            return ("turbo", b1, b2, r1, r2, ck)
+                out = turbo.pseudoalign_pair_turbo(
+                    didx, packed[0], packed[1], auxt, rl=rl, **kw)
+            if b2 is None:
+                return ("turbo", b1, None, out[0], None, out[1])
+            return ("turbo", b1, b2, *out)
         # N-dense batch: the bitmask kernels in memory-bounded slices
         subs = []
         for lo in range(0, b1.n, _FALLBACK_CAP):
@@ -522,6 +543,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         if route == "turbo":
             timings["n_uniq_max"] = max(timings["n_uniq_max"], n_uniq)
             timings["n_uniq_sum"] += n_uniq
+            timings["wave2_reads"] += ck_n_fail(arr)
         if n_uniq <= occ.shape[0] and not (flags[occ > 0] & 12).any():
             resolver.process_compact(
                 uniq_h, occ, first_idx, _exemplar_fetcher(r1, r2, spec),

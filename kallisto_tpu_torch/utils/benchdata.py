@@ -147,6 +147,18 @@ def generate_paired(
     _write_fastq_gz(out2, r2, "b")
 
 
+def generate_10x_r1(path: str, n: int, n_barcodes: int = 4096,
+                    seed: int = 11):
+    """10xv2-shaped read 1 for `bus -x 10xv2`: a 16 bp barcode drawn from
+    a pool of n_barcodes (a whitelist-like set of cells) followed by a
+    10 bp random UMI, for n reads (port of bench_bus.py's R1 maker)."""
+    rng = np.random.default_rng(seed)
+    bcs = rng.integers(0, 4, (n_barcodes, 16), dtype=np.uint8)
+    bc = bcs[rng.integers(0, bcs.shape[0], n)]
+    umi = rng.integers(0, 4, (n, 10), dtype=np.uint8)
+    _write_fastq_gz(path, np.concatenate([bc, umi], axis=1), "c")
+
+
 def ensure_bench_data(cache_dir: str, fasta_path: str, n_pairs: int):
     """Create (or reuse) the benchmark dataset; returns (r1, r2) paths."""
     os.makedirs(cache_dir, exist_ok=True)

@@ -31,7 +31,8 @@ def test_port_has_the_slice_modules():
               "utils.simtx", "utils.benchdata", "index.kmers",
               "index.sanitize", "index.build", "index.format",
               "ops.pseudoalign", "ops.kernels", "ops.host_fallback",
-              "ops.turbo", "io.h5",
+              "ops.turbo", "ops.anchor", "io.h5", "io.bam",
+              "sc.bus", "sc.technologies",
               "quant.ecmap", "quant.fld", "quant.filters", "quant.em",
               "quant.bias", "quant.bootstrap", "quant.pipeline"):
         assert f"kallisto_tpu_torch.{m}" in mods, m

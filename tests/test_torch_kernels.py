@@ -4,7 +4,7 @@ Each test runs a kernel on the card and the plain version on the CPU on
 the same seeded inputs (the bundled transcriptome's index and reads, plus
 random reads with Ns, ragged lengths and reads shorter than k) and
 requires equality: every SideResult field and every key bit for kernels
-A, B and D, every table entry and exemplar row for kernels E and F,
+A, B, D and I, every table entry and exemplar row for kernels E and F,
 every hexamer id for kernel H, bitwise alpha and equal rounds for
 kernel G (the main EM and the bootstraps).  They need a CUDA
 card and skip without one; this file imports no JAX, so it also runs where
@@ -262,7 +262,7 @@ def test_compact_route_on_the_card_is_golden(cuda, port_index, tmp_path):
         fld_mean=180, fld_sd=20, output_dir=out, batch_size=4096),
         index=port_index, device=cuda)
     assert res.timings["turbo"] > 0 and res.timings["full"] == 0
-    for name in ("pseudoalign_turbo", "read_keys", "key_histogram",
+    for name in ("pseudoalign_anchor", "read_keys", "key_histogram",
                  "gather_exemplars", "em_step_batch"):
         assert kernels.LAUNCHES[name] > 0, name
     with open(os.path.join(out, "abundance.tsv")) as f, open(os.path.join(
@@ -343,3 +343,99 @@ def test_kernel_h_matches_plain(cuda, port_index, paired):
     g, c = res[str(cuda)], res["cpu"]
     assert g.dtype == c.dtype == torch.int32
     assert torch.equal(g.cpu(), c) and bool((c >= 0).any())
+
+
+def _anchor_case(index, single, L, rl, dev, n=3000):
+    """A uniform-length turbo batch for the anchor kernel: reads of length
+    L (0.5% Ns through the aux vector) padded to Bp > n rows; rl = 0 keeps
+    the padded columns, rl = L trims them."""
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.quant.pipeline import (
+        _bucket_size, _pad_rows, _turbo_exceptions)
+
+    bs = [_random_batch(index, n, L, s) for s in ((21,) if single else (21, 22))]
+    for b in bs:
+        b.lens[:] = L
+    Bp = _bucket_size(n, lo=256)
+    aux = turbo.make_aux(n, L, _turbo_exceptions(bs, Bp))
+    packed = [torch.from_numpy(_pad_rows(b.packed, Bp)).to(dev) for b in bs]
+    return packed, torch.from_numpy(aux).to(dev), bs[0].Lp, rl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single", [False, True])
+@pytest.mark.parametrize("L,trim", [(50, True), (50, False), (100, True),
+                                    (31, True)])
+def test_kernel_i_matches_plain(cuda, port_index, single, L, trim):
+    """Every SideResult field and n_fail; L = 31 = k is the one-slot wave-2
+    row that fills all 16 slots."""
+    from kallisto_tpu_torch.ops import anchor
+
+    na = anchor.n_anchors_for(L, K)
+    out = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        packed, aux, Lp, rl = _anchor_case(port_index, single, L,
+                                           L if trim else 0, dev)
+        before = kernels.LAUNCHES["pseudoalign_anchor"]
+        out[str(dev)] = anchor.anchor_sides(d, packed, aux, K, Lp, 16, na, rl)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["pseudoalign_anchor"] == before + 1
+    (g, gf), (c, cf) = out[str(cuda)], out["cpu"]
+    assert 0 < int(cf) < int(c.has_hits.sum())
+    assert int(gf) == int(cf)
+    for f in pa.SideResult._fields:
+        a, b = getattr(g, f).cpu(), getattr(c, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single", [False, True])
+def test_kernel_i_matches_kernel_d(cuda, port_index, single):
+    """Rows, row counts, hits and overflow flags equal to kernel D's on the
+    same batch, and the key tables equal in first-read order."""
+    from kallisto_tpu_torch.ops import anchor, turbo
+
+    d = pa.device_index_from_host(port_index, cuda)
+    packed, aux, Lp, rl = _anchor_case(port_index, single, 100, 100, cuda)
+    kw = dict(k=K, L=Lp, rl=rl, max_keys=4097)
+    if single:
+        a1, ack = anchor.pseudoalign_single_anchor(
+            d, packed[0], aux, n_anchors=anchor.n_anchors_for(100, K), **kw)
+        t1, tck = turbo.pseudoalign_single_turbo(d, packed[0], aux, **kw)
+        pairs = [(a1, t1)]
+    else:
+        a1, a2, ack = anchor.pseudoalign_pair_anchor(
+            d, *packed, aux, n_anchors=anchor.n_anchors_for(100, K), **kw)
+        t1, t2, tck = turbo.pseudoalign_pair_turbo(d, *packed, aux, **kw)
+        pairs = [(a1, t1), (a2, t2)]
+    for a, t in pairs:
+        for f in ("rows", "n_rows", "has_hits", "overflow"):
+            assert torch.equal(getattr(a, f), getattr(t, f)), f
+    ack, tck = ack.cpu(), tck.cpu()
+    assert int(ack[0, 1]) > 0 and int(tck[0, 1]) == 0
+    assert torch.equal(ack[0, 0], tck[0, 0]) and torch.equal(ack[1:], tck[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single", [False, True])
+def test_kernel_i_key_table_matches_plain(cuda, port_index, single):
+    """Kernels I, B and E on the card against the plain versions: the whole
+    key table equal, n_fail in its meta row included."""
+    from kallisto_tpu_torch.ops import anchor
+
+    res = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        packed, aux, Lp, rl = _anchor_case(port_index, single, 100, 100, dev)
+        kw = dict(k=K, L=Lp, rl=rl, max_keys=4097, n_anchors=4)
+        if single:
+            _, ck = anchor.pseudoalign_single_anchor(d, packed[0], aux, **kw)
+        else:
+            _, _, ck = anchor.pseudoalign_pair_anchor(d, *packed, aux, **kw)
+        res[str(dev)] = ck.cpu()
+    g, c = res[str(cuda)], res["cpu"]
+    assert 0 < int(c[0, 0]) <= 4097 and int(c[0, 1]) > 0
+    assert torch.equal(g, c)
+

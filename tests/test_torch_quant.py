@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+import kallisto_tpu.quant.pipeline as jpipe
 from kallisto_tpu.common import Options as JOptions
 from kallisto_tpu.quant.pipeline import run_quant as jrun_quant
 from kallisto_tpu_torch.common import Options
 from kallisto_tpu_torch.index import build_index, save_index
+from kallisto_tpu_torch.ops import anchor as anchor_mod
 from kallisto_tpu_torch.ops import turbo as turbo_mod
 from kallisto_tpu_torch.quant.pipeline import run_quant
 
@@ -174,19 +176,43 @@ STEADY_CASES = {
     "plain": dict(),
     "min_range": dict(min_range=50),
     "fr": dict(strand="fr"),
+    "w2_overflow": dict(),
 }
+
+
+def _count_calls(monkeypatch, module, name, counts):
+    fn = getattr(module, name)
+
+    def counted(*a, **kw):
+        counts[name] = counts.get(name, 0) + 1
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(module, name, counted)
 
 
 @pytest.mark.parametrize("case", sorted(STEADY_CASES))
 def test_paired_steady_state_matches_jax_and_per_read(port_index, tmp_path,
                                                       monkeypatch, case):
     """Paired runs that leave FLD learning after 1000 fragment lengths and
-    take the turbo route for the rest: abundance.tsv byte-equal to the JAX
-    package's run under the same settings (device path, no host probe),
-    EC counts and EC sets equal to the port's own all-per-read run."""
+    take the steady state for the rest, through the anchor kernel on both
+    sides: abundance.tsv byte-equal to the JAX package's run under the same
+    settings (device path, no host probe), the same anchor batches, EC
+    counts and EC sets equal to the port's own all-per-read run.  The port
+    has no wave-2 capacity, so it never redoes an anchor batch through
+    kernel D; the w2_overflow case pins JAX's capacity at 1 read, so that
+    JAX redoes every one, and the bytes stay equal."""
     kw = dict(files=[R1, R2], batch_size=1024, **STEADY_CASES[case])
     monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
     monkeypatch.setenv("KALLISTO_TPU_FLEN_GOAL", "1000")
+    # JAX's capacity hints outlive a run: start from none
+    monkeypatch.setattr(jpipe, "_W2_HINTS", {})
+    if case == "w2_overflow":
+        monkeypatch.setattr(jpipe, "_w2_cap", lambda B2: 1)
+    tcalls, jcalls = {}, {}
+    _count_calls(monkeypatch, anchor_mod, "pseudoalign_pair_anchor", tcalls)
+    _count_calls(monkeypatch, turbo_mod, "pseudoalign_pair_turbo", tcalls)
+    _count_calls(monkeypatch, jpipe, "pseudoalign_pair_anchor", jcalls)
+    _count_calls(monkeypatch, jpipe, "pseudoalign_pair_turbo", jcalls)
     out = str(tmp_path / "port")
     res = run_quant(Options(output_dir=out, **kw), index=port_index,
                     device="cpu")
@@ -198,6 +224,13 @@ def test_paired_steady_state_matches_jax_and_per_read(port_index, tmp_path,
                index=port_index)
     assert _read(os.path.join(out, "abundance.tsv")) == \
         _read(os.path.join(jout, "abundance.tsv"))
+    assert tcalls["pseudoalign_pair_anchor"] == routes["turbo"] == \
+        jcalls["pseudoalign_pair_anchor"]
+    assert "pseudoalign_pair_turbo" not in tcalls
+    if case == "w2_overflow":
+        assert jcalls["pseudoalign_pair_turbo"] == routes["turbo"]
+    assert 0 < res.timings["wave2_reads"] < 2 * kw["batch_size"] \
+        * routes["turbo"]
     monkeypatch.setenv("KALLISTO_TPU_FLEN_GOAL", "1000000")
     full = run_quant(Options(**kw), index=port_index, device="cpu")
     assert _routes(full)["turbo"] == 0

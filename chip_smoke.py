@@ -7,9 +7,10 @@ Drives the port's main path -- `quant` on paired-end reads: the per-read
 path while the fragment-length distribution is learned, then the compact
 steady state (uniform-length turbo batches through the two-wave anchor
 kernel, reduced to a key table) --, `quant --bias -b 100` (hexamers per
-read, the bias EM, 100 bootstraps through the batched EM) and `bus -x
-10xv2` on the card, and holds every CUDA kernel of those paths against its
-plain PyTorch version:
+read, the bias EM, 100 bootstraps through the batched EM), `bus -x
+10xv2`, `quant --long` and `bus --long` (the long-read kernel) and
+`quant-tcc` (the batched EM per cell) on the card, and holds every CUDA
+kernel of those paths against its plain PyTorch version:
 
 1. device: requires CUDA, prints the card's name and power limit, builds
    the kernels (one nvcc per source, in parallel);
@@ -35,6 +36,13 @@ plain PyTorch version:
    equal; against kernel D on the same batch: rows, row counts, hits,
    overflow flags and the key table equal; both forms timed, and kernel
    B's single-end form on I's reads (bus's chunk);
+3e. kernel J (pseudoalign_long) against its plain version on the card, on
+   16,384 long reads generated from phase 2's transcriptome (whole and
+   5'-truncated transcripts, 1 % substitutions, half reverse-complemented,
+   random Ns, reads shorter than k, random reads, chimeras of 3-8
+   transcripts and mosaics of 140-180 pieces, so that reads pass both the
+   64-row and the 128-group budgets): all eight fields equal; timed (a
+   stress test: J's row is timed at phase 5d's shape);
 4. golden bytes: `quant` paired, `--single -l 180 -s 20` and the half-mapped
    `-l 180 -s 20` pairs on tests/data, abundance.tsv byte-equal to
    tests/golden, run stats 10000/9413/7174, and the routes: per-read batches
@@ -51,6 +59,13 @@ plain PyTorch version:
    the run stats, byte-equal to tests/golden for bus10xv2, bus_batch_bulk,
    bus_batch_10x, bus_inleaved, bus_rx, bus_smartseq3, bus_dfk, bus_aa_f0
    and bus_distinguish;
+4d. long-read and TCC goldens on the card: `quant --long -P PacBio`
+   (pseudoaligned within 1 of the reference's 399, est_counts within 2 in
+   total, 40-42 novel.fastq headers; abundance.tsv and novel.fastq
+   byte-equal to the CPU run), `bus --long` (matrix.ec and flens.txt
+   byte-equal to tests/golden, output.bus a sub-multiset of the
+   reference's and byte-equal to the CPU run), and the seven tcc*
+   goldens byte-equal with the options of tests/test_tcc.py;
 5. the main path at realistic size: `quant` of the 1M pairs on the card
    with every launch count set to 0 just before and read just after, the
    kernels A, B, I, E, F and G all launched; checks of its output; the
@@ -73,6 +88,24 @@ plain PyTorch version:
    launched; then the same input with the anchor route bypassed (the
    smoke replaces _BusRun._anchor_single and _anchor_pair): output.bus and
    matrix.ec byte-equal and the run stats equal;
+5d. long reads at realistic size: 100,000 reads (95 % whole or
+   5'-truncated transcripts, 5 % random); kernel J against its plain
+   version on the card on quant's first 16,384-read batch (all eight
+   fields equal) and timed there; `quant --long -P PacBio
+   --plaintext` with the launch counts set to 0 just before and read just
+   after (J once per 16,384-read batch, G launched), >= 90 % of the random
+   reads in novel.fastq and >= 90 % of the others pseudoaligned; `bus -x
+   bulk --long` (J launched); the first 4,096 reads on the card and on the
+   CPU: abundance.tsv and output.bus byte-equal;
+5e. `quant-tcc` at realistic size: phase 5c's output.bus collapsed to a
+   cells x ECs MatrixMarket file (distinct UMIs per barcode and EC, as
+   `bustools count --tcc`), with 5c's matrix.ec and the index, no -l/-s:
+   ~4,096 cells in chunks of 256 through kernel G with per-cell lengths
+   (launch counts set to 0 just before, G launched once per EM round);
+   the first 256 cells on the card and on the CPU: est_counts bitwise
+   equal and matrix.abundance.mtx byte-equal; one update of kernel G at
+   that shape (modes mixed) bitwise equal to the plain version on the
+   CPU; kernel G timed at that shape;
 6. kernel G (em_step_batch) with one replicate, the main EM, on the main
    path's EM problem: the whole EM on the card against the plain version
    on the CPU, bitwise equal alpha and equal rounds; one update timed;
@@ -98,11 +131,13 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 N_GENES = 10000
 N_PAIRS = 1_000_000
 READ_LEN = 100
 CPU_RERUN_PAIRS = 65536
+N_LONG = 100_000
 # batch counts by route in run_quant's timings
 ROUTES = ("full", "turbo", "compact", "fallback")
 # chunk counts by route, and kernel I's wave-2 reads, in run_bus's timings
@@ -169,14 +204,14 @@ def bound(nbytes, nops, op_rate):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def em_bound(Bb, T, E, M):
+def em_bound(Bb, T, E, M, own_eff=False):
     """Kernel G's bound for one update of Bb running replicates: alpha,
-    singletons, next and counts per replicate, the shared inv_eff and CSR
-    (flat_tx, tx_ec, both pointer arrays), mode and the change counts;
-    about 4 float64 operations per flat entry and pass, 3 per EC and 10
-    per transcript."""
-    nbytes = (8 * Bb * (3 * T + E) + 8 * T + 8 * M + 8 * (T + E + 2)
-              + 8 * Bb)
+    singletons, next and counts per replicate, the shared inv_eff (one per
+    replicate with own_eff) and CSR (flat_tx, tx_ec, both pointer arrays),
+    mode and the change counts; about 4 float64 operations per flat entry
+    and pass, 3 per EC and 10 per transcript."""
+    nbytes = (8 * Bb * (3 * T + E) + 8 * T * (Bb if own_eff else 1) + 8 * M
+              + 8 * (T + E + 2) + 8 * Bb)
     return bound(nbytes, Bb * (4 * M + 3 * E + 10 * T), PEAK_F64)
 
 
@@ -650,7 +685,433 @@ def phase_5c(torch, np, kernels, Options, run_bus, index, cdna, n_reads,
                "bus_per_read_reads_per_s": n_reads / rwall,
                "bus_per_read_phases_s": rres.timings,
                "bus_stats": stats}
-    return launches, summary
+    return launches, summary, out
+
+
+def _long_plain(torch, pa, didx, args, k, L, step):
+    """Kernel J's plain version in slices of `step` reads (each read's
+    result depends on its own row and the batch width L only), plus the
+    valid windows it looked up."""
+    parts, n_valid = [], 0
+    B = int(args[2].shape[0])
+    for lo in range(0, B, step):
+        sl = [a[lo:lo + step] for a in args]
+        parts.append(pa.pseudoalign_long_plain(didx, *sl, k, L))
+        codes = pa.unpack_codes(sl[0], sl[1], L)
+        n_valid += int(pa.rolling_canonical_kmers(codes, sl[2], k)[2].sum())
+    res = pa.LongResult(*(torch.cat([getattr(p, f) for p in parts])
+                          for f in pa.LongResult._fields))
+    return res, n_valid
+
+
+def _hold_j(torch, np, pa, kernels, didx, pb, k, dev, tag):
+    """Kernel J against its plain version, both on the card, on one packed
+    batch of long reads: all eight fields equal.  Returns (ms, plain_ms,
+    (bound_ms, bound_by), the plain result)."""
+    args = pa.upload_batch(pb, dev)
+    B, L = pb.n, pb.Lp
+    R, G = min(64, L - k + 1), 128
+    g = pa.LongResult(*kernels.pseudoalign_long(didx, *args, k, L, R, G))
+    step = max(1, (1 << 25) // L)  # ~32M windows per plain slice
+    c, n_valid = _long_plain(torch, pa, didx, args, k, L, step)
+    torch.cuda.synchronize()
+    for f in pa.LongResult._fields:
+        x, y = getattr(g, f), getattr(c, f)
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              f"kernel J {tag} B={B} Lp={L}: {f} equal")
+    n_hit = n_valid - int(c.unmapped.sum())
+    ms = cuda_ms(lambda: kernels.pseudoalign_long(didx, *args, k, L, R, G),
+                 5, torch)
+    plain_ms = cuda_ms(lambda: _long_plain(torch, pa, didx, args, k, L, step),
+                       1, torch)
+    # per valid window kernel A's sectors (bucket_start, the search's key,
+    # kmer_ec), per hit one kmer_uid sector; codes, N mask and lengths
+    # read; R + G + 6 int32 written per read; ~250 integer operations per
+    # window of a read
+    n_win = int(np.maximum(pb.lens.astype(np.int64) - k + 1, 0).sum())
+    nbytes = (32 * (2 * n_valid + 2 * n_hit) + pb.packed.nbytes
+              + pb.nmask.nbytes + 4 * B + 4 * B * (R + G + 6))
+    bnd = bound(nbytes, 250 * n_win, PEAK_INT_OPS)
+    log(f"kernel J {tag}: {ms:.3f} ms (plain on card {plain_ms:.3f} ms), "
+        f"reads={B} Lp={L} windows={n_win} valid={n_valid} hits={n_hit}; "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return ms, plain_ms, bnd, c
+
+
+def phase_3e(torch, np, pa, kernels, fastx, fasta, didx, k, work, dev,
+             B=16384):
+    """Kernel J against its plain version, both on the card, on a B-read
+    stress batch of long reads: Ns, reads shorter than k, chimeras and
+    mosaics past R rows and G groups.  Returns (ms, plain_ms, (bound_ms,
+    bound_by)) at this batch's shape."""
+    from kallisto_tpu_torch.utils.benchdata import generate_long_reads
+
+    path = os.path.join(work, "lr_3e.fastq.gz")
+    t0 = time.perf_counter()
+    generate_long_reads(fasta, path, B, seed=31, novel_frac=0.02,
+                        chimera_frac=0.04, mosaic_frac=0.005,
+                        short_frac=0.01, n_rate=0.001)
+    pb = next(fastx.packed_single_batches(path, B, k))
+    log(f"long reads: {pb.n}, padded to {pb.Lp}, lengths {int(pb.lens.min())}"
+        f"-{int(pb.lens.max())} (mean {float(pb.lens.mean()):.0f}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    ms, plain_ms, bnd, c = _hold_j(torch, np, pa, kernels, didx, pb, k, dev,
+                                   "stress")
+    R = int(c.rows.shape[1])
+    n_short = int((pb.lens < k).sum())
+    check(bool(c.overflow.any()) and bool(c.g_overflow.any())
+          and n_short > 0,
+          f"kernel J: {int(c.overflow.sum())} reads past R={R} rows, "
+          f"{int(c.g_overflow.sum())} past G=128 groups, {n_short} shorter "
+          "than k")
+    return ms, plain_ms, bnd
+
+
+def _bus_records(np, path):
+    """output.bus records as a structured array."""
+    b = read_bytes(path)
+    n = int.from_bytes(b[16:20], "little")
+    return np.frombuffer(b[20 + n:], np.dtype(
+        [("bc", "<u8"), ("umi", "<u8"), ("ec", "<i4"), ("count", "<u4"),
+         ("flags", "<u4"), ("pad", "<u4")]))
+
+
+# golden dir -> (options, compared files, with the index): the cases of
+# tests/test_tcc.py
+def _tcc_goldens(data):
+    ec, mtx = os.path.join(data, "tcc_test.ec"), os.path.join(data,
+                                                              "tcc_test.mtx")
+    d = lambda n: os.path.join(data, n)  # noqa: E731
+    l180 = dict(fld_mean=180, fld_sd=20)
+    ab = ["matrix.abundance.mtx", "matrix.abundance.tpm.mtx"]
+    return ec, {
+        "tcc": (dict(tcc_file=mtx, genemap=d("t2g.txt"), **l180),
+                ab + ["matrix.efflens.mtx", "matrix.fld.tsv",
+                      "matrix.abundance.gene.mtx",
+                      "matrix.abundance.gene.tpm.mtx", "genes.txt",
+                      "transcripts.txt", "transcript_lengths.txt"], True),
+        "tcc_priors": (dict(tcc_file=mtx, priors=d("priors.txt")), ab, True),
+        "tcc_txnames": (dict(tcc_file=mtx, txnames_file=d("txnames.txt")),
+                        ab, False),
+        "tcc_gtf": (dict(tcc_file=mtx, gtf_file=d("transcripts.gtf.gz")),
+                    ["genes.txt", "matrix.abundance.gene.mtx",
+                     "matrix.abundance.gene.tpm.mtx"], True),
+        "tcc_long": (dict(tcc_file=mtx, long_read=True, **l180),
+                     ab + ["matrix.efflens.mtx", "matrix.fld.tsv"], True),
+        "tcc_flat": (dict(tcc_file=d("tcc_flat.txt"), genemap=d("t2g.txt"),
+                          bootstrap=2),
+                     ["abundance.tsv", "abundance.gene.tsv"], True),
+        "tcc_m2f": (dict(tcc_file=mtx, bootstrap=2, plaintext=True,
+                         matrix_to_files=True, **l180),
+                    ["abundance_1.tsv", "abundance_2.tsv"], True),
+    }
+
+
+def phase_4d(np, kernels, Options, run_quant, run_bus, run_quant_tcc, tidx,
+             data, golden, work, dev):
+    """The long-read and TCC goldens on the card, long reads also on the
+    CPU (byte-equal)."""
+    lr = os.path.join(data, "reads_lr.fastq.gz")
+    outs = {}
+    for where in (dev, "cpu"):
+        out = os.path.join(work, f"qlong_{where}")
+        kernels.reset_launches()
+        res = run_quant(Options(files=[lr], single_end=True, long_read=True,
+                                platform="PacBio", plaintext=True,
+                                output_dir=out), index=tidx, device=where)
+        outs[str(where)] = (res, out, dict(kernels.LAUNCHES))
+    res, out, launches = outs[str(dev)]
+    check(launches["pseudoalign_long"] == res.timings["long"] > 0
+          and launches["em_step_batch"] > 0,
+          f"quant --long on the card: kernel J launched "
+          f"{launches['pseudoalign_long']} times, G "
+          f"{launches['em_step_batch']}")
+    check(abs(res.num_pseudoaligned - 399) <= 1,
+          f"quant_long: {res.num_pseudoaligned} pseudoaligned, within 1 of "
+          "the reference's 399")
+    want = {}
+    with open(os.path.join(golden, "quant_long", "abundance.tsv")) as f:
+        next(f)
+        for line in f:
+            p = line.split("\t")
+            want[p[0]] = float(p[3])
+    dev_sum = sum(abs(est - want[n])
+                  for n, est in zip(res.target_names, res.est_counts))
+    check(dev_sum <= 2.0 + 1e-6,
+          f"quant_long: est_counts deviate {dev_sum:.4f} <= 2 in total from "
+          "the reference's")
+    heads = [x for x in read_file(os.path.join(out, "novel.fastq"))
+             .splitlines() if x.startswith("@")]
+    check(40 <= len(heads) <= 42, f"quant_long: {len(heads)} novel.fastq "
+          "headers (40-42)")
+    for fn in ("abundance.tsv", "novel.fastq"):
+        check(read_bytes(os.path.join(out, fn))
+              == read_bytes(os.path.join(outs["cpu"][1], fn)),
+              f"quant_long: {fn} byte-equal, card vs CPU")
+
+    bouts = {}
+    for where in (dev, "cpu"):
+        out = os.path.join(work, f"blong_{where}")
+        kernels.reset_launches()
+        run_bus(Options(files=[lr], technology="bulk", long_read=True,
+                        threshold=0.8, output_dir=out), index=tidx,
+                device=where)
+        bouts[str(where)] = (out, dict(kernels.LAUNCHES))
+    out, launches = bouts[str(dev)]
+    check(launches["pseudoalign_long"] > 0,
+          f"bus_long on the card: kernel J launched "
+          f"{launches['pseudoalign_long']} times")
+    for fn in ("matrix.ec", "flens.txt"):
+        check(read_bytes(os.path.join(out, fn))
+              == read_bytes(os.path.join(golden, "bus_long", fn)),
+              f"bus_long: {fn} byte-equal to tests/golden")
+    mine = Counter(map(tuple, _bus_records(np, os.path.join(
+        out, "output.bus")).tolist()))
+    ref = Counter(map(tuple, _bus_records(np, os.path.join(
+        golden, "bus_long", "output.bus")).tolist()))
+    missing = sum((ref - mine).values())
+    check(not (mine - ref) and missing <= max(1, sum(ref.values()) // 200),
+          f"bus_long: output.bus a sub-multiset of the reference's "
+          f"({missing} of {sum(ref.values())} records missing)")
+    for fn in ("output.bus", "novel.fastq"):
+        check(read_bytes(os.path.join(out, fn))
+              == read_bytes(os.path.join(bouts["cpu"][0], fn)),
+              f"bus_long: {fn} byte-equal, card vs CPU")
+
+    ec, cases = _tcc_goldens(data)
+    for name, (kw, files, with_index) in cases.items():
+        out = os.path.join(work, name)
+        kernels.reset_launches()
+        run_quant_tcc(Options(ec_file=ec, output_dir=out, **kw),
+                      index=tidx if with_index else None, device=dev)
+        same = [fn for fn in files if read_bytes(os.path.join(out, fn))
+                == read_bytes(os.path.join(golden, name, fn))]
+        check(len(same) == len(files) and kernels.LAUNCHES["em_step_batch"],
+              f"{name} on the card (kernel G launched "
+              f"{kernels.LAUNCHES['em_step_batch']} times): "
+              f"{', '.join(files)} byte-equal to tests/golden")
+
+
+def phase_5d(torch, np, pa, kernels, fastx, Options, run_quant, run_bus,
+             fasta, index, didx, k, work, dev):
+    """quant --long and bus --long at realistic size on the card; the first
+    4,096 reads also on the CPU; kernel J held against its plain version
+    and timed on quant's first batch.  Returns (launches, J's row fields at
+    that batch's shape, summary)."""
+    from kallisto_tpu_torch.sc import bus as busmod
+    from kallisto_tpu_torch.utils.benchdata import generate_long_reads
+
+    n_long = N_LONG
+    lr = os.path.join(work, "lr_5d.fastq.gz")
+    t0 = time.perf_counter()
+    novel_idx = generate_long_reads(fasta, lr, n_long, seed=51,
+                                    novel_frac=0.05)
+    gen_s = time.perf_counter() - t0
+    with gzip.open(lr, "rt") as f:
+        lines = f.read().split("\n")
+    bases = sum(len(lines[4 * i + 1]) for i in range(n_long))
+    want_novel = {lines[4 * i + 1] for i in novel_idx.tolist()}
+    del lines
+    log(f"long reads: {n_long} ({len(novel_idx)} random), {bases} bases, "
+        f"{gen_s:.1f} s")
+    # quant --long's first batch, as the pipeline packs it
+    pb = next(fastx.packed_single_batches(lr, 16384, k))
+    k5d = _hold_j(torch, np, pa, kernels, didx, pb, k, dev,
+                  "5d first batch")[:3]
+    del pb
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outq = os.path.join(work, "long_quant")
+    res = run_quant(Options(files=[lr], single_end=True, long_read=True,
+                            platform="PacBio", plaintext=True,
+                            output_dir=outq), index=index, device=dev)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"launches on the quant --long path: {launches}")
+    n_batches = -(-n_long // 16384)
+    t = res.timings
+    check(launches["pseudoalign_long"] == t["long"] == n_batches
+          and launches["em_step_batch"] > 0,
+          f"quant --long: kernel J launched {launches['pseudoalign_long']} "
+          f"times ({n_batches} batches), G {launches['em_step_batch']}")
+    got = [x for x in read_file(os.path.join(outq, "novel.fastq"))
+           .split("\n")[1::2]]
+    found = len(want_novel & set(got))
+    check(found >= 0.9 * len(want_novel),
+          f"quant --long: {found} of {len(want_novel)} random reads in "
+          f"novel.fastq ({len(got)} reads there)")
+    share = res.num_pseudoaligned / (n_long - len(novel_idx))
+    check(share >= 0.9 and res.num_processed == n_long,
+          f"quant --long: {res.num_pseudoaligned} of "
+          f"{n_long - len(novel_idx)} transcript reads pseudoaligned "
+          f"({share:.4f} >= 0.9)")
+    log(f"quant --long wall {quant_s:.2f} s = {n_long / quant_s:,.0f} "
+        f"reads/s; host seconds by phase: " + json.dumps(t))
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bres = run_bus(Options(files=[lr], technology="bulk", long_read=True,
+                           output_dir=os.path.join(work, "long_bus")),
+                   index=index, device=dev)
+    torch.cuda.synchronize()
+    bus_s = time.perf_counter() - t0
+    blaunches = dict(kernels.LAUNCHES)
+    check(blaunches["pseudoalign_long"] == bres.timings["long"] > 0
+          and bres.num_processed == n_long,
+          f"bus --long: kernel J launched {blaunches['pseudoalign_long']} "
+          f"times, {bres.num_pseudoaligned} of {n_long} reads aligned")
+    log(f"bus --long wall {bus_s:.2f} s = {n_long / bus_s:,.0f} reads/s; "
+        "host seconds by phase: " + json.dumps(bres.timings))
+
+    # the first 4,096 reads on the card and on the CPU; index.saved (the
+    # same index both times, ~1 min to compress at this size) is not
+    # written for these two bus runs
+    sub = os.path.join(work, "lr_5d_4096.fastq.gz")
+    truncate_fastq(lr, sub, 4096)
+    saved = busmod.save_index
+    busmod.save_index = lambda *a: None
+    try:
+        subs = {}
+        for where in (dev, "cpu"):
+            oq = os.path.join(work, f"long_quant_{where}")
+            ob = os.path.join(work, f"long_bus_{where}")
+            run_quant(Options(files=[sub], single_end=True, long_read=True,
+                              platform="PacBio", plaintext=True,
+                              output_dir=oq), index=index, device=where)
+            run_bus(Options(files=[sub], technology="bulk", long_read=True,
+                            output_dir=ob), index=index, device=where)
+            subs[str(where)] = (oq, ob)
+    finally:
+        busmod.save_index = saved
+    (gq, gb), (cq, cb) = subs[str(dev)], subs["cpu"]
+    check(read_bytes(os.path.join(gq, "abundance.tsv"))
+          == read_bytes(os.path.join(cq, "abundance.tsv"))
+          and read_bytes(os.path.join(gb, "output.bus"))
+          == read_bytes(os.path.join(cb, "output.bus")),
+          "first 4,096 long reads: abundance.tsv and output.bus byte-equal, "
+          "card vs CPU")
+    return launches, k5d, {
+        "long_n_reads": n_long, "long_bases": bases,
+        "long_quant_s": quant_s, "long_quant_reads_per_s": n_long / quant_s,
+        "long_quant_phases_s": t, "long_bus_s": bus_s,
+        "long_bus_reads_per_s": n_long / bus_s,
+        "long_bus_phases_s": bres.timings, "long_bus_launches": blaunches}
+
+
+def phase_5e(torch, np, kernels, emq, Options, run_quant_tcc, index,
+             bus_out, work, dev):
+    """quant-tcc of phase 5c's bus output, collapsed to cells x ECs, on the
+    card; the first 256 cells also on the CPU.  Returns (launches, kernel
+    G's row fields at the TCC shape, summary)."""
+    from kallisto_tpu_torch.quant.tcc import load_ec_file, load_tcc_matrix
+
+    t0 = time.perf_counter()
+    rec = _bus_records(np, os.path.join(bus_out, "output.bus"))
+    ec_file = os.path.join(bus_out, "matrix.ec")
+    n_ec = sum(1 for _ in open(ec_file))
+    # distinct UMIs per (barcode, EC), as bustools count --tcc
+    trip = np.unique(np.stack([rec["bc"].astype(np.int64),
+                               rec["umi"].astype(np.int64),
+                               rec["ec"].astype(np.int64)], axis=1), axis=0)
+    cells, cell_of = np.unique(trip[:, 0], return_inverse=True)
+    pairs, n = np.unique(np.stack([cell_of.reshape(-1), trip[:, 2]], axis=1),
+                         axis=0, return_counts=True)
+
+    def write_mtx(path, n_cells):
+        keep = pairs[:, 0] < n_cells
+        with open(path, "w") as f:
+            f.write("%%MatrixMarket matrix coordinate real general\n")
+            f.write(f"{n_cells}\t{n_ec}\t{int(keep.sum())}\n")
+            f.write("".join(f"{r + 1}\t{c + 1}\t{v}\n" for (r, c), v in zip(
+                pairs[keep].tolist(), n[keep].tolist())))
+
+    mtx = os.path.join(work, "cells.mtx")
+    write_mtx(mtx, len(cells))
+    collapse_s = time.perf_counter() - t0
+    log(f"TCC matrix: {len(cells)} cells x {n_ec} ECs, {len(pairs)} entries, "
+        f"{int(n.sum())} UMIs, {collapse_s:.1f} s")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_quant_tcc(Options(ec_file=ec_file, tcc_file=mtx,
+                                output_dir=os.path.join(work, "tcc")),
+                        index=index, device=dev)
+    torch.cuda.synchronize()
+    tcc_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    t = res.timings
+    check(launches["em_step_batch"] == t["em_rounds"] > 0
+          and t["chunks"] == -(-len(cells) // 256),
+          f"quant-tcc: {len(cells)} cells in {t['chunks']} chunks, kernel G "
+          f"launched {launches['em_step_batch']} times")
+    check(np.isfinite(res.est_counts).all()
+          and (res.est_counts.sum(axis=1) > 0).mean() > 0.99,
+          "quant-tcc: finite abundances, > 99 % of cells with counts")
+    log(f"quant-tcc wall {tcc_s:.2f} s = {len(cells) / tcc_s:,.1f} cells/s, "
+        f"EM {t['em_s']:.3f} s over {t['em_rounds']} rounds; host seconds "
+        "by phase: " + json.dumps(t))
+
+    sub = os.path.join(work, "cells_256.mtx")
+    write_mtx(sub, 256)
+    outs = {}
+    for where in (dev, "cpu"):
+        out = os.path.join(work, f"tcc256_{where}")
+        t1 = time.perf_counter()
+        r = run_quant_tcc(Options(ec_file=ec_file, tcc_file=sub,
+                                  output_dir=out), index=index, device=where)
+        outs[str(where)] = (out, time.perf_counter() - t1, r)
+    check(np.array_equal(outs[str(dev)][2].est_counts,
+                         outs["cpu"][2].est_counts)
+          and read_bytes(os.path.join(outs[str(dev)][0],
+                                      "matrix.abundance.mtx"))
+          == read_bytes(os.path.join(outs["cpu"][0], "matrix.abundance.mtx")),
+          "quant-tcc, first 256 cells: est_counts bitwise equal and "
+          "matrix.abundance.mtx byte-equal, card vs CPU (CPU "
+          f"{outs['cpu'][1]:.1f} s)")
+
+    # kernel G at the TCC shape: one update of the first chunk's 256 cells
+    # with their own lengths, on the card and, plain, on the CPU
+    T = index.num_trans
+    ec_sets = load_ec_file(ec_file, T)
+    problem = emq.build_em_problem(ec_sets, T)
+    rows, cols, vals, C, _, _ = load_tcc_matrix(sub)
+    counts = np.zeros((C, len(ec_sets)), np.float64)
+    counts[rows, cols] = vals
+    sa_b, mc_b = emq.em_inputs(problem, counts)
+    inv = 1.0 / res.eff_lens[:C]
+    prob = emq.device_em_problem(problem, sa_b, mc_b, inv, dev)
+    alpha = torch.from_numpy(res.est_counts[:C].copy()).to(dev)
+    # modes 0/1/2 mixed: frozen, updating, and updating from zeroed values
+    mixed = torch.from_numpy(np.arange(C, dtype=np.int32) % 3)
+    ng, cg = kernels.em_step_batch(alpha, prob, mixed.to(dev))
+    prob_cpu = emq.device_em_problem(problem, sa_b, mc_b, inv, "cpu")
+    npl, cpl = emq.em_step_batch_plain(alpha.cpu(), prob_cpu, mixed)
+    check(torch.equal(ng.cpu(), npl) and torch.equal(cg.cpu(), cpl),
+          f"kernel G, one update of {C} cells with their own lengths (modes "
+          "0/1/2 mixed): next and change counts bitwise equal to the plain "
+          "version on the CPU")
+    err = float((ng.cpu() - npl).abs().max())
+    del ng, cg, npl, cpl, prob_cpu
+    mode = torch.ones(C, dtype=torch.int32, device=dev)
+    step = kernels.bind_em_step(prob)
+    ms = cuda_ms(lambda: step(alpha, mode), 20, torch)
+    plain = cuda_ms(lambda: emq.em_step_batch_plain(alpha, prob, mode), 5,
+                    torch)
+    E, M = prob.num_multi, int(prob.flat_tx.shape[0])
+    bnd = em_bound(C, T, E, M, own_eff=True)
+    log(f"kernel G, {C} cells with their own lengths: {ms:.4f} ms per round "
+        f"(plain on card {plain:.3f} ms); T={T} E={E} M={M}")
+    summary = {"tcc_cells": len(cells), "tcc_ecs": n_ec,
+               "tcc_entries": len(pairs), "tcc_s": tcc_s,
+               "tcc_cells_per_s": len(cells) / tcc_s, "tcc_phases_s": t,
+               "tcc_cpu_256_s": outs["cpu"][1],
+               "tcc_card_256_s": outs[str(dev)][1]}
+    return launches, (ms, plain, bnd, err), summary
 
 
 def phase_4b(np, run_quant, Options, tidx, pf, golden, work, dev):
@@ -818,6 +1279,7 @@ def main(argv=None):
     from kallisto_tpu_torch.quant import bootstrap as bsq
     from kallisto_tpu_torch.quant import em as emq
     from kallisto_tpu_torch.quant.pipeline import run_quant
+    from kallisto_tpu_torch.quant.tcc import run_quant_tcc
     from kallisto_tpu_torch.sc.bus import run_bus
     from kallisto_tpu_torch.utils.benchdata import generate_paired
     from kallisto_tpu_torch.utils.simtx import generate_transcriptome
@@ -978,6 +1440,12 @@ def main(argv=None):
                                     rb1, rb2, k, dev)
         del rb1, rb2
 
+        # ---------------------------------------------- 3e. kernel J
+        log(f"== phase 3e: kernel J against its plain version on the card "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        k3e = phase_3e(torch, np, pa, kernels, fastx, fasta, didx, k, work,
+                       dev)
+
         # ------------------------------------------------ 4. golden bytes
         log("== phase 4: golden bytes on the card")
         data = os.path.join(here, "tests", "data")
@@ -1020,6 +1488,11 @@ def main(argv=None):
             f"({time.perf_counter() - t_start:.0f} s)")
         bus_golden_routes = phase_4c(Options, build_index, run_bus, tidx,
                                      data, golden, work, dev)
+
+        log(f"== phase 4d: long-read and TCC goldens on the card "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        phase_4d(np, kernels, Options, run_quant, run_bus, run_quant_tcc,
+                 tidx, data, golden, work, dev)
 
         # -------------------------------------- 5. main path, full size
         log(f"== phase 5: main path at realistic size "
@@ -1167,9 +1640,23 @@ def main(argv=None):
         # ---------------------------------- 5c. bus -x 10xv2, full size
         log(f"== phase 5c: bus -x 10xv2 at realistic size "
             f"({time.perf_counter() - t_start:.0f} s)")
-        launches_bus, bus_summary = phase_5c(
+        launches_bus, bus_summary, bus_out = phase_5c(
             torch, np, kernels, Options, run_bus, index, r1p, n_pairs, work,
             dev)
+
+        # ------------------------------- 5d. long reads, full size
+        log(f"== phase 5d: quant --long and bus --long at realistic size "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        launches_long, k5d, long_summary = phase_5d(
+            torch, np, pa, kernels, fastx, Options, run_quant, run_bus,
+            fasta, index, didx, k, work, dev)
+
+        # ------------------------------------ 5e. quant-tcc, full size
+        log(f"== phase 5e: quant-tcc of phase 5c's cells at realistic size "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        launches_tcc, k5e, tcc_summary = phase_5e(
+            torch, np, kernels, emq, Options, run_quant_tcc, index, bus_out,
+            work, dev)
 
         # ------------------------------------ 6. kernel G, one replicate
         log(f"== phase 6: kernel G with one replicate (the main EM) on the "
@@ -1297,6 +1784,23 @@ def main(argv=None):
                  launches=launches_b["bias_hexamers"], max_abs_err=0.0,
                  ms=ms_h, plain_ms=plain_h, bound_ms=bound_h[0],
                  bound_by=bound_h[1], library_ms=None),
+            # J: launches of phase 5d's quant --long, held and timed on its
+            # first batch; the stress batch of phase 3e beside it
+            dict(name="pseudoalign_long", route="cuda",
+                 source=csrc + "pseudoalign.cu",
+                 replaces="kallisto_tpu/ops/pseudoalign.py:1082",
+                 launches=launches_long["pseudoalign_long"], max_abs_err=0.0,
+                 ms=k5d[0], plain_ms=k5d[1], bound_ms=k5d[2][0],
+                 bound_by=k5d[2][1], library_ms=None, stress_ms=k3e[0],
+                 stress_plain_ms=k3e[1], stress_bound_ms=k3e[2][0]),
+            # G per cell (quant-tcc, K15 with per-cell lengths): launches of
+            # phase 5e
+            dict(name="em_step_batch", route="cuda", source=csrc + "em.cu",
+                 replaces="kallisto_tpu/quant/em.py:236",
+                 launches=launches_tcc["em_step_batch"], max_abs_err=k5e[3],
+                 ms=k5e[0], plain_ms=k5e[1], bound_ms=k5e[2][0],
+                 bound_by=k5e[2][1], library_ms=None, replicates=256,
+                 form="tcc"),
         ]
         log(json.dumps({
             "index_build_s": index_build_s, "quant_s": quant_s,
@@ -1315,6 +1819,8 @@ def main(argv=None):
             "read_keys_single_ms": ms_b_single, "bus_kernel_ms": bus_busy,
             "bus_launches": launches_bus,
             "bus_golden_routes": bus_golden_routes, **bus_summary,
+            **long_summary, "long_launches": launches_long, **tcc_summary,
+            "tcc_launches": launches_tcc,
             "kernel_build_s": build_s, "n_targets": index.num_trans,
             "n_kmers": index.num_kmers, "card": smi,
             "smoke_s": time.perf_counter() - t_start,

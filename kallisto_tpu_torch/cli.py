@@ -6,8 +6,13 @@
         --bias --plaintext r1.fq.gz r2.fq.gz
     python -m kallisto_tpu_torch.cli bus -i idx.npz -o out -x 10xv2 \
         R1.fq.gz R2.fq.gz
+    python -m kallisto_tpu_torch.cli quant -i idx.npz -o out --long \
+        -P PacBio reads.fq.gz
+    python -m kallisto_tpu_torch.cli quant-tcc -i idx.npz -o out \
+        -e matrix.ec cells.mtx
 
-Mirrors the `index`, `quant` and `bus` subcommands of kallisto_tpu/cli.py
+Mirrors the `index`, `quant`, `bus` and `quant-tcc` subcommands of
+kallisto_tpu/cli.py
 (the reference's src/main.cpp), flags and exit codes, for what the port
 supports.  `--device` picks the card (default) or the CPU; without a card
 the default raises.  The .npz index format is shared with the JAX package
@@ -44,11 +49,17 @@ def _cmd_quant(args):
     from .common import Options
     from .quant.pipeline import run_quant
 
-    if args.single and (args.fragment_length <= 0 or args.sd <= 0):
+    if args.single and not args.long and (
+        args.fragment_length <= 0 or args.sd <= 0
+    ):
         sys.exit("Error: fragment length mean and sd must be supplied for "
                  "single-end reads using -l and -s")
-    if not args.single and len(args.reads) % 2 != 0:
+    if not args.single and not args.long and len(args.reads) % 2 != 0:
         sys.exit("Error: paired-end mode requires an even number of FASTQ files")
+    if args.long and not (0 < args.threshold < 1):
+        print("Threshold not in (0,1). Setting default threshold for "
+              "unmapped kmers to 0.8", file=sys.stderr)
+        args.threshold = 0.8
     if args.fr_stranded and args.rf_stranded:
         sys.exit("Error: cannot specify both --fr-stranded and --rf-stranded")
     strand = "fr" if args.fr_stranded else ("rf" if args.rf_stranded else None)
@@ -64,6 +75,9 @@ def _cmd_quant(args):
         plaintext=args.plaintext,
         write_index=args.write_index,
         single_overhang=args.single_overhang,
+        long_read=args.long,
+        platform=args.platform,
+        threshold=args.threshold,
         bias=args.bias,
         strand=strand,
         do_union=args.union,
@@ -120,6 +134,7 @@ def _cmd_bus(args):
         tag=args.tag or "",
         bam=args.bam,
         long_read=args.long,
+        platform=args.platform,
         threshold=args.threshold,
         dfk_onlist=args.dfk_onlist,
         do_union=args.union,
@@ -135,6 +150,46 @@ def _cmd_bus(args):
         print(f"Note: Number of reads processed is less than --numReads: "
               f"{opt.max_num_reads}, returning 1", file=sys.stderr)
         sys.exit(1)
+
+
+def _cmd_quant_tcc(args):
+    from .common import Options
+    from .quant.tcc import run_quant_tcc
+
+    if not args.index and not args.txnames:
+        sys.exit("Error: either a kallisto index file or a transcripts file "
+                 "need to be supplied")
+    if args.index and args.txnames:
+        sys.exit("Error: cannot supply both a kallisto index file and a "
+                 "transcripts file")
+    if (args.fragment_length != 0.0 or args.sd != 0.0) and args.fragment_file:
+        sys.exit("Error: cannot supply mean or sd while also supplying a "
+                 "fragment length distribution file")
+    if (args.fragment_length != 0.0) != (args.sd != 0.0):
+        sys.exit("Error: cannot supply mean/sd without supplying both -l and -s")
+    opt = Options(
+        index_path=args.index or "",
+        txnames_file=args.txnames or "",
+        output_dir=args.output_dir,
+        ec_file=args.ec_file,
+        tcc_file=args.tcc,
+        fld_mean=args.fragment_length,
+        fld_sd=args.sd,
+        fld_file=args.fragment_file,
+        genemap=args.genemap,
+        gtf_file=args.gtf or "",
+        bootstrap=args.bootstrap_samples,
+        seed=args.seed,
+        priors=args.priors or "",
+        long_read=args.long,
+        platform=args.platform,
+        plaintext=args.plaintext,
+        matrix_to_files=args.matrix_to_files or args.matrix_to_directories,
+        matrix_to_directories=args.matrix_to_directories,
+        threads=args.threads,
+        call=" ".join(sys.argv),
+    )
+    run_quant_tcc(opt, device=args.device)
 
 
 def main(argv=None):
@@ -169,6 +224,9 @@ def main(argv=None):
     p.add_argument("--fr-stranded", action="store_true")
     p.add_argument("--rf-stranded", action="store_true")
     p.add_argument("--bias", action="store_true")
+    p.add_argument("--long", action="store_true")
+    p.add_argument("-P", "--platform", default="")
+    p.add_argument("--threshold", type=float, default=0.8)
     p.add_argument("--union", action="store_true")
     p.add_argument("-m", "--min-range", type=int, default=1)
     p.add_argument("-p", "--priors", default=None)
@@ -202,6 +260,7 @@ def main(argv=None):
     p.add_argument("--paired", action="store_true", dest="bus_paired")
     p.add_argument("--long", action="store_true")
     p.add_argument("-r", "--threshold", type=float, default=0.8)
+    p.add_argument("-P", "--platform", default="")
     p.add_argument("--inleaved", action="store_true")
     p.add_argument("--batch-barcodes", action="store_true")
     p.add_argument("--dfk-onlist", action="store_true")
@@ -213,6 +272,32 @@ def main(argv=None):
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("reads", nargs="*")
     p.set_defaults(fn=_cmd_bus)
+
+    p = sub.add_parser("quant-tcc",
+                       help="quantify from transcript-compatibility counts")
+    p.add_argument("-i", "--index", default="")
+    p.add_argument("-T", "--txnames", default="")
+    p.add_argument("-o", "--output-dir", required=True)
+    p.add_argument("-e", "--ec-file", required=True)
+    p.add_argument("-l", "--fragment-length", type=float, default=0.0)
+    p.add_argument("-s", "--sd", type=float, default=0.0)
+    p.add_argument("-f", "--fragment-file", default="")
+    p.add_argument("-g", "--genemap", default="")
+    p.add_argument("-G", "--gtf", default="")
+    p.add_argument("-b", "--bootstrap-samples", type=int, default=0)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("-p", "--priors", default=None)
+    p.add_argument("--long", action="store_true")
+    p.add_argument("-P", "--platform", default="")
+    p.add_argument("--plaintext", action="store_true")
+    p.add_argument("--matrix-to-files", action="store_true")
+    p.add_argument("--matrix-to-directories", action="store_true")
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="devices to spread cells over (runs on one)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("tcc")
+    p.set_defaults(fn=_cmd_quant_tcc)
 
     args = parser.parse_args(argv)
     if not args.cmd:

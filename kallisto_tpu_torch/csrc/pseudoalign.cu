@@ -90,6 +90,39 @@
 // and two 32-byte block_ec8 rows; a failing read pays what kernel D pays
 // and nothing more (no second pass, no compaction).  Warps of verified and
 // failing reads finish at different times; balancing them is later work.
+//
+// Kernel J, pseudoalign_long, replaces the long-read program,
+// kallisto_tpu/ops/pseudoalign.py pseudoalign_long_packed (:1082-1151).
+// Per read of a [B, Lp] packed batch (kernel A's packed codes + N bitmask)
+// it gives, with W = Lp - k + 1: unmapped (valid windows minus hits; every
+// window is evaluated, --no-jump semantics), the first R = min(64, W) of
+// the sorted distinct non-empty EC rows of the hits with their exact count
+// n_rows, has_hits, and the ordered (uid, EC row) groups -- a hit opens a
+// group when no earlier hit exists or its uid or EC row differs from the
+// LAST EARLIER HIT's -- written at their index below G (-2 elsewhere),
+// with their exact count n_groups.
+// Design: one block of 256 threads per read (grid-stride over reads).  The
+// block decodes the read's first len codes into shared memory (a global
+// per-block slice when Lp is too long), then walks its own windows only
+// (w < len - k + 1: the batch's padded tail windows are never valid) in
+// chunks of 256, one window per thread, with kernel A's k-mer build and
+// kt_lookup.  Per chunk a block-wide max-scan of hit positions gives each
+// hit its previous hit (the chunk's uid/EC rows sit in shared memory; the
+// last hit of earlier chunks is a carry), and one add-scan of the packed
+// flags (boundary, boundary with EC row >= 0) gives the group index and
+// the slot in the read's row list.  Every hit's EC row equals its group's,
+// so the distinct rows of the hits are the distinct rows of the group
+// openers: only those are listed, then bitonic-sorted in place (shared
+// memory up to 8,192 entries, else the block's slice of a global
+// workspace), and an add-scan of "differs from its left neighbour" gives
+// n_rows and each distinct row's rank.  Scans are warp shuffles plus one
+// pass over the eight warp totals.
+// What bounds it: as kernel A, the random reads into the k-mer table (a
+// bucket_start sector, the search's key sectors and a kmer_ec sector per
+// valid window), plus a kmer_uid sector per hit.  What the design does
+// about it: the padded tail windows of short reads cost nothing, invalid
+// windows skip the lookup, and 256 independent lookups per block are in
+// flight.  A simple kernel that is right comes first; see PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -507,6 +540,218 @@ __global__ void pseudoalign_anchor_kernel(
         atomicAdd(n_fail, (unsigned long long)blk_fail);
 }
 
+// ------------------------------------------------------------- kernel J
+
+#define KJ_THREADS 256
+#define KJ_WARPS (KJ_THREADS / 32)
+#define KJ_SCAP 8192  // row-list entries kept in shared memory
+#define KJ_CODES_SMEM (128 * 1024)  // longest read decoded into shared memory
+
+// Kernel J's workspace policy at padded width Lp, decided here only:
+// *cap is the row list's length (the power of two >= Lp - k + 1); the
+// list lives in shared memory up to KJ_SCAP entries, else *list_ws ints per
+// block of global memory; the read's codes live in shared memory up to
+// KJ_CODES_SMEM bytes, else *codes_ws bytes per block of global memory.
+static void kj_plan(int Lp, int k, long long* cap, long long* list_ws,
+                    long long* codes_ws) {
+    long long need = 1;
+    while (need < Lp - k + 1) need <<= 1;
+    *cap = need;
+    *list_ws = need > KJ_SCAP ? need : 0;
+    *codes_ws = ((Lp + 15) & ~15) > KJ_CODES_SMEM ? Lp : 0;
+}
+
+struct LongOut {
+    int* rows;                        // [B, R]
+    int* n_rows;
+    unsigned char* has_hits;
+    unsigned char* overflow;
+    int* unmapped;
+    int* groups;                      // [B, G]
+    int* n_groups;
+    unsigned char* g_overflow;
+};
+
+// Block-wide inclusive scan (sum, or maximum with MAX) of one int per
+// thread; *total gets the block's reduction.  Every thread of the block
+// calls it; wt is KJ_WARPS ints of shared scratch.
+template <bool MAX>
+__device__ __forceinline__ int kj_scan(int v, int* wt, int* total) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(KT_FULL, v, o);
+        if (lane >= o) v = MAX ? max(v, t) : v + t;
+    }
+    if (lane == 31) wt[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        int t = lane < KJ_WARPS ? wt[lane] : (MAX ? -KT_INT32_MAX - 1 : 0);
+        for (int o = 1; o < 32; o <<= 1) {
+            const int u = __shfl_up_sync(KT_FULL, t, o);
+            if (lane >= o) t = MAX ? max(t, u) : t + u;
+        }
+        if (lane < KJ_WARPS) wt[lane] = t;
+    }
+    __syncthreads();
+    if (warp > 0) v = MAX ? max(v, wt[warp - 1]) : v + wt[warp - 1];
+    *total = wt[KJ_WARPS - 1];
+    __syncthreads();
+    return v;
+}
+
+__global__ void __launch_bounds__(KJ_THREADS) pseudoalign_long_kernel(
+    IndexView ix,
+    const unsigned char* __restrict__ packed,  // [B, Lp/4]
+    const unsigned char* __restrict__ nmask,   // [B, Lp/8]
+    const int* __restrict__ lens,              // [B]
+    long long B, int Lp, int k, int R, int G,
+    unsigned char* codes_ws,                   // [grid, Lp] or null
+    int* list_ws, long long list_cap,          // [grid, list_cap] or null
+    int list_smem, LongOut o) {
+    extern __shared__ int kj_smem[];
+    __shared__ int s_uid[KJ_THREADS];
+    __shared__ int s_ec[KJ_THREADS];
+    __shared__ int s_last[KJ_THREADS];
+    __shared__ int wt[KJ_WARPS];
+    const int tid = threadIdx.x;
+    const int W = Lp - k + 1;
+    int* smem_list = kj_smem;
+    unsigned char* codes =
+        codes_ws ? codes_ws + (long long)blockIdx.x * Lp
+                 : (unsigned char*)(kj_smem + list_smem);
+    const int LB = Lp >> 2;
+    const int NB = Lp >> 3;
+
+    for (long long read = blockIdx.x; read < B; read += gridDim.x) {
+        const int len = lens[read];
+        int wr = len - k + 1;
+        wr = wr < 0 ? 0 : (wr > W ? W : wr);
+        const unsigned char* pk = packed + read * LB;
+        const unsigned char* nm = nmask + read * NB;
+        const int ncodes = len < Lp ? len : Lp;
+        for (int j = tid; j < ncodes; j += KJ_THREADS) {
+            const int c = (pk[j >> 2] >> ((j & 3) * 2)) & 3;
+            const int isn = (nm[j >> 3] >> (j & 7)) & 1;
+            codes[j] = (unsigned char)(isn ? 4 : c);
+        }
+        for (int g = tid; g < G; g += KJ_THREADS) o.groups[read * G + g] = -2;
+        int cap = 1;
+        while (cap < wr) cap <<= 1;
+        int* list = cap <= list_smem ? smem_list
+                                     : list_ws + (long long)blockIdx.x * list_cap;
+        __syncthreads();
+
+        // carries across chunks: the last hit so far, groups and listed rows
+        int c_has = 0, c_uid = 0, c_ec = 0, c_gid = 0, c_lst = 0;
+        int n_valid = 0, n_hit = 0;
+        for (int base = 0; base < wr; base += KJ_THREADS) {
+            const int w = base + tid;
+            int hit = 0, uid = -1, ecv = -1;
+            if (w < wr) {
+                unsigned long long f = 0, r = 0;
+                int bad = 0;
+                for (int d = 0; d < k; ++d) {
+                    const int c = codes[w + d];
+                    bad |= c >> 2;
+                    const unsigned long long cc = (unsigned long long)(c & 3);
+                    f = (f << 2) | cc;
+                    r |= (3ULL - cc) << (2 * d);
+                }
+                if (!bad) {
+                    ++n_valid;
+                    const unsigned long long q = kt_mix64(f <= r ? f : r);
+                    const long long idx = kt_lookup(ix, q);
+                    if (ix.hkeys[idx] == q) {
+                        hit = 1;
+                        ++n_hit;
+                        uid = ix.uid[idx];
+                        ecv = ix.ec[idx];
+                    }
+                }
+            }
+            s_uid[tid] = uid;
+            s_ec[tid] = ecv;
+            int tot;
+            const int last = kj_scan<true>(hit ? tid : -1, wt, &tot);
+            s_last[tid] = last;
+            __syncthreads();
+            const int pl = tid > 0 ? s_last[tid - 1] : -1;
+            int has_prev = c_has, puid = c_uid, pec = c_ec;
+            if (pl >= 0) {
+                has_prev = 1;
+                puid = s_uid[pl];
+                pec = s_ec[pl];
+            }
+            const int bnd = hit && (!has_prev || uid != puid || ecv != pec);
+            const int lst = bnd && ecv >= 0;
+            const int flags = bnd | (lst << 16);
+            const int excl = kj_scan<false>(flags, wt, &tot) - flags;
+            const int gid = c_gid + (excl & 0xffff);
+            if (bnd && gid < G) o.groups[read * G + gid] = ecv;
+            if (lst) list[c_lst + (excl >> 16)] = ecv;
+            const int chunk_last = s_last[KJ_THREADS - 1];
+            if (chunk_last >= 0) {
+                c_has = 1;
+                c_uid = s_uid[chunk_last];
+                c_ec = s_ec[chunk_last];
+            }
+            c_gid += tot & 0xffff;
+            c_lst += tot >> 16;
+            __syncthreads();  // s_uid, s_ec, s_last are rewritten next chunk
+        }
+        int tot_valid, tot_hit;
+        kj_scan<false>(n_valid, wt, &tot_valid);
+        kj_scan<false>(n_hit, wt, &tot_hit);
+
+        // the listed rows sorted ascending (bitonic, INT32_MAX padded to a
+        // power of two), then the distinct ones ranked by an add-scan
+        const int n = c_lst;
+        int npow = 1;
+        while (npow < n) npow <<= 1;
+        if (n > 1) {
+            for (int i = n + tid; i < npow; i += KJ_THREADS)
+                list[i] = KT_INT32_MAX;
+            __syncthreads();
+            for (int size = 2; size <= npow; size <<= 1) {
+                for (int stride = size >> 1; stride > 0; stride >>= 1) {
+                    for (int i = tid; i < npow; i += KJ_THREADS) {
+                        const int j = i ^ stride;
+                        if (j > i) {
+                            const int a = list[i], b = list[j];
+                            if ((a > b) == ((i & size) == 0)) {
+                                list[i] = b;
+                                list[j] = a;
+                            }
+                        }
+                    }
+                    __syncthreads();
+                }
+            }
+        }
+        int nr = 0;
+        for (int base = 0; base < n; base += KJ_THREADS) {
+            const int i = base + tid;
+            const int isnew = i < n && (i == 0 || list[i] != list[i - 1]);
+            int tot;
+            const int rank = nr + kj_scan<false>(isnew, wt, &tot) - isnew;
+            if (isnew && rank < R) o.rows[read * R + rank] = list[i];
+            nr += tot;
+        }
+        for (int s = (nr < R ? nr : R) + tid; s < R; s += KJ_THREADS)
+            o.rows[read * R + s] = KT_INT32_MAX;
+        if (tid == 0) {
+            o.n_rows[read] = nr;
+            o.has_hits[read] = (unsigned char)(tot_hit > 0);
+            o.overflow[read] = (unsigned char)(nr > R);
+            o.unmapped[read] = tot_valid - tot_hit;
+            o.n_groups[read] = c_gid;
+            o.g_overflow[read] = (unsigned char)(c_gid > G);
+        }
+        __syncthreads();  // codes and the row list are reused by the next read
+    }
+}
+
 static int kt_index_view(IndexView* ix, const void* hkeys,
                          const void* bucket_start, const void* uid,
                          const void* pos, const void* fw, const void* block,
@@ -673,5 +918,64 @@ extern "C" int pseudoalign_anchor(
         kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
                     f_rpos, f_strand, rng),
         (unsigned long long*)n_fail);
+    return (int)cudaGetLastError();
+}
+
+// The per-block sizes of kernel J's global workspaces at padded width Lp
+// (kj_plan): ws[0] bytes of codes, ws[1] ints of row list; 0 where the
+// block's shared memory holds it.
+extern "C" void pseudoalign_long_workspace(int Lp, int k, long long* ws) {
+    long long cap;
+    kj_plan(Lp, k, &cap, ws + 1, ws);
+}
+
+// Kernel J.  grid blocks of KJ_THREADS threads; the caller allocates the
+// global workspaces that pseudoalign_long_workspace sizes: codes_ws [grid,
+// ws[0]] bytes and list_ws [grid, ws[1]] ints, each null where its size is 0.
+extern "C" int pseudoalign_long(
+    const void* hkeys, const void* bucket_start, const void* uid,
+    const void* pos, const void* fw, const void* block, const void* ec,
+    long long N, int p,
+    const void* packed, const void* nmask, const void* lens,
+    long long B, int Lp, int k, int R, int G, int grid,
+    void* codes_ws, void* list_ws,
+    void* rows, void* n_rows, void* has_hits, void* overflow,
+    void* unmapped, void* groups, void* n_groups, void* g_overflow,
+    void* stream) {
+    if (B <= 0) return 0;
+    const int W = Lp - k + 1;
+    long long need, list_g, codes_g;
+    kj_plan(Lp, k, &need, &list_g, &codes_g);
+    if (Lp < k || (Lp & 7) != 0 || k > 32 || R <= 0 || R > W || G <= 0 ||
+        grid <= 0 || grid > B || (list_g != 0) != (list_ws != 0) ||
+        (codes_g != 0) != (codes_ws != 0))
+        return (int)cudaErrorInvalidValue;
+    IndexView ix;
+    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
+                            N, p);
+    if (err) return err;
+    const int list_smem = need < KJ_SCAP ? (int)need : KJ_SCAP;
+    // at most 4 * KJ_SCAP + KJ_CODES_SMEM = 160 KB, under Hopper's 227 KB
+    const long long smem = 4LL * list_smem + (codes_g ? 0 : ((Lp + 15) & ~15));
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            pseudoalign_long_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    LongOut o;
+    o.rows = (int*)rows;
+    o.n_rows = (int*)n_rows;
+    o.has_hits = (unsigned char*)has_hits;
+    o.overflow = (unsigned char*)overflow;
+    o.unmapped = (int*)unmapped;
+    o.groups = (int*)groups;
+    o.n_groups = (int*)n_groups;
+    o.g_overflow = (unsigned char*)g_overflow;
+    pseudoalign_long_kernel<<<grid, KJ_THREADS, (size_t)smem,
+                              (cudaStream_t)stream>>>(
+        ix, (const unsigned char*)packed, (const unsigned char*)nmask,
+        (const int*)lens, B, Lp, k, R, G, (unsigned char*)codes_ws,
+        (int*)list_ws, need, list_smem, o);
     return (int)cudaGetLastError();
 }

@@ -6,7 +6,7 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build
 happens at first use, into ``kallisto_tpu_torch/_kbuild/`` (gitignored),
 with one ``nvcc`` per source, all started together; a library is named by
 the hash of its source and flags, so an unchanged source is not rebuilt.
-Several kernels may share a source (A, D and I; E and F).
+Several kernels may share a source (A, D, I and J; E and F).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
@@ -38,6 +38,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "read_keys": ("read_keys.cu", ()),
     "pseudoalign_turbo": ("pseudoalign.cu", ()),
     "pseudoalign_anchor": ("pseudoalign.cu", ()),
+    "pseudoalign_long": ("pseudoalign.cu", ()),
     "key_histogram": ("compact.cu", ()),
     "gather_exemplars": ("compact.cu", ()),
     # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
@@ -86,6 +87,8 @@ _ARGTYPES = {
     + [_I] * 5 + [_P] * 10 + [_P],
     "pseudoalign_anchor": [_P] * 7 + [_LL, _I, _P, _LL] + [_P] * 3
     + [_LL, _LL] + [_I] * 6 + [_P] * 11 + [_P],
+    "pseudoalign_long": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_LL] + [_I] * 5
+    + [_P, _P] + [_P] * 8 + [_P],
     "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
     "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL, _P, _P, _P, _P],
     "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
@@ -338,6 +341,60 @@ def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
     _raise_on(err, "pseudoalign_anchor")
     LAUNCHES["pseudoalign_anchor"] += 1
     return out, n_fail
+
+
+# ---------------------------------------------------------------- kernel J
+
+# blocks of kernel J (one read per block at a time, grid-stride: 8 per SM
+# of an H100); sizes its per-block workspaces
+_LONG_GRID = 1056
+
+
+def _long_workspace(L: int, k: int) -> Tuple[int, int]:
+    """Per-block sizes of kernel J's global workspaces at padded width L:
+    (bytes of codes, ints of row list), 0 where shared memory holds it --
+    the policy of csrc/pseudoalign.cu's kj_plan, asked of the library."""
+    _fn("pseudoalign_long")  # builds and loads the library
+    q = _libs[SOURCES["pseudoalign_long"]].pseudoalign_long_workspace
+    q.argtypes, q.restype = [_I, _I, ctypes.POINTER(_LL)], None
+    ws = (_LL * 2)()
+    q(L, k, ws)
+    return int(ws[0]), int(ws[1])
+
+
+def pseudoalign_long(didx, packed: torch.Tensor, nmask: torch.Tensor,
+                     lens: torch.Tensor, k: int, L: int, R: int, G: int):
+    """Kernel J on one packed batch of long reads.  Returns the eight
+    LongResult fields as a tuple of CUDA tensors (rows [B, R], n_rows,
+    has_hits, overflow, unmapped, groups [B, G], n_groups, g_overflow)."""
+    dev = didx.kmer_hkeys.device
+    B = int(lens.shape[0])
+    W = L - k + 1
+    if L % 8 or L < k or not 0 < R <= W or G < 1:
+        raise ValueError(f"bad shape: L={L} k={k} R={R} G={G}")
+    _check(packed, "packed", torch.uint8, (B, L // 4), dev)
+    _check(nmask, "nmask", torch.uint8, (B, L // 8), dev)
+    _check(lens, "lens", torch.int32, (B,), dev)
+    ix = _index_args(didx)
+    i32 = dict(dtype=torch.int32, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    out = (torch.empty((B, R), **i32), torch.empty(B, **i32),
+           torch.empty(B, **b8), torch.empty(B, **b8), torch.empty(B, **i32),
+           torch.empty((B, G), **i32), torch.empty(B, **i32),
+           torch.empty(B, **b8))
+    if B == 0:
+        return out
+    grid = min(B, _LONG_GRID)
+    code_n, list_n = _long_workspace(L, k)
+    codes_ws = (torch.empty(grid * code_n, dtype=torch.uint8, device=dev)
+                if code_n else None)
+    list_ws = torch.empty(grid * list_n, **i32) if list_n else None
+    err = _fn("pseudoalign_long")(
+        *ix, _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R, G, grid,
+        _ptr(codes_ws), _ptr(list_ws), *[_ptr(t) for t in out], _stream())
+    _raise_on(err, "pseudoalign_long")
+    LAUNCHES["pseudoalign_long"] += 1
+    return out
 
 
 # ---------------------------------------------------------------- kernel B

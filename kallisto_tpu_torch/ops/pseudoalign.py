@@ -610,6 +610,94 @@ def gather_exemplars_plain(idx: torch.Tensor, s1: SideResult,
     return torch.cat(cols, dim=1).to(torch.int32)
 
 
+class LongResult(NamedTuple):
+    """Per-read long-read pseudoalignment summary (JAX ops/pseudoalign.py
+    LongResult).
+
+    rows/n_rows/has_hits/overflow as SideResult with a wider row budget
+    (R = min(64, W)); n_rows counts every distinct row, past R too.
+    unmapped = valid k-mers without an index hit (the reference's
+    match_long empty_count, evaluated exhaustively: --no-jump semantics,
+    src/KmerIndex.cpp:1945-2172); groups = the ordered (unitig, EC row)
+    groups of the read's hits (what MinCollector::modeECs scans), -2
+    padded, with n_groups counting past G."""
+
+    rows: torch.Tensor        # [B, R] int32 sorted distinct non-empty EC rows
+    n_rows: torch.Tensor      # [B] int32
+    has_hits: torch.Tensor    # [B] bool
+    overflow: torch.Tensor    # [B] bool n_rows > R
+    unmapped: torch.Tensor    # [B] int32
+    groups: torch.Tensor      # [B, G] int32 EC row per group (-1 = empty EC)
+    n_groups: torch.Tensor    # [B] int32
+    g_overflow: torch.Tensor  # [B] bool n_groups > G
+
+    def to_numpy(self) -> "LongResult":
+        """Host copy of every field."""
+        return LongResult(*(t.cpu().numpy() for t in self))
+
+
+def pseudoalign_long_plain(didx, packed, nmask, lens, k: int, L: int,
+                           max_rows: int = 64,
+                           max_groups: int = 128) -> LongResult:
+    """Plain PyTorch version of kernel J (JAX pseudoalign_long_packed,
+    ops/pseudoalign.py:1082-1151): every window of every read is looked
+    up; the distinct rows come from a sort and adjacent differences, the
+    groups from a running maximum of hit positions (a hit opens a group
+    when its unitig or EC row differs from the previous HIT's) and a
+    scatter of each group's EC row to its index."""
+    codes = unpack_codes(packed, nmask, L)
+    canon, _, valid = rolling_canonical_kmers(codes, lens, k)
+    del codes
+    B, W = canon.shape
+    R = min(max_rows, W)
+    G = max_groups
+    dev = canon.device
+    idx, hit, ec_row = lookup_kmers(didx, canon, valid)
+    del canon
+    unmapped = (valid.sum(dim=1) - hit.sum(dim=1)).to(torch.int32)
+    uid = torch.where(hit, didx.kmer_uid[idx], torch.full_like(ec_row, -1))
+    del idx, valid
+
+    rows = torch.where(hit & (ec_row >= 0), ec_row,
+                       torch.full_like(ec_row, INT32_MAX))
+    rows = torch.sort(rows, dim=1).values
+    isnew = torch.cat(
+        [torch.ones((B, 1), dtype=torch.bool, device=dev),
+         rows[:, 1:] != rows[:, :-1]], dim=1) & (rows != INT32_MAX)
+    uniq = torch.where(isnew, rows, torch.full_like(rows, INT32_MAX))
+    uniq = torch.sort(uniq, dim=1).values[:, :R].contiguous()
+    n_rows = isnew.sum(dim=1).to(torch.int32)
+    del rows, isnew
+
+    pos = torch.arange(W, dtype=torch.int64, device=dev)[None, :]
+    hp = torch.where(hit, pos, torch.full_like(pos, -1))
+    cm = torch.cummax(hp, dim=1).values
+    prev_pos = torch.cat(
+        [torch.full((B, 1), -1, dtype=torch.int64, device=dev), cm[:, :-1]],
+        dim=1)
+    del hp, cm
+    has_prev = prev_pos >= 0
+    pp = torch.clamp(prev_pos, min=0)
+    prev_uid = torch.gather(uid, 1, pp)
+    prev_row = torch.gather(ec_row, 1, pp)
+    boundary = hit & (~has_prev | (uid != prev_uid) | (ec_row != prev_row))
+    del prev_pos, has_prev, pp, prev_uid, prev_row, uid
+    gid = torch.cumsum(boundary.to(torch.int64), dim=1) - 1
+    n_groups = boundary.sum(dim=1).to(torch.int32)
+    bidx = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+    flat = torch.where(boundary & (gid < G), bidx * G + torch.clamp(gid, min=0),
+                       torch.full_like(gid, B * G))
+    groups = torch.full((B * G + 1,), -2, dtype=torch.int32, device=dev)
+    groups = groups.scatter_(0, flat.reshape(-1),
+                             ec_row.reshape(-1).to(torch.int32))
+    groups = groups[: B * G].reshape(B, G)
+    return LongResult(
+        rows=uniq, n_rows=n_rows, has_hits=hit.any(dim=1),
+        overflow=n_rows > R, unmapped=unmapped, groups=groups,
+        n_groups=n_groups, g_overflow=n_groups > G,
+    )
+
+
 class BiasTables(NamedTuple):
     """Device tables for 5' hexamer extraction (bias correction)."""
 
@@ -694,6 +782,21 @@ def pseudoalign_batch_packed(didx: DeviceIndex, packed: torch.Tensor,
         return SideResult(*kernels.pseudoalign_side(
             didx, packed, nmask, lens, k, L, R))
     return pseudoalign_batch_packed_plain(didx, packed, nmask, lens, k, L, max_rows)
+
+
+def pseudoalign_long_packed(didx: DeviceIndex, packed: torch.Tensor,
+                            nmask: torch.Tensor, lens: torch.Tensor, k: int,
+                            L: int, max_rows: int = 64,
+                            max_groups: int = 128) -> LongResult:
+    """One packed batch of long reads -> LongResult: kernel J for tensors
+    on the card, the plain version for tensors on the CPU.  L is the
+    batch's padded length: R = min(max_rows, L - k + 1), G = max_groups."""
+    if packed.is_cuda:
+        R = min(max_rows, L - k + 1)
+        return LongResult(*kernels.pseudoalign_long(
+            didx, packed, nmask, lens, k, L, R, max_groups))
+    return pseudoalign_long_plain(didx, packed, nmask, lens, k, L, max_rows,
+                                  max_groups)
 
 
 def read_keys(s1: SideResult, s2: Optional[SideResult], k: int):

@@ -262,6 +262,7 @@ def run_em(
     priors: Optional[np.ndarray] = None,
     bias_update=None,
     device=None,
+    singletons_after: bool = False,
 ) -> EmResult:
     """Run the EM to convergence in float64 on `device` (default: the card;
     raises without one unless device='cpu'): the loop of run_em_batch with
@@ -272,10 +273,15 @@ def run_em(
     min_rounds and min_rounds + 500 unless the loop is done (reference:
     EMAlgorithm.h:113-116; JAX em.py:321-338 runs the same segments).  It
     sees the state alpha, which is the zeroed one when the final round
-    starts at that boundary."""
+    starts at that boundary.
+
+    singletons_after: the long-read (PacBio) EM keeps singleton-EC counts
+    out of the iterations and adds them to alpha once after the loop
+    (reference: EMAlgorithm.h:224-357; JAX em.py:286-299, :342-343)."""
     r = run_em_batch(problem, np.asarray(counts)[None], eff_lens,
                      n_iter=n_iter, min_rounds=min_rounds, priors=priors,
-                     bias_update=bias_update, device=device)
+                     bias_update=bias_update, device=device,
+                     singletons_after=singletons_after)
     return EmResult(
         alpha=r.alpha[0],
         alpha_before_zeroes=r.alpha_before_zeroes[0],
@@ -302,6 +308,7 @@ def run_em_batch(
     priors: Optional[np.ndarray] = None,
     bias_update=None,
     device=None,
+    singletons_after: bool = False,
 ) -> EmBatchResult:
     """The EM of Bb replicates sharing one EC structure (JAX em.py
     _run_em_batch_jax, a vmapped _em_full), in float64 on `device`
@@ -310,7 +317,8 @@ def run_em_batch(
     counts_b: [Bb, n_ec] EC counts of each replicate; eff_lens: [T] shared
     or [Bb, T] per replicate (JAX's batched_eff); priors: [T] shared
     starting alpha (JAX's alpha_init) or None for uniform; bias_update:
-    run_em's hook, for one replicate with shared lengths.
+    run_em's hook, for one replicate with shared lengths; singletons_after:
+    run_em's long-read variant, per replicate.
 
     A vmapped while-loop runs while any member's condition holds and
     freezes the others, so each replicate keeps its own iteration count,
@@ -331,6 +339,10 @@ def run_em_batch(
     if bias_update is not None and (Bb != 1 or cur_eff.ndim != 1):
         raise ValueError("bias_update needs one replicate and shared lengths")
     singleton_b, multi_b = em_inputs(problem, counts_b)
+    post_singletons = None
+    if singletons_after:
+        post_singletons = singleton_b
+        singleton_b = np.zeros_like(singleton_b)
     prob = device_em_problem(problem, singleton_b, multi_b, 1.0 / cur_eff, dev)
     step = em_stepper(prob)
     alpha = torch.from_numpy(np.tile(_alpha0(problem, priors), (Bb, 1))).to(dev)
@@ -388,6 +400,8 @@ def run_em_batch(
     # reference reports the 0-based index at break (EMAlgorithm.h:369)
     done = done_at >= 0
     before_h = np.where(done[:, None], before.cpu().numpy(), alpha_h)
+    if post_singletons is not None:
+        alpha_h = alpha_h + post_singletons
     return EmBatchResult(alpha=alpha_h, alpha_before_zeroes=before_h,
                          n_rounds=np.where(done, done_at - 1, i),
                          eff_lens=cur_eff, post_bias=post_bias)

@@ -48,10 +48,19 @@ exist for the TPU's fixed-size wave-2 sub-batch and are not copied.
 Mixed lengths, and the lengths whose wave-2 row width has no anchor
 route (ops/anchor.py row_width_ok), take kernel D.
 
+--long (JAX :1603-1656): batches of up to 16,384 single reads go through
+kernel J (ops/pseudoalign.py pseudoalign_long_packed, every window of every
+read); the host resolves each read by strict intersection of its distinct
+rows with the modeECs fallback (quant/longread.py), calls a read novel when
+more than threshold * len of its k-mers are unmapped, and writes the novel
+reads and the reads without a set to novel.fastq.  The EM adds singleton
+counts after the loop unless the platform is ONT.  `timings` counts the
+`long` batches, their kernel + fetch seconds (`long_s`) and the `novel`
+reads.
+
 Not ported yet (each raises NotImplementedError): pseudobam/genomebam,
-long reads, several devices.  The JAX package's host wave 1 is a speed
-path in front of the anchor route with the same outputs; it is not ported
-yet either.
+several devices.  The JAX package's host wave 1 is a speed path in front
+of the anchor route with the same outputs; it is not ported yet either.
 """
 
 import os
@@ -82,6 +91,7 @@ from ..ops.pseudoalign import (
     gather_exemplars,
     pf_probe_depth,
     pseudoalign_batch_packed,
+    pseudoalign_long_packed,
     pseudoalign_pair_compact_packed,
     pseudoalign_single_compact_packed,
     read_keys,
@@ -93,6 +103,7 @@ from .bias import NUM_6MERS, TranscriptHexamers, update_eff_lens
 from .bootstrap import run_bootstraps
 from .ecmap import EcResolver
 from .em import EmResult, build_em_problem, counts_to_tpm, read_priors, run_em
+from .longread import resolve_long_reads
 from .filters import FldPositionFilter, StrandFilter
 from .fld import (
     calc_eff_lens,
@@ -106,6 +117,7 @@ _FLEN_GOAL = 10000  # reference: ProcessReads.cpp:985
 _BIAS_GOAL = 1000000  # reference: ProcessReads.h:178 maxBiasCount
 _FALLBACK_CAP = 1 << 17  # max reads per per-read or bitmask slice
 _CK_PREFIX = 2049  # meta row + 2048 key rows: the first fetch of a table
+_LONG_BATCH = 16384  # reads per --long batch (JAX pipeline.py:1618)
 _pad_pats: dict = {}
 
 
@@ -155,7 +167,6 @@ def _check_supported(opt: Options, dev: torch.device) -> None:
     unported = [
         (opt.pseudobam, "--pseudobam"),
         (opt.genomebam, "--genomebam"),
-        (opt.long_read, "--long"),
         (_resolve_n_devices(opt, dev) > 1, "several devices"),
     ]
     for flag, what in unported:
@@ -365,15 +376,16 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     # kernels), host resolution/filters/counting, the whole read loop, the
     # EM problem build, the transcript hexamer tables of --bias, EM
     # (bias_update_s of it in update_eff_lens), the bootstrap EM, the
-    # output files; then batch counts by route, the anchor kernel's wave-2
-    # reads and the turbo batches' distinct keys
+    # output files, --long's kernel J + fetch; then batch counts by route
+    # (long reads: `long`), the anchor kernel's wave-2 reads, the turbo
+    # batches' distinct keys and the novel long reads
     timings = dict.fromkeys(
         ("index_upload_s", "read_s", "dispatch_s", "fetch_s", "resolve_s",
          "pseudoalign_s", "em_problem_s", "bias_tables_s", "em_s",
-         "bias_update_s", "bootstrap_s", "write_s"), 0.0)
+         "bias_update_s", "bootstrap_s", "write_s", "long_s"), 0.0)
     timings.update(dict.fromkeys(
-        ("full", "turbo", "compact", "fallback", "wave2_reads", "n_uniq_max",
-         "n_uniq_sum"), 0))
+        ("full", "turbo", "compact", "fallback", "long", "wave2_reads",
+         "n_uniq_max", "n_uniq_sum", "novel"), 0))
     t0 = time.perf_counter()
     if index is None:
         index = load_index(opt.index_path)
@@ -534,6 +546,9 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             process_full(ctx)
             timings["full"] += 1
             return
+        if ctx[0] == "long":
+            process_long(ctx)
+            return
         route, b1, b2, r1, r2, ck = ctx
         t1 = time.perf_counter()
         arr = _fetch_ck(ck)
@@ -643,9 +658,51 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             tlencount += take.shape[0]
         timings["resolve_s"] += time.perf_counter() - t2
 
+    novel_recs = []  # novel.fastq records, written after the loop
+    lr_resolver = lr_cache = None
+    if opt.long_read:
+        # strict intersection without the off-list mask; the mask comes
+        # after the mode fallback (JAX :1612)
+        lr_resolver = EcResolver(index, mask_offlist=False)
+        lr_cache = {}
+
+    def dispatch_long(b1: PackedBatch):
+        """Enqueue kernel J on one batch of long reads."""
+        return ("long", b1, pseudoalign_long_packed(
+            didx, *upload_batch(b1, dev), k=k, L=b1.Lp))
+
+    def process_long(ctx):
+        """Resolve one batch of long reads (JAX :1621-1654): novel reads
+        (more than threshold * len unmapped k-mers) are not counted; they
+        and the reads without a set go to novel.fastq."""
+        nonlocal num_processed
+        _, b1, lr = ctx
+        t1 = time.perf_counter()
+        h = lr.to_numpy()
+        t2 = time.perf_counter()
+        timings["long_s"] += t2 - t1
+        sets, novel, recs = resolve_long_reads(
+            h, b1.lens, opt.threshold, lr_resolver, index.num_onlist,
+            b1.row_codes, cache=lr_cache, write_unset=True)
+        resolver.count_batch(np.arange(b1.n, dtype=np.int64), sets)
+        num_processed += b1.n
+        timings["long"] += 1
+        timings["novel"] += int(novel.sum())
+        novel_recs.extend(recs)
+        timings["resolve_s"] += time.perf_counter() - t2
+
     # stderr chatter matching the reference's ProcessReads prologue
     # (src/ProcessReads.cpp:196-231)
-    if paired:
+    if opt.long_read:
+        _log("[quant] running in long read mode")
+        for i, f in enumerate(opt.files):
+            _log(f"[quant] will process file {i + 1}: {f}")
+        batch_iter = (
+            (b, None) for f in opt.files
+            for b in packed_single_batches(
+                f, min(opt.batch_size, _LONG_BATCH), k)
+        )
+    elif paired:
         _log("[quant] running in paired-end mode")
         if len(opt.files) % 2 != 0:
             raise ValueError("paired-end mode requires an even number of files")
@@ -691,13 +748,18 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                 process(pend.popleft())
             t1 = time.perf_counter()
         want_fld = estimate_fld and tlencount < flen_goal
-        pend.append(dispatch(b1, b2, want_fld))
+        pend.append(dispatch_long(b1) if opt.long_read
+                    else dispatch(b1, b2, want_fld))
         timings["dispatch_s"] += time.perf_counter() - t1
         if len(pend) > 2:
             process(pend.popleft())
         t_read = time.perf_counter()
     while pend:
         process(pend.popleft())
+    if opt.long_read and opt.output_dir:
+        os.makedirs(opt.output_dir, exist_ok=True)
+        with open(os.path.join(opt.output_dir, "novel.fastq"), "w") as f:
+            f.write("".join(novel_recs))
     timings["pseudoalign_s"] = time.perf_counter() - t0
     _log(" done")
     if opt.bias:
@@ -743,8 +805,12 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     priors = read_priors(opt.priors, index.num_trans) if opt.priors else None
     _log("[   em] quantifying the abundances ...", end="")
     t0 = time.perf_counter()
+    # the long-read EM adds singleton counts after the loop unless the
+    # platform is ONT (JAX :1851; reference: EMAlgorithm.h:111, 224-357)
     em = run_em(problem, counts, eff_lens, n_iter=10000, min_rounds=50,
-                priors=priors, bias_update=bias_update, device=dev)
+                priors=priors, bias_update=bias_update, device=dev,
+                singletons_after=opt.long_read
+                and opt.platform.upper() != "ONT")
     timings["em_s"] = time.perf_counter() - t0
     _log(" done")
     _log(

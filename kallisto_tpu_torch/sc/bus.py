@@ -34,8 +34,13 @@ distinct EC rows, re-resolved on the host), and kernel I's wave-2 reads
 never redone per read, where the JAX package redoes one whose failures
 exceed its capacity (the outputs are the same).
 
-Not ported yet (each raises NotImplementedError): `--long`, several
-devices.
+`--long` (JAX bus.py:1229-1291) sends every chunk through kernel J and the
+long-read resolver of quant (quant/longread.py); novel reads go to
+novel.fastq uncounted, and flens.txt holds the per-target mean read
+length of the uniquely mapped reads, with the reference's batch-mode
+discard of it kept.  Its chunks count as `long`.
+
+Not ported yet (raises NotImplementedError): several devices.
 """
 
 import os
@@ -66,6 +71,7 @@ from ..ops.pseudoalign import (
     SideResult,
     device_index_from_host,
     pseudoalign_batch_packed,
+    pseudoalign_long_packed,
     read_keys,
     to_device,
     upload_batch,
@@ -73,6 +79,7 @@ from ..ops.pseudoalign import (
 from ..ops.turbo import _split, make_aux
 from ..quant.ecmap import EcResolver
 from ..quant.filters import StrandFilter
+from ..quant.longread import resolve_long_reads
 from ..quant.pipeline import (
     _apply_overflow_fallback,
     _bucket_size,
@@ -812,6 +819,9 @@ class _BusRun:
         self.aa_resolver = (
             EcResolver(index, mask_offlist=False) if opt.aa else None
         )
+        self.lr_resolver = (
+            EcResolver(index, mask_offlist=False) if cfg.long_read else None
+        )
         self.strand_filter = (
             StrandFilter(index, cfg.strand)
             if cfg.strand in ("fr", "rf") else None
@@ -862,6 +872,16 @@ class _BusRun:
         else:
             self.flens = np.zeros((1, MAX_FRAG_LEN), np.int64)
             self.tlencount = np.zeros(1, np.int64)
+        # long-read per-target read-length sums (reference: flens_lr)
+        T = index.target_lens.shape[0]
+        self.flens_lr = np.zeros((nb if cfg.batch_mode else 1, T), np.int64)
+        self.flens_lr_c = np.zeros((nb if cfg.batch_mode else 1, T), np.int64)
+        self.tlencount_lr = 0
+        self.novel_f = None
+        if cfg.long_read:
+            self.novel_f = open(
+                os.path.join(opt.output_dir, "novel.fastq"), "w"
+            )
 
     # -- progress (reference: MasterProcessor::update, ProcessReads.cpp:634-643)
     def _progress(self, n: int):
@@ -1113,6 +1133,14 @@ class _BusRun:
             self._progress(B)
             return
 
+        if cfg.long_read:
+            self._process_long(
+                slots, sub, sel, bc_bin, umi_bin, bc_flag, umi_flag,
+                read_numbers, fl_slot, bc_hist_val, umi_hist_val, t0,
+            )
+            self._progress(B)
+            return
+
         seq_subs = [bus.seq[0]] if bus.paired else bus.seq
         seq1 = _extract_seq(sub, seq_subs, start_override(seq_subs))
         b1p = _read_batch_to_packed(seq1, self.k)
@@ -1218,6 +1246,57 @@ class _BusRun:
         self.timings["emit_s"] += time.perf_counter() - t3
         self._progress(B)
 
+    def _process_long(
+        self, slots, sub, sel, bc_bin, umi_bin, bc_flag, umi_flag,
+        read_numbers, fl_slot, bc_hist_val, umi_hist_val, t0,
+    ):
+        """Long-read bus (JAX bus.py:1229-1291): kernel J's exhaustive
+        scan + modeECs + novelty threshold (reference:
+        ProcessReads.cpp:1655-1664, 1680-1705, 1764-1776)."""
+        bus = self.cfg.bus
+        seq1 = _extract_seq(sub, bus.seq)
+        b1 = _read_batch_to_packed(seq1, self.k)
+        t1 = time.perf_counter()
+        self.timings["extract_s"] += t1 - t0
+        h = pseudoalign_long_packed(
+            self.didx, *upload_batch(b1, self.dev), k=self.k, L=b1.Lp
+        ).to_numpy()
+        t2 = time.perf_counter()
+        self.timings["pseudoalign_s"] += t2 - t1
+        self.timings["long"] += 1
+        # novel reads are excluded from counting and written out
+        final_sets, _, recs = resolve_long_reads(
+            h, seq1.lens, self.cfg.threshold, self.lr_resolver,
+            self.index.num_onlist, lambda r: seq1.codes[r])
+        self.novel_f.write("".join(recs))
+        B = seq1.lens.shape[0]
+        final_idx = np.arange(B, dtype=np.int64)
+        read_ec, read_card = self.resolver.count_batch(final_idx, final_sets)
+
+        # per-target read-length FLD for uniquely-mapping reads
+        # (reference: ProcessReads.cpp:1764-1772; first 1M reads).  In
+        # batch mode (incl. bulk) the reference's update() merges the
+        # per-thread flens_lr the wrong way round and DISCARDS it
+        # (src/ProcessReads.cpp:518-528: batchFlens_lr is only ever added
+        # into the dying thread-local copy), so every batch-mode run falls
+        # back to |target_len - k| in flens.txt; emulated here for parity.
+        if not self.cfg.batch_mode and self.tlencount_lr < 1000000:
+            uniq = np.flatnonzero((read_card == 1) & (read_ec >= 0))
+            uniq = uniq[: 1000000 - self.tlencount_lr]
+            for r in uniq:
+                tr = final_sets[int(final_idx[r])]
+                self.flens_lr[fl_slot, tr[0]] += int(seq1.lens[r])
+                self.flens_lr_c[fl_slot, tr[0]] += 1
+            self.tlencount_lr += uniq.shape[0]
+
+        t3 = time.perf_counter()
+        self._emit(
+            slots, read_ec, sel, bc_bin, umi_bin, bc_flag, umi_flag,
+            read_numbers, bc_hist_val, umi_hist_val,
+        )
+        self.timings["resolve_s"] += t3 - t2
+        self.timings["emit_s"] += time.perf_counter() - t3
+
 
 def _encode_one(s: str):
     codes = BASE_CODE[np.frombuffer(s.encode(), np.uint8)][None, :]
@@ -1244,12 +1323,9 @@ def _extract_rx(comments: Optional[List[bytes]], B: int) -> List[bytes]:
 
 
 def _check_supported(opt: Options, dev: torch.device) -> None:
-    for flag, what in ((opt.long_read, "bus --long"),
-                       (_resolve_n_devices(opt, dev) > 1,
-                        "bus on several devices")):
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet to kallisto_tpu_torch")
+    if _resolve_n_devices(opt, dev) > 1:
+        raise NotImplementedError(
+            "bus on several devices is not ported yet to kallisto_tpu_torch")
 
 
 def run_bus(opt: Options, index=None, device=None) -> BusResult:
@@ -1266,7 +1342,7 @@ def run_bus(opt: Options, index=None, device=None) -> BusResult:
         ("index_upload_s", "read_s", "extract_s", "pseudoalign_s",
          "resolve_s", "emit_s", "write_s"), 0.0)
     timings.update(dict.fromkeys(
-        ("anchor", "full", "fallback", "wave2_reads"), 0))
+        ("anchor", "full", "fallback", "long", "wave2_reads"), 0))
     if index is None:
         index = load_index(opt.index_path)
     cfg = _configure(opt)
@@ -1324,6 +1400,8 @@ def run_bus(opt: Options, index=None, device=None) -> BusResult:
 
     t0 = time.perf_counter()
     run.busf.close()
+    if run.novel_f is not None:
+        run.novel_f.close()
     if run.progress_printed:
         _log("")
 
@@ -1367,16 +1445,27 @@ def run_bus(opt: Options, index=None, device=None) -> BusResult:
         if (not cfg.single_end or cfg.no_technology or bus.paired
                 or run.no_umi):
             save_index(index, os.path.join(out, "index.saved"))
-        if not cfg.single_end:
+        if not cfg.single_end or cfg.long_read:
             with open(os.path.join(out, "flens.txt"), "w") as f:
                 for bi in range(len(cfg.batches)):
-                    f.write(" ".join(str(int(x)) for x in run.flens[bi])
-                            + "\n")
+                    if cfg.long_read:
+                        f.write(_flens_lr_line(
+                            run.flens_lr[bi], run.flens_lr_c[bi],
+                            index.target_lens, index.k) + "\n")
+                    else:
+                        f.write(" ".join(str(int(x)) for x in run.flens[bi])
+                                + "\n")
     else:
-        if bus.paired:
+        if bus.paired and not cfg.long_read:
             save_index(index, os.path.join(out, "index.saved"))
             with open(os.path.join(out, "flens.txt"), "w") as f:
                 f.write(" ".join(str(int(x)) for x in run.flens[0]) + "\n")
+        elif cfg.long_read:
+            save_index(index, os.path.join(out, "index.saved"))
+            with open(os.path.join(out, "flens.txt"), "w") as f:
+                f.write(_flens_lr_line(
+                    run.flens_lr[0], run.flens_lr_c[0],
+                    index.target_lens, index.k) + "\n")
         elif run.no_umi:
             save_index(index, os.path.join(out, "index.saved"))
     writers.write_ec_list(
@@ -1411,3 +1500,15 @@ def run_bus(opt: Options, index=None, device=None) -> BusResult:
         flens=run.flens[0],
         timings=timings,
     )
+
+
+def _flens_lr_line(fld, fld_c, target_lens, k) -> str:
+    """Per-target long-read FLD line: |mean(len) - k| for targets with
+    uniquely-mapped reads, else |target_len - k|
+    (reference: main.cpp:2427-2441, 2520-2530)."""
+    vals = np.where(
+        fld_c > 0.5,
+        np.abs(fld / np.maximum(fld_c, 1) - k),
+        np.abs(target_lens.astype(np.float64) - k),
+    )
+    return " ".join(f"{v:.6g}" for v in vals)

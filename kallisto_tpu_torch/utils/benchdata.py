@@ -1,4 +1,5 @@
-"""Synthetic paired-end benchmark data generator.
+"""Synthetic benchmark data generators: paired-end short reads, 10x read
+1 barcodes, long cDNA reads.
 
 Simulates DISTINCT reads from the bundled test transcriptome (fragment
 sampling + sequencing errors), so throughput benchmarks are not flattered
@@ -157,6 +158,73 @@ def generate_10x_r1(path: str, n: int, n_barcodes: int = 4096,
     bc = bcs[rng.integers(0, bcs.shape[0], n)]
     umi = rng.integers(0, 4, (n, 10), dtype=np.uint8)
     _write_fastq_gz(path, np.concatenate([bc, umi], axis=1), "c")
+
+
+def _long_piece(rng, seqs, min_len: int, max_len: int) -> np.ndarray:
+    """A whole or 5'-truncated transcript (the 3' end kept, as oligo-dT
+    primed cDNA is), min_len..max_len bases (shorter transcripts whole)."""
+    s = seqs[int(rng.integers(len(seqs)))]
+    hi = min(max_len, s.shape[0])
+    lo = min(min_len, hi)
+    n = hi if rng.random() < 0.3 else int(rng.integers(lo, hi + 1))
+    return s[s.shape[0] - n:].copy()
+
+
+def generate_long_reads(fasta_path: str, out_path: str, n_reads: int,
+                        seed: int = 5, novel_frac: float = 0.0,
+                        chimera_frac: float = 0.0, mosaic_frac: float = 0.0,
+                        short_frac: float = 0.0, n_rate: float = 0.0):
+    """Long cDNA reads shaped like an Iso-Seq or ONT cDNA run, as one
+    gzipped FASTQ: whole or 5'-truncated transcripts of 600-5,500 bases
+    (shorter transcripts whole) with 1 % substitutions, half of them
+    reverse-complemented, and N at n_rate per base; a novel_frac share of
+    random sequence (reads no index should place), a chimera_frac share
+    joining 3-8 transcripts (each piece on its own strand), a mosaic_frac
+    share joining 140-180 pieces of 60-120 bases of random transcripts
+    (reads past 128 groups, and past 64 distinct EC rows on a
+    transcriptome with enough of them) and a short_frac share shorter than
+    31 bases.  Returns the 0-based indices of the random reads."""
+    min_len, max_len, sub_rate = 600, 5500, 0.01
+    rng = np.random.default_rng(seed)
+    seqs = _load_transcripts(fasta_path)
+    p_tx = 1.0 - novel_frac - chimera_frac - mosaic_frac - short_frac
+    kinds = rng.choice(5, n_reads, p=[p_tx, novel_frac, chimera_frac,
+                                      short_frac, mosaic_frac])
+
+    def mutate(r):
+        sub = rng.random(r.shape[0]) < sub_rate
+        r[sub] = (r[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        return (3 - r)[::-1] if rng.random() < 0.5 else r
+
+    with gzip.open(out_path, "wb", compresslevel=1) as f:
+        buf = []
+        for i in range(n_reads):
+            kind = kinds[i]
+            if kind == 1:
+                r = rng.integers(0, 4, int(rng.integers(min_len, max_len + 1)),
+                                 dtype=np.uint8)
+            elif kind == 2:
+                r = np.concatenate([
+                    mutate(_long_piece(rng, seqs, min_len, max_len))
+                    for _ in range(int(rng.integers(3, 9)))])
+            elif kind == 4:
+                r = np.concatenate([
+                    mutate(_long_piece(rng, seqs, 60, 120))
+                    for _ in range(int(rng.integers(140, 181)))])
+            else:
+                r = mutate(_long_piece(rng, seqs, min_len, max_len))
+                if kind == 3:
+                    r = r[: int(rng.integers(1, 31))]
+            c = CODE_BASE[r]
+            if n_rate > 0:
+                c[rng.random(c.shape[0]) < n_rate] = ord("N")
+            buf.append(b"@l%d\n%s\n+\n%s\n" % (i, c.tobytes(),
+                                               b"I" * c.shape[0]))
+            if len(buf) >= 1024:
+                f.write(b"".join(buf))
+                buf = []
+        f.write(b"".join(buf))
+    return np.flatnonzero(kinds == 1)
 
 
 def ensure_bench_data(cache_dir: str, fasta_path: str, n_pairs: int):

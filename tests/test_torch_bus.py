@@ -3,18 +3,22 @@ goldens and against the JAX package's run.
 
 Each golden directory of tests/golden that the JAX package's bus tests
 own (test_bus.py, test_bus_inputs.py, test_dlist.py, test_aa.py,
-test_distinguish.py), except bus_long (`--long` is not ported yet), is a
-case of one test, with the same invocation and the same compared files
-as the JAX test.  The anchor route (kernel I's plain version) and the
-per-read route must give the same bytes, and the port must take the
-anchor route on the same chunks as the JAX package.
+test_distinguish.py) is a case of one test, with the same invocation and
+the same compared files as the JAX test; bus_long (kernel J's plain
+version) also gives the JAX package's bytes.  The anchor route (kernel
+I's plain version) and the per-read route must give the same bytes, and
+the port must take the anchor route on the same chunks as the JAX
+package.
 """
 
 import gzip
 import json
 import os
 import shutil
+import struct
+from collections import Counter
 
+import numpy as np
 import pytest
 import torch
 
@@ -153,6 +157,12 @@ CASES = {
     "bus_distinguish_t0": ("t0", DISTINGUISH,
                            ["output.bus", "matrix.ec", "transcripts.txt"],
                            False, {}),
+    # the reference's match_long skips k-mers where both packages evaluate
+    # every one: records a sub-multiset of the golden's (tests/
+    # test_bus_inputs.py), and the JAX package's bytes
+    "bus_long": ("tx", dict(files=_d("reads_lr.fastq.gz"), technology="bulk",
+                            long_read=True, threshold=0.8),
+                 ["matrix.ec", "flens.txt"], False, dict(long=True)),
 }
 
 
@@ -172,10 +182,30 @@ def _cmp(out, golden, files):
             _bytes(os.path.join(GOLDEN, golden, fname)), fname
 
 
-def test_golden_cases_cover_every_bus_golden_but_long():
+def test_golden_cases_cover_every_bus_golden():
     dirs = {d for d in os.listdir(GOLDEN) if d.startswith("bus")}
-    assert dirs - set(CASES) == {"bus_long"}
-    assert len(CASES) == 16
+    assert dirs == set(CASES)
+    assert len(CASES) == 17
+
+
+def _records(path):
+    b = _bytes(path)
+    n = struct.unpack("<I", b[16:20])[0]
+    dt = np.dtype("<u8,<u8,<i4,<u4,<u4,<u4")
+    return Counter(tuple(r) for r in np.frombuffer(b[20 + n:], dt))
+
+
+def _long_checks(tmp_path, out, res, opts):
+    mine = _records(os.path.join(out, "output.bus"))
+    want = _records(os.path.join(GOLDEN, "bus_long", "output.bus"))
+    assert not mine - want
+    assert sum((want - mine).values()) <= max(1, sum(want.values()) // 200)
+    jout = str(tmp_path / "jax")
+    jbus.run_bus(JOptions(output_dir=jout, **opts), index=index_of("tx"))
+    for fname in ("output.bus", "novel.fastq", "matrix.ec", "flens.txt"):
+        assert _bytes(os.path.join(out, fname)) == \
+            _bytes(os.path.join(jout, fname)), fname
+    assert res.timings["long"] > 0
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -201,8 +231,10 @@ def test_bus_byte_equal_to_golden(tmp_path, case):
     for key in ("bclen", "umilen"):
         if key in extra:
             assert getattr(res, key) == extra[key]
+    if extra.get("long"):
+        _long_checks(tmp_path, out, res, _opts(case, tmp_path))
     t = res.timings
-    assert t["anchor"] + t["full"] > 0 and t["read_s"] > 0, t
+    assert t["anchor"] + t["full"] + t["long"] > 0 and t["read_s"] > 0, t
 
 
 def test_cli_bus_on_the_cpu(tmp_path):
@@ -230,7 +262,7 @@ def test_cli_bus_wants_the_card_by_default(tmp_path):
                 index=index_of("tx"))
 
 
-@pytest.mark.parametrize("opt", [dict(long_read=True), dict(n_devices=2)])
+@pytest.mark.parametrize("opt", [dict(n_devices=2)])
 def test_unported_bus_options_raise(tmp_path, opt):
     with pytest.raises(NotImplementedError):
         run_bus(Options(files=_d("reads_lr.fastq.gz"), technology="bulk",

@@ -7,6 +7,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -34,7 +35,8 @@ def test_port_has_the_slice_modules():
               "ops.turbo", "ops.anchor", "io.h5", "io.bam",
               "sc.bus", "sc.technologies",
               "quant.ecmap", "quant.fld", "quant.filters", "quant.em",
-              "quant.bias", "quant.bootstrap", "quant.pipeline"):
+              "quant.bias", "quant.bootstrap", "quant.pipeline",
+              "quant.longread", "quant.tcc", "quant.genemodel"):
         assert f"kallisto_tpu_torch.{m}" in mods, m
 
 
@@ -129,4 +131,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError):
         kernels.read_keys(s, None, 31)
+    didx = SimpleNamespace(kmer_hkeys=torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        kernels.pseudoalign_long(didx, torch.zeros((4, 8), dtype=torch.uint8),
+                                 torch.zeros((4, 4), dtype=torch.uint8), z,
+                                 31, 32, 2, 128)
     assert kernels.LAUNCHES == before

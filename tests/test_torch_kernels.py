@@ -6,7 +6,8 @@ random reads with Ns, ragged lengths and reads shorter than k) and
 requires equality: every SideResult field and every key bit for kernels
 A, B, D and I, every table entry and exemplar row for kernels E and F,
 every hexamer id for kernel H, bitwise alpha and equal rounds for
-kernel G (the main EM and the bootstraps).  They need a CUDA
+kernel G (the main EM and the bootstraps), every LongResult field for
+kernel J.  They need a CUDA
 card and skip without one; this file imports no JAX, so it also runs where
 JAX is absent:
 
@@ -439,3 +440,87 @@ def test_kernel_i_key_table_matches_plain(cuda, port_index, single):
     assert 0 < int(c[0, 0]) <= 4097 and int(c[0, 1]) > 0
     assert torch.equal(g, c)
 
+
+def _long_batch(index, which, tmp_dir):
+    """A packed batch of long reads: the bundled PacBio-style reads, reads
+    generated from the bundled transcripts (whole and 5'-truncated
+    transcripts, chimeras, mosaics past 128 groups, random reads, reads
+    shorter than k, Ns), or three reads of 140,000, 9,000 and 40 bases cut
+    from the unitig sequences (kernel J's global workspaces)."""
+    from kallisto_tpu_torch.utils.benchdata import generate_long_reads
+
+    if which == "bundled_lr":
+        return _bundled_batch("reads_lr.fastq.gz")
+    if which == "generated":
+        path = os.path.join(str(tmp_dir), "lr.fastq.gz")
+        generate_long_reads(os.path.join(DATA, "transcripts.fasta.gz"), path,
+                            48, seed=8, novel_frac=0.1, chimera_frac=0.2,
+                            mosaic_frac=0.2, short_frac=0.1, n_rate=0.002)
+        return next(packed_single_batches(path, 1000, K))
+    rng = np.random.default_rng(12)
+    seq = index.unitig_seq
+    L = 140000
+    codes = np.full((3, L), 4, np.uint8)
+    lens = np.array([L, 9000, 40], np.int32)
+    for r, n in enumerate(lens):
+        pos = 0
+        while pos < n:
+            m = min(int(rng.integers(200, 2000)), n - pos)
+            s = int(rng.integers(0, seq.shape[0] - m))
+            codes[r, pos:pos + m] = seq[s:s + m]
+            pos += m
+    codes[:, ::997] = 4
+    return _read_batch_to_packed(ReadBatch(codes=codes, lens=lens), K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["bundled_lr", "generated", "huge"])
+@pytest.mark.parametrize("budgets", [(64, 128), (2, 4)])
+def test_kernel_j_matches_plain(cuda, port_index, tmp_path, which, budgets):
+    """Every LongResult field equal, with the default budgets and with
+    budgets small enough that n_rows and n_groups count past them."""
+    R, G = budgets
+    pb = _long_batch(port_index, which, tmp_path)
+    out = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        before = kernels.LAUNCHES["pseudoalign_long"]
+        out[str(dev)] = pa.pseudoalign_long_packed(
+            d, *pa.upload_batch(pb, dev), k=K, L=pb.Lp, max_rows=R,
+            max_groups=G)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["pseudoalign_long"] == before + 1
+    g, c = out[str(cuda)], out["cpu"]
+    assert bool(c.has_hits.any())
+    if budgets == (2, 4):
+        assert bool(c.overflow.any()) and bool(c.g_overflow.any())
+    for f in pa.LongResult._fields:
+        a, b = getattr(g, f).cpu(), getattr(c, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+def test_long_read_quant_on_the_card_matches_the_cpu(cuda, port_index,
+                                                     tmp_path):
+    """quant --long through kernel J: abundance.tsv and novel.fastq
+    byte-equal to the CPU run."""
+    from kallisto_tpu_torch.common import Options
+    from kallisto_tpu_torch.quant.pipeline import run_quant
+
+    outs = {}
+    for dev in (cuda, "cpu"):
+        kernels.reset_launches()
+        out = str(tmp_path / str(dev))
+        res = run_quant(Options(
+            files=[os.path.join(DATA, "reads_lr.fastq.gz")], single_end=True,
+            long_read=True, platform="PacBio", plaintext=True,
+            output_dir=out), index=port_index, device=dev)
+        if dev == cuda:
+            assert kernels.LAUNCHES["pseudoalign_long"] == res.timings["long"]
+            assert kernels.LAUNCHES["em_step_batch"] > 0
+        outs[str(dev)] = out
+    for fname in ("abundance.tsv", "novel.fastq"):
+        with open(os.path.join(outs[str(cuda)], fname)) as f, \
+                open(os.path.join(outs["cpu"], fname)) as g:
+            assert f.read() == g.read(), fname

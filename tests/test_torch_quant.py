@@ -22,6 +22,7 @@ from kallisto_tpu_torch.index import build_index, save_index
 from kallisto_tpu_torch.ops import anchor as anchor_mod
 from kallisto_tpu_torch.ops import turbo as turbo_mod
 from kallisto_tpu_torch.quant.pipeline import run_quant
+from kallisto_tpu_torch.quant.tcc import run_quant_tcc
 
 # The test workers share the machine's cores: one intra-op thread per
 # worker keeps torch's thread pools from oversubscribing them, which
@@ -154,12 +155,18 @@ def test_batch_size_invariance(port_index):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(pseudobam=True), dict(long_read=True), dict(n_devices=2),
+    dict(pseudobam=True), dict(n_devices=2, tcc=True), dict(n_devices=2),
 ])
 def test_unported_options_raise(port_index, opt):
+    opt = dict(opt)
     with pytest.raises(NotImplementedError):
-        run_quant(Options(files=[R1, R2], **opt), index=port_index,
-                  device="cpu")
+        if opt.pop("tcc", False):
+            run_quant_tcc(Options(ec_file=os.path.join(DATA, "tcc_test.ec"),
+                                  tcc_file=os.path.join(DATA, "tcc_test.mtx"),
+                                  **opt), index=port_index, device="cpu")
+        else:
+            run_quant(Options(files=[R1, R2], **opt), index=port_index,
+                      device="cpu")
 
 
 def test_threads_run_on_one_device(port_index, tmp_path):

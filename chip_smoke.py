@@ -9,8 +9,11 @@ steady state (uniform-length turbo batches through the two-wave anchor
 kernel, reduced to a key table) --, `quant --bias -b 100` (hexamers per
 read, the bias EM, 100 bootstraps through the batched EM), `bus -x
 10xv2`, `quant --long` and `bus --long` (the long-read kernel) and
-`quant-tcc` (the batched EM per cell) on the card, and holds every CUDA
-kernel of those paths against its plain PyTorch version:
+`quant-tcc` (the batched EM per cell) on the card, then `quant` with host
+wave 1 and `--pseudobam` / `--genomebam`, and holds every CUDA kernel of
+those paths against its plain PyTorch version.  Phases 1-5e run with host
+wave 1 off (KALLISTO_TPU_HOST_WAVE1=0: the card's own routes), phases 4e
+and 5f with it on as well:
 
 1. device: requires CUDA, prints the card's name and power limit, builds
    the kernels (one nvcc per source, in parallel);
@@ -43,6 +46,15 @@ kernel of those paths against its plain PyTorch version:
    transcripts and mosaics of 140-180 pieces, so that reads pass both the
    64-row and the 128-group budgets): all eight fields equal; timed (a
    stress test: J's row is timed at phase 5d's shape);
+3f. kernels K (pseudoalign_halffail), E with per-read slots and F's slim
+   layout (gather_slim) against their plain versions on the card: the
+   first 524,288 of phase 2's pairs with sparse Ns through the port's host
+   probe, the half-fail wave-2 slice at Bp = 262,144 and at the smallest
+   bucket, 16,384, keys with the strand tail and the position rank; every
+   field, table entry and slot equal, every slot naming its read's own
+   key; the both-failed slice through D, B and E with slots; timed, with
+   torch.unique(h0, return_inverse=True) beside E's slots (stress slices:
+   the kernels' rows are timed on phase 5f's own slices);
 4. golden bytes: `quant` paired, `--single -l 180 -s 20` and the half-mapped
    `-l 180 -s 20` pairs on tests/data, abundance.tsv byte-equal to
    tests/golden, run stats 10000/9413/7174, and the routes: per-read batches
@@ -66,11 +78,16 @@ kernel of those paths against its plain PyTorch version:
    byte-equal to tests/golden, output.bus a sub-multiset of the
    reference's and byte-equal to the CPU run), and the seven tcc*
    goldens byte-equal with the options of tests/test_tcc.py;
+4e. `--pseudobam` and `--genomebam` on the card: pseudobam_clean's golden
+   checks (header, references, records in name order, forward records'
+   self fields) with host wave 1 on and off, the BAMs of the clean and the
+   bundled pairs byte-equal card (on and off) and CPU; `--genomebam -g
+   -c`: tests/test_genomebam.py's checks and BAM + BAI byte-equal card and
+   CPU; `quant_paired` with host wave 1 on (hw1pb) byte-equal to the golden;
 5. the main path at realistic size: `quant` of the 1M pairs on the card
    with every launch count set to 0 just before and read just after, the
-   kernels A, B, I, E, F and G all launched; checks of its output; the
-   same pairs again
-   with every batch per read (equal EC counts and sets); kernel D's path:
+   kernels A, B, I, E, F (and its slim layout) and G all launched; checks
+   of its output; the same pairs again with every batch per read (equal EC counts and sets); kernel D's path:
    the first 65,536 pairs, mate 1 cut to mixed lengths (96-100 bp), with
    batch 8192 and an FLD goal of 1000, so that the turbo batches take
    kernel D, on the card (counts set to 0 just before, D launched, I not)
@@ -106,6 +123,15 @@ kernel of those paths against its plain PyTorch version:
    equal and matrix.abundance.mtx byte-equal; one update of kernel G at
    that shape (modes mixed) bitwise equal to the plain version on the
    CPU; kernel G timed at that shape;
+5f. host wave 1 at realistic size: the 1M pairs with the switch on and the
+   launch counts set to 0 just before (hw1pb while the FLD is learned,
+   then hw1; K, E with slots, F slim, D, B, F and G launched), FLD, EC
+   counts and sets equal to phase 5's, the wall and probe_s printed; K, E
+   with slots and F slim held against their plain versions and timed on
+   the first hw1 batch's half-fail slice, D + B + E with slots on its
+   both-failed slice, K and D timed on every slice of the run (the card's
+   busy time); then `--pseudobam` of the first 65,536 pairs with the
+   switch on and off: BAM byte-equal;
 6. kernel G (em_step_batch) with one replicate, the main EM, on the main
    path's EM problem: the whole EM on the card against the plain version
    on the CPU, bitwise equal alpha and equal rounds; one update timed;
@@ -138,13 +164,18 @@ N_PAIRS = 1_000_000
 READ_LEN = 100
 CPU_RERUN_PAIRS = 65536
 N_LONG = 100_000
+# pairs of phase 5f's --pseudobam runs: the BAM writer is host Python at
+# 3-4 s per 10,000 pairs on the H100 machine, and the whole smoke must stay
+# well inside its 1,200 s limit
+PSEUDOBAM_PAIRS = 65_536
 # batch counts by route in run_quant's timings
 ROUTES = ("full", "turbo", "compact", "fallback")
 # chunk counts by route, and kernel I's wave-2 reads, in run_bus's timings
 BUS_ROUTES = ("anchor", "full", "fallback", "wave2_reads")
 # the main path's kernels (phase 5); H runs under --bias, G also under -b N
 MAIN_PATH_KERNELS = ("pseudoalign_side", "read_keys", "em_step_batch",
-                     "pseudoalign_anchor", "key_histogram", "gather_exemplars")
+                     "pseudoalign_anchor", "key_histogram", "gather_exemplars",
+                     "gather_slim")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the scalar
 # (non-tensor) float32 rate, used here for integer operations, and float64.
@@ -1114,6 +1145,485 @@ def phase_5e(torch, np, kernels, emq, Options, run_quant_tcc, index,
     return launches, (ms, plain, bnd, err), summary
 
 
+def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
+    """Kernels K, E with per-read slots and F's slim layout against their
+    plain versions, all on the card, on one half-fail slice as
+    turbo.pseudoalign_pair_halffail receives it (args: pkf, vsum, sidev,
+    aux; kw: its keywords): every field, table entry and slot equal, every
+    slot naming its read's own key.  Returns {name: (ms, plain_ms,
+    (bound_ms, bound_by), library_ms)}."""
+    from kallisto_tpu_torch.ops import turbo
+
+    pkf, vsum, sidev, aux = args
+    k, L, R, rl = kw["k"], kw["L"], kw["max_rows"], kw["rl"]
+    Bp = int(pkf.shape[0])
+    Rr = min(R, (rl if 0 < rl < L else L) - k + 1)
+    spec = pa.KeySpec(k, kw.get("min_range", 0), kw.get("strand_key", False),
+                      kw.get("pos_fl", -1), kw.get("pos_depth", 0))
+    n_real = int((sidev != 0).sum())
+    go = kernels.pseudoalign_halffail(didx, pkf, vsum, sidev, aux, k, L, rl,
+                                      Rr)
+    g1, g2 = pa.SideResult(*go[0]), pa.SideResult(*go[1])
+    c1, c2 = turbo.halffail_core(didx, pkf, vsum, sidev, aux, k, L, R, rl)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, g1, c1, f"kernel K mate 1 {tag}")
+    _equal_sides(torch, pa, g2, c2, f"kernel K mate 2 {tag}")
+    h, fl = pa.compact_key_hash(g1, g2, spec, didx)
+    ck, slots = pa.key_histogram(h, fl, Bp + 1, with_slots=True)
+    hp, flp = pa.key_hash_plain(c1, c2, spec, didx)
+    ckp, slotsp = pa.key_histogram_plain(hp, flp, Bp + 1, with_slots=True)
+    torch.cuda.synchronize()
+    _equal_tables(torch, ck, ckp, f"kernels K + B + E {tag}")
+    check(torch.equal(slots, slotsp),
+          f"kernel E {tag}: {Bp} per-read slots equal")
+    check(torch.equal(ck[1:, :2][slots.long()], h),
+          f"kernel E {tag}: every read's slot names its own key")
+    n_uniq = int(ck[0, 0])
+    idx = ck[1 : n_uniq + 1, 3].contiguous()
+    sg = pa.gather_slim(idx, g1, g2)
+    check(torch.equal(sg, pa.gather_slim_plain(idx, g1, g2)),
+          f"kernel F slim {tag}: {n_uniq} rows equal")
+    ms_k = cuda_ms(lambda: kernels.pseudoalign_halffail(
+        didx, pkf, vsum, sidev, aux, k, L, rl, Rr), 10, torch)
+    plain_k = cuda_ms(lambda: turbo.halffail_core(
+        didx, pkf, vsum, sidev, aux, k, L, R, rl), 3, torch)
+    # the failed mates' table reads as kernel D's, per real pair two
+    # block_ec8 rows and its summary; codes, aux in, both mates out
+    codes, lens_v = turbo.codes_and_lens_plain((pkf,), aux, None, L, rl)
+    canon, _, valid = pa.rolling_canonical_kmers(codes, lens_v, k)
+    _, hit, _ = pa.lookup_kmers(didx, canon, valid)
+    n_valid, n_hit = int(valid.sum()), int(hit.sum())
+    n_has = int(hit.any(dim=1).sum())
+    n_win = canon.numel()
+    del codes, canon, valid, hit
+    io = (pkf.numel() + 8 * Bp + 4 * Bp + 8 * aux.numel()
+          + 2 * Bp * (4 * Rr + 4 * 6 + 3) + 64 * n_real)
+    table = 32 * (2 * n_valid + n_hit + 4 * n_has)
+    bnd_k = bound(io + table, 250 * n_win, PEAK_INT_OPS)
+    ms_e = cuda_ms(lambda: kernels.key_histogram(h, fl, Bp + 1, True), 20,
+                   torch)
+    plain_e = cuda_ms(lambda: pa.key_histogram_plain(h, fl, Bp + 1, True), 5,
+                      torch)
+    h0 = h[:, 0].contiguous()
+    lib_e = cuda_ms(lambda: torch.unique(h0, return_inverse=True), 20, torch)
+    bnd_e = bound(12 * Bp + 8 * n_uniq + 40 * (Bp + 2) + 4 * Bp, 0,
+                  PEAK_INT_OPS)
+    ms_f = cuda_ms(lambda: kernels.gather_slim(idx, g1, g2), 20, torch)
+    plain_f = cuda_ms(lambda: pa.gather_slim_plain(idx, g1, g2), 5, torch)
+    bnd_f = bound(n_uniq * (8 + 20 + 2 * 8 + 4), 0, PEAK_INT_OPS)
+    log(f"{tag} ({n_real} half-fail pairs, Bp={Bp}): kernel K {ms_k:.4f} ms "
+        f"(plain on card {plain_k:.3f} ms, bound {bnd_k[0]:.4f} ms "
+        f"{bnd_k[1]}, {n_win} failed-mate windows, {n_valid} valid, "
+        f"{n_hit} hits); kernel E with slots {ms_e:.4f} ms (plain "
+        f"{plain_e:.3f} ms, torch.unique with inverse {lib_e:.4f} ms, "
+        f"bound {bnd_e[0]:.5f} ms, n_uniq {n_uniq}); kernel F slim "
+        f"{ms_f:.4f} ms (plain {plain_f:.4f} ms, bound {bnd_f[0]:.6f} "
+        f"ms, {n_uniq} rows)")
+    return {"pseudoalign_halffail": (ms_k, plain_k, bnd_k, None),
+            "key_histogram_slots": (ms_e, plain_e, bnd_e, lib_e),
+            "gather_slim": (ms_f, plain_f, bnd_f, None)}
+
+
+def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
+             batch):
+    """Kernels K, E with slots and F's slim layout against their plain
+    versions on the card, on host wave 1's wave-2 slices of phase 2's pairs
+    (sparse Ns, uniform 100 bp) after the port's host probe: the half-fail
+    slice at Bp = 262,144 and at the smallest bucket, 16,384, and the
+    both-failed slice; keys with the strand tail and the position rank.
+    Returns {name: (ms, plain_ms, (bound_ms, bound_by), library_ms)} and
+    the probe's figures."""
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.ops.hostprobe import HostProbe
+    from kallisto_tpu_torch.quant import pipeline as qp
+
+    rng = np.random.default_rng(66)
+    rl, R = READ_LEN, qp._W2ROWS
+    n = 2 * batch
+    bs = []
+    for path in (r1p, r2p):
+        fs = fastx.FastqStream(path)
+        rb = fs.next_batch(n)
+        fs.close()
+        bs.append(_sparse_n_batch(rb.codes, np.full(rb.n, rl, np.int32), k,
+                                  rng, fastx, 5e-4))
+    del rb
+    depth = pa.pf_probe_depth(index)
+    kw = dict(k=k, min_range=0, strand_key=True, pos_fl=180, pos_depth=depth)
+    probe = HostProbe(index, strand_key=True, pos_key=True, pos_fl=180)
+    t0 = time.perf_counter()
+    hk = probe.probe_pair(bs[0], bs[1], rl, perread=True)
+    probe_s = time.perf_counter() - t0
+    half = np.flatnonzero(hk.fail_side != 3)
+    both = np.flatnonzero(hk.fail_side == 3)
+    n_pairs = bs[0].n
+    log(f"host probe: {n_pairs} pairs in {probe_s:.3f} s "
+        f"({probe.n_threads} threads): {n_pairs - hk.fail_idx.shape[0]} "
+        f"verified, {half.shape[0]} half-fail, {both.shape[0]} both failed, "
+        f"{hk.h128.shape[0]} host keys")
+    spec = pa.KeySpec(**kw)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def half_slice(pos, Bp):
+        sub = hk.fail_idx[pos].astype(np.int64)
+        side = hk.fail_side[pos]
+        m1 = (side == 1)[:, None]
+        pkf = np.where(m1, bs[0].packed[sub], bs[1].packed[sub])
+        nmf = np.where(m1, bs[0].nmask[sub], bs[1].nmask[sub])
+        exc = qp._rows_exceptions([(nmf, bs[0].lens[sub])], Bp, bs[0].Lp)
+        check(exc is not None, "the slice's N positions fit the aux vector")
+        aux = turbo.make_aux(sub.shape[0], rl, exc)
+        return (put(qp._pad_rows(pkf, Bp)),
+                put(qp._pad_rows(hk.fail_vsum[pos], Bp)),
+                put(qp._pad_rows(side.astype(np.int32), Bp)), put(aux))
+
+    out = {}
+    L = bs[0].Lp
+    kw = dict(kw, L=L, max_rows=R, rl=rl)
+    for Bp in (qp._W2MAX, qp._W2MIN):
+        pos = half[: min(half.shape[0],
+                         Bp if Bp == qp._W2MAX else 3 * Bp // 4)]
+        held = _hold_k(torch, np, pa, kernels, didx, half_slice(pos, Bp), kw,
+                       f"3f Bp={Bp}")
+        key = "" if Bp == qp._W2MAX else "_16k"
+        out.update({name + key: v for name, v in held.items()})
+
+    # the both-failed slice: kernel D, B and E with slots on both mates
+    sub = hk.fail_idx[both[: qp._W2MAX]].astype(np.int64)
+    Bp = qp._bucket_size(sub.shape[0], lo=qp._W2MIN)
+    exc = qp._rows_exceptions([(b.nmask[sub], b.lens[sub]) for b in bs], Bp, L)
+    aux = put(turbo.make_aux(sub.shape[0], rl, exc))
+    p1, p2 = (put(qp._pad_rows(b.packed[sub], Bp)) for b in bs)
+    g1, g2, ck, slots = turbo.pseudoalign_pair_turbo(
+        didx, p1, p2, aux, k=k, L=L, max_rows=R, max_keys=Bp + 1, rl=rl,
+        with_slots=True, min_range=0, strand_key=True, pos_fl=180,
+        pos_depth=depth)
+    hp, flp = pa.key_hash_plain(g1, g2, spec, didx)
+    ckp, slotsp = pa.key_histogram_plain(hp, flp, Bp + 1, with_slots=True)
+    torch.cuda.synchronize()
+    check(torch.equal(ck, ckp) and torch.equal(slots, slotsp),
+          f"both-failed slice ({sub.shape[0]} pairs, Bp={Bp}): kernel D + B "
+          "+ E key table and slots equal to the plain E on D's sides")
+    summary = {"probe_pairs": n_pairs, "probe_s_3f": probe_s,
+               "probe_threads": probe.n_threads,
+               "half_fail": int(half.shape[0]), "both_failed":
+               int(both.shape[0]), "host_keys": int(hk.h128.shape[0])}
+    return out, summary
+
+
+def _split_bam(np, payload):
+    """(header text, reference dictionary, records) of a decompressed BAM."""
+    lt = int.from_bytes(payload[4:8], "little")
+    p = 8 + lt
+    nref = int.from_bytes(payload[p : p + 4], "little")
+    p += 4
+    for _ in range(nref):
+        p += 4 + int.from_bytes(payload[p : p + 4], "little") + 4
+    refs = payload[8 + lt : p]
+    recs = []
+    while p < len(payload):
+        bs = int.from_bytes(payload[p : p + 4], "little")
+        recs.append(payload[p + 4 : p + 4 + bs])
+        p += 4 + bs
+    return payload[8 : 8 + lt], refs, recs
+
+
+def _self_fields(r):
+    """A record but its mate fields (next refid/pos, tlen) and mate flag
+    bits (tests/test_pseudobam_golden.py _self_fields)."""
+    import struct
+
+    refid, pos, lrn, mapq, bins, ncig, flag, llen = struct.unpack(
+        "<iiBBHHHi", r[:20])
+    return (refid, pos, mapq, bins, ncig, flag & ~(0x20 | 0x8 | 0x2), llen,
+            r[32 : 32 + lrn], r[32 + lrn :])
+
+
+def _genomebam_checks(np, out, tidx, data):
+    """tests/test_genomebam.py's checks on a genome BAM and its BAI."""
+    import struct
+
+    from kallisto_tpu_torch.io.bam import read_bam
+    from kallisto_tpu_torch.quant.genemodel import Transcriptome
+
+    text, names, lens, recs = read_bam(
+        os.path.join(out, "pseudoalignments.bam"))
+    chrom = [l.split() for l in open(os.path.join(data, "chrom.txt"))]
+    mapped = [r for r in recs if r.refid >= 0]
+    keys = [(r.refid << 32) | ((r.pos + 1) << 1) | ((r.flag & 0x10) >> 4)
+            for r in mapped]
+    check(names == [c[0] for c in chrom]
+          and lens == [int(c[1]) for c in chrom]
+          and "@HD\tVN:1.0" in text and keys == sorted(keys)
+          and all(r.flag & 0x4 for r in recs if r.refid < 0)
+          and len(recs) >= 20000,
+          f"genomebam: header of chrom.txt, {len(mapped)} mapped records "
+          "sorted, the unmapped tail")
+    model = Transcriptome(tidx.target_names, tidx.target_lens)
+    model.load_chromosomes(os.path.join(data, "chrom.txt"))
+    model.parse_gtf(os.path.join(data, "transcripts.gtf.gz"),
+                    guess_chromosomes=False)
+    exons = {}
+    for t in model.transcripts:
+        if t.chr >= 0:
+            exons.setdefault(t.chr, []).extend(t.exons)
+    inside = [any(a <= r.pos < b for a, b in exons[r.refid])
+              for r in recs if r.refid >= 0 and not r.flag & 0x4]
+    check(all(inside) and len(inside) > 15000,
+          f"genomebam: {len(inside)} records start inside an exon")
+    spliced = [r for r in recs if any(op == "N" for _, op in r.cigar)]
+    check(spliced and all(
+        sum(n for n, op in r.cigar if op in "MS") == r.seq_codes.shape[0]
+        for r in spliced[:200]),
+        f"genomebam: {len(spliced)} spliced CIGARs cover their reads")
+    zw = {}
+    for r in recs:
+        if r.refid >= 0 and not r.flag & 0x4 and r.flag & 0x40:
+            v = r.aux_get(b"ZW")
+            if v is not None:
+                zw[r.qname] = zw.get(r.qname, 0.0) + v
+    check(zw and np.allclose(list(zw.values()), 1.0, atol=1e-4),
+          f"genomebam: ZW of {len(zw)} reads sum to 1")
+    bai = read_bytes(os.path.join(out, "pseudoalignments.bam.bai"))
+    (n_ref,) = struct.unpack_from("<i", bai, 4)
+    off, chunks = 8, 0
+    for _ in range(n_ref):
+        (n_bin,) = struct.unpack_from("<i", bai, off)
+        off += 4
+        for _ in range(n_bin):
+            b, n_chunk = struct.unpack_from("<Ii", bai, off)
+            off += 8 + 16 * n_chunk
+            chunks += n_chunk if b != 37450 else 0
+        (n_intv,) = struct.unpack_from("<i", bai, off)
+        off += 4 + 8 * n_intv
+    (n_no_coor,) = struct.unpack_from("<Q", bai, off)
+    check(bai[:4] == b"BAI\x01" and off + 8 == len(bai) and chunks > 0
+          and n_no_coor > 0,
+          f"genomebam: BAI of {n_ref} references, {chunks} chunks, "
+          f"{n_no_coor} unplaced")
+
+
+def phase_4e(np, kernels, Options, run_quant, tidx, data, golden, work, dev):
+    """--pseudobam and --genomebam on tests/data, the card against the
+    golden and the CPU, host wave 1 on and off; quant_paired with it on."""
+    from kallisto_tpu_torch.io.bam import read_bgzf
+
+    def bam(out):
+        return read_bgzf(os.path.join(out, "pseudoalignments.bam"))
+
+    clean = [os.path.join(data, "clean_pb_1.fastq.gz"),
+             os.path.join(data, "clean_pb_2.fastq.gz")]
+    pf = [os.path.join(data, "reads_1.fastq.gz"),
+          os.path.join(data, "reads_2.fastq.gz")]
+    gt, gr, ga = _split_bam(np, read_bgzf(os.path.join(
+        golden, "pseudobam_clean", "pseudoalignments.bam")))
+    runs = {}
+    for hw in ("1", "0"):
+        os.environ["KALLISTO_TPU_HOST_WAVE1"] = hw
+        for tag, files in (("clean", clean), ("reads", pf)):
+            for d in ((dev, "cpu") if hw == "1" else (dev,)):
+                out = os.path.join(work, f"pb_{tag}_{hw}_{d}")
+                res = run_quant(Options(files=files, output_dir=out,
+                                        plaintext=True, pseudobam=True),
+                                index=tidx, device=d)
+                route = "hw1pb" if hw == "1" else "full"
+                check(res.timings[route] > 0,
+                      f"--pseudobam {tag}, switch {hw}, {d}: {route} batches")
+                runs[(tag, hw, str(d))] = bam(out)
+        mt, mr, ma = _split_bam(np, runs[("clean", hw, str(dev))])
+        fw = [(a, b) for a, b in zip(ga, ma)
+              if not int.from_bytes(b[14:16], "little") & 0x14]
+        check(gt == mt and gr == mr and len(ga) == len(ma)
+              and all(a[32 : 32 + a[8]] == b[32 : 32 + b[8]]
+                      for a, b in zip(ga, ma))
+              and len(fw) >= 700
+              and all(_self_fields(a) == _self_fields(b) for a, b in fw),
+              f"pseudobam_clean, switch {hw}: header, references, "
+              f"{len(ma)} records in name order, {len(fw)} forward records' "
+              "self fields byte-equal to the golden")
+    for tag in ("clean", "reads"):
+        check(runs[(tag, "1", str(dev))] == runs[(tag, "1", "cpu")]
+              == runs[(tag, "0", str(dev))],
+              f"--pseudobam {tag}: BAM byte-equal, card (switch on and off) "
+              "and CPU")
+    os.environ["KALLISTO_TPU_HOST_WAVE1"] = "1"
+    gb = dict(files=pf, pseudobam=True, genomebam=True,
+              gtf_file=os.path.join(data, "transcripts.gtf.gz"),
+              chrom_file=os.path.join(data, "chrom.txt"))
+    gouts = {}
+    for d in (dev, "cpu"):
+        out = os.path.join(work, f"gb_{d}")
+        run_quant(Options(output_dir=out, **gb), index=tidx, device=d)
+        gouts[str(d)] = (bam(out), read_bytes(
+            os.path.join(out, "pseudoalignments.bam.bai")))
+    _genomebam_checks(np, os.path.join(work, f"gb_{dev}"), tidx, data)
+    check(gouts[str(dev)] == gouts["cpu"],
+          "--genomebam: BAM and BAI byte-equal, card and CPU")
+    out = os.path.join(work, "golden_paired_hw1")
+    res = run_quant(Options(files=pf, output_dir=out, batch_size=4096),
+                    index=tidx, device=dev)
+    check(read_file(os.path.join(out, "abundance.tsv")) == read_file(
+        os.path.join(golden, "quant_paired", "abundance.tsv"))
+        and res.timings["hw1pb"] > 0 and res.timings["full"] == 0,
+        "quant_paired with host wave 1 on: hw1pb batches, abundance.tsv "
+        "byte-equal to the golden")
+    os.environ["KALLISTO_TPU_HOST_WAVE1"] = "0"
+
+
+def phase_5f(torch, np, pa, kernels, Options, run_quant, index, r1p, r2p,
+             res5, n_pairs, work, dev):
+    """The 1M pairs with host wave 1 on (counts set to 0 just before):
+    kernels K, E with slots and F's slim rows launched, EC counts and sets
+    equal to phase 5's; then --pseudobam on the first PSEUDOBAM_PAIRS pairs
+    with the switch on and off, BAM byte-equal."""
+    from kallisto_tpu_torch.io.bam import read_bgzf
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.ops.hostprobe import HostProbe
+
+    # the wave-2 slices as run_quant hands them to kernels K and D, each
+    # tagged with its batch's route (a per-read probe is hw1pb's)
+    calls, route = [], ["hw1"]
+    orig = (HostProbe.probe_pair, turbo.pseudoalign_pair_halffail,
+            turbo.pseudoalign_pair_turbo)
+
+    def probe_pair(self, *a, **kw):
+        perread = a[3] if len(a) > 3 else kw.get("perread", False)
+        route[0] = "hw1pb" if perread else "hw1"
+        return orig[0](self, *a, **kw)
+
+    def wrap(kind, fn):
+        def f(*a, **kw):
+            calls.append((kind, route[0], a, kw))
+            return fn(*a, **kw)
+        return f
+
+    os.environ["KALLISTO_TPU_HOST_WAVE1"] = "1"
+    try:
+        HostProbe.probe_pair = probe_pair
+        turbo.pseudoalign_pair_halffail = wrap("K", orig[1])
+        turbo.pseudoalign_pair_turbo = wrap("D", orig[2])
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = run_quant(Options(files=[r1p, r2p], plaintext=True),
+                            index=index, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            (HostProbe.probe_pair, turbo.pseudoalign_pair_halffail,
+             turbo.pseudoalign_pair_turbo) = orig
+        log(f"launches with host wave 1: {launches}")
+        for name in ("pseudoalign_halffail", "key_histogram_slots",
+                     "gather_slim", "pseudoalign_turbo", "read_keys",
+                     "gather_exemplars", "em_step_batch"):
+            check(launches[name] > 0,
+                  f"host wave 1 launched {name} ({launches[name]} times)")
+        t = res.timings
+        check(t["hw1pb"] > 0 and t["hw1"] > 0 and t["full"] == t["turbo"]
+              == t["fallback"] == 0,
+              f"host wave 1: hw1pb {t['hw1pb']} batches while the FLD is "
+              f"learned, then hw1 {t['hw1']}")
+        check(np.array_equal(res.counts, res5.counts)
+              and [s.tolist() for s in res.ec_sets]
+              == [s.tolist() for s in res5.ec_sets]
+              and np.array_equal(res.fld, res5.fld),
+              "host wave 1: FLD, EC counts and sets equal to phase 5's")
+        log(f"quant with host wave 1: wall {wall:.2f} s = "
+            f"{n_pairs / wall:,.0f} pairs/s, probe_s {t['probe_s']:.3f}; "
+            "host seconds by phase: " + json.dumps(t))
+        check([c[0] for c in calls].count("K")
+              == launches["pseudoalign_halffail"]
+              and [c[0] for c in calls].count("D")
+              == launches["pseudoalign_turbo"],
+              f"{len(calls)} wave-2 slices captured, one per K or D launch")
+        # K, E with slots and F slim held and timed on the first hw1
+        # batch's half-fail slice, D + B + E with slots on its both-failed
+        # slice; then K and D timed on every slice of the run
+        first = next(i for i, c in enumerate(calls)
+                     if c[0] == "K" and c[1] == "hw1")
+        _, _, a, kw = calls[first]
+        held = _hold_k(torch, np, pa, kernels, a[0], a[1:5], kw,
+                       "5f first hw1 batch")
+        both = [c for c in calls[first + 1 :] if c[0] == "D"][:1]
+        if both:
+            _hold_d_slots(torch, pa, kernels, *both[0][2:],
+                          "5f first hw1 batch")
+        k_ms, d_ms = [], []
+        for kind, rt, a, kw in calls:
+            didx, L, rl, k = a[0], kw["L"], kw["rl"], kw["k"]
+            Rr = min(kw["max_rows"], (rl if 0 < rl < L else L) - k + 1)
+            if kind == "K":
+                k_ms.append((rt, int(a[1].shape[0]), cuda_ms(
+                    lambda: kernels.pseudoalign_halffail(
+                        didx, *a[1:5], k, L, rl, Rr), 5, torch)))
+            else:
+                d_ms.append((rt, int(a[1].shape[0]), cuda_ms(
+                    lambda: kernels.pseudoalign_turbo(
+                        didx, a[1:3], a[3], None, k, L, rl, Rr), 5, torch)))
+        del calls
+        log(f"5f per-launch ms (route, Bp, ms): K {k_ms}; D {d_ms}")
+        n_pb = min(PSEUDOBAM_PAIRS, n_pairs)
+        p1 = os.path.join(work, "pb_1.fastq.gz")
+        p2 = os.path.join(work, "pb_2.fastq.gz")
+        truncate_fastq(r1p, p1, n_pb)
+        truncate_fastq(r2p, p2, n_pb)
+        bams, pb_s = {}, {}
+        for hw in ("1", "0"):
+            os.environ["KALLISTO_TPU_HOST_WAVE1"] = hw
+            out = os.path.join(work, f"pb5f_{hw}")
+            t0 = time.perf_counter()
+            rp = run_quant(Options(files=[p1, p2], output_dir=out,
+                                   plaintext=True, pseudobam=True),
+                           index=index, device=dev)
+            pb_s[hw] = (time.perf_counter() - t0, rp.timings["write_s"])
+            bams[hw] = read_bgzf(os.path.join(out, "pseudoalignments.bam"))
+            shutil.rmtree(out, ignore_errors=True)
+        check(bams["1"] == bams["0"],
+              f"--pseudobam on {n_pb} pairs: BAM byte-equal with host wave 1 "
+              f"on and off ({len(bams['1'])} bytes decompressed)")
+        log(f"--pseudobam on {n_pb} pairs: wall (s, write_s) switch on "
+            f"{pb_s['1']}, off {pb_s['0']}")
+    finally:
+        os.environ["KALLISTO_TPU_HOST_WAVE1"] = "0"
+    summary = {"hw1_quant_s": wall, "hw1_pairs_per_s": n_pairs / wall,
+               "hw1_probe_s": t["probe_s"], "hw1_phases_s": t,
+               "hw1_k_ms": k_ms, "hw1_d_ms": d_ms,
+               "pseudobam_pairs": n_pb, "pseudobam_s": pb_s}
+    return launches, held, summary
+
+
+def _hold_d_slots(torch, pa, kernels, a, kw, tag):
+    """Kernel D, B and E with per-read slots on a both-failed slice as
+    turbo.pseudoalign_pair_turbo receives it: D's sides, the key table and
+    the slots equal to the plain versions on the card."""
+    from kallisto_tpu_torch.ops import turbo
+
+    didx, p1, p2, aux = a
+    k, L, R, rl = kw["k"], kw["L"], kw["max_rows"], kw["rl"]
+    Bp = int(p1.shape[0])
+    spec = pa.KeySpec(k, kw.get("min_range", 0), kw.get("strand_key", False),
+                      kw.get("pos_fl", -1), kw.get("pos_depth", 0))
+    g1, g2, ck, slots = turbo.pseudoalign_pair_turbo(*a, **kw)
+    codes, lens_v = turbo.codes_and_lens_plain((p1, p2), aux, None, L, rl)
+    c = pa._pseudoalign_core(didx, codes, lens_v, k, R)
+    c1 = pa.SideResult(*(x[:Bp] for x in c))
+    c2 = pa.SideResult(*(x[Bp:] for x in c))
+    del codes, lens_v
+    hp, flp = pa.key_hash_plain(c1, c2, spec, didx)
+    ckp, slotsp = pa.key_histogram_plain(hp, flp, kw["max_keys"],
+                                         with_slots=True)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, g1, c1, f"kernel D mate 1 {tag}")
+    _equal_sides(torch, pa, g2, c2, f"kernel D mate 2 {tag}")
+    check(torch.equal(ck, ckp) and torch.equal(slots, slotsp),
+          f"both-failed slice {tag} (Bp={Bp}): kernel D + B + E key table "
+          "and slots equal to the plain versions")
+
+
 def phase_4b(np, run_quant, Options, tidx, pf, golden, work, dev):
     """Bootstraps and bias on tests/data, card against CPU."""
     n_bs = 20
@@ -1287,6 +1797,9 @@ def main(argv=None):
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     k = 31
+    # the earlier phases hold the card's own routes (host wave 1 off);
+    # phases 4e and 5f turn it on
+    os.environ["KALLISTO_TPU_HOST_WAVE1"] = "0"
 
     # ---------------------------------------------------------- 1. device
     log("== phase 1: device")
@@ -1446,6 +1959,14 @@ def main(argv=None):
         k3e = phase_3e(torch, np, pa, kernels, fastx, fasta, didx, k, work,
                        dev)
 
+        # ------------------------------------ 3f. kernels K, E slots, F slim
+        log(f"== phase 3f: kernels K, E with slots and F slim against their "
+            f"plain versions on the card ({time.perf_counter() - t_start:.0f}"
+            " s)")
+        k3f, probe_summary = phase_3f(torch, np, pa, kernels, fastx, index,
+                                      didx, r1p, r2p, k, dev,
+                                      Options().batch_size)
+
         # ------------------------------------------------ 4. golden bytes
         log("== phase 4: golden bytes on the card")
         data = os.path.join(here, "tests", "data")
@@ -1493,6 +2014,11 @@ def main(argv=None):
             f"({time.perf_counter() - t_start:.0f} s)")
         phase_4d(np, kernels, Options, run_quant, run_bus, run_quant_tcc,
                  tidx, data, golden, work, dev)
+
+        log(f"== phase 4e: --pseudobam and --genomebam on the card "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        phase_4e(np, kernels, Options, run_quant, tidx, data, golden, work,
+                 dev)
 
         # -------------------------------------- 5. main path, full size
         log(f"== phase 5: main path at realistic size "
@@ -1658,6 +2184,13 @@ def main(argv=None):
             torch, np, kernels, emq, Options, run_quant_tcc, index, bus_out,
             work, dev)
 
+        # ------------------------------------ 5f. host wave 1, full size
+        log(f"== phase 5f: quant with host wave 1 at realistic size "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        launches_hw1, k5f, hw1_summary = phase_5f(
+            torch, np, pa, kernels, Options, run_quant, index, r1p, r2p, res,
+            n_pairs, work, dev)
+
         # ------------------------------------ 6. kernel G, one replicate
         log(f"== phase 6: kernel G with one replicate (the main EM) on the "
             f"main path's EM problem ({time.perf_counter() - t_start:.0f} s)")
@@ -1802,6 +2335,50 @@ def main(argv=None):
                  bound_by=k5e[2][1], library_ms=None, replicates=256,
                  form="tcc"),
         ]
+        # host wave 1's kernels (launches of phase 5f, held and timed on
+        # its first hw1 batch's half-fail slice; phase 3f's stress slices,
+        # all real at Bp = 262,144 and the smallest bucket, beside them): K,
+        # E with per-read slots (a row of its own beside E's) and F's slim
+        # layout, which phase 5's anchor route launches too
+        for name, key, replaces, extra in (
+                ("pseudoalign_halffail", "pseudoalign_halffail",
+                 "kallisto_tpu/ops/turbo.py:244", {}),
+                ("key_histogram", "key_histogram_slots",
+                 "kallisto_tpu/ops/pseudoalign.py:774", {"form": "slots"}),
+                ("gather_slim", "gather_slim",
+                 "kallisto_tpu/quant/pipeline.py:466",
+                 {"main_path_launches": launches["gather_slim"]})):
+            ms, plain, bnd, lib = k5f[key]
+            st, st_plain, st_bnd, st_lib = k3f[key]
+            ms16, plain16, bnd16, lib16 = k3f[key + "_16k"]
+            rows.append(dict(
+                name=name, route="cuda",
+                source=csrc + ("pseudoalign.cu" if name.startswith("pseudo")
+                               else "compact.cu"),
+                replaces=replaces, launches=launches_hw1[key],
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=lib, stress_ms=st,
+                stress_plain_ms=st_plain, stress_bound_ms=st_bnd[0],
+                stress_library_ms=st_lib, ms_16k=ms16, plain_ms_16k=plain16,
+                bound_ms_16k=bnd16[0], library_ms_16k=lib16, **extra))
+        # the host-wave-1 run's kernel time: K and D as timed on each of its
+        # slices, the others as launches x this run's per-launch times (E
+        # with slots and F slim at 5f's first hw1 batch, B at phase 3's
+        # shape, F at 3b's, G at the main EM's)
+        hw1_busy = {
+            "pseudoalign_halffail": sum(x[2] for x in hw1_summary["hw1_k_ms"]),
+            "pseudoalign_turbo": sum(x[2] for x in hw1_summary["hw1_d_ms"]),
+            "key_histogram_slots": launches_hw1["key_histogram_slots"]
+            * k5f["key_histogram_slots"][0],
+            "gather_slim": launches_hw1["gather_slim"] * k5f["gather_slim"][0],
+            "read_keys": launches_hw1["read_keys"] * ms_b,
+            "gather_exemplars": launches_hw1["gather_exemplars"]
+            * k3b["gather_exemplars"][0],
+            "em_step_batch": launches_hw1["em_step_batch"] * ms_1}
+        hw1_busy_s = sum(hw1_busy.values()) / 1e3
+        log(f"host-wave-1 kernel ms: {hw1_busy}, sum {hw1_busy_s:.4f} s of "
+            f"{hw1_summary['hw1_quant_s']:.2f} s: card idle "
+            f"{100 * (1 - hw1_busy_s / hw1_summary['hw1_quant_s']):.2f} %")
         log(json.dumps({
             "index_build_s": index_build_s, "quant_s": quant_s,
             "pairs_per_s": n_pairs / quant_s, "routes": routes,
@@ -1820,7 +2397,8 @@ def main(argv=None):
             "bus_launches": launches_bus,
             "bus_golden_routes": bus_golden_routes, **bus_summary,
             **long_summary, "long_launches": launches_long, **tcc_summary,
-            "tcc_launches": launches_tcc,
+            "tcc_launches": launches_tcc, **probe_summary, **hw1_summary,
+            "hw1_launches": launches_hw1, "hw1_kernel_ms": hw1_busy,
             "kernel_build_s": build_s, "n_targets": index.num_trans,
             "n_kmers": index.num_kmers, "card": smi,
             "smoke_s": time.perf_counter() - t_start,

@@ -10,6 +10,10 @@
         -P PacBio reads.fq.gz
     python -m kallisto_tpu_torch.cli quant-tcc -i idx.npz -o out \
         -e matrix.ec cells.mtx
+    python -m kallisto_tpu_torch.cli quant -i idx.npz -o out --pseudobam \
+        r1.fq.gz r2.fq.gz
+    python -m kallisto_tpu_torch.cli quant -i idx.npz -o out --genomebam \
+        -g genes.gtf.gz -c chrom.txt r1.fq.gz r2.fq.gz
 
 Mirrors the `index`, `quant`, `bus` and `quant-tcc` subcommands of
 kallisto_tpu/cli.py
@@ -29,13 +33,33 @@ def _cmd_index(args):
     if args.kmer_size % 2 == 0 or not (3 <= args.kmer_size <= 31):
         sys.exit(f"Error: invalid k-mer size {args.kmer_size}, "
                  "must be odd and in [3, 31]")
+    if args.min_size != -1:
+        # the reference's -m sets Bifrost's minimizer length, a build-time
+        # tuning knob; this index has no minimizers (sorted-hash k-mer
+        # lookup), so the flag cannot change the result
+        print("[build] note: -m/--min-size has no effect (this index uses "
+              "hashed k-mer lookup, not minimizers)", file=sys.stderr)
+    dlist_paths = args.d_list.split(",") if args.d_list else None
+    overhang = args.d_list_overhang
+    if args.aa and dlist_paths and overhang < 3:
+        # reference: main.cpp:140-146
+        print(
+            "[index] --d-list-overhang was set to 3 (with --aa, the d-list "
+            "overhang must be >= 3)",
+            file=sys.stderr,
+        )
+        overhang = 3
+    # -t is accepted for the reference's interface; the numpy build has no
+    # threaded helpers to give it to
     index = build_index(
         args.fasta,
         k=args.kmer_size,
         make_unique=args.make_unique,
         max_ec_size=args.max_ec_size,
-        dlist_paths=args.d_list.split(",") if args.d_list else None,
-        dlist_overhang=args.d_list_overhang,
+        dlist_paths=dlist_paths,
+        dlist_overhang=overhang,
+        aa=args.aa,
+        distinguish=args.distinguish,
     )
     save_index(index, args.index)
     print(
@@ -63,6 +87,13 @@ def _cmd_quant(args):
     if args.fr_stranded and args.rf_stranded:
         sys.exit("Error: cannot specify both --fr-stranded and --rf-stranded")
     strand = "fr" if args.fr_stranded else ("rf" if args.rf_stranded else None)
+    if args.fusion:
+        # reference: ProcessReads.cpp:1075-1078 (dead code in 0.51.1)
+        sys.exit("Error: fusion detection is not implemented (the reference "
+                 "0.51.1 exits with 'TODO: Implement fusion' as well)")
+    genomebam = args.genomebam or bool(args.gtf)
+    if genomebam and not args.gtf:
+        sys.exit("Error: need GTF file for genome alignment")
     opt = Options(
         index_path=args.index,
         output_dir=args.output_dir,
@@ -81,7 +112,12 @@ def _cmd_quant(args):
         bias=args.bias,
         strand=strand,
         do_union=args.union,
+        no_jump=args.no_jump,
         min_range=args.min_range,
+        pseudobam=args.pseudobam or genomebam,
+        genomebam=genomebam,
+        gtf_file=args.gtf or "",
+        chrom_file=args.chromosomes or "",
         priors=args.priors or "",
         verbose=args.verbose,
         threads=args.threads,
@@ -138,6 +174,7 @@ def _cmd_bus(args):
         threshold=args.threshold,
         dfk_onlist=args.dfk_onlist,
         do_union=args.union,
+        no_jump=args.no_jump,
         verbose=args.verbose,
         threads=args.threads,
         batch_size=args.batch_size,
@@ -203,6 +240,12 @@ def main(argv=None):
     p.add_argument("-i", "--index", required=True)
     p.add_argument("-k", "--kmer-size", type=int, default=31)
     p.add_argument("--make-unique", action="store_true")
+    p.add_argument("--aa", action="store_true")
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="accepted; the numpy build runs on one thread")
+    p.add_argument("-T", "--tmp", default="tmp")
+    p.add_argument("-m", "--min-size", type=int, default=-1)
+    p.add_argument("--distinguish", action="store_true")
     p.add_argument("-d", "--d-list", default=None,
                    help="comma-separated FASTA file(s) of sequences to discard")
     p.add_argument("-D", "--d-list-overhang", type=int, default=1)
@@ -228,6 +271,12 @@ def main(argv=None):
     p.add_argument("-P", "--platform", default="")
     p.add_argument("--threshold", type=float, default=0.8)
     p.add_argument("--union", action="store_true")
+    p.add_argument("--no-jump", action="store_true")
+    p.add_argument("--fusion", action="store_true")
+    p.add_argument("--pseudobam", action="store_true")
+    p.add_argument("--genomebam", action="store_true")
+    p.add_argument("-g", "--gtf", default=None)
+    p.add_argument("-c", "--chromosomes", default=None)
     p.add_argument("-m", "--min-range", type=int, default=1)
     p.add_argument("-p", "--priors", default=None)
     p.add_argument("-t", "--threads", type=int, default=1,
@@ -265,6 +314,7 @@ def main(argv=None):
     p.add_argument("--batch-barcodes", action="store_true")
     p.add_argument("--dfk-onlist", action="store_true")
     p.add_argument("--union", action="store_true")
+    p.add_argument("--no-jump", action="store_true")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--batch-size", type=int, default=1 << 18,
                    help="reads per device batch")

@@ -1,4 +1,5 @@
-// Kernels E and F of the compact steady state.
+// Kernels E and F of the compact steady state (E also with per-read
+// slots, F also in its slim layout).
 //
 // Kernel E, key_histogram, replaces kallisto_tpu/ops/pseudoalign.py
 // _compact_keys (:733) and _ck_flat (:789): B read keys -> the flat
@@ -22,10 +23,22 @@
 //      writes n_uniq into the meta row.
 //   4. write: each block ranks its first reads by a block-wide prefix sum;
 //      the key with global rank r goes to row 1 + r when r < K.
+//   5. slots (when asked): each read's row, the rank its key got in pass 4
+//      (capped at K - 1 as in JAX), through a per-slot rank that pass 4
+//      writes for every first read.
 // So occupied rows come out in ascending first_idx (read order), which is
 // deterministic.  JAX orders them by ascending signed h0; the host
-// (quant/ecmap.py process_compact) stable-sorts by first_idx either way, so
+// (quant/ecmap.py process_compact_parts) stable-sorts by first_idx anyway, so
 // the outputs are identical.  Rows past min(n_uniq, K) are zero.
+//
+// With slots, E also replaces _compact_read_slots (:774), reached through
+// compact_pair_keys(..., with_slots=True) (:691-713) on the wave-2 slices
+// of host wave 1: per read the row of its key in THIS table.  JAX's slot is
+// the key's rank in ascending signed h0, because its rows are in that
+// order; here rows are in first-read order, so the slot is the row E gave
+// the key, not JAX's rank -- the two name the same key.  Bound: bytes, 4 B
+// per read read (its table slot) and written (its row), one random sector
+// of the per-slot rank.
 //
 // What bounds E on the H100: bytes.  Per read it reads 12 B of input (h0 and
 // flags; h1 only for first reads) and touches about three random 32 B
@@ -44,6 +57,14 @@
 // thread per output element.  Bound: bytes, n * width * 4 written plus one
 // sector read per gathered field; a few thousand keys per batch make it a
 // launch-sized kernel.
+//
+// Its slim layout, gather_slim, replaces _gather_pair_slim (pipeline.py:466)
+// read through _make_pair_slim_fetcher (:484) on host wave 1's wave-2
+// slices: per key the first two rows of each mate and the flags has_hits1 +
+// 2 has_hits2 + 4 overflow1 + 8 overflow2, 20 B per key, which the resolver
+// reads to resolve single-row keys in bulk (quant/ecmap.py
+// process_compact_parts).  One thread per key; bound: bytes, 20 B written
+// and five gathered fields read per key.
 
 #include <cuda_runtime.h>
 
@@ -138,12 +159,14 @@ __global__ void kt_write_rows(const long long* __restrict__ h,
                               const unsigned long long* __restrict__ pay,
                               const int* __restrict__ read_slot, long long B,
                               const int* __restrict__ block_offset,
-                              long long K, long long* __restrict__ ck) {
+                              long long K, long long* __restrict__ ck,
+                              int* __restrict__ slot_rank) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const int first = kt_is_first(pay, read_slot, i, B);
     int total;
     const long long r =
         (long long)block_offset[blockIdx.x] + kt_block_scan(first, &total);
+    if (first && slot_rank) slot_rank[read_slot[i]] = (int)r;
     if (first && r < K) {
         const int s = read_slot[i];
         long long* row = ck + 5 * (1 + r);
@@ -155,12 +178,25 @@ __global__ void kt_write_rows(const long long* __restrict__ h,
     }
 }
 
+__global__ void kt_read_slots(const int* __restrict__ read_slot,
+                              const int* __restrict__ slot_rank, long long B,
+                              long long K, int* __restrict__ slots) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= B) return;
+    const long long r = slot_rank[read_slot[i]];
+    slots[i] = (int)(r < K - 1 ? r : K - 1);
+}
+
+// slot_rank ([S + 1] int32 workspace) and slots ([B] int32) are both null,
+// or both set for the per-read rows.
 extern "C" int key_histogram(const void* h, const void* flags, long long B,
                              long long K, void* keys, void* occ, void* pay,
                              long long S, void* read_slot, void* block_count,
-                             void* ck, void* stream) {
+                             void* ck, void* slot_rank, void* slots,
+                             void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (K < 1 || S < 2 || (S & (S - 1)) != 0 || (B > 0 && S < 2 * B))
+    if (K < 1 || S < 2 || (S & (S - 1)) != 0 || (B > 0 && S < 2 * B) ||
+        (slot_rank == 0) != (slots == 0))
         return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaMemsetAsync(ck, 0, (size_t)(K + 1) * 5 * 8, st);
     if (e != cudaSuccess) return (int)e;
@@ -181,7 +217,10 @@ extern "C" int key_histogram(const void* h, const void* flags, long long B,
     kt_write_rows<<<(unsigned int)nb, T, 0, st>>>(
         (const long long*)h, (const unsigned int*)occ,
         (const unsigned long long*)pay, (const int*)read_slot, B,
-        (const int*)block_count, K, (long long*)ck);
+        (const int*)block_count, K, (long long*)ck, (int*)slot_rank);
+    if (slots)
+        kt_read_slots<<<(unsigned int)((B + 255) / 256), 256, 0, st>>>(
+            (const int*)read_slot, (const int*)slot_rank, B, K, (int*)slots);
     return (int)cudaGetLastError();
 }
 
@@ -267,5 +306,39 @@ extern "C" int gather_exemplars(const KeySide* s1, const KeySide* s2,
                               (cudaStream_t)stream>>>(
         *s1, paired ? *s2 : none, paired, (const long long*)idx, n, Bsrc, k,
         min_range, tail_bs, tail_pos, Wd, (int*)out);
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ kernel F, slim
+
+__global__ void gather_slim_kernel(KeySide s1, KeySide s2,
+                                   const long long* __restrict__ idx,
+                                   long long n, long long Bsrc,
+                                   int* __restrict__ out) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const long long r = idx[i];
+    int* o = out + 5 * i;
+    if (r < 0 || r >= Bsrc) {
+        o[0] = o[1] = o[2] = o[3] = o[4] = 0;
+        return;
+    }
+    o[0] = s1.rows[r * s1.R];
+    o[1] = s1.rows[r * s1.R + 1];
+    o[2] = s2.rows[r * s2.R];
+    o[3] = s2.rows[r * s2.R + 1];
+    o[4] = (int)s1.has[r] + 2 * (int)s2.has[r] + 4 * (int)s1.ovf[r] +
+           8 * (int)s2.ovf[r];
+}
+
+// Kernel F's slim layout: out [n, 5] int32 of the pair reads idx.
+extern "C" int gather_slim(const KeySide* s1, const KeySide* s2,
+                           const void* idx, long long n, long long Bsrc,
+                           void* out, void* stream) {
+    if (n <= 0) return 0;
+    if (s1->R < 2 || s2->R < 2) return (int)cudaErrorInvalidValue;
+    gather_slim_kernel<<<(unsigned int)((n + 255) / 256), 256, 0,
+                         (cudaStream_t)stream>>>(
+        *s1, *s2, (const long long*)idx, n, Bsrc, (int*)out);
     return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Kernels A, D and I: per-read k-mer -> sorted distinct EC rows.
+// Kernels A, D, I, K and J: per-read k-mer -> sorted distinct EC rows.
 //
 // Kernel A, pseudoalign_side, replaces the JAX device program
 // kallisto_tpu/ops/pseudoalign.py pseudoalign_batch_packed (:479) with its
@@ -90,6 +90,29 @@
 // and two 32-byte block_ec8 rows; a failing read pays what kernel D pays
 // and nothing more (no second pass, no compaction).  Warps of verified and
 // failing reads finish at different times; balancing them is later work.
+//
+// Kernel K, pseudoalign_halffail, replaces the half-fail wave 2 of host
+// wave 1, kallisto_tpu/ops/turbo.py _verified_side_from_summary (:153) and
+// halffail_core (:203) as reached through pseudoalign_pair_halffail (:244);
+// the keys, the table and the per-read slots after it are kernels B and E.
+// Its pairs had exactly one mate fail the host probe (ops/hostprobe.py):
+// only that mate's packed codes come up ([Bp, Lp/4], kernel D's aux vector
+// for its Ns and n_real, uniform length), with the other mate's 8-byte
+// summary (blo; upos0<<5 | span<<1 | strand) and sidev (1: mate 1 failed,
+// anything else: mate 2).  Per pair, one warp:
+//   the failed mate -- kernel D's decode and kt_side_read, R = min(max_rows,
+//     W) rows (the core's clamp);
+//   the verified mate -- rebuilt as kernel I rebuilds a verified read: the
+//     sorted distinct block ECs of [blo, blo + span], 16 lanes loading the
+//     two block_ec8 rows of r0 = max(blo, 0) >> 3 and min(R, 16) rounds of
+//     __reduce_min_sync, the rest of the R slots INT32_MAX, with the SAME
+//     width R as the failed mate (JAX turbo.py:215-221); first hit block
+//     blo (forward) or blo + span (reverse), upos0, f_rpos 0, f_uid 0, rng
+//     len - k.  A padding pair (row >= n_real) stays no-hit on both mates.
+// What bounds it: the failed mate's table reads, as kernel D's; the
+// verified mate costs one 64-byte read of block_ec8 and 8 bytes of summary
+// instead of W lookups.  Only the failed mate uploads, so the batch moves
+// Lp/4 + 12 bytes per pair instead of Lp/2.
 //
 // Kernel J, pseudoalign_long, replaces the long-read program,
 // kallisto_tpu/ops/pseudoalign.py pseudoalign_long_packed (:1082-1151).
@@ -540,6 +563,86 @@ __global__ void pseudoalign_anchor_kernel(
         atomicAdd(n_fail, (unsigned long long)blk_fail);
 }
 
+// ------------------------------------------------------------- kernel K
+
+// Kernel K: one warp per pair of the Bp half-fail pairs (file header).
+__global__ void pseudoalign_halffail_kernel(
+    IndexView ix,
+    const int* __restrict__ be8,               // [n_be8] block_ec8, flat
+    long long n_be8,
+    const unsigned char* __restrict__ pkf,     // [Bp, Lp/4] failed mates
+    const int* __restrict__ vsum,              // [Bp, 2] verified summaries
+    const int* __restrict__ sidev,             // [Bp] 1 = mate 1 failed
+    const long long* __restrict__ aux,         // [4 + n_exc]
+    long long n_exc, long long Bp, int Lp, int Lc, int k, int R,
+    int warp_bytes, SideOut o1, SideOut o2) {
+    extern __shared__ int kt_smem[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int wpb = blockDim.x >> 5;
+    const int W = Lc - k + 1;
+    const int code_bytes = (Lc + 15) & ~15;
+    unsigned char* codes = (unsigned char*)kt_smem + (long long)warp * warp_bytes;
+    int* wrows = (int*)(codes + code_bytes);
+    const int rlen = (int)aux[0];
+    const long long n_real = aux[1];
+    const long long* exc = aux + 4;
+    const int Rv = R < 16 ? R : 16;
+
+    for (long long read = (long long)blockIdx.x * wpb + warp; read < Bp;
+         read += (long long)gridDim.x * wpb) {
+        const int m1 = sidev[read] == 1;
+        const SideOut of = m1 ? o1 : o2;
+        const SideOut ov = m1 ? o2 : o1;
+        const int len = read < n_real ? rlen : 0;
+
+        // the failed mate: kernel D's decode and per-read core
+        kt_turbo_decode(codes, pkf, exc, n_exc, read, read, Lp, Lc);
+        kt_side_read(ix, codes, wrows, read, len, W, k, R, R, of);
+
+        // the verified mate from its summary
+        const int blo = vsum[2 * read];
+        const int meta = vsum[2 * read + 1];
+        const int real = len > 0;
+        const int strand = meta & 1;
+        const int bhi = blo + ((meta >> 1) & 15);
+        const int upos0 = meta >> 5;
+        const int r0 = (blo > 0 ? blo : 0) >> 3;
+        int v = KT_INT32_MAX;
+        if (lane < 16 && real) {
+            const long long fid = (long long)r0 * 8 + lane;
+            if (fid >= blo && fid <= bhi && fid < n_be8) {
+                const int c = be8[fid];
+                if (c >= 0) v = c;
+            }
+        }
+        int prev = -1, nr = 0;
+        for (int s = 0; s < Rv; ++s) {
+            const int m = __reduce_min_sync(KT_FULL,
+                                            v > prev ? v : KT_INT32_MAX);
+            if (lane == 0) ov.rows[read * R + s] = m;
+            if (m != KT_INT32_MAX) {
+                prev = m;
+                ++nr;
+            }
+        }
+        for (int s = Rv + lane; s < R; s += 32)
+            ov.rows[read * R + s] = KT_INT32_MAX;
+        if (lane == 0) {
+            ov.n_rows[read] = nr;
+            ov.has_hits[read] = (unsigned char)real;
+            ov.overflow[read] = 0;
+            ov.f_uid[read] = real ? 0 : -1;
+            ov.f_block[read] = real ? (strand ? blo : bhi) : -1;
+            ov.f_upos[read] = real ? upos0 : -1;
+            ov.f_rpos[read] = real ? 0 : -1;
+            ov.f_strand[read] = (unsigned char)strand;
+            ov.rng[read] = real ? len - k : -1;
+        }
+        __syncwarp();
+    }
+}
+
 // ------------------------------------------------------------- kernel J
 
 #define KJ_THREADS 256
@@ -918,6 +1021,47 @@ extern "C" int pseudoalign_anchor(
         kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
                     f_rpos, f_strand, rng),
         (unsigned long long*)n_fail);
+    return (int)cudaGetLastError();
+}
+
+// Kernel K.  Outputs: mate 1's ten SideResult fields, then mate 2's, each
+// [Bp] with R row slots.
+extern "C" int pseudoalign_halffail(
+    const void* hkeys, const void* bucket_start, const void* uid,
+    const void* pos, const void* fw, const void* block, const void* ec,
+    long long N, int p, const void* block_ec8, long long n_be8,
+    const void* pkf, const void* vsum, const void* sidev, const void* aux,
+    long long n_exc, long long Bp, int Lp, int rl, int k, int R,
+    void* rows1, void* n_rows1, void* has_hits1, void* overflow1,
+    void* f_uid1, void* f_block1, void* f_upos1, void* f_rpos1,
+    void* f_strand1, void* rng1,
+    void* rows2, void* n_rows2, void* has_hits2, void* overflow2,
+    void* f_uid2, void* f_block2, void* f_upos2, void* f_rpos2,
+    void* f_strand2, void* rng2, void* stream) {
+    if (Bp <= 0) return 0;
+    const int Lc = (rl > 0 && rl < Lp) ? rl : Lp;
+    const int W = Lc - k + 1;
+    if (n_exc < 0 || Lc < k || (Lp & 3) != 0 || R <= 0 || R > W || k > 32 ||
+        n_be8 < 16)
+        return (int)cudaErrorInvalidValue;
+    IndexView ix;
+    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
+                            N, p);
+    if (err) return err;
+    int wpb, warp_bytes;
+    long long smem;
+    err = kt_launch_shape(pseudoalign_halffail_kernel, Lc, W, &wpb,
+                          &warp_bytes, &smem);
+    if (err) return err;
+    pseudoalign_halffail_kernel<<<kt_blocks(Bp, wpb), wpb * 32, (size_t)smem,
+                                  (cudaStream_t)stream>>>(
+        ix, (const int*)block_ec8, n_be8, (const unsigned char*)pkf,
+        (const int*)vsum, (const int*)sidev, (const long long*)aux, n_exc, Bp,
+        Lp, Lc, k, R, warp_bytes,
+        kt_side_out(rows1, n_rows1, has_hits1, overflow1, f_uid1, f_block1,
+                    f_upos1, f_rpos1, f_strand1, rng1),
+        kt_side_out(rows2, n_rows2, has_hits2, overflow2, f_uid2, f_block2,
+                    f_upos2, f_rpos2, f_strand2, rng2));
     return (int)cudaGetLastError();
 }
 

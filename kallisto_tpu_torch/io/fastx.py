@@ -56,12 +56,16 @@ class ReadBatch:
 
     codes: [n, max_len] uint8 in {0..4}; positions >= lens[i] are 4.
     lens:  [n] int32 read lengths.
-    comments: the FASTQ header after its first space or tab, per read
-    (only read with keep_comments).
+    names: read names (only read with keep_names); quals: the raw quality
+    lines (only read with keep_quals, for BAM output); comments: the FASTQ
+    header after its first space or tab, per read (only read with
+    keep_comments).
     """
 
     codes: np.ndarray
     lens: np.ndarray
+    names: Optional[List[bytes]] = None
+    quals: Optional[List[bytes]] = None
     comments: Optional[List[bytes]] = None
 
     @property
@@ -77,8 +81,11 @@ class FastqStream:
     matrix.  Orders of magnitude faster than per-record Python loops.
     """
 
-    def __init__(self, path: str, keep_comments: bool = False):
+    def __init__(self, path: str, keep_names: bool = False,
+                 keep_quals: bool = False, keep_comments: bool = False):
         self.path = path
+        self.keep_names = keep_names
+        self.keep_quals = keep_quals
         self.keep_comments = keep_comments
         self._fh = _open_maybe_gz(path)
         self._tail = b""       # the partial line after the last newline
@@ -153,6 +160,11 @@ class FastqStream:
         buf = np.full((len(seqs), max_len), 4, dtype=np.uint8)
         for i, s in enumerate(seqs):
             buf[i, : lens[i]] = BASE_CODE[np.frombuffer(s, dtype=np.uint8)]
+        names = None
+        if self.keep_names:
+            names = [ln[1:].split(b" ", 1)[0].split(b"\t", 1)[0]
+                     for ln in headers]
+        quals = lines[3::4] if self.keep_quals else None
         comments = None
         if self.keep_comments:
             # kseq semantics: comment = header after the first whitespace
@@ -164,12 +176,15 @@ class FastqStream:
                 tb = ln.find(b"\t")
                 cut = min(x for x in (sp, tb, len(ln)) if x >= 0)
                 comments.append(ln[cut + 1:] if cut < len(ln) else b"")
-        return ReadBatch(codes=buf, lens=lens, comments=comments)
+        return ReadBatch(codes=buf, lens=lens, names=names, quals=quals,
+                         comments=comments)
 
 
-def single_batches(path: str, batch_reads: int,
+def single_batches(path: str, batch_reads: int, keep_names: bool = False,
+                   keep_quals: bool = False,
                    keep_comments: bool = False) -> Iterator[ReadBatch]:
-    s = FastqStream(path, keep_comments=keep_comments)
+    s = FastqStream(path, keep_names=keep_names, keep_quals=keep_quals,
+                    keep_comments=keep_comments)
     try:
         while True:
             b = s.next_batch(batch_reads)
@@ -184,16 +199,20 @@ class PackedBatch:
     """A batch of reads already in device upload format.
 
     packed: [n, Lp//4] uint8 2-bit codes; nmask: [n, Lp//8] uint8 N/pad
-    bits (little bit order); lens: [n] int32; Lp: padded read length.
+    bits (little bit order); lens: [n] int32; Lp: padded read length;
+    names, quals: per-read names and raw quality lines when the reader was
+    asked for them (BAM output), else None.
     """
 
-    __slots__ = ("packed", "nmask", "lens", "Lp")
+    __slots__ = ("packed", "nmask", "lens", "Lp", "names", "quals")
 
-    def __init__(self, packed, nmask, lens, Lp):
+    def __init__(self, packed, nmask, lens, Lp, names=None, quals=None):
         self.packed = packed
         self.nmask = nmask
         self.lens = lens
         self.Lp = int(Lp)
+        self.names = names
+        self.quals = quals
 
     @property
     def n(self) -> int:
@@ -235,19 +254,21 @@ def _read_batch_to_packed(rb: ReadBatch, k: int, pad_to: int = 8):
             [codes, np.full((B, Lp - L), 4, np.uint8)], axis=1
         )
     packed, nmask, _ = pack_codes_host(codes)
-    return PackedBatch(packed, nmask, rb.lens, Lp)
+    return PackedBatch(packed, nmask, rb.lens, Lp, rb.names, rb.quals)
 
 
-def packed_single_batches(path: str, batch_reads: int, k: int):
+def packed_single_batches(path: str, batch_reads: int, k: int,
+                          keep_names: bool = False, keep_quals: bool = False):
     """Yield PackedBatch objects from the Python FASTQ reader."""
-    for rb in single_batches(path, batch_reads):
+    for rb in single_batches(path, batch_reads, keep_names, keep_quals):
         yield _read_batch_to_packed(rb, k)
 
 
-def packed_paired_batches(path1: str, path2: str, batch_reads: int, k: int):
+def packed_paired_batches(path1: str, path2: str, batch_reads: int, k: int,
+                          keep_names: bool = False, keep_quals: bool = False):
     """Yield aligned (PackedBatch, PackedBatch) pairs."""
-    s1 = packed_single_batches(path1, batch_reads, k)
-    s2 = packed_single_batches(path2, batch_reads, k)
+    s1 = packed_single_batches(path1, batch_reads, k, keep_names, keep_quals)
+    s2 = packed_single_batches(path2, batch_reads, k, keep_names, keep_quals)
     while True:
         b1 = next(s1, None)
         b2 = next(s2, None)

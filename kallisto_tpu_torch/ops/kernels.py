@@ -6,7 +6,7 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build
 happens at first use, into ``kallisto_tpu_torch/_kbuild/`` (gitignored),
 with one ``nvcc`` per source, all started together; a library is named by
 the hash of its source and flags, so an unchanged source is not rebuilt.
-Several kernels may share a source (A, D, I and J; E and F).
+Several kernels may share a source (A, D, I, J and K; E and F).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
@@ -39,8 +39,10 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "pseudoalign_turbo": ("pseudoalign.cu", ()),
     "pseudoalign_anchor": ("pseudoalign.cu", ()),
     "pseudoalign_long": ("pseudoalign.cu", ()),
+    "pseudoalign_halffail": ("pseudoalign.cu", ()),
     "key_histogram": ("compact.cu", ()),
     "gather_exemplars": ("compact.cu", ()),
+    "gather_slim": ("compact.cu", ()),
     # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
     # to its plain version
     "em_step_batch": ("em.cu", ("--fmad=false",)),
@@ -52,7 +54,9 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# kernel E with per-read slots counts apart from E without them
+LAUNCHES: Dict[str, int] = {
+    name: 0 for name in (*SOURCES, "key_histogram_slots")}
 
 _lock = threading.Lock()
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -90,7 +94,10 @@ _ARGTYPES = {
     "pseudoalign_long": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_LL] + [_I] * 5
     + [_P, _P] + [_P] * 8 + [_P],
     "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
-    "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL, _P, _P, _P, _P],
+    "pseudoalign_halffail": [_P] * 7 + [_LL, _I, _P, _LL] + [_P] * 4
+    + [_LL, _LL] + [_I] * 4 + [_P] * 20 + [_P],
+    "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL] + [_P] * 6,
+    "gather_slim": [_SIDE, _SIDE, _P, _LL, _LL, _P, _P],
     "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
     "em_step_batch": [_P] * 12 + [_I] * 4 + [_P],
     "bias_hexamers": [_P] * 11 + [_LL, _LL, _I, _P, _P],
@@ -343,6 +350,43 @@ def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
     return out, n_fail
 
 
+# ---------------------------------------------------------------- kernel K
+
+
+def pseudoalign_halffail(didx, pkf: torch.Tensor, vsum: torch.Tensor,
+                         sidev: torch.Tensor, aux: torch.Tensor, k: int,
+                         L: int, rl: int, R: int):
+    """Kernel K on the pairs of which one mate failed host wave 1: pkf
+    [Bp, L/4] uint8 the failed mates' packed codes, vsum [Bp, 2] int32 the
+    verified mates' summaries, sidev [Bp] int32 (1: mate 1 failed), aux
+    [4 + n] int64.  R is both mates' row width, min(max_rows, Lc - k + 1).
+    Returns mate 1's and mate 2's ten SideResult fields."""
+    dev = didx.kmer_hkeys.device
+    Bp = int(pkf.shape[0])
+    Lc = rl if 0 < rl < L else L
+    if L % 4 or Lc < k or not 0 < R <= Lc - k + 1:
+        raise ValueError(f"bad shape: L={L} rl={rl} k={k} R={R}")
+    _check(pkf, "pkf", torch.uint8, (Bp, L // 4), dev)
+    _check(vsum, "vsum", torch.int32, (Bp, 2), dev)
+    _check(sidev, "sidev", torch.int32, (Bp,), dev)
+    if aux.dim() != 1 or aux.shape[0] < 4:
+        raise ValueError("aux must be [4 + n] int64")
+    _check(aux, "aux", torch.int64, None, dev)
+    be8 = didx.block_ec8
+    _check(be8, "block_ec8", torch.int32, (be8.shape[0], 8), dev)
+    ix = _index_args(didx)
+    out1 = _side_outputs(Bp, R, dev)
+    out2 = _side_outputs(Bp, R, dev)
+    err = _fn("pseudoalign_halffail")(
+        *ix, _ptr(be8), int(be8.numel()), _ptr(pkf), _ptr(vsum), _ptr(sidev),
+        _ptr(aux), int(aux.shape[0]) - 4, Bp, L, rl, k, R,
+        *[_ptr(t) for t in out1], *[_ptr(t) for t in out2], _stream(),
+    )
+    _raise_on(err, "pseudoalign_halffail")
+    LAUNCHES["pseudoalign_halffail"] += 1
+    return out1, out2
+
+
 # ---------------------------------------------------------------- kernel J
 
 # blocks of kernel J (one read per block at a time, grid-stride: 8 per SM
@@ -455,9 +499,11 @@ def read_keys(s1, s2, k: int, min_range: int = 0, strand_key: bool = False,
 # ---------------------------------------------------------------- kernel E
 
 
-def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.Tensor:
+def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int,
+                  with_slots: bool = False):
     """Kernel E: the flat [K+1, 5] int64 key table of B read keys (see
-    ops/pseudoalign.py key_histogram_plain for the layout)."""
+    ops/pseudoalign.py key_histogram_plain for the layout); with_slots also
+    each read's row in it ([B] int32), as (ck, slots)."""
     dev = h.device
     B = int(h.shape[0])
     _check(h, "h", torch.int64, (B, 2), dev)
@@ -474,10 +520,18 @@ def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.Tensor:
     counts = torch.empty(max((B + 1023) // 1024, 1), dtype=torch.int32,
                          device=dev)
     ck = torch.empty((K + 1, 5), dtype=torch.int64, device=dev)
+    rank = slots = None
+    if with_slots:
+        rank = torch.empty(S + 1, dtype=torch.int32, device=dev)
+        slots = torch.empty(B, dtype=torch.int32, device=dev)
     err = _fn("key_histogram")(
         _ptr(h), _ptr(flags), B, K, _ptr(keys), _ptr(occ), _ptr(pay), S,
-        _ptr(slot), _ptr(counts), _ptr(ck), _stream())
+        _ptr(slot), _ptr(counts), _ptr(ck), _ptr(rank), _ptr(slots),
+        _stream())
     _raise_on(err, "key_histogram")
+    if with_slots:
+        LAUNCHES["key_histogram_slots"] += 1
+        return ck, slots
     LAUNCHES["key_histogram"] += 1
     return ck
 
@@ -506,6 +560,28 @@ def gather_exemplars(idx: torch.Tensor, s1, s2, spec) -> torch.Tensor:
         int(spec.pos_key), W, _ptr(out), _stream())
     _raise_on(err, "gather_exemplars")
     LAUNCHES["gather_exemplars"] += 1
+    return out
+
+
+def gather_slim(idx: torch.Tensor, s1, s2) -> torch.Tensor:
+    """Kernel F's slim layout: [n, 5] int32 rows (rows1[0], rows1[1],
+    rows2[0], rows2[1], flags) of the pair reads `idx` (int64 [n]); see
+    ops/pseudoalign.py gather_slim_plain."""
+    dev = s1.rows.device
+    B = int(s1.rows.shape[0])
+    n = int(idx.shape[0])
+    _check(idx, "idx", torch.int64, (n,), dev)
+    ks1 = _key_side(s1, "1", dev, B, False)
+    ks2 = _key_side(s2, "2", dev, B, False)
+    if ks1.R < 2 or ks2.R < 2:
+        raise ValueError("the slim layout needs two row slots per mate")
+    out = torch.empty((n, 5), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    err = _fn("gather_slim")(ctypes.byref(ks1), ctypes.byref(ks2), _ptr(idx),
+                             n, B, _ptr(out), _stream())
+    _raise_on(err, "gather_slim")
+    LAUNCHES["gather_slim"] += 1
     return out
 
 

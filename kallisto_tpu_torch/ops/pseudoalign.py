@@ -536,9 +536,12 @@ def read_keys_plain(s1: SideResult, s2: Optional[SideResult], k: int):
     return h, None if s2 is None else pair_fragment_lengths_plain(s1, s2, k)
 
 
-def key_histogram_plain(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.Tensor:
+def key_histogram_plain(h: torch.Tensor, flags: torch.Tensor, K: int,
+                        with_slots: bool = False):
     """Plain version of kernel E: dedup B read keys on h[:, 0] alone into
-    the flat [K+1, 5] int64 table.
+    the flat [K+1, 5] int64 table; with_slots also each read's row in it
+    ([B] int32: the 0-based rank of its key's row, capped at K - 1 as JAX's
+    _compact_read_slots caps its segment id), as (ck, slots).
 
     Row 0 is the meta row [n_uniq, n_fail = 0, 0, 0, 0]; rows 1..min(n_uniq,
     K) hold [h0, h1, occ, first_idx, flags] of each distinct key in
@@ -565,7 +568,11 @@ def key_histogram_plain(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.T
         dim=1,
     )
     ck[1 : m + 1] = rows[:m]
-    return ck
+    if not with_slots:
+        return ck
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[order] = torch.arange(n, dtype=torch.int64, device=dev)
+    return ck, torch.clamp(rank[inv], max=K - 1).to(torch.int32)
 
 
 def unflatten_ck_host(arr: np.ndarray):
@@ -608,6 +615,18 @@ def gather_exemplars_plain(idx: torch.Tensor, s1: SideResult,
         for s in sides:
             cols += [s.f_upos[:, None], s.f_rpos[:, None]]
     return torch.cat(cols, dim=1).to(torch.int32)
+
+
+def gather_slim_plain(idx: torch.Tensor, s1: SideResult,
+                      s2: SideResult) -> torch.Tensor:
+    """Plain version of kernel F's slim layout (JAX pipeline.py
+    _gather_pair_slim :466): [n, 5] int32 rows (rows1[:, 0], rows1[:, 1],
+    rows2[:, 0], rows2[:, 1], has_hits1 + 2 has_hits2 + 4 overflow1 + 8
+    overflow2) of the pair reads idx."""
+    a = SideResult(*(t[idx] for t in s1))
+    b = SideResult(*(t[idx] for t in s2))
+    return torch.stack([a.rows[:, 0], a.rows[:, 1], b.rows[:, 0],
+                        b.rows[:, 1], _pair_flags(a, b)], dim=1).to(torch.int32)
 
 
 class LongResult(NamedTuple):
@@ -825,11 +844,13 @@ def compact_key_hash(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
     return key_hash_plain(s1, s2, spec, didx)
 
 
-def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int) -> torch.Tensor:
-    """Per-batch key table [K+1, 5] int64 (see key_histogram_plain)."""
+def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int,
+                  with_slots: bool = False):
+    """Per-batch key table [K+1, 5] int64, with with_slots also each read's
+    row in it (see key_histogram_plain)."""
     if h.is_cuda:
-        return kernels.key_histogram(h, flags, K)
-    return key_histogram_plain(h, flags, K)
+        return kernels.key_histogram(h, flags, K, with_slots)
+    return key_histogram_plain(h, flags, K, with_slots)
 
 
 def gather_exemplars(idx: torch.Tensor, s1: SideResult,
@@ -840,6 +861,14 @@ def gather_exemplars(idx: torch.Tensor, s1: SideResult,
     if s1.rows.is_cuda:
         return kernels.gather_exemplars(idx, s1, s2, spec)
     return gather_exemplars_plain(idx, s1, s2, spec)
+
+
+def gather_slim(idx: torch.Tensor, s1: SideResult,
+                s2: SideResult) -> torch.Tensor:
+    """Slim exemplar rows [n, 5] of pair reads (see gather_slim_plain)."""
+    if s1.rows.is_cuda:
+        return kernels.gather_slim(idx, s1, s2)
+    return gather_slim_plain(idx, s1, s2)
 
 
 def pair_key_hash(s1: SideResult, s2: SideResult) -> torch.Tensor:
@@ -858,14 +887,15 @@ def pair_fragment_lengths(s1: SideResult, s2: SideResult, k: int) -> torch.Tenso
 def compact_pair_keys(s1: SideResult, s2: SideResult, max_keys: int = 16384,
                       k: int = 0, min_range: int = 0, strand_key: bool = False,
                       didx: Optional[DeviceIndex] = None, pos_fl: int = -1,
-                      pos_depth: int = 0) -> torch.Tensor:
+                      pos_depth: int = 0, with_slots: bool = False):
     """Per-batch key table of pairs, flat [max_keys+1, 5] int64.  With
     min_range/strand_key/pos_fl the key carries the filter inputs (veto
     bits, first-hit block+strand, position rank), so per-read filters
-    become per-key operations on the host."""
+    become per-key operations on the host.  with_slots also returns each
+    read's row in the table, as (ck, slots)."""
     spec = KeySpec(k, min_range, strand_key, pos_fl, pos_depth)
     h, flags = compact_key_hash(s1, s2, spec, didx)
-    return key_histogram(h, flags, max_keys)
+    return key_histogram(h, flags, max_keys, with_slots)
 
 
 def compact_single_keys(s1: SideResult, max_keys: int = 16384, k: int = 0,

@@ -1,8 +1,7 @@
 """Turbo steady-state pseudoalignment: padded batches reduced to a key table.
 
-Port of kallisto_tpu/ops/turbo.py (without the half-fail wave 2, which
-comes with host wave 1).  A turbo batch differs from a per-read one in its
-upload:
+Port of kallisto_tpu/ops/turbo.py.  A turbo batch differs from a per-read
+one in its upload:
 
 - **aux vector** instead of a per-read N bitmask: one int64 vector carries
   the uniform read length, the real-read count (batches are padded up to a
@@ -14,7 +13,13 @@ upload:
 
 On the card the decode and the pseudoalignment are kernel D
 (csrc/pseudoalign.cu pseudoalign_turbo), the keys kernel B and the table
-kernel E; on the CPU each is its plain PyTorch version.  Semantics are the
+kernel E; on the CPU each is its plain PyTorch version.
+
+The half-fail wave 2 of host wave 1 (ops/hostprobe.py) is kernel K
+(csrc/pseudoalign.cu pseudoalign_halffail): pairs of which one mate failed
+the host probe send only that mate's codes, with the other mate's 8-byte
+summary; halffail_core is its plain version.  The wave-2 slices also ask
+kernel E for each read's row in the table (with_slots).  Semantics are the
 reference's --no-jump evaluation of every k-mer (reference:
 src/KmerIndex.cpp:1698-1940).
 """
@@ -26,6 +31,7 @@ import torch
 
 from . import kernels
 from .pseudoalign import (
+    INT32_MAX,
     DeviceIndex,
     SideResult,
     _pseudoalign_core,
@@ -111,24 +117,125 @@ def _split(r: SideResult, B: int):
     return SideResult(*(a[:B] for a in r)), SideResult(*(a[B:] for a in r))
 
 
+def _pair_keys(didx, r1, r2, k, max_keys, min_range, strand_key, pos_fl,
+               pos_depth, with_slots):
+    out = compact_pair_keys(r1, r2, max_keys, k, min_range, strand_key, didx,
+                            pos_fl, pos_depth, with_slots)
+    return (r1, r2, *out) if with_slots else (r1, r2, out)
+
+
 def pair_turbo_core(didx, p1, p2, aux, lens, k: int, L: int, max_rows: int,
                     max_keys: int, min_range: int = 0, strand_key: bool = False,
-                    rl: int = 0, pos_fl: int = -1, pos_depth: int = 0):
+                    rl: int = 0, pos_fl: int = -1, pos_depth: int = 0,
+                    with_slots: bool = False):
     """Both mates through kernel D in one launch, then kernel B's compact
-    keys and kernel E's table.  Returns (r1, r2, ck [max_keys+1, 5])."""
+    keys and kernel E's table.  Returns (r1, r2, ck [max_keys+1, 5]), with
+    with_slots also each read's row in ck ([Bp] int32)."""
     r1, r2 = _split(turbo_sides(didx, (p1, p2), aux, lens, k, L, max_rows, rl),
                     p1.shape[0])
-    return r1, r2, compact_pair_keys(r1, r2, max_keys, k, min_range,
-                                     strand_key, didx, pos_fl, pos_depth)
+    return _pair_keys(didx, r1, r2, k, max_keys, min_range, strand_key,
+                      pos_fl, pos_depth, with_slots)
 
 
 def pseudoalign_pair_turbo(didx, p1, p2, aux, k: int, L: int,
                            max_rows: int = 16, max_keys: int = 32768,
                            min_range: int = 0, strand_key: bool = False,
-                           rl: int = 0, pos_fl: int = -1, pos_depth: int = 0):
+                           rl: int = 0, pos_fl: int = -1, pos_depth: int = 0,
+                           with_slots: bool = False):
     """Uniform-length pair batch: the length travels in aux[0]."""
     return pair_turbo_core(didx, p1, p2, aux, None, k, L, max_rows, max_keys,
-                           min_range, strand_key, rl, pos_fl, pos_depth)
+                           min_range, strand_key, rl, pos_fl, pos_depth,
+                           with_slots)
+
+
+def verified_side_plain(didx: DeviceIndex, vsum: torch.Tensor, R: int,
+                        lens_v: torch.Tensor, k: int) -> SideResult:
+    """A host-verified mate's SideResult from its 8-byte summary (JAX
+    _verified_side_from_summary, turbo.py:153): rows = the distinct sorted
+    block ECs of [blo, blo + span] from two block_ec8 rows, min(R, 16)
+    rounds of a masked minimum, the rest INT32_MAX; padding rows (lens_v
+    == 0) stay no-hit."""
+    blo, meta = vsum[:, 0], vsum[:, 1]
+    real = lens_v > 0
+    strand = (meta & 1) == 1
+    bhi = blo + ((meta >> 1) & 15)
+    upos0 = meta >> 5
+    B2 = blo.shape[0]
+    dev = vsum.device
+    r0 = (torch.clamp(blo, min=0) >> 3).to(torch.int64)
+    nb8 = didx.block_ec8.shape[0]
+    cand = torch.cat([didx.block_ec8[torch.clamp(r0, max=nb8 - 1)],
+                      didx.block_ec8[torch.clamp(r0 + 1, max=nb8 - 1)]], dim=1)
+    fid = (r0 * 8)[:, None] + torch.arange(16, dtype=torch.int64, device=dev)
+    inr = (fid >= blo[:, None]) & (fid <= bhi[:, None]) & real[:, None]
+    big = torch.full_like(cand, INT32_MAX)
+    vr = torch.where(inr & (cand >= 0), cand, big)
+    slots = []
+    prev = torch.full((B2,), -1, dtype=torch.int32, device=dev)
+    for _ in range(min(R, 16)):
+        cur = torch.where(vr > prev[:, None], vr, big).amin(dim=1)
+        slots.append(cur)
+        prev = torch.where(cur != INT32_MAX, cur, prev)
+    while len(slots) < R:
+        slots.append(torch.full((B2,), INT32_MAX, dtype=torch.int32,
+                                device=dev))
+    rows = torch.stack(slots, dim=1)
+    neg = torch.full((B2,), -1, dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(neg)
+    return SideResult(
+        rows=rows,
+        n_rows=(rows != INT32_MAX).sum(dim=1).to(torch.int32),
+        has_hits=real,
+        overflow=torch.zeros(B2, dtype=torch.bool, device=dev),
+        f_uid=torch.where(real, zero, neg),
+        f_block=torch.where(real, torch.where(strand, blo, bhi), neg),
+        f_upos=torch.where(real, upos0, neg),
+        f_rpos=torch.where(real, zero, neg),
+        f_strand=strand,
+        rng=torch.where(real, lens_v - k, neg).to(torch.int32),
+    )
+
+
+def halffail_core(didx: DeviceIndex, pkf: torch.Tensor, vsum: torch.Tensor,
+                  sidev: torch.Tensor, aux: torch.Tensor, k: int, L: int,
+                  max_rows: int, rl: int = 0):
+    """Plain version of kernel K (JAX halffail_core, turbo.py:203): the
+    failed mates through the per-read core, the verified mates rebuilt from
+    their summaries with the core's row width (the core clamps max_rows to
+    the window count), each pair's mates picked by sidev (1: mate 1
+    failed).  Returns (r1, r2)."""
+    codes, lens_v = codes_and_lens_plain((pkf,), aux, None, L, rl)
+    rf = _pseudoalign_core(didx, codes, lens_v, k, max_rows)
+    rv = verified_side_plain(didx, vsum, int(rf.rows.shape[1]), lens_v, k)
+    m1 = sidev == 1
+
+    def sel(a, b):
+        return torch.where(m1[:, None] if a.dim() == 2 else m1, a, b)
+
+    return (SideResult(*(sel(f, v) for f, v in zip(rf, rv))),
+            SideResult(*(sel(v, f) for f, v in zip(rf, rv))))
+
+
+def pseudoalign_pair_halffail(didx, pkf, vsum, sidev, aux, k: int, L: int,
+                              max_rows: int = 16, max_keys: int = 32768,
+                              min_range: int = 0, strand_key: bool = False,
+                              rl: int = 0, pos_fl: int = -1,
+                              pos_depth: int = 0, with_slots: bool = False):
+    """Wave 2 of the pairs of which exactly one mate failed host wave 1
+    (JAX pseudoalign_pair_halffail, turbo.py:244): kernel K (or its plain
+    version), then kernel B's compact keys and kernel E's table.  pkf [Bp,
+    L/4] uint8, vsum [Bp, 2] int32, sidev [Bp] int32.  Returns (r1, r2, ck)
+    and with with_slots the per-read rows."""
+    if pkf.is_cuda:
+        Lc = rl if 0 < rl < L else L
+        R = min(max_rows, Lc - k + 1)
+        o1, o2 = kernels.pseudoalign_halffail(didx, pkf, vsum, sidev, aux, k,
+                                              L, rl, R)
+        r1, r2 = SideResult(*o1), SideResult(*o2)
+    else:
+        r1, r2 = halffail_core(didx, pkf, vsum, sidev, aux, k, L, max_rows, rl)
+    return _pair_keys(didx, r1, r2, k, max_keys, min_range, strand_key,
+                      pos_fl, pos_depth, with_slots)
 
 
 def pseudoalign_pair_turbo_varlen(didx, p1, p2, aux, lens, k: int, L: int,

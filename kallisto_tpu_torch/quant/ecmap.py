@@ -141,6 +141,10 @@ class EcResolver:
         # 128-bit key hash -> EC id cache of the compact path (-1 = resolves
         # to no set); lookups and inserts are batch numpy operations
         self._ec_cache = _SortedCache128()
+        # single-row / two-row -> EC id caches of the bulk simple-key path
+        # of process_compact_parts
+        self._row_ec: Dict[int, int] = {}
+        self._combo_ec: Dict[Tuple[int, int], int] = {}
         # optional per-key filter of the compact path, applied after
         # resolution: fn(u, flags, tail_cols, paired) -> set | None.  Compact
         # keys carry the filter inputs (min_range veto bits in flags; first-
@@ -346,42 +350,158 @@ class EcResolver:
         uniq_sets = [self._hash_cache[kb] for kb in hkeys]
         return inverse.reshape(-1).copy(), uniq_sets
 
-    def process_compact(
+    def process_compact_parts(
         self,
-        uniq_h: np.ndarray,     # [K, 2] int64
-        occ: np.ndarray,        # [K] int32
-        first_idx: np.ndarray,  # [K] int32
-        fetch_exemplars,
-        R: int,
+        parts,
         paired: bool,
         do_union: bool = False,
-    ) -> None:
-        """Count a batch from its device-side key table.
+        return_key_ecs: bool = False,
+    ):
+        """Count a batch from one or more key histograms sharing one
+        read-index space: a card key table, or host wave-1 keys plus the
+        wave-2 slices' tables (see ops/hostprobe.py).
 
-        EC ids are assigned in first-occurrence read order, identical to the
-        per-read path: keys are taken in ascending first_idx (a stable sort,
-        so the table's own row order does not matter), and only first-seen
-        keys are resolved, from exemplars fetched by `fetch_exemplars(read
-        indices) -> key matrix`.
+        parts: list of (uniq_h [K,2] int64, occ, first_idx -- GLOBAL read
+        indices -- , exemplar_of, R) where exemplar_of(sel) -> [len(sel), W]
+        int32 returns key content for positions `sel` into that part's own
+        arrays and R is that part's per-mate row width (host wave-1 keys
+        use R=16, device wave-2 keys may use a wider row budget), and an
+        optional sixth entry slim_of(sel) -> [len(sel), 5] (the first two
+        rows of each mate and the flags; None where the part has none).
+        Keys are processed in global first-occurrence order, so EC numbering
+        matches the single-stream per-read path exactly; the parts' key
+        hashes live in disjoint namespaces (host vs device hash constants),
+        so cross-part collisions cannot merge keys.
         """
-        valid = np.flatnonzero(occ > 0)
-        order = valid[np.argsort(first_idx[valid], kind="stable")]
-        h = np.ascontiguousarray(uniq_h[order])
+        sizes = [p[0].shape[0] for p in parts]
+        parts = [p for p in parts if p[0].shape[0]]
+        if not parts:
+            return [np.empty(0, np.int64)] * len(sizes) if return_key_ecs \
+                else None
+        hs = np.concatenate([np.ascontiguousarray(p[0]) for p in parts])
+        occ = np.concatenate([np.asarray(p[1], np.int64) for p in parts])
+        first = np.concatenate([np.asarray(p[2], np.int64) for p in parts])
+        pid = np.concatenate(
+            [np.full(p[0].shape[0], i, np.int32) for i, p in enumerate(parts)]
+        )
+        loc = np.concatenate(
+            [np.arange(p[0].shape[0], dtype=np.int64) for p in parts]
+        )
+        order = np.argsort(first, kind="stable")
+        h = np.ascontiguousarray(hs[order])
         vals, found = self._ec_cache.lookup(h)
         new_pos = np.flatnonzero(~found)
         if new_pos.size:
-            keys = fetch_exemplars(first_idx[order[new_pos]])
-            newvals = np.empty(new_pos.shape[0], np.int64)
-            for j in range(new_pos.shape[0]):
-                u = self._resolve_key(keys[j], R, paired, do_union)
+            sel = order[new_pos]
+            n_new = new_pos.shape[0]
+            # vectorizable layer: at human scale nearly every key is NEW
+            # and carries <=1 EC row per mate, so per-key python
+            # resolution dominated the run.  When a part provides a SLIM
+            # fetch (first two rows per mate + flags; 20 B/key instead of
+            # the full exemplar) and no postfilter/special mode is active,
+            # single-row keys resolve through bulk numpy + dict lookups;
+            # only multi-row keys pay the full fetch + python resolver.
+            fast_ok = (
+                paired and not do_union and self.compact_postfilter is None
+                and not self.use_shade and not self.dfk_onlist
+                and not self.has_offlist
+            )
+            slim = np.zeros((n_new, 5), np.int64)
+            have_slim = np.zeros(n_new, bool)
+            fetched: Dict[int, np.ndarray] = {}
+            r_of: Dict[int, int] = {}
+            for i, p in enumerate(parts):
+                m = np.flatnonzero(pid[sel] == i)
+                if not m.size:
+                    continue
+                fslim = p[5] if len(p) > 5 else None
+                if fast_ok and fslim is not None:
+                    slim[m] = fslim(loc[sel[m]])
+                    have_slim[m] = True
+                else:
+                    ex = p[3](loc[sel[m]])
+                    for j, row in zip(m, ex):
+                        fetched[int(j)] = row
+                        r_of[int(j)] = p[4]
+            simple = (
+                have_slim & (slim[:, 1] == INT32_MAX)
+                & (slim[:, 3] == INT32_MAX)
+            )
+            # non-simple slim keys need the full exemplar after all
+            for i, p in enumerate(parts):
+                m = np.flatnonzero((pid[sel] == i) & have_slim & ~simple)
+                if m.size:
+                    ex = p[3](loc[sel[m]])
+                    for j, row in zip(m, ex):
+                        fetched[int(j)] = row
+                        r_of[int(j)] = p[4]
+            # classify simple keys: kind 0 = unmapped/vetoed, 1 = one
+            # index row (shared row, or one mate hit), 2 = two-row
+            # intersection (the non-strict pairing rules of
+            # MinCollector::intersectKmers reduced to the <=1-row case)
+            a, b, fl = slim[:, 0], slim[:, 2], slim[:, 4]
+            va = a != INT32_MAX
+            vb = b != INT32_MAX
+            kind = np.zeros(n_new, np.int8)
+            ia = np.where(va, a, 0).astype(np.int64)
+            ib = np.where(vb, b, 0).astype(np.int64)
+            m1 = simple & (fl == 1) & va
+            m2 = simple & (fl == 2) & vb
+            mb = simple & (fl == 3) & va & vb
+            kind[m1] = 1
+            kind[m2] = 1
+            ia[m2] = b[m2]
+            kind[mb & (a == b)] = 1
+            kind[mb & (a != b)] = 2
+            row_ec = self._row_ec
+            combo_ec = self._combo_ec
+            newvals = np.empty(n_new, np.int64)
+            for j in range(n_new):
+                if simple[j]:
+                    kj = kind[j]
+                    if kj == 0:
+                        newvals[j] = -1
+                        continue
+                    if kj == 1:
+                        key = int(ia[j])
+                        e = row_ec.get(key)
+                        if e is None:
+                            e = self.ec_id_for(self._row(key))
+                            row_ec[key] = e
+                    else:
+                        key2 = (int(ia[j]), int(ib[j]))
+                        e = combo_ec.get(key2)
+                        if e is None:
+                            u = _intersect_sorted(
+                                self._row(key2[0]), self._row(key2[1])
+                            )
+                            e = self.ec_id_for(u) if u.shape[0] else -1
+                            combo_ec[key2] = e
+                    newvals[j] = e
+                    continue
+                u = self._resolve_key(
+                    fetched[j], r_of[j], paired, do_union
+                )
                 newvals[j] = self.ec_id_for(u) if u is not None else -1
             self._ec_cache.insert(h[new_pos], newvals)
             vals = vals.copy()
             vals[new_pos] = newvals
-        occ_o = occ[order].astype(np.int64)
+        occ_o = occ[order]
         m = vals >= 0
         self.counts.add_at(vals[m], occ_o[m])
         self.num_mapped += int(occ_o[m].sum())
+        if return_key_ecs:
+            # per-key EC ids back in concatenated-part order, split to the
+            # CALLER's part list (empty parts get empty vectors) -- the
+            # pseudobam fast path maps each read's key slot to its EC
+            out = np.empty(vals.shape[0], np.int64)
+            out[order] = vals
+            res = []
+            off = 0
+            for n in sizes:
+                res.append(out[off : off + n])
+                off += n
+            return res
 
     def count_batch(
         self,

@@ -16,9 +16,11 @@ Port of kallisto_tpu/quant/pipeline.py with two routes per batch:
   veto bits, first-hit block/strand and the FLD position rank ride in the
   key) and kernel E, which reduces it to a key table on the card; the
   host fetches the occupied rows, resolves each first-seen DISTINCT KEY
-  once from exemplar rows that kernel F gathers, and applies the filters
-  per key.  Batches with more Ns than the aux vector holds go through
-  kernels A, B and E on bitmask slices instead ("compact").
+  once from exemplar rows that kernel F gathers (pairs without filters
+  first fetch F's slim rows, and single-row keys resolve from those in
+  bulk), and applies the filters per key.  Batches with more Ns than the
+  aux vector holds go through kernels A, B and E on bitmask slices
+  instead ("compact").
 
 `timings` counts processed batches by route (`full`, `turbo` -- through
 the anchor kernel or kernel D --, `compact`, `fallback` -- a compact table
@@ -58,9 +60,34 @@ counts after the loop unless the platform is ONT.  `timings` counts the
 `long` batches, their kernel + fetch seconds (`long_s`) and the `novel`
 reads.
 
-Not ported yet (each raises NotImplementedError): pseudobam/genomebam,
-several devices.  The JAX package's host wave 1 is a speed path in front
-of the anchor route with the same outputs; it is not ported yet either.
+Host wave 1 (JAX :803-1182, :1345-1462; ops/hostprobe.py), on with
+KALLISTO_TPU_HOST_WAVE1=1 (off by default: _HOST_WAVE1_DEFAULT): a
+uniform-length batch is first probed on the host, which verifies the reads
+that match one unitig stretch with a few lookups and reduces them to a
+host key histogram; only the failing reads go to the card, pairs with one
+failed mate through kernel K (the failed mate's codes plus the other's
+8-byte summary), pairs with both failed through kernel D, each slice then
+through kernel B and kernel E with per-read slots.  The resolver merges
+host and card keys by first read (EcResolver.process_compact_parts, with
+kernel F's slim rows for single-row keys), so EC numbering and the outputs
+are those of the other routes.  Routes: `hw1pb` (pairs that need per-read
+results: while the FLD is learned, and every --pseudobam batch; each read
+gets its EC through its host key word or its row in kernel E's table, and
+the FLD subsample takes the probe's fragment lengths for verified pairs
+and kernel B's for the others), `hw1` (the paired steady state), `hw1s`
+(single-end); a slice whose Ns do not fit the aux vector sends the batch
+down the card's routes, and a wave-2 read past its row budget redoes the
+batch per read.  With host wave 1, FLD learning pipelines like the steady
+state (JAX :1688).  `timings` adds the probe's seconds (`probe_s`) and
+counts those routes; `wave2_reads` counts the mates evaluated on the card.
+
+--pseudobam / --genomebam (JAX :637-682, :1957-1974; io/pseudobam.py): a
+batch never takes the compact route; per read (kernels A and B) or on
+hw1pb, each read's EC and first hits spill to pseudoaln.bin, and after the
+EM the writers re-read the FASTQs and write pseudoalignments.bam (genome
+coordinates, sorted, with its .bai, under --genomebam).
+
+Not ported yet (raises NotImplementedError): several devices.
 """
 
 import os
@@ -78,8 +105,14 @@ from ..common import MAX_FRAG_LEN, Options, REFERENCE_INDEX_VERSION
 from ..index import load_index
 from ..index.build import TpuIndex
 from ..io import writers
+from ..io.pseudobam import (
+    PseudoAlnRecorder,
+    write_pseudobam_genome,
+    write_pseudobam_trans,
+)
 from ..io.fastx import PackedBatch, packed_paired_batches, packed_single_batches
 from ..ops import anchor, turbo
+from ..ops.hostprobe import HostProbe
 from ..ops.host_fallback import host_side_rows
 from ..ops.pseudoalign import (
     KeySpec,
@@ -89,6 +122,7 @@ from ..ops.pseudoalign import (
     ck_n_fail,
     device_index_from_host,
     gather_exemplars,
+    gather_slim,
     pf_probe_depth,
     pseudoalign_batch_packed,
     pseudoalign_long_packed,
@@ -105,6 +139,7 @@ from .ecmap import EcResolver
 from .em import EmResult, build_em_problem, counts_to_tpm, read_priors, run_em
 from .longread import resolve_long_reads
 from .filters import FldPositionFilter, StrandFilter
+from .genemodel import Transcriptome
 from .fld import (
     calc_eff_lens,
     compute_mean_frag_lens_trunc,
@@ -118,6 +153,16 @@ _BIAS_GOAL = 1000000  # reference: ProcessReads.h:178 maxBiasCount
 _FALLBACK_CAP = 1 << 17  # max reads per per-read or bitmask slice
 _CK_PREFIX = 2049  # meta row + 2048 key rows: the first fetch of a table
 _LONG_BATCH = 16384  # reads per --long batch (JAX pipeline.py:1618)
+# host wave 1's wave-2 slices (JAX pipeline.py:352-365): failing reads in
+# slices of up to _W2MAX, each padded to a power of two >= _W2MIN, with a
+# row budget of _W2ROWS per read and a key table of Bp + 1 rows
+_W2MIN = 1 << 14
+_W2MAX = 1 << 18
+_W2ROWS = 32
+# KALLISTO_TPU_HOST_WAVE1's default: off.  The JAX package turns host wave
+# 1 on (it halves the bytes its TPU link carries); on one H100 its wall was
+# longer than the anchor route's on 1M pairs (PERF.md section 5).
+_HOST_WAVE1_DEFAULT = "0"
 _pad_pats: dict = {}
 
 
@@ -163,17 +208,37 @@ def _resolve_n_devices(opt: Options, dev: torch.device) -> int:
     return max(n, 1)
 
 
+def host_wave1_enabled() -> bool:
+    """Whether run_quant sends uniform-length batches through host wave 1
+    (KALLISTO_TPU_HOST_WAVE1, "0" turns it off); the outputs are the same
+    either way."""
+    return os.environ.get("KALLISTO_TPU_HOST_WAVE1",
+                          _HOST_WAVE1_DEFAULT) != "0"
+
+
+class _EcCards:
+    """The set size of every EC so far, extended as ECs appear (the FLD
+    subsample of hw1pb needs each read's set size)."""
+
+    def __init__(self, resolver):
+        self._r = resolver
+        self._a = np.empty(0, np.int32)
+
+    def get(self) -> np.ndarray:
+        n = len(self._r.ec_sets)
+        if self._a.shape[0] < n:
+            extra = np.fromiter(
+                (self._r.ec_sets[i].shape[0]
+                 for i in range(self._a.shape[0], n)),
+                np.int32, count=n - self._a.shape[0])
+            self._a = np.concatenate([self._a, extra])
+        return self._a
+
+
 def _check_supported(opt: Options, dev: torch.device) -> None:
-    unported = [
-        (opt.pseudobam, "--pseudobam"),
-        (opt.genomebam, "--genomebam"),
-        (_resolve_n_devices(opt, dev) > 1, "several devices"),
-    ]
-    for flag, what in unported:
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet to kallisto_tpu_torch"
-            )
+    if _resolve_n_devices(opt, dev) > 1:
+        raise NotImplementedError(
+            "several devices is not ported yet to kallisto_tpu_torch")
 
 
 def _padding_nmask_patterns(Lp: int) -> np.ndarray:
@@ -225,15 +290,23 @@ def _turbo_exceptions(batches, Bp: int) -> Optional[np.ndarray]:
     [len(batches)*Bp, Lp] code matrix, ascending (None = more than
     turbo.EXC_CAP; the caller takes the bitmask route).  Padding rows need
     none: the aux n_real field zeroes their lengths."""
-    Lp = batches[0].Lp
+    return _rows_exceptions([(b.nmask, b.lens) for b in batches], Bp,
+                            batches[0].Lp)
+
+
+def _rows_exceptions(sides, Bp: int, Lp: int) -> Optional[np.ndarray]:
+    """In-read N positions of (nmask rows, lens) sides -- whole batches or
+    the rows of a wave-2 slice -- as flat indices into the padded
+    concatenated [len(sides) * Bp, Lp] code matrix (None = more than
+    turbo.EXC_CAP)."""
     pats = _padding_nmask_patterns(Lp)
     parts = []
     total = 0
-    for s, b in enumerate(batches):
-        nm = b.nmask.reshape(b.lens.shape[0], -1)
-        if not np.array_equal(nm, pats[b.lens]):
+    for s, (nm, lens) in enumerate(sides):
+        nm = nm.reshape(lens.shape[0], -1)
+        if not np.array_equal(nm, pats[lens]):
             bits = np.unpackbits(nm, axis=1, bitorder="little")[:, :Lp]
-            bits[np.arange(Lp)[None, :] >= b.lens[:, None]] = 0
+            bits[np.arange(Lp)[None, :] >= lens[:, None]] = 0
             r, c = np.nonzero(bits)
             parts.append((s * Bp + r.astype(np.int64)) * Lp + c)
             total += parts[-1].size
@@ -246,6 +319,41 @@ def _turbo_exceptions(batches, Bp: int) -> Optional[np.ndarray]:
 
 def _slice_packed(b: PackedBatch, lo: int, hi: int) -> PackedBatch:
     return PackedBatch(b.packed[lo:hi], b.nmask[lo:hi], b.lens[lo:hi], b.Lp)
+
+
+def _record_pbam(pbam, read_ec, s1: SideResult, s2: Optional[SideResult]):
+    """Spill one batch's per-read pseudoalignment info for the --pseudobam
+    replay (JAX pipeline.py:637-652): only read_ec and each mate's first-hit
+    fields go to pseudoaln.bin; the writers re-read the FASTQs."""
+    def side(s):
+        return {f: getattr(s, f) for f in
+                ("has_hits", "f_block", "f_upos", "f_rpos", "f_strand")}
+
+    pbam.add_compact(read_ec, side(s1), side(s2) if s2 is not None else None)
+
+
+def _pbam_read_stream(opt: Options, k: int):
+    """Second pass over the input reads for the pseudobam replay (JAX
+    :655-682): per-read (name, codes1, qual1[, codes2, qual2])."""
+    if opt.paired:
+        for i in range(0, len(opt.files), 2):
+            for b1, b2 in packed_paired_batches(
+                opt.files[i], opt.files[i + 1], opt.batch_size, k,
+                keep_names=True, keep_quals=True,
+            ):
+                for j in range(b1.n):
+                    yield (
+                        b1.names[j], b1.row_codes(j)[: int(b1.lens[j])],
+                        b1.quals[j],
+                        b2.row_codes(j)[: int(b2.lens[j])], b2.quals[j],
+                    )
+    else:
+        for f in opt.files:
+            for b1 in packed_single_batches(f, opt.batch_size, k,
+                                            keep_names=True, keep_quals=True):
+                for j in range(b1.n):
+                    yield (b1.names[j], b1.row_codes(j)[: int(b1.lens[j])],
+                           b1.quals[j])
 
 
 def _split_first_pair_batch(it, head: int = 65536):
@@ -290,6 +398,28 @@ def _exemplar_fetcher(r1: SideResult, r2: Optional[SideResult],
         return gather_exemplars(t, r1, r2, spec).cpu().numpy()
 
     return fetch
+
+
+def _table_part(uniq_h, occ, first_local, r1: SideResult,
+                r2: Optional[SideResult], spec: KeySpec, first=None):
+    """One card key table as a part of EcResolver.process_compact_parts:
+    its occupied rows, the exemplar fetch (kernel F) and, for pairs, the
+    slim fetch (kernel F's slim layout: rows 0-1 of each mate and the
+    flags, 20 B per key, so that single-row keys skip the full exemplar).
+    `first` maps the rows' first reads to the batch's read indices (the
+    table's own indices when None).  Returns (part, occupied rows)."""
+    valid = np.flatnonzero(occ > 0)
+    fl = first_local[valid].astype(np.int64)
+    fetch = _exemplar_fetcher(r1, r2, spec)
+    slim = None
+    if r2 is not None and min(r1.rows.shape[1], r2.rows.shape[1]) >= 2:
+        def slim(sel):
+            t = to_device(fl[sel], r1.rows.device)
+            return gather_slim(t, r1, r2).cpu().numpy()
+    part = (np.ascontiguousarray(uniq_h[valid]), occ[valid],
+            fl if first is None else first(fl),
+            lambda sel: fetch(fl[sel]), int(r1.rows.shape[1]), slim)
+    return part, valid
 
 
 def _make_compact_postfilter(strand_filter, pos_filter=None):
@@ -382,10 +512,11 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     timings = dict.fromkeys(
         ("index_upload_s", "read_s", "dispatch_s", "fetch_s", "resolve_s",
          "pseudoalign_s", "em_problem_s", "bias_tables_s", "em_s",
-         "bias_update_s", "bootstrap_s", "write_s", "long_s"), 0.0)
+         "bias_update_s", "bootstrap_s", "write_s", "long_s", "probe_s"),
+        0.0)
     timings.update(dict.fromkeys(
-        ("full", "turbo", "compact", "fallback", "long", "wave2_reads",
-         "n_uniq_max", "n_uniq_sum", "novel"), 0))
+        ("full", "turbo", "compact", "fallback", "long", "hw1pb", "hw1",
+         "hw1s", "wave2_reads", "n_uniq_max", "n_uniq_sum", "novel"), 0))
     t0 = time.perf_counter()
     if index is None:
         index = load_index(opt.index_path)
@@ -412,6 +543,21 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     strand_filter: Optional[StrandFilter] = None
     if opt.strand in ("fr", "rf"):
         strand_filter = StrandFilter(index, opt.strand)
+    pbam = None
+    if opt.pseudobam:
+        os.makedirs(opt.output_dir or ".", exist_ok=True)
+        pbam = PseudoAlnRecorder(
+            paired=paired,
+            spill_path=os.path.join(opt.output_dir or ".", "pseudoaln.bin"),
+        )
+    model = None
+    if opt.genomebam:
+        # reference: parse the GTF (and the given chromosomes) up front
+        # (main.cpp:2639-2648)
+        model = Transcriptome(index.target_names, index.target_lens)
+        if opt.chrom_file:
+            model.load_chromosomes(opt.chrom_file)
+        model.parse_gtf(opt.gtf_file, guess_chromosomes=not opt.chrom_file)
 
     # compact-path filter routing: min_range, strand and the position
     # filter become part of each read's KEY (veto bits, first-hit
@@ -430,6 +576,14 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         resolver.compact_postfilter = _make_compact_postfilter(
             strand_filter, pos_filter
         )
+    # host wave 1 (ops/hostprobe.py): anchors verified on the host, only
+    # the failing reads go to the card; a probe that cannot be built raises
+    hostprobe = None
+    if host_wave1_enabled() and not opt.long_read:
+        hostprobe = HostProbe(index, min_range=spec.min_range,
+                              strand_key=spec.strand_key,
+                              pos_key=spec.pos_key, pos_fl=spec.pos_fl)
+    ec_cards = _EcCards(resolver)
 
     def dispatch_full(b1: PackedBatch, b2: Optional[PackedBatch],
                       want_tl: bool, want_bias: bool = False):
@@ -522,25 +676,260 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         return ("multi", b1, subs)
 
     def dispatch(b1: PackedBatch, b2: Optional[PackedBatch], want_fld: bool):
-        """Route one batch (JAX dispatch_pair :831 / dispatch_single :1345):
-        the compact route once FLD learning is over (paired) or unless
-        --union is on (single-end), and once --bias has counted its goal;
-        the per-read route otherwise.  want_bias reads the hexamers counted
-        by the batches processed so far."""
+        """Route one batch (JAX dispatch_pair :831 / dispatch_single :1345).
+
+        With host wave 1 (the probe built), a uniform-length pair batch
+        that needs per-read results (--pseudobam, or the FLD being learned)
+        takes hw1pb; otherwise the compact route -- paired once FLD
+        learning is over, single-end unless --union is on, both once --bias
+        has counted its goal and without --pseudobam -- goes through host
+        wave 1 (hw1, hw1s) when the batch has a uniform length >= k, else
+        the card's compact route; the per-read route takes the rest.
+        want_bias reads the hexamers counted by the batches processed so
+        far."""
         want_bias = opt.bias and bias_total < _BIAS_GOAL
+        rl = _uniform_len(b1) if b2 is None else _uniform_len(b1, b2)
+        hw1_ok = (hostprobe is not None and rl is not None and rl >= k
+                  and (b2 is None or b1.Lp == b2.Lp))
+        if (b2 is not None and hw1_ok and not want_bias
+                and (pbam is not None or want_fld)):
+            hk = probe(b1, b2, rl, True)
+            devs = dispatch_wave2_pair(hk, b1, b2, rl)
+            if devs is not None:
+                return ("hw1pb", b1, b2, hk, devs, want_fld)
+        # a --pseudobam batch needs per-read ECs and first hits, so it never
+        # takes the compact route (JAX :858-859, :1349)
         if b2 is None:
-            compact = not opt.do_union and not want_bias
+            compact = not opt.do_union and not want_bias and pbam is None
         else:
-            compact = not want_fld and not want_bias and b1.Lp == b2.Lp
+            compact = (not want_fld and not want_bias and b1.Lp == b2.Lp
+                       and pbam is None)
+        if compact and hw1_ok:
+            hk = probe(b1, b2, rl, False)
+            if b2 is None:
+                devs = dispatch_wave2_single(hk.fail_idx, b1, rl)
+                if devs is not None:
+                    return ("hw1s", b1, None, hk, devs)
+            else:
+                devs = dispatch_wave2_pair(hk, b1, b2, rl)
+                if devs is not None:
+                    return ("hw1", b1, b2, hk, devs)
         if compact:
             return dispatch_compact(b1, b2)
         return dispatch_full(b1, b2, want_fld, want_bias)
+
+    def probe(b1, b2, rl, perread):
+        t1 = time.perf_counter()
+        if b2 is None:
+            hk = hostprobe.probe_single(b1, rl, perread)
+        else:
+            hk = hostprobe.probe_pair(b1, b2, rl, perread)
+        timings["probe_s"] += time.perf_counter() - t1
+        return hk
+
+    def dispatch_wave2_pair(hk, b1, b2, rl):
+        """Send only what wave 2 needs (JAX :940-1002): pairs with one
+        failed mate as that mate's codes plus the other's summary (kernel
+        K), pairs with both failed as both mates (kernel D), in slices of
+        up to _W2MAX padded to a power of two >= _W2MIN; every slice's key
+        table also gives each read's row.  Returns [(r1, r2, ck, sub,
+        slots)], or None when a slice's Ns do not fit the aux vector (the
+        caller takes the card's own routes)."""
+        devs = []
+        half = np.flatnonzero(hk.fail_side != 3)
+        both = np.flatnonzero(hk.fail_side == 3)
+        kw = dict(k=k, L=b1.Lp, max_rows=_W2ROWS, rl=rl, with_slots=True,
+                  **key_kw)
+        for lo in range(0, half.shape[0], _W2MAX):
+            pos = half[lo : lo + _W2MAX]
+            sub = hk.fail_idx[pos].astype(np.int64)
+            side = hk.fail_side[pos]
+            Bp = _bucket_size(pos.shape[0], lo=_W2MIN)
+            m1 = (side == 1)[:, None]
+            pkf = np.where(m1, b1.packed[sub], b2.packed[sub])
+            nmf = np.where(m1, b1.nmask[sub], b2.nmask[sub])
+            exc = _rows_exceptions([(nmf, b1.lens[sub])], Bp, b1.Lp)
+            aux = None if exc is None else turbo.make_aux(pos.shape[0], rl, exc)
+            if aux is None:
+                return None
+            out = turbo.pseudoalign_pair_halffail(
+                didx, to_device(_pad_rows(pkf, Bp), dev, np.uint8),
+                to_device(_pad_rows(hk.fail_vsum[pos], Bp), dev, np.int32),
+                to_device(_pad_rows(side.astype(np.int32), Bp), dev),
+                to_device(aux, dev), max_keys=Bp + 1, **kw)
+            devs.append(out[:3] + (sub,) + out[3:])
+        for lo in range(0, both.shape[0], _W2MAX):
+            sub = hk.fail_idx[both[lo : lo + _W2MAX]].astype(np.int64)
+            Bp = _bucket_size(sub.shape[0], lo=_W2MIN)
+            exc = _rows_exceptions(
+                [(b.nmask[sub], b.lens[sub]) for b in (b1, b2)], Bp, b1.Lp)
+            aux = None if exc is None else turbo.make_aux(sub.shape[0], rl, exc)
+            if aux is None:
+                return None
+            out = turbo.pseudoalign_pair_turbo(
+                didx, to_device(_pad_rows(b1.packed[sub], Bp), dev, np.uint8),
+                to_device(_pad_rows(b2.packed[sub], Bp), dev, np.uint8),
+                to_device(aux, dev), max_keys=Bp + 1, **kw)
+            devs.append(out[:3] + (sub,) + out[3:])
+        return devs
+
+    def dispatch_wave2_single(fail_idx, b1, rl):
+        """Single-end wave 2 (JAX :1408-1430): the failing reads through
+        kernel D, B and E in slices.  Returns [(r1, None, ck, sub)] or
+        None."""
+        devs = []
+        for lo in range(0, fail_idx.shape[0], _W2MAX):
+            sub = fail_idx[lo : lo + _W2MAX].astype(np.int64)
+            Bp = _bucket_size(sub.shape[0], lo=_W2MIN)
+            exc = _rows_exceptions([(b1.nmask[sub], b1.lens[sub])], Bp, b1.Lp)
+            aux = None if exc is None else turbo.make_aux(sub.shape[0], rl, exc)
+            if aux is None:
+                return None
+            r1, ck = turbo.pseudoalign_single_turbo(
+                didx, to_device(_pad_rows(b1.packed[sub], Bp), dev, np.uint8),
+                to_device(aux, dev), k=k, L=b1.Lp, max_rows=_W2ROWS,
+                max_keys=Bp + 1, rl=rl, **key_kw)
+            devs.append((r1, None, ck, sub))
+        return devs
+
+    def hw1_device_parts(devs):
+        """Fetch and check each wave-2 slice's key table (JAX :1004-1044).
+        Returns (parts, valids) for EcResolver.process_compact_parts, with
+        first_idx mapped to the batch's read indices through the slice's
+        read list (a key first seen on a padding row -- only the no-hit
+        key -- sorts last), or None when a wave-2 read overflowed its row
+        budget."""
+        parts, valids = [], []
+        for r1, r2, ck, sub, *_ in devs:
+            arr = _fetch_ck(ck)
+            uniq_h, occ, first_local, flags, n_uniq = unflatten_ck_host(arr)
+            valid = np.flatnonzero(occ > 0)
+            if n_uniq > occ.shape[0] or (flags[valid] & 12).any():
+                return None
+            part, valid = _table_part(
+                uniq_h, occ, first_local, r1, r2, spec,
+                lambda fl, sub=sub: np.where(
+                    fl < sub.shape[0], sub[np.minimum(fl, sub.shape[0] - 1)],
+                    np.int64(1) << 60))
+            parts.append(part)
+            valids.append((valid, occ.shape[0]))
+        return parts, valids
+
+    def host_part(hk, paired_part):
+        """The host keys as a part of process_compact_parts (with the slim
+        columns of a pair key: rows1[:2], rows2[:2], flags)."""
+        ex, Rh = hk.exemplars, hostprobe.R
+        slim = None
+        if paired_part:
+            def slim(sel):
+                return ex[sel][:, [0, 1, Rh, Rh + 1, 2 * Rh]]
+        return (hk.h128, hk.occ, hk.first_idx, lambda sel: ex[sel], Rh, slim)
+
+    def process_hw1(ctx):
+        """Resolve a host-wave-1 batch (JAX :1052-1182, :1438-1462): host
+        and card keys merged by first read; hw1pb also maps every read to
+        its EC (host keys through the read's h1, card keys through the
+        read's row from kernel E) for --pseudobam and the FLD subsample.
+        A batch whose wave-2 read overflowed its row budget is redone per
+        read."""
+        nonlocal num_processed, tlencount
+        route, b1, b2, hk, devs = ctx[:5]
+        t1 = time.perf_counter()
+        got = hw1_device_parts(devs)
+        t2 = time.perf_counter()
+        timings["fetch_s"] += t2 - t1
+        if got is None:
+            # rare: redo per read; unlike JAX (:1136-1145, which drops the
+            # batch's fragment lengths here) with want_fld kept, so that
+            # the FLD sample does not depend on the route
+            timings["fallback"] += 1
+            want_tl = route == "hw1pb" and ctx[5]
+            for lo in range(0, b1.n, _FALLBACK_CAP):
+                hi = min(lo + _FALLBACK_CAP, b1.n)
+                process_full(dispatch_full(
+                    _slice_packed(b1, lo, hi),
+                    None if b2 is None else _slice_packed(b2, lo, hi),
+                    want_tl))
+            return
+        parts, valids = got
+        paired_b = b2 is not None
+        has_host = hk.h128.shape[0] > 0
+        if has_host:
+            parts.insert(0, host_part(hk, paired_b))
+        key_ecs = resolver.process_compact_parts(
+            parts, paired=paired_b, do_union=opt.do_union,
+            return_key_ecs=route == "hw1pb")
+        nf = hk.fail_idx.shape[0]
+        if paired_b:
+            timings["wave2_reads"] += int(
+                nf + (hk.fail_side == 3).sum())
+        else:
+            timings["wave2_reads"] += nf
+        if route == "hw1pb":
+            B = b1.n
+            read_ec = np.full(B, -1, np.int64)
+            f1 = {f: np.zeros(B, np.int32) for f in ("f_block", "f_upos",
+                                                      "f_rpos")}
+            f2 = {f: np.zeros(B, np.int32) for f in ("f_block", "f_upos",
+                                                      "f_rpos")}
+            for f in (f1, f2):
+                f["f_strand"] = np.zeros(B, bool)
+                f["has_hits"] = np.zeros(B, bool)
+            if has_host:
+                # host-verified reads: EC through the read's key word h1,
+                # first hits from the probe's per-read info
+                kh = hk.h128[:, 0]
+                ko = np.argsort(kh)
+                vmask = hk.read_h1 != 0
+                rh = hk.read_h1[vmask].view(np.int64)
+                read_ec[vmask] = key_ecs[0][ko[np.searchsorted(kh[ko], rh)]]
+                vi = hk.vinfo[vmask]
+                idxs = np.flatnonzero(vmask)
+                for f, c0, c1 in ((f1, 0, 1), (f2, 2, 3)):
+                    f["f_block"][idxs] = vi[:, c0]
+                    f["f_upos"][idxs] = vi[:, c1] >> 1
+                    f["f_strand"][idxs] = (vi[:, c1] & 1) == 1
+                    f["has_hits"][idxs] = True
+            tl = hk.read_tl.copy()
+            want_fld_f = ctx[5] and tlencount < flen_goal
+            for (r1, r2, _, sub, slots), (valid, K), kec in zip(
+                    devs, valids, key_ecs[int(has_host):]):
+                # card reads: EC through the row kernel E gave the read's key
+                n_s = sub.shape[0]
+                inv = np.full(K, -1, np.int64)
+                inv[valid] = np.arange(valid.shape[0])
+                read_ec[sub] = kec[inv[slots[:n_s].cpu().numpy()]]
+                for f, r in ((f1, r1), (f2, r2)):
+                    for name in ("f_block", "f_upos", "f_rpos", "f_strand",
+                                 "has_hits"):
+                        f[name][sub] = getattr(r, name)[:n_s].cpu().numpy()
+                if want_fld_f:
+                    tl[sub] = read_keys(r1, r2, k)[1][:n_s].cpu().numpy()
+            if pbam is not None:
+                pbam.add_compact(read_ec, f1, f2)
+            if want_fld_f:
+                # the per-read route's subsample: host tl for verified
+                # pairs, kernel B's mapPair length for wave-2 pairs
+                cards = ec_cards.get()
+                read_card = np.where(read_ec >= 0,
+                                     cards[np.maximum(read_ec, 0)], 0)
+                ok = ((tl > 0) & (tl < MAX_FRAG_LEN) & (read_card == 1)
+                      & f1["has_hits"] & f2["has_hits"])
+                take = np.flatnonzero(ok)[: flen_goal - tlencount]
+                fl_samples.append(tl[take].astype(np.int64))
+                tlencount += take.shape[0]
+        num_processed += b1.n
+        timings[route] += 1
+        timings["resolve_s"] += time.perf_counter() - t2
 
     def process(ctx):
         nonlocal num_processed
         if ctx[0] == "multi":
             for sub in ctx[2]:
                 process(sub)
+            return
+        if ctx[0] in ("hw1pb", "hw1", "hw1s"):
+            process_hw1(ctx)
             return
         if ctx[0] == "full":
             process_full(ctx)
@@ -560,10 +949,9 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             timings["n_uniq_sum"] += n_uniq
             timings["wave2_reads"] += ck_n_fail(arr)
         if n_uniq <= occ.shape[0] and not (flags[occ > 0] & 12).any():
-            resolver.process_compact(
-                uniq_h, occ, first_idx, _exemplar_fetcher(r1, r2, spec),
-                int(r1.rows.shape[1]), paired=paired, do_union=opt.do_union,
-            )
+            resolver.process_compact_parts(
+                [_table_part(uniq_h, occ, first_idx, r1, r2, spec)[0]],
+                paired=paired, do_union=opt.do_union)
             num_processed += b1.n
             timings[route] += 1
             timings["resolve_s"] += time.perf_counter() - t2
@@ -640,6 +1028,8 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                 )
         read_ec, read_card = resolver.count_batch(final_idx, final_sets)
         num_processed += b1.n
+        if pbam is not None:
+            _record_pbam(pbam, read_ec, s1, s2)
         if hx_h is not None and bias_total < _BIAS_GOAL:
             # a batch that crosses the goal is counted whole, as in JAX
             m = (read_ec >= 0) & (hx_h >= 0)
@@ -734,16 +1124,18 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     # as in JAX (pipeline.py:1695-1697, :1717-1719).  The depth is part of
     # the routing: a batch's want_fld / want_bias are read at dispatch from
     # the batches processed by then, so it decides how many batches go per
-    # read after the bias goal is reached.  While the FLD is being learned,
-    # every pending batch is processed before the next dispatch, so the
-    # batch that reaches the goal is the last one sent per read (JAX
-    # :1688-1694, the route without a host probe).
+    # read after the bias goal is reached.  Without host wave 1, while the
+    # FLD is being learned every pending batch is processed before the next
+    # dispatch, so the batch that reaches the goal is the last one sent per
+    # read (JAX :1688-1694); with it, FLD learning pipelines too (a batch
+    # sent on hw1pb after the goal only carries unused lengths, and the
+    # subsample still takes the first reads in read order).
     pend = deque()
     t_read = time.perf_counter()
     for b1, b2 in batch_iter:
         t1 = time.perf_counter()
         timings["read_s"] += t1 - t_read
-        if estimate_fld and tlencount < flen_goal:
+        if estimate_fld and tlencount < flen_goal and hostprobe is None:
             while pend:
                 process(pend.popleft())
             t1 = time.perf_counter()
@@ -922,5 +1314,21 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             writers.write_counts(
                 os.path.join(opt.output_dir, "counts.txt"), counts
             )
+        if pbam is not None:
+            bam_path = os.path.join(opt.output_dir, "pseudoalignments.bam")
+            _log("[  bam] writing pseudoalignments to BAM format .. ", end="")
+            if opt.genomebam:
+                write_pseudobam_genome(
+                    bam_path, index, pbam, resolver.ec_sets, em.alpha,
+                    eff_lens, counts, model, KALLISTO_COMPAT_VERSION,
+                    read_stream=_pbam_read_stream(opt, k),
+                )
+            else:
+                write_pseudobam_trans(
+                    bam_path, index, pbam, resolver.ec_sets, em.alpha,
+                    eff_lens, counts, KALLISTO_COMPAT_VERSION,
+                    read_stream=_pbam_read_stream(opt, k),
+                )
+            _log("done")
         timings["write_s"] = time.perf_counter() - t0
     return result

@@ -1,6 +1,6 @@
-"""The port stands alone: importing any of its modules, or chip_smoke.py,
-loads neither jax nor the JAX package, and its entry points want the card
-unless the caller asks for the CPU."""
+"""The port stands alone: importing any of its modules, chip_smoke.py or
+hw1_switch_ab.py loads neither jax nor the JAX package, and its entry
+points want the card unless the caller asks for the CPU."""
 
 import json
 import os
@@ -36,7 +36,8 @@ def test_port_has_the_slice_modules():
               "sc.bus", "sc.technologies",
               "quant.ecmap", "quant.fld", "quant.filters", "quant.em",
               "quant.bias", "quant.bootstrap", "quant.pipeline",
-              "quant.longread", "quant.tcc", "quant.genemodel"):
+              "quant.longread", "quant.tcc", "quant.genemodel",
+              "io.pseudobam", "ops.hostprobe"):
         assert f"kallisto_tpu_torch.{m}" in mods, m
 
 
@@ -47,6 +48,7 @@ def test_imports_load_no_jax_and_no_jax_package():
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import hw1_switch_ab\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'jaxlib' or m.startswith('jaxlib.')\n"
         "             or m == 'kallisto_tpu' or m.startswith('kallisto_tpu.'))\n"
@@ -69,6 +71,46 @@ def test_sources_name_no_jax_package():
                 if s.startswith(("import ", "from ")):
                     assert "jax" not in s and "kallisto_tpu." not in s \
                         and s.split()[1] != "kallisto_tpu", (f, s)
+
+
+def test_host_probe_loads_nothing_of_the_jax_native_library():
+    """The port's host probe is its own (csrc/hostprobe.cpp, built into
+    kallisto_tpu_torch/_kbuild/): after a quant run with host wave 1 on,
+    the process has mapped no library of kallisto_tpu/native/."""
+    code = (
+        "import json, os, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "os.environ['KALLISTO_TPU_HOST_WAVE1'] = '1'\n"
+        "from kallisto_tpu_torch.common import Options\n"
+        "from kallisto_tpu_torch.index import build_index\n"
+        "from kallisto_tpu_torch.quant.pipeline import run_quant\n"
+        f"d = {os.path.join(HERE, 'data')!r}\n"
+        "idx = build_index([os.path.join(d, 'transcripts.fasta.gz')])\n"
+        "r = run_quant(Options(files=[os.path.join(d, 'reads_1.fastq.gz'),\n"
+        "    os.path.join(d, 'reads_2.fastq.gz')]), index=idx, device='cpu')\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "libs = sorted({l.split()[-1] for l in maps.splitlines()\n"
+        "               if l.split()[-1].endswith('.so')})\n"
+        "print(json.dumps([r.timings['hw1pb'], libs]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=ROOT, check=True)
+    hw1pb, libs = json.loads(p.stdout.strip().splitlines()[-1])
+    assert hw1pb > 0
+    ours = [x for x in libs if "libhostprobe_" in x]
+    assert ours and all(
+        os.path.join("kallisto_tpu_torch", "_kbuild") in x for x in ours)
+    native = os.path.join(ROOT, "kallisto_tpu", "native")
+    assert not [x for x in libs if x.startswith(native) or "libktio" in x]
+
+
+def test_sources_load_no_jax_native_library():
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "kallisto_tpu_torch")):
+        for f in files:
+            if f.endswith((".py", ".cpp", ".cu")):
+                text = open(os.path.join(dirpath, f)).read()
+                assert "libktio" not in text and "ktio_wave1" not in text, f
 
 
 def test_default_device_raises_without_cuda():

@@ -7,7 +7,9 @@ requires equality: every SideResult field and every key bit for kernels
 A, B, D and I, every table entry and exemplar row for kernels E and F,
 every hexamer id for kernel H, bitwise alpha and equal rounds for
 kernel G (the main EM and the bootstraps), every LongResult field for
-kernel J.  They need a CUDA
+kernel J, both mates' SideResult fields, the key table and the per-read
+slots for kernel K (after the port's host probe), every slot of kernel E
+and every slim row of kernel F.  They need a CUDA
 card and skip without one; this file imports no JAX, so it also runs where
 JAX is absent:
 
@@ -252,10 +254,13 @@ def test_kernel_f_matches_plain(cuda, port_index, paired, mr, sk, pk):
 
 
 @pytest.mark.cuda
-def test_compact_route_on_the_card_is_golden(cuda, port_index, tmp_path):
+def test_compact_route_on_the_card_is_golden(cuda, port_index, tmp_path,
+                                             monkeypatch):
     from kallisto_tpu_torch.common import Options
     from kallisto_tpu_torch.quant.pipeline import run_quant
 
+    # the card's own steady state (kernel I): host wave 1 off
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
     kernels.reset_launches()
     out = str(tmp_path / "single")
     res = run_quant(Options(
@@ -524,3 +529,153 @@ def test_long_read_quant_on_the_card_matches_the_cpu(cuda, port_index,
         with open(os.path.join(outs[str(cuda)], fname)) as f, \
                 open(os.path.join(outs["cpu"], fname)) as g:
             assert f.read() == g.read(), fname
+
+
+def _uniform_pairs(index, n, L, seed):
+    """Two mates of n uniform-length reads from the unitig sequences, 2%
+    substitutions and 0.3% Ns (so that many pairs have one failed mate)."""
+    out = []
+    for s in (seed, seed + 1):
+        rng = np.random.default_rng(s)
+        seq = index.unitig_seq
+        starts = rng.integers(0, max(seq.shape[0] - L, 1), n)
+        codes = seq[starts[:, None] + np.arange(L)[None, :]].astype(np.uint8)
+        rc = rng.random(n) < 0.5
+        codes[rc] = (3 - codes[rc])[:, ::-1]
+        err = rng.random((n, L)) < 0.02
+        codes[err] = (codes[err] + 1) % 4
+        codes[rng.random((n, L)) < 0.003] = 4
+        out.append(_read_batch_to_packed(
+            ReadBatch(codes=codes, lens=np.full(n, L, np.int32)), K))
+    return out
+
+
+def _halffail_slice(index, n, L, seed):
+    """A half-fail wave-2 slice as quant/pipeline.py builds it."""
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.ops.hostprobe import HostProbe
+    from kallisto_tpu_torch.quant import pipeline as qp
+
+    b1, b2 = _uniform_pairs(index, n, L, seed)
+    hk = HostProbe(index).probe_pair(b1, b2, L)
+    half = np.flatnonzero(hk.fail_side != 3)
+    sub = hk.fail_idx[half].astype(np.int64)
+    side = hk.fail_side[half]
+    Bp = qp._bucket_size(sub.shape[0], lo=1024)
+    m1 = (side == 1)[:, None]
+    pkf = np.where(m1, b1.packed[sub], b2.packed[sub])
+    nmf = np.where(m1, b1.nmask[sub], b2.nmask[sub])
+    exc = qp._rows_exceptions([(nmf, b1.lens[sub])], Bp, b1.Lp)
+    aux = turbo.make_aux(sub.shape[0], L, exc)
+    assert sub.shape[0] > 100 and exc.size > 0
+    return (qp._pad_rows(pkf, Bp), qp._pad_rows(hk.fail_vsum[half], Bp),
+            qp._pad_rows(side.astype(np.int32), Bp), aux, b1.Lp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,max_rows", [(50, 16), (100, 32), (100, 16)])
+@pytest.mark.parametrize("opts", [False, True])
+def test_kernel_k_matches_plain(cuda, port_index, L, max_rows, opts):
+    from kallisto_tpu_torch.ops import turbo
+
+    args = _halffail_slice(port_index, 6000, L, 5)
+    kw = dict(k=K, L=args[4], max_rows=max_rows, rl=L, with_slots=True,
+              max_keys=args[0].shape[0] + 1)
+    if opts:
+        kw.update(min_range=60, strand_key=True, pos_fl=180,
+                  pos_depth=pa.pf_probe_depth(port_index))
+    res = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev, with_pos_tables=True)
+        t = [torch.from_numpy(a).to(dev) for a in args[:4]]
+        before = kernels.LAUNCHES["pseudoalign_halffail"]
+        res[str(dev)] = turbo.pseudoalign_pair_halffail(d, *t, **kw)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["pseudoalign_halffail"] == before + 1
+    (g1, g2, gck, gsl), (c1, c2, cck, csl) = res[str(cuda)], res["cpu"]
+    for g, c in ((g1, c1), (g2, c2)):
+        for f in pa.SideResult._fields:
+            a, b = getattr(g, f).cpu(), getattr(c, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert torch.equal(gck.cpu(), cck) and torch.equal(gsl.cpu(), csl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_", [1, 100, 6000])
+def test_kernel_e_slots_match_plain(cuda, K_):
+    rng = np.random.default_rng(K_ + 7)
+    pool = rng.integers(-2**63, 2**63 - 1, (3000, 2), dtype=np.int64)
+    pool[2, 0] = -1
+    h = pool[rng.integers(0, 3000, 20000)]
+    flags = (np.abs(h[:, 0]) % 64).astype(np.int32)
+    th, tf = torch.from_numpy(h), torch.from_numpy(flags)
+    before = dict(kernels.LAUNCHES)
+    g, gs = pa.key_histogram(th.to(cuda), tf.to(cuda), K_, with_slots=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["key_histogram_slots"] == \
+        before["key_histogram_slots"] + 1
+    assert kernels.LAUNCHES["key_histogram"] == before["key_histogram"]
+    c, cs = pa.key_histogram_plain(th, tf, K_, with_slots=True)
+    assert torch.equal(g.cpu(), c) and torch.equal(gs.cpu(), cs)
+    assert gs.dtype == torch.int32 and int(gs.max()) <= K_ - 1
+
+
+@pytest.mark.cuda
+def test_kernel_f_slim_matches_plain(cuda, port_index):
+    idx = np.random.default_rng(8).integers(0, 5000, 900)
+    res = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        bs = _batches(port_index)
+        s1 = _sides(d, bs["rand100"], dev)
+        s2 = _sides(d, bs["rand76"], dev)
+        res[str(dev)] = pa.gather_slim(torch.from_numpy(idx).to(dev), s1, s2)
+    assert torch.equal(res[str(cuda)].cpu(), res["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paired_l", "pseudobam", "single"])
+def test_host_wave1_on_the_card_matches_the_cpu(cuda, port_index, tmp_path,
+                                                monkeypatch, case):
+    """run_quant with host wave 1 on: hw1 (-l), hw1pb (--pseudobam) and
+    hw1s (single-end) on the card equal the CPU run, abundance.tsv and
+    the BAM bytes; K and E with slots are launched on pairs, F's slim rows
+    where no filter is on."""
+    from kallisto_tpu_torch.common import Options
+    from kallisto_tpu_torch.io.bam import read_bgzf
+    from kallisto_tpu_torch.quant.pipeline import run_quant
+
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "1")
+    r1 = os.path.join(DATA, "reads_1.fastq.gz")
+    r2 = os.path.join(DATA, "reads_2.fastq.gz")
+    kw = {"paired_l": dict(files=[r1, r2], fld_mean=180, fld_sd=20),
+          "pseudobam": dict(files=[r1, r2], pseudobam=True),
+          "single": dict(files=[r1], single_end=True, fld_mean=180,
+                         fld_sd=20)}[case]
+    outs = {}
+    for dev in (cuda, "cpu"):
+        kernels.reset_launches()
+        out = str(tmp_path / str(dev))
+        res = run_quant(Options(output_dir=out, plaintext=True, **kw),
+                        index=port_index, device=dev)
+        route = {"paired_l": "hw1", "pseudobam": "hw1pb",
+                 "single": "hw1s"}[case]
+        assert res.timings[route] > 0
+        files = ["abundance.tsv"]
+        if case == "pseudobam":
+            files.append("pseudoalignments.bam")
+        outs[str(dev)] = [read_bgzf(os.path.join(out, f)) if f.endswith(
+            ".bam") else open(os.path.join(out, f), "rb").read()
+            for f in files]
+        if dev == cuda:
+            names = ["key_histogram" if case == "single"
+                     else "key_histogram_slots", "read_keys"]
+            if case != "single":
+                names.append("pseudoalign_halffail")
+            if case == "pseudobam":
+                # no filter: the resolver reads new pair keys' slim rows
+                names.append("gather_slim")
+            for name in names:
+                assert kernels.LAUNCHES[name] > 0, name
+    assert outs[str(cuda)] == outs["cpu"]

@@ -21,8 +21,10 @@ from kallisto_tpu_torch.common import Options
 from kallisto_tpu_torch.index import build_index, save_index
 from kallisto_tpu_torch.ops import anchor as anchor_mod
 from kallisto_tpu_torch.ops import turbo as turbo_mod
+from kallisto_tpu_torch.quant import pipeline as tpipe
 from kallisto_tpu_torch.quant.pipeline import run_quant
 from kallisto_tpu_torch.quant.tcc import run_quant_tcc
+from kallisto_tpu_torch.sc.bus import run_bus
 
 # The test workers share the machine's cores: one intra-op thread per
 # worker keeps torch's thread pools from oversubscribing them, which
@@ -71,7 +73,8 @@ GOLDEN_CASES = {
 # With an explicit -l no fragment lengths are learned, so these runs take
 # the compact steady state from their first batch (turbo batches); paired
 # runs without -l stay per read ("full") because their 10,000 pairs never
-# reach the FLD goal.
+# reach the FLD goal.  With host wave 1 on, the same runs take hw1 / hw1s
+# and hw1pb instead (test_abundance_byte_equal_to_golden_host_wave1).
 COMPACT_CASES = {"single", "single_r2", "halfmapped", "halfmapped_fr"}
 
 
@@ -80,7 +83,10 @@ def _routes(res):
 
 
 @pytest.mark.parametrize("case", sorted(GOLDEN_CASES))
-def test_abundance_byte_equal_to_golden(port_index, tmp_path, case):
+def test_abundance_byte_equal_to_golden(port_index, tmp_path, monkeypatch,
+                                        case):
+    """The goldens through the card's own routes (host wave 1 off)."""
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
     kw, golden = GOLDEN_CASES[case]
     out = str(tmp_path / case)
     res = run_quant(Options(output_dir=out, batch_size=4096, **kw),
@@ -94,6 +100,29 @@ def test_abundance_byte_equal_to_golden(port_index, tmp_path, case):
     else:
         assert routes["full"] > 0 and routes["turbo"] == 0, routes
     assert routes["compact"] == routes["fallback"] == 0, routes
+
+
+@pytest.mark.parametrize("case", sorted(GOLDEN_CASES))
+def test_abundance_byte_equal_to_golden_host_wave1(port_index, tmp_path,
+                                                   monkeypatch, case):
+    """The goldens with host wave 1 on: pairs learn the FLD on hw1pb,
+    batches with -l go hw1 (paired) or hw1s (single-end); every batch of
+    the bundled reads has one length."""
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "1")
+    kw, golden = GOLDEN_CASES[case]
+    out = str(tmp_path / case)
+    res = run_quant(Options(output_dir=out, batch_size=4096, **kw),
+                    index=port_index, device="cpu")
+    assert _read(os.path.join(out, "abundance.tsv")) == \
+        _read(os.path.join(GOLDEN, golden))
+    t = res.timings
+    hw1 = t["hw1pb"] + t["hw1"] + t["hw1s"]
+    assert hw1 > 0 and t["full"] == t["turbo"] == 0, t
+    assert t["probe_s"] > 0
+    want = ("hw1s" if case.startswith("single")
+            else "hw1" if case in COMPACT_CASES else "hw1pb")
+    assert t[want] == hw1, t
+    assert t["compact"] == t["fallback"] == 0, t
 
 
 def test_dlist_abundance_byte_equal_to_golden(tmp_path):
@@ -155,12 +184,16 @@ def test_batch_size_invariance(port_index):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(pseudobam=True), dict(n_devices=2, tcc=True), dict(n_devices=2),
+    dict(n_devices=2, bus=True), dict(n_devices=2, tcc=True),
+    dict(n_devices=2),
 ])
 def test_unported_options_raise(port_index, opt):
     opt = dict(opt)
     with pytest.raises(NotImplementedError):
-        if opt.pop("tcc", False):
+        if opt.pop("bus", False):
+            run_bus(Options(files=[R1, R2], technology="bulk", **opt),
+                    index=port_index, device="cpu")
+        elif opt.pop("tcc", False):
             run_quant_tcc(Options(ec_file=os.path.join(DATA, "tcc_test.ec"),
                                   tcc_file=os.path.join(DATA, "tcc_test.mtx"),
                                   **opt), index=port_index, device="cpu")
@@ -207,7 +240,9 @@ def test_paired_steady_state_matches_jax_and_per_read(port_index, tmp_path,
     counts and EC sets equal to the port's own all-per-read run.  The port
     has no wave-2 capacity, so it never redoes an anchor batch through
     kernel D; the w2_overflow case pins JAX's capacity at 1 read, so that
-    JAX redoes every one, and the bytes stay equal."""
+    JAX redoes every one, and the bytes stay equal.  Without a filter the
+    resolver reads new keys' slim rows first (kernel F's slim layout);
+    with one it fetches every new key's full exemplar."""
     kw = dict(files=[R1, R2], batch_size=1024, **STEADY_CASES[case])
     monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
     monkeypatch.setenv("KALLISTO_TPU_FLEN_GOAL", "1000")
@@ -220,6 +255,7 @@ def test_paired_steady_state_matches_jax_and_per_read(port_index, tmp_path,
     _count_calls(monkeypatch, turbo_mod, "pseudoalign_pair_turbo", tcalls)
     _count_calls(monkeypatch, jpipe, "pseudoalign_pair_anchor", jcalls)
     _count_calls(monkeypatch, jpipe, "pseudoalign_pair_turbo", jcalls)
+    _count_calls(monkeypatch, tpipe, "gather_slim", tcalls)
     out = str(tmp_path / "port")
     res = run_quant(Options(output_dir=out, **kw), index=port_index,
                     device="cpu")
@@ -234,6 +270,7 @@ def test_paired_steady_state_matches_jax_and_per_read(port_index, tmp_path,
     assert tcalls["pseudoalign_pair_anchor"] == routes["turbo"] == \
         jcalls["pseudoalign_pair_anchor"]
     assert "pseudoalign_pair_turbo" not in tcalls
+    assert ("gather_slim" in tcalls) == (case in ("plain", "w2_overflow"))
     if case == "w2_overflow":
         assert jcalls["pseudoalign_pair_turbo"] == routes["turbo"]
     assert 0 < res.timings["wave2_reads"] < 2 * kw["batch_size"] \
@@ -266,6 +303,8 @@ def test_n_dense_batches_take_the_compact_route(port_index, tmp_path,
         f.write("\n".join(src))
     kw = dict(files=[fq], single_end=True, fld_mean=180, fld_sd=20,
               batch_size=4096)
+    # the card's routes: host wave 1 off in both packages
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
     outs = {}
     for route in ("turbo", "compact"):
         if route == "compact":
@@ -276,7 +315,6 @@ def test_n_dense_batches_take_the_compact_route(port_index, tmp_path,
         routes = _routes(res)
         assert routes[route] > 0 and routes["full"] == 0, routes
         outs[route] = _read(os.path.join(out, "abundance.tsv"))
-    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
     jout = str(tmp_path / "jax")
     jrun_quant(JOptions(output_dir=jout, plaintext=True, **kw),
                index=port_index)
@@ -401,3 +439,92 @@ def test_cli_bootstrap_bias_seed_equal_run_quant(port_index, index_file,
     seed42 = run_quant(Options(files=[R1, R2], bootstrap=2, bias=True),
                        index=port_index, device="cpu")
     assert not np.array_equal(seed42.bootstraps, res.bootstraps)
+
+
+def test_cli_no_jump_gives_golden_bytes(index_file, tmp_path):
+    """quant --no-jump is accepted and changes nothing: every window is
+    evaluated anyway (JAX cli.py:345)."""
+    from kallisto_tpu_torch import cli
+
+    out = str(tmp_path / "nj")
+    assert cli.main(["quant", "-i", index_file, "-o", out, "--no-jump",
+                     "--device", "cpu", "--plaintext", R1, R2]) == 0
+    assert _read(os.path.join(out, "abundance.tsv")) == \
+        _read(os.path.join(GOLDEN, "quant_paired", "abundance.tsv"))
+
+
+def test_cli_bus_no_jump_is_accepted(index_file, tmp_path):
+    from kallisto_tpu_torch import cli
+
+    out = str(tmp_path / "bus")
+    assert cli.main(["bus", "-i", index_file, "-o", out, "-x", "10xv2",
+                     "--no-jump", "--device", "cpu",
+                     os.path.join(DATA, "sc_reads_1.fastq.gz"),
+                     os.path.join(DATA, "sc_reads_2.fastq.gz")]) == 0
+    with open(os.path.join(out, "output.bus"), "rb") as f, \
+            open(os.path.join(GOLDEN, "bus10xv2", "output.bus"), "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_cli_fusion_exits_1_with_jax_message(index_file, tmp_path, capsys):
+    """quant --fusion exits 1 with the JAX CLI's message (cli.py:110-113)."""
+    from kallisto_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(["quant", "-i", index_file, "-o", str(tmp_path / "f"),
+                  "--fusion", "--device", "cpu", R1, R2])
+    assert e.value.code == ("Error: fusion detection is not implemented (the "
+                            "reference 0.51.1 exits with 'TODO: Implement "
+                            "fusion' as well)")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(HERE), env.get("PYTHONPATH", "")])
+    p = subprocess.run(
+        [sys.executable, "-m", "kallisto_tpu_torch.cli", "quant", "-i",
+         index_file, "-o", str(tmp_path / "f"), "--fusion", "--device",
+         "cpu", R1, R2], env=env, capture_output=True, text=True)
+    assert p.returncode == 1 and "fusion detection" in p.stderr
+
+
+def test_cli_genomebam_needs_a_gtf(index_file, tmp_path):
+    from kallisto_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(["quant", "-i", index_file, "-o", str(tmp_path / "g"),
+                  "--genomebam", "--device", "cpu", R1, R2])
+    assert e.value.code == "Error: need GTF file for genome alignment"
+
+
+def _npz(path):
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("case", ["aa", "distinguish"])
+def test_cli_index_aa_and_distinguish(tmp_path, case):
+    """index --aa / --distinguish through the CLI (with -t, -T and -m
+    accepted) save the arrays of build_index(aa=...) / (distinguish=...);
+    --aa with a D-list forces its overhang to 3."""
+    from kallisto_tpu_torch import cli
+
+    if case == "aa":
+        fasta = [os.path.join(DATA, "aa_ref.fasta")]
+        flags = ["--aa", "-d", os.path.join(DATA, "dlist.fasta")]
+        want = build_index(fasta, k=7, aa=True,
+                           dlist_paths=[os.path.join(DATA, "dlist.fasta")],
+                           dlist_overhang=3)
+    else:
+        fasta = [os.path.join(DATA, "distinguish_colors.fasta")]
+        flags = ["--distinguish", "-d",
+                 os.path.join(DATA, "distinguish_polyA.fasta")]
+        want = build_index(fasta, k=7, distinguish=True, dlist_paths=[
+            os.path.join(DATA, "distinguish_polyA.fasta")])
+    got_path = str(tmp_path / "cli.npz")
+    assert cli.main(["index", "-i", got_path, "-k", "7", "-t", "2", "-T",
+                     str(tmp_path / "tmp"), "-m", "5", *flags, *fasta]) == 0
+    want_path = str(tmp_path / "api.npz")
+    save_index(want, want_path)
+    got, exp = _npz(got_path), _npz(want_path)
+    assert sorted(got) == sorted(exp)
+    for k in exp:
+        np.testing.assert_array_equal(got[k], exp[k], err_msg=k)

@@ -10,8 +10,9 @@ kernel, reduced to a key table) --, `quant --bias -b 100` (hexamers per
 read, the bias EM, 100 bootstraps through the batched EM), `bus -x
 10xv2`, `quant --long` and `bus --long` (the long-read kernel) and
 `quant-tcc` (the batched EM per cell) on the card, then `quant` with host
-wave 1 and `--pseudobam` / `--genomebam`, and holds every CUDA kernel of
-those paths against its plain PyTorch version.  Phases 1-5e run with host
+wave 1 and `--pseudobam` / `--genomebam`, then `quant`, `bus` and
+`quant-tcc` over four shards, and holds every CUDA kernel of those paths
+against its plain PyTorch version.  Phases 1-5e run with host
 wave 1 off (KALLISTO_TPU_HOST_WAVE1=0: the card's own routes), phases 4e
 and 5f with it on as well:
 
@@ -132,6 +133,18 @@ and 5f with it on as well:
    both-failed slice, K and D timed on every slice of the run (the card's
    busy time); then `--pseudobam` of the first 65,536 pairs with the
    switch on and off: BAM byte-equal;
+5g. several devices: N_SHARDS = 4 shards on the visible cards (with one
+   card all four share cuda:0, and the phase says so): `quant` of the
+   first 262,144 of phase 2's pairs in batches of 65,536 (per read,
+   sharded, while the FLD is learned, then `cmesh`: A, B and E per
+   shard), launch counts set to 0 just before and read just after (A, B,
+   E, F and G launched, I, D and K not), EC counts and sets, est_counts
+   and the FLD equal to one device; `bus -x 10xv2` of the first 262,144
+   of phase 5c's reads (output.bus and matrix.ec byte-equal to one
+   device); `quant-tcc` of the first 1,024 of phase 5e's cells (est_counts
+   bitwise equal); `dryrun_multichip(4)` on the card; K18's step (A + B +
+   E on one shard of 16,384 pairs) held against its plain versions on
+   every shard and timed, the whole 4-shard step beside it;
 6. kernel G (em_step_batch) with one replicate, the main EM, on the main
    path's EM problem: the whole EM on the card against the plain version
    on the CPU, bitwise equal alpha and equal rounds; one update timed;
@@ -172,6 +185,13 @@ PSEUDOBAM_PAIRS = 65_536
 ROUTES = ("full", "turbo", "compact", "fallback")
 # chunk counts by route, and kernel I's wave-2 reads, in run_bus's timings
 BUS_ROUTES = ("anchor", "full", "fallback", "wave2_reads")
+# phase 5g: shards over the visible cards, pairs and reads of its quant
+# and bus (the first of phase 2's and 5c's), its batches, and cells of its
+# quant-tcc (the first of phase 5e's)
+N_SHARDS = 4
+MESH_PAIRS = 262_144
+MESH_BATCH = 65_536
+MESH_CELLS = 1_024
 # the main path's kernels (phase 5); H runs under --bias, G also under -b N
 MAIN_PATH_KERNELS = ("pseudoalign_side", "read_keys", "em_step_batch",
                      "pseudoalign_anchor", "key_histogram", "gather_exemplars",
@@ -1760,6 +1780,236 @@ def phase_6b(torch, np, emq, bsq, kernels, problem, res, dev):
     return (ms, plain, bnd, err), summary
 
 
+def _mesh_side_bytes(torch, pa, didx, up, L, k, side):
+    """Kernel A's byte bound terms on one shard's mate (phase 3's
+    formula): inputs and outputs once, per valid window one sector of
+    bucket_start and one of the keys, per hit one of kmer_ec, per read
+    with hits four payload sectors."""
+    packed, nmask, lens = up
+    B = int(lens.shape[0])
+    codes = pa.unpack_codes(packed, nmask, L)
+    canon, _, valid = pa.rolling_canonical_kmers(codes, lens, k)
+    _, hit, _ = pa.lookup_kmers(didx, canon, valid)
+    R = int(side.rows.shape[1])
+    return (packed.numel() + nmask.numel() + 4 * B + B * (4 * R + 4 * 6 + 3)
+            + 32 * (2 * int(valid.sum()) + int(hit.sum())
+                    + 4 * int(side.has_hits.sum())))
+
+
+def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
+             run_quant_tcc, index, r1p, r2p, bus_r1, bus_out, work, dev, k):
+    """Several devices: `quant`, `bus -x 10xv2` and `quant-tcc` over
+    N_SHARDS shards on the visible cards (with one card all share it)
+    against one device, the dry run, and K18's per-shard step held
+    against its plain version and timed.  Returns (K18's row fields,
+    summary)."""
+    from kallisto_tpu_torch.io.fastx import packed_paired_batches
+    from kallisto_tpu_torch.parallel.dryrun import dryrun_multichip
+    from kallisto_tpu_torch.parallel.mesh import MeshRunner, make_mesh
+
+    n = N_SHARDS
+    devices = make_mesh(n, dev)
+    n_cards = len(set(devices))
+    log(f"{n} shards on {n_cards} card(s): {[str(d) for d in devices]}"
+        + ("; one card is visible, so all four shards share it and run "
+           "one after another" if n_cards == 1 else ""))
+    summary = {"mesh_shards": n, "mesh_cards": n_cards}
+
+    def sync():
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+
+    # -- quant: the first MESH_PAIRS pairs, one device and n shards
+    q1 = os.path.join(work, "mesh_1.fastq.gz")
+    q2 = os.path.join(work, "mesh_2.fastq.gz")
+    truncate_fastq(r1p, q1, MESH_PAIRS)
+    truncate_fastq(r2p, q2, MESH_PAIRS)
+    runs = {}
+    for nd in (1, n):
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        r = run_quant(Options(files=[q1, q2], batch_size=MESH_BATCH,
+                              n_devices=nd), index=index, device=dev)
+        sync()
+        runs[nd] = (r, time.perf_counter() - t0, dict(kernels.LAUNCHES))
+    (ref, ref_s, _), (got, got_s, launches) = runs[1], runs[n]
+    t = got.timings
+    log(f"launches of the {n}-shard quant: {launches}")
+    for name in ("pseudoalign_side", "read_keys", "key_histogram",
+                 "gather_exemplars", "em_step_batch"):
+        check(launches[name] > 0, f"{n} shards: {name} launched "
+              f"({launches[name]} times)")
+    for name in ("pseudoalign_anchor", "pseudoalign_turbo",
+                 "pseudoalign_halffail"):
+        check(launches[name] == 0, f"{n} shards: {name} not launched")
+    check(t["full"] > 0 and t["cmesh"] > 0 and t["full"] + t["cmesh"]
+          == -(-MESH_PAIRS // MESH_BATCH) and t["fallback"] == 0,
+          f"{n} shards: per read while the FLD is learned, then cmesh "
+          f"(full {t['full']}, cmesh {t['cmesh']})")
+    check(launches["key_histogram"] == n * t["cmesh"]
+          and launches["pseudoalign_side"] == 2 * n * (t["full"]
+                                                      + t["cmesh"]),
+          f"{n} shards: kernel E once per shard of every cmesh batch, A "
+          "once per shard and mate of every batch")
+    check(got.num_processed == ref.num_processed == MESH_PAIRS
+          and np.array_equal(got.counts, ref.counts)
+          and [x.tolist() for x in got.ec_sets]
+          == [x.tolist() for x in ref.ec_sets],
+          f"{n} shards: {len(got.ec_sets)} EC sets and their counts equal "
+          "to one device")
+    check(np.array_equal(got.est_counts, ref.est_counts)
+          and np.array_equal(got.flens, ref.flens)
+          and np.array_equal(got.fld, ref.fld),
+          f"{n} shards: est_counts bitwise and the FLD equal to one device")
+    log(f"quant of {MESH_PAIRS} pairs: one device {ref_s:.2f} s, {n} shards "
+        f"{got_s:.2f} s; host seconds by phase: " + json.dumps(t))
+    summary.update(mesh_quant_s=got_s, mesh_quant_one_device_s=ref_s,
+                   mesh_quant_phases_s=t, mesh_quant_launches=launches)
+
+    # -- bus -x 10xv2: the first MESH_PAIRS reads of phase 5c
+    b1 = os.path.join(work, "mesh_bus_1.fastq.gz")
+    b2 = os.path.join(work, "mesh_bus_2.fastq.gz")
+    truncate_fastq(bus_r1, b1, MESH_PAIRS)
+    truncate_fastq(r1p, b2, MESH_PAIRS)
+    outs = {}
+    for nd in (1, n):
+        out = os.path.join(work, f"mesh_bus_{nd}")
+        t0 = time.perf_counter()
+        rb = run_bus(Options(files=[b1, b2], technology="10xv2",
+                             output_dir=out, n_devices=nd),
+                     index=index, device=dev)
+        outs[nd] = (out, time.perf_counter() - t0, rb.timings)
+    check(outs[n][2]["anchor"] == 0 and outs[n][2]["full"] > 0,
+          f"bus over {n} shards: every chunk per read "
+          f"({outs[n][2]['full']})")
+    for fn in ("output.bus", "matrix.ec"):
+        check(read_bytes(os.path.join(outs[1][0], fn))
+              == read_bytes(os.path.join(outs[n][0], fn)),
+              f"bus over {n} shards: {fn} byte-equal to one device")
+    summary.update(mesh_bus_s=outs[n][1], mesh_bus_one_device_s=outs[1][1])
+
+    # -- quant-tcc: the first MESH_CELLS cells of phase 5e's matrix
+    with open(os.path.join(work, "cells.mtx")) as f:
+        head = [f.readline(), f.readline()]
+        ents = [ln for ln in f if int(ln.split("\t", 1)[0]) <= MESH_CELLS]
+    sub = os.path.join(work, "mesh_cells.mtx")
+    n_ec = int(head[1].split("\t")[1])
+    with open(sub, "w") as f:
+        f.write(head[0] + f"{MESH_CELLS}\t{n_ec}\t{len(ents)}\n")
+        f.write("".join(ents))
+    ec_file = os.path.join(bus_out, "matrix.ec")
+    tccs = {}
+    for nd in (1, n):
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rt = run_quant_tcc(Options(ec_file=ec_file, tcc_file=sub,
+                                   n_devices=nd), index=index, device=dev)
+        sync()
+        tccs[nd] = (rt, time.perf_counter() - t0, dict(kernels.LAUNCHES))
+    check(tccs[n][2]["em_step_batch"] > 0
+          and np.array_equal(tccs[n][0].est_counts, tccs[1][0].est_counts),
+          f"quant-tcc of {MESH_CELLS} cells over {n} shards: kernel G "
+          f"launched ({tccs[n][2]['em_step_batch']} times), est_counts "
+          "bitwise equal to one device")
+    log(f"quant-tcc of {MESH_CELLS} cells: one device {tccs[1][1]:.2f} s, "
+        f"{n} shards {tccs[n][1]:.2f} s")
+    summary.update(mesh_tcc_s=tccs[n][1], mesh_tcc_one_device_s=tccs[1][1])
+
+    # -- the dry run on the card
+    routes = dryrun_multichip(n, dev)
+    check(routes["fld"]["full"] > 0 and routes["l180"]["cmesh"] > 0,
+          f"dryrun_multichip({n}, {dev}): equal counts, EC order and "
+          f"est_counts, routes {routes}")
+
+    # -- K18: A + B + E per shard, held against the plain versions on every
+    # shard and one shard timed, at two batches: MESH_BATCH (the shape of
+    # the sharded quant above) and MESH_PAIRS in one batch (the CLI's
+    # default --batch-size over four shards); the whole step beside it
+    mesh = MeshRunner(devices)
+    mesh.replicate(index)
+    spec0 = pa.KeySpec(k=k)
+    step_names = ("pseudoalign_side", "read_keys", "key_histogram")
+
+    def hold_k18(pb1, pb2):
+        up1, sb = mesh.put_batch(pb1)
+        up2, _ = mesh.put_batch(pb2)
+        L = pb1.Lp
+
+        def plain_step(s):
+            d = mesh.didxs[s]
+            p1 = pa.pseudoalign_batch_packed_plain(d, *up1[s], k, L)
+            p2 = pa.pseudoalign_batch_packed_plain(d, *up2[s], k, L)
+            h, fl = pa.key_hash_plain(p1, p2, spec0, d)
+            return p1, p2, pa.key_histogram_plain(h, fl, sb + 1)
+
+        # the launches of one sharded batch, counted by the wrappers
+        sync()
+        kernels.reset_launches()
+        r1s, r2s, cks, sb2 = mesh.pair_compact(pb1, pb2, k)
+        sync()
+        per_batch = sum(kernels.LAUNCHES[nm] for nm in step_names)
+        check(sb2 == sb == -(-pb1.n // n), f"shard shape {sb} pairs")
+        check(per_batch == 4 * n, f"K18 at {sb} pairs per shard: {per_batch} "
+              f"launches per batch (A on both mates, B and E, per shard)")
+        for s in range(n):
+            p1, p2, pck = plain_step(s)
+            torch.cuda.synchronize(devices[s])
+            check(all(torch.equal(getattr(a, f), getattr(b, f))
+                      for a, b in ((r1s[s], p1), (r2s[s], p2))
+                      for f in pa.SideResult._fields)
+                  and torch.equal(cks[s], pck),
+                  f"K18 shard {s} of {sb} pairs on {devices[s]}: both mates' "
+                  f"fields and the key table (n_uniq {int(cks[s][0, 0])}) "
+                  "equal to the plain versions")
+        d0 = mesh.didxs[0]
+        kw = dict(k=k, L=L, max_keys=sb + 1)
+        with torch.cuda.device(devices[0]):
+            ms = cuda_ms(lambda: pa.pseudoalign_pair_compact_packed(
+                d0, *up1[0], *up2[0], **kw), 10, torch)
+            plain = cuda_ms(lambda: plain_step(0), 3, torch)
+        R = int(r1s[0].rows.shape[1])
+        n_uniq = int(cks[0][0, 0])
+        nbytes = (_mesh_side_bytes(torch, pa, d0, up1[0], L, k, r1s[0])
+                  + _mesh_side_bytes(torch, pa, d0, up2[0], L, k, r2s[0])
+                  + sb * (4 * 2 * R + 2 * (2 + 13) + 16 + 4)
+                  + 12 * sb + 8 * n_uniq + 40 * (sb + 2))
+        bnd = bound(nbytes, 0, PEAK_INT_OPS)
+        log(f"K18: one shard's A + B + E {ms:.4f} ms at {sb} pairs (plain on "
+            f"card {plain:.3f} ms, bound {bnd[0]:.4f} ms), {per_batch} "
+            "launches per batch")
+        return ms, plain, bnd, per_batch, sb
+
+    pb1, pb2 = next(packed_paired_batches(q1, q2, MESH_BATCH, k))
+    ms, plain, bnd, per_batch, sb = hold_k18(pb1, pb2)
+    walls = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        mesh.pair_compact(pb1, pb2, k)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(walls)
+    log(f"K18: the {n}-shard step of {MESH_BATCH} pairs with its uploads "
+        f"{step_ms:.3f} ms (median of 5 host walls: "
+        f"{', '.join(f'{w:.3f}' for w in walls)})")
+    db1, db2 = next(packed_paired_batches(q1, q2, MESH_PAIRS, k))
+    ms_d, plain_d, bnd_d, per_batch_d, sb_d = hold_k18(db1, db2)
+    row = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+               launches=launches["key_histogram"], step_ms=step_ms,
+               shard_pairs=sb, shards=n, cards=n_cards,
+               kernel_launches_per_batch=per_batch,
+               ms_default_batch=ms_d, plain_ms_default_batch=plain_d,
+               bound_ms_default_batch=bnd_d[0],
+               shard_pairs_default_batch=sb_d,
+               kernel_launches_per_default_batch=per_batch_d)
+    summary.update(mesh_k18_ms=ms, mesh_step_ms=step_ms,
+                   mesh_k18_ms_default_batch=ms_d)
+    del mesh
+    return row, summary
+
+
 def main(argv=None):
     import argparse
 
@@ -2191,6 +2441,14 @@ def main(argv=None):
             torch, np, pa, kernels, Options, run_quant, index, r1p, r2p, res,
             n_pairs, work, dev)
 
+        # ------------------------------------- 5g. several devices
+        log(f"== phase 5g: quant, bus and quant-tcc over {N_SHARDS} shards "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        k18, mesh_summary = phase_5g(
+            torch, np, pa, kernels, Options, run_quant, run_bus,
+            run_quant_tcc, index, r1p, r2p,
+            os.path.join(work, "bus_r1.fastq.gz"), bus_out, work, dev, k)
+
         # ------------------------------------ 6. kernel G, one replicate
         log(f"== phase 6: kernel G with one replicate (the main EM) on the "
             f"main path's EM problem ({time.perf_counter() - t_start:.0f} s)")
@@ -2361,6 +2619,13 @@ def main(argv=None):
                 stress_plain_ms=st_plain, stress_bound_ms=st_bnd[0],
                 stress_library_ms=st_lib, ms_16k=ms16, plain_ms_16k=plain16,
                 bound_ms_16k=bnd16[0], library_ms_16k=lib16, **extra))
+        # K18: one shard's A + B + E at 5g's shard shape; launches: the
+        # shard steps of 5g's sharded quant (one E each)
+        rows.append(dict(
+            name="mesh_pair_compact", route="cuda",
+            source="kallisto_tpu_torch/parallel/mesh.py",
+            replaces="kallisto_tpu/parallel/mesh.py:101", max_abs_err=0.0,
+            library_ms=None, **k18))
         # the host-wave-1 run's kernel time: K and D as timed on each of its
         # slices, the others as launches x this run's per-launch times (E
         # with slots and F slim at 5f's first hw1 batch, B at phase 3's
@@ -2399,6 +2664,7 @@ def main(argv=None):
             **long_summary, "long_launches": launches_long, **tcc_summary,
             "tcc_launches": launches_tcc, **probe_summary, **hw1_summary,
             "hw1_launches": launches_hw1, "hw1_kernel_ms": hw1_busy,
+            **mesh_summary,
             "kernel_build_s": build_s, "n_targets": index.num_trans,
             "n_kmers": index.num_kmers, "card": smi,
             "smoke_s": time.perf_counter() - t_start,

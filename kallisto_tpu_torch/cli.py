@@ -280,7 +280,8 @@ def main(argv=None):
     p.add_argument("-m", "--min-range", type=int, default=1)
     p.add_argument("-p", "--priors", default=None)
     p.add_argument("-t", "--threads", type=int, default=1,
-                   help="devices to spread read batches over (runs on one)")
+                   help="devices to spread read batches over (up to the "
+                        "card count; the CPU counts as one)")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--batch-size", type=int, default=1 << 18,
                    help="reads per device batch")
@@ -304,7 +305,8 @@ def main(argv=None):
     p.add_argument("--rf-stranded", action="store_true")
     p.add_argument("--unstranded", action="store_true")
     p.add_argument("-t", "--threads", type=int, default=1,
-                   help="devices to spread read chunks over (runs on one)")
+                   help="devices to spread read chunks over (up to the "
+                        "card count; the CPU counts as one)")
     p.add_argument("--single", action="store_true", dest="single_end")
     p.add_argument("--paired", action="store_true", dest="bus_paired")
     p.add_argument("--long", action="store_true")
@@ -343,7 +345,8 @@ def main(argv=None):
     p.add_argument("--matrix-to-files", action="store_true")
     p.add_argument("--matrix-to-directories", action="store_true")
     p.add_argument("-t", "--threads", type=int, default=1,
-                   help="devices to spread cells over (runs on one)")
+                   help="devices to spread cells over (up to the card "
+                        "count; the CPU counts as one)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("tcc")

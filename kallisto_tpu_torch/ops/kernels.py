@@ -9,7 +9,9 @@ the hash of its source and flags, so an unchanged source is not rebuilt.
 Several kernels may share a source (A, D, I, J and K; E and F).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current CUDA stream, raises
+outputs with ``torch.empty`` on its inputs' device, launches with that
+device made current and on that device's current stream (``_launch``: a
+shard on cuda:1 is never launched from cuda:0), raises
 when the C function returns a non-zero ``cudaError_t``, and adds one to
 ``LAUNCHES[name]`` -- the count that shows a run went through the kernel.
 There is no fallback: a CPU tensor never reaches these functions (the
@@ -59,6 +61,7 @@ LAUNCHES: Dict[str, int] = {
     name: 0 for name in (*SOURCES, "key_histogram_slots")}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # quant-tcc's shards launch from threads
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
@@ -192,8 +195,19 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _launch(name: str, dev: torch.device, *args, count: str = "") -> None:
+    """Call kernel `name`'s C function with `args` and the current stream of
+    `dev`, with `dev` made the current device: the libraries' CUDA runtime
+    launches on the device current in the calling thread, so a kernel whose
+    inputs lie on cuda:1 must not be launched from cuda:0.  Raises on a
+    non-zero cudaError_t; counts the launch under `count` (default
+    `name`)."""
+    fn = _fn(name)
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    with _count_lock:
+        LAUNCHES[count or name] += 1
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
@@ -233,12 +247,10 @@ def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
     _check(lens, "lens", torch.int32, (B,), dev)
     ix = _index_args(didx)
     out = _side_outputs(B, R, dev)
-    err = _fn("pseudoalign_side")(
+    _launch(
+        "pseudoalign_side", dev,
         *ix, _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R,
-        *[_ptr(t) for t in out], _stream(),
-    )
-    _raise_on(err, "pseudoalign_side")
-    LAUNCHES["pseudoalign_side"] += 1
+        *[_ptr(t) for t in out])
     return out
 
 
@@ -298,13 +310,11 @@ def pseudoalign_turbo(didx, sides, aux: torch.Tensor,
         _check(lens, "lens", torch.uint16, (ns * Bp,), dev)
     ix = _index_args(didx)
     out = _side_outputs(ns * Bp, R, dev)
-    err = _fn("pseudoalign_turbo")(
+    _launch(
+        "pseudoalign_turbo", dev,
         *ix, _ptr(sides[0]), _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
         int(aux.shape[0]) - 4, _ptr(lens), Bp, ns, L, rl, k, R,
-        *[_ptr(t) for t in out], _stream(),
-    )
-    _raise_on(err, "pseudoalign_turbo")
-    LAUNCHES["pseudoalign_turbo"] += 1
+        *[_ptr(t) for t in out])
     return out
 
 
@@ -339,14 +349,12 @@ def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
     ix = _index_args(didx)
     out = _side_outputs(ns * Bp, R, dev)
     n_fail = torch.empty(1, dtype=torch.int64, device=dev)
-    err = _fn("pseudoalign_anchor")(
+    _launch(
+        "pseudoalign_anchor", dev,
         *ix, _ptr(be8), int(be8.numel()), _ptr(sides[0]),
         _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
         int(aux.shape[0]) - 4, Bp, ns, L, rl, k, R, n_anchors,
-        *[_ptr(t) for t in out], _ptr(n_fail), _stream(),
-    )
-    _raise_on(err, "pseudoalign_anchor")
-    LAUNCHES["pseudoalign_anchor"] += 1
+        *[_ptr(t) for t in out], _ptr(n_fail))
     return out, n_fail
 
 
@@ -377,13 +385,11 @@ def pseudoalign_halffail(didx, pkf: torch.Tensor, vsum: torch.Tensor,
     ix = _index_args(didx)
     out1 = _side_outputs(Bp, R, dev)
     out2 = _side_outputs(Bp, R, dev)
-    err = _fn("pseudoalign_halffail")(
+    _launch(
+        "pseudoalign_halffail", dev,
         *ix, _ptr(be8), int(be8.numel()), _ptr(pkf), _ptr(vsum), _ptr(sidev),
         _ptr(aux), int(aux.shape[0]) - 4, Bp, L, rl, k, R,
-        *[_ptr(t) for t in out1], *[_ptr(t) for t in out2], _stream(),
-    )
-    _raise_on(err, "pseudoalign_halffail")
-    LAUNCHES["pseudoalign_halffail"] += 1
+        *[_ptr(t) for t in out1], *[_ptr(t) for t in out2])
     return out1, out2
 
 
@@ -433,11 +439,10 @@ def pseudoalign_long(didx, packed: torch.Tensor, nmask: torch.Tensor,
     codes_ws = (torch.empty(grid * code_n, dtype=torch.uint8, device=dev)
                 if code_n else None)
     list_ws = torch.empty(grid * list_n, **i32) if list_n else None
-    err = _fn("pseudoalign_long")(
+    _launch(
+        "pseudoalign_long", dev,
         *ix, _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R, G, grid,
-        _ptr(codes_ws), _ptr(list_ws), *[_ptr(t) for t in out], _stream())
-    _raise_on(err, "pseudoalign_long")
-    LAUNCHES["pseudoalign_long"] += 1
+        _ptr(codes_ws), _ptr(list_ws), *[_ptr(t) for t in out])
     return out
 
 
@@ -488,11 +493,10 @@ def read_keys(s1, s2, k: int, min_range: int = 0, strand_key: bool = False,
     flags = torch.empty(B, dtype=torch.int32, device=dev)
     tl = (torch.empty(B, dtype=torch.int32, device=dev)
           if paired and want_tl else None)
-    err = _fn("read_keys")(
+    _launch(
+        "read_keys", dev,
         ctypes.byref(ks1), ctypes.byref(ks2) if paired else None,
-        ctypes.byref(opts), B, _ptr(h), _ptr(tl), _ptr(flags), _stream())
-    _raise_on(err, "read_keys")
-    LAUNCHES["read_keys"] += 1
+        ctypes.byref(opts), B, _ptr(h), _ptr(tl), _ptr(flags))
     return h, tl, flags
 
 
@@ -524,16 +528,12 @@ def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int,
     if with_slots:
         rank = torch.empty(S + 1, dtype=torch.int32, device=dev)
         slots = torch.empty(B, dtype=torch.int32, device=dev)
-    err = _fn("key_histogram")(
+    _launch(
+        "key_histogram", dev,
         _ptr(h), _ptr(flags), B, K, _ptr(keys), _ptr(occ), _ptr(pay), S,
         _ptr(slot), _ptr(counts), _ptr(ck), _ptr(rank), _ptr(slots),
-        _stream())
-    _raise_on(err, "key_histogram")
-    if with_slots:
-        LAUNCHES["key_histogram_slots"] += 1
-        return ck, slots
-    LAUNCHES["key_histogram"] += 1
-    return ck
+        count="key_histogram_slots" if with_slots else "")
+    return (ck, slots) if with_slots else ck
 
 
 # ---------------------------------------------------------------- kernel F
@@ -554,12 +554,11 @@ def gather_exemplars(idx: torch.Tensor, s1, s2, spec) -> torch.Tensor:
     W = (ks1.R + (ks2.R if ks2 is not None else 0) + 1
          + (2 * ns if tail_bs else 0) + (2 * ns if spec.pos_key else 0))
     out = torch.empty((n, W), dtype=torch.int32, device=dev)
-    err = _fn("gather_exemplars")(
+    _launch(
+        "gather_exemplars", dev,
         ctypes.byref(ks1), ctypes.byref(ks2) if ks2 is not None else None,
         _ptr(idx), n, B, spec.k, spec.min_range, int(tail_bs),
-        int(spec.pos_key), W, _ptr(out), _stream())
-    _raise_on(err, "gather_exemplars")
-    LAUNCHES["gather_exemplars"] += 1
+        int(spec.pos_key), W, _ptr(out))
     return out
 
 
@@ -578,10 +577,8 @@ def gather_slim(idx: torch.Tensor, s1, s2) -> torch.Tensor:
     out = torch.empty((n, 5), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    err = _fn("gather_slim")(ctypes.byref(ks1), ctypes.byref(ks2), _ptr(idx),
-                             n, B, _ptr(out), _stream())
-    _raise_on(err, "gather_slim")
-    LAUNCHES["gather_slim"] += 1
+    _launch("gather_slim", dev, ctypes.byref(ks1), ctypes.byref(ks2),
+            _ptr(idx), n, B, _ptr(out))
     return out
 
 
@@ -597,7 +594,8 @@ def bind_em_step(prob):
     its zeroed alpha); a frozen replicate's row is copied.  step checks
     only alpha and mode: the EM loop calls it once per round, and at
     Bb = 1 checking the whole problem each time costs the host more than
-    the update costs the card."""
+    the update costs the card.  The step launches on the problem's own
+    device: cells split across cards bind one problem per card."""
     dev = prob.flat_tx.device
     T, E = prob.num_trans, prob.num_multi
     M = int(prob.flat_tx.shape[0])
@@ -613,7 +611,6 @@ def bind_em_step(prob):
     _check(prob.ec_ptr, "ec_ptr", torch.int64, (E + 1,), dev)
     _check(prob.tx_ptr, "tx_ptr", torch.int64, (T + 1,), dev)
     _check(prob.tx_ec, "tx_ec", torch.int32, (M,), dev)
-    fn = _fn("em_step_batch")
 
     def step(alpha: torch.Tensor, mode: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -622,15 +619,13 @@ def bind_em_step(prob):
         nxt = torch.empty((Bb, T), dtype=torch.float64, device=dev)
         scale = torch.empty(max(Bb * E, 1), dtype=torch.float64, device=dev)
         changed = torch.empty(Bb, dtype=torch.int32, device=dev)
-        err = fn(
+        _launch(
+            "em_step_batch", dev,
             _ptr(alpha), _ptr(nxt), _ptr(prob.singleton_alpha),
             _ptr(prob.inv_eff), _ptr(prob.flat_tx), _ptr(prob.ec_ptr),
             _ptr(prob.multi_counts), _ptr(prob.tx_ptr), _ptr(prob.tx_ec),
             _ptr(scale), _ptr(mode), _ptr(changed), Bb, T, E,
-            int(batched_eff), _stream(),
-        )
-        _raise_on(err, "em_step_batch")
-        LAUNCHES["em_step_batch"] += 1
+            int(batched_eff))
         return nxt, changed
 
     return step
@@ -667,12 +662,10 @@ def bias_hexamers(bt, s1, valid: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    err = _fn("bias_hexamers")(
+    _launch(
+        "bias_hexamers", dev,
         _ptr(s1.f_block), _ptr(s1.f_upos), _ptr(s1.f_rpos), _ptr(s1.f_uid),
         _ptr(s1.f_strand), _ptr(s1.has_hits), _ptr(valid),
         _ptr(bt.block_start), _ptr(bt.block_end), _ptr(bt.useq_off),
-        _ptr(bt.useq), S, B, k, _ptr(out), _stream(),
-    )
-    _raise_on(err, "bias_hexamers")
-    LAUNCHES["bias_hexamers"] += 1
+        _ptr(bt.useq), S, B, k, _ptr(out))
     return out

@@ -532,6 +532,16 @@ class EcResolver:
             card_of[qi] = s.shape[0]
         return ec_of[inv_f], card_of[inv_f]
 
+    def set_ecs(self, ec_sets: List[np.ndarray], counts: np.ndarray) -> None:
+        """Replace the EC table and its counts (the multi-process merge,
+        parallel/multihost.py): EC i is ec_sets[i] with counts[i] reads."""
+        self.ec_sets = [s.astype(np.int32) for s in ec_sets]
+        self.ecmapinv = {s.tobytes(): i for i, s in enumerate(self.ec_sets)}
+        self.counts = _GrowCounts()
+        for c in counts:
+            self.counts.append(int(c))
+        self.num_mapped = int(np.sum(counts))
+
     # -- outputs ---------------------------------------------------------
 
     def counts_array(self) -> np.ndarray:

@@ -13,13 +13,19 @@ txnames (index-free), -e ec file, -l/-s or -f FLD file, -g t2g or -G GTF
 gene rollup, -p priors, -b bootstraps, --long (-P ONT skips effective
 lengths; other platforms add singleton counts after the EM loop),
 --matrix-to-files / --matrix-to-directories per-cell outputs, --plaintext.
-The EM of a run on several devices is not ported yet (it raises
-NotImplementedError).
+
+Several devices (JAX tcc.py:242-290): with n = max(n_devices, min(-t,
+device count), 1) > 1, each chunk of cells is split into n contiguous
+cell shards, and each shard runs its own batched EM (kernel G) on its
+device -- cuda:((base + s) % device_count), or the CPU -- in a thread of
+its own.  A cell's EM does not depend on the other cells of its batch, so
+every est_counts equals the one-device run's bitwise.
 """
 
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -28,6 +34,7 @@ import numpy as np
 from .. import resolve_device
 from ..common import MAX_FRAG_LEN, Options, REFERENCE_INDEX_VERSION
 from ..io import writers
+from ..parallel.mesh import make_mesh, n_shards
 from .bootstrap import run_bootstraps
 from .em import build_em_problem, counts_to_tpm, read_priors, run_em_batch
 from .fld import (
@@ -38,7 +45,6 @@ from .fld import (
     trunc_gaussian_fld,
 )
 from .genemodel import Transcriptome, rollup_to_genes
-from .pipeline import _resolve_n_devices
 
 
 def load_ec_file(path: str, num_trans: int) -> List[np.ndarray]:
@@ -159,10 +165,7 @@ def run_quant_tcc(opt: Options, index=None, chunk: int = 256,
     """quant-tcc of `opt.tcc_file` on `device` (default: the card; raises
     without one unless device='cpu'), `chunk` cells per batched EM."""
     dev = resolve_device(device)
-    if _resolve_n_devices(opt, dev) > 1:
-        raise NotImplementedError(
-            "quant-tcc on several devices is not ported yet to "
-            "kallisto_tpu_torch")
+    n_dev = n_shards(opt, dev, tcc=True)
     timings = dict.fromkeys(("load_s", "eff_s", "em_s", "write_s"), 0.0)
     timings.update(chunks=0, em_rounds=0)
     t0 = time.perf_counter()
@@ -260,14 +263,24 @@ def run_quant_tcc(opt: Options, index=None, chunk: int = 256,
     # PacBio-style long-read EM adds singleton counts after the loop
     # (reference: EMAlgorithm.h:111,224-357; ONT uses the standard loop)
     singletons_after = opt.long_read and opt.platform.upper() != "ONT"
-    for lo in range(0, C, chunk):
-        hi = min(lo + chunk, C)
-        r = run_em_batch(problem, counts[lo:hi], eff_lens[lo:hi],
-                         n_iter=10000, min_rounds=50, priors=priors,
-                         device=dev, singletons_after=singletons_after)
-        est[lo:hi] = r.alpha
-        timings["chunks"] += 1
-        timings["em_rounds"] += int(r.n_rounds.max()) + 1
+    devices = make_mesh(n_dev, dev)
+
+    def em_cells(lo, hi, d):
+        return run_em_batch(problem, counts[lo:hi], eff_lens[lo:hi],
+                            n_iter=10000, min_rounds=50, priors=priors,
+                            device=d, singletons_after=singletons_after)
+
+    with ThreadPoolExecutor(n_dev) as pool:
+        for lo in range(0, C, chunk):
+            hi = min(lo + chunk, C)
+            # contiguous cell shards of the chunk, one per device
+            per = -(-(hi - lo) // n_dev)
+            bounds = [(a, min(a + per, hi)) for a in range(lo, hi, per)]
+            rs = list(pool.map(em_cells, *zip(*bounds), devices))
+            for (a, b), r in zip(bounds, rs):
+                est[a:b] = r.alpha
+            timings["chunks"] += 1
+            timings["em_rounds"] += max(int(r.n_rounds.max()) for r in rs) + 1
     t3 = time.perf_counter()
     timings["em_s"] = t3 - t2
 

@@ -40,7 +40,11 @@ novel.fastq uncounted, and flens.txt holds the per-target mean read
 length of the uniquely mapped reads, with the reference's batch-mode
 discard of it kept.  Its chunks count as `long`.
 
-Not ported yet (raises NotImplementedError): several devices.
+`bus -t N` (JAX bus.py:781-792, :1131-1170): with more than one shard
+(parallel/mesh.py) every chunk goes per read, kernel A on each shard's
+device, the shards' results concatenated in mesh order; the anchor route
+is skipped, and --aa and --long keep one device, as in JAX.  The outputs
+are those of one device.
 """
 
 import os
@@ -51,8 +55,6 @@ from dataclasses import dataclass, field
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
-
-import torch
 
 from .. import KALLISTO_COMPAT_VERSION, resolve_device
 from ..common import MAX_FRAG_LEN, Options, REFERENCE_INDEX_VERSION
@@ -69,7 +71,6 @@ from ..ops import anchor
 from ..ops.pseudoalign import (
     KeySpec,
     SideResult,
-    device_index_from_host,
     pseudoalign_batch_packed,
     pseudoalign_long_packed,
     read_keys,
@@ -77,6 +78,7 @@ from ..ops.pseudoalign import (
     upload_batch,
 )
 from ..ops.turbo import _split, make_aux
+from ..parallel.mesh import MeshRunner, make_mesh, n_shards
 from ..quant.ecmap import EcResolver
 from ..quant.filters import StrandFilter
 from ..quant.longread import resolve_long_reads
@@ -85,7 +87,6 @@ from ..quant.pipeline import (
     _bucket_size,
     _exemplar_fetcher,
     _pad_rows,
-    _resolve_n_devices,
     _turbo_exceptions,
     _uniform_len,
 )
@@ -813,7 +814,13 @@ class _BusRun:
         self.dev = dev
         self.timings = timings
         t0 = time.perf_counter()
-        self.didx = device_index_from_host(index, dev)
+        # the shards (one, or several devices: chunks per read over them),
+        # one index replica per distinct device; --aa and --long keep one
+        one = opt.aa or cfg.long_read
+        self.mesh = MeshRunner(make_mesh(1 if one else n_shards(opt, dev),
+                                         dev))
+        self.dev = self.mesh.devices[0]
+        self.didx = self.mesh.replicate(index)[0]
         timings["index_upload_s"] = time.perf_counter() - t0
         self.resolver = EcResolver(index, dfk_onlist=opt.dfk_onlist)
         self.aa_resolver = (
@@ -957,13 +964,16 @@ class _BusRun:
 
     def _anchor_pair(self, b1, b2):
         """Fast path: the two-wave anchor kernel over a uniform-length
-        chunk; None -> caller uses the per-read kernel."""
-        if b1.Lp != b2.Lp:
+        chunk; None -> caller uses the per-read kernel (always over
+        several shards)."""
+        if b1.Lp != b2.Lp or self.mesh.ndev > 1:
             return None
         out = self._anchor((b1, b2))
         return None if out is None else _split(*out)
 
     def _anchor_single(self, b1):
+        if self.mesh.ndev > 1:
+            return None
         out = self._anchor((b1,))
         return None if out is None else out[0]
 
@@ -1156,8 +1166,8 @@ class _BusRun:
                 r1, r2 = fast
             else:
                 self.timings["full"] += 1
-                r1 = _side_rows(self.didx, b1p, self.k, self.dev)
-                r2 = _side_rows(self.didx, b2p, self.k, self.dev)
+                r1 = self.mesh.pseudoalign_batch(b1p, self.k)
+                r2 = self.mesh.pseudoalign_batch(b2p, self.k)
             # kernel B: the key and the mapPair length in one launch
             h, tl = read_keys(r1, r2, self.k)
             h = h[:n].cpu().numpy()
@@ -1180,7 +1190,7 @@ class _BusRun:
                 r1 = fast
             else:
                 self.timings["full"] += 1
-                r1 = _side_rows(self.didx, b1p, self.k, self.dev)
+                r1 = self.mesh.pseudoalign_batch(b1p, self.k)
             h = read_keys(r1, None, self.k)[0][:n].cpu().numpy()
             s1 = _host_side(r1, n)
             s2 = None
@@ -1322,17 +1332,10 @@ def _extract_rx(comments: Optional[List[bytes]], B: int) -> List[bytes]:
     return out
 
 
-def _check_supported(opt: Options, dev: torch.device) -> None:
-    if _resolve_n_devices(opt, dev) > 1:
-        raise NotImplementedError(
-            "bus on several devices is not ported yet to kallisto_tpu_torch")
-
-
 def run_bus(opt: Options, index=None, device=None) -> BusResult:
     """`kallisto bus` on `device` (default: the card; raises without one
     unless device='cpu')."""
     dev = resolve_device(device)
-    _check_supported(opt, dev)
     start_time = time.strftime("%a %b %d %H:%M:%S %Y")
     # host wall seconds by phase: index upload, FASTQ/BAM read, barcode/UMI
     # and sequence extraction + packing, upload + kernels + fetch of keys

@@ -262,14 +262,6 @@ def test_cli_bus_wants_the_card_by_default(tmp_path):
                 index=index_of("tx"))
 
 
-@pytest.mark.parametrize("opt", [dict(n_devices=2)])
-def test_unported_bus_options_raise(tmp_path, opt):
-    with pytest.raises(NotImplementedError):
-        run_bus(Options(files=_d("reads_lr.fastq.gz"), technology="bulk",
-                        output_dir=str(tmp_path / "o"), **opt),
-                index=index_of("tx"), device="cpu")
-
-
 def _count_anchor(monkeypatch, cls, counts):
     """Count a _BusRun's anchor attempts and the chunks they resolved."""
     for name in ("_anchor_pair", "_anchor_single"):

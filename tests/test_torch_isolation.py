@@ -37,7 +37,8 @@ def test_port_has_the_slice_modules():
               "quant.ecmap", "quant.fld", "quant.filters", "quant.em",
               "quant.bias", "quant.bootstrap", "quant.pipeline",
               "quant.longread", "quant.tcc", "quant.genemodel",
-              "io.pseudobam", "ops.hostprobe"):
+              "io.pseudobam", "ops.hostprobe", "parallel",
+              "parallel.mesh", "parallel.multihost", "parallel.dryrun"):
         assert f"kallisto_tpu_torch.{m}" in mods, m
 
 

@@ -9,7 +9,9 @@ every hexamer id for kernel H, bitwise alpha and equal rounds for
 kernel G (the main EM and the bootstraps), every LongResult field for
 kernel J, both mates' SideResult fields, the key table and the per-read
 slots for kernel K (after the port's host probe), every slot of kernel E
-and every slim row of kernel F.  They need a CUDA
+and every slim row of kernel F; sharded runs (four shards, and kernel A
+and a sharded quant on a second card, which needs two) equal one
+device.  They need a CUDA
 card and skip without one; this file imports no JAX, so it also runs where
 JAX is absent:
 
@@ -679,3 +681,81 @@ def test_host_wave1_on_the_card_matches_the_cpu(cuda, port_index, tmp_path,
             for name in names:
                 assert kernels.LAUNCHES[name] > 0, name
     assert outs[str(cuda)] == outs["cpu"]
+
+
+@pytest.mark.cuda
+def test_four_shards_match_one_device(cuda, port_index, tmp_path,
+                                      monkeypatch):
+    """quant over four shards (per read while the FLD is learned, then
+    cmesh: kernels A, B and E per shard), and bus over four shards, equal
+    one device; with one card all four shards sit on cuda:0, with four
+    each has its own."""
+    from kallisto_tpu_torch.common import Options
+    from kallisto_tpu_torch.quant.pipeline import run_quant
+    from kallisto_tpu_torch.sc.bus import run_bus
+
+    monkeypatch.setenv("KALLISTO_TPU_FLEN_GOAL", "1000")
+    kw = dict(files=[os.path.join(DATA, "reads_1.fastq.gz"),
+                     os.path.join(DATA, "reads_2.fastq.gz")], batch_size=1250)
+    ref = run_quant(Options(**kw), index=port_index, device=cuda)
+    kernels.reset_launches()
+    got = run_quant(Options(n_devices=4, **kw), index=port_index,
+                    device=cuda)
+    assert got.timings["cmesh"] > 0 and got.timings["full"] > 0
+    for name in ("pseudoalign_side", "read_keys", "key_histogram",
+                 "gather_exemplars", "em_step_batch"):
+        assert kernels.LAUNCHES[name] > 0, name
+    for name in ("pseudoalign_anchor", "pseudoalign_turbo",
+                 "pseudoalign_halffail"):
+        assert kernels.LAUNCHES[name] == 0, name
+    assert np.array_equal(got.counts, ref.counts)
+    assert [s.tolist() for s in got.ec_sets] == \
+        [s.tolist() for s in ref.ec_sets]
+    assert np.array_equal(got.est_counts, ref.est_counts)
+    assert np.array_equal(got.flens, ref.flens)
+    sc = [os.path.join(DATA, f) for f in ("sc_reads_1.fastq.gz",
+                                          "sc_reads_2.fastq.gz")]
+    for n in (1, 4):
+        run_bus(Options(files=sc, technology="10xv2", n_devices=n,
+                        output_dir=str(tmp_path / f"bus{n}")),
+                index=port_index, device=cuda)
+    for name in ("output.bus", "matrix.ec"):
+        with open(tmp_path / "bus1" / name, "rb") as f, \
+                open(tmp_path / "bus4" / name, "rb") as g:
+            assert f.read() == g.read(), name
+
+
+@pytest.mark.cuda
+def test_kernel_a_on_the_second_card(port_index):
+    """Kernel A with its inputs on cuda:1 while cuda:0 is current equals
+    its plain version (the wrapper launches on its inputs' device and
+    that device's stream), and a quant sharded over both cards equals one
+    card.  Needs two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from kallisto_tpu_torch.common import Options
+    from kallisto_tpu_torch.parallel.mesh import make_mesh
+    from kallisto_tpu_torch.quant.pipeline import run_quant
+
+    dev = torch.device("cuda:1")
+    dc = pa.device_index_from_host(port_index, "cpu")
+    with torch.cuda.device(0):
+        dg = pa.device_index_from_host(port_index, dev)
+        for pb in _batches(port_index).values():
+            g = _sides(dg, pb, dev)
+            torch.cuda.synchronize(dev)
+            c = _sides(dc, pb, "cpu")
+            for f in pa.SideResult._fields:
+                a = getattr(g, f)
+                assert a.device == dev
+                assert torch.equal(a.cpu(), getattr(c, f)), f
+    assert make_mesh(2, "cuda:0") == [torch.device("cuda", 0),
+                                      torch.device("cuda", 1)]
+    kw = dict(files=[os.path.join(DATA, "reads_1.fastq.gz")],
+              single_end=True, fld_mean=180, fld_sd=20, batch_size=1250)
+    ref = run_quant(Options(**kw), index=port_index, device="cuda:0")
+    got = run_quant(Options(n_devices=2, **kw), index=port_index,
+                    device="cuda:0")
+    assert got.timings["cmesh"] > 0
+    assert np.array_equal(got.counts, ref.counts)
+    assert np.array_equal(got.est_counts, ref.est_counts)

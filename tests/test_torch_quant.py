@@ -23,8 +23,6 @@ from kallisto_tpu_torch.ops import anchor as anchor_mod
 from kallisto_tpu_torch.ops import turbo as turbo_mod
 from kallisto_tpu_torch.quant import pipeline as tpipe
 from kallisto_tpu_torch.quant.pipeline import run_quant
-from kallisto_tpu_torch.quant.tcc import run_quant_tcc
-from kallisto_tpu_torch.sc.bus import run_bus
 
 # The test workers share the machine's cores: one intra-op thread per
 # worker keeps torch's thread pools from oversubscribing them, which
@@ -181,25 +179,6 @@ def test_batch_size_invariance(port_index):
     np.testing.assert_array_equal(r1.counts, r2.counts)
     assert [s.tolist() for s in r1.ec_sets] == [s.tolist() for s in r2.ec_sets]
     np.testing.assert_array_equal(r1.est_counts, r2.est_counts)
-
-
-@pytest.mark.parametrize("opt", [
-    dict(n_devices=2, bus=True), dict(n_devices=2, tcc=True),
-    dict(n_devices=2),
-])
-def test_unported_options_raise(port_index, opt):
-    opt = dict(opt)
-    with pytest.raises(NotImplementedError):
-        if opt.pop("bus", False):
-            run_bus(Options(files=[R1, R2], technology="bulk", **opt),
-                    index=port_index, device="cpu")
-        elif opt.pop("tcc", False):
-            run_quant_tcc(Options(ec_file=os.path.join(DATA, "tcc_test.ec"),
-                                  tcc_file=os.path.join(DATA, "tcc_test.mtx"),
-                                  **opt), index=port_index, device="cpu")
-        else:
-            run_quant(Options(files=[R1, R2], **opt), index=port_index,
-                      device="cpu")
 
 
 def test_threads_run_on_one_device(port_index, tmp_path):

@@ -12,9 +12,13 @@ read, the bias EM, 100 bootstraps through the batched EM), `bus -x
 `quant-tcc` (the batched EM per cell) on the card, then `quant` with host
 wave 1 and `--pseudobam` / `--genomebam`, then `quant`, `bus` and
 `quant-tcc` over four shards, and holds every CUDA kernel of those paths
-against its plain PyTorch version.  Phases 1-5e run with host
+against its plain PyTorch version, then the padded index layout (K2's
+probe inside kernels A, D, I, J and K, and alone as kernel L) at the
+largest size that keeps it.  Phases 1-5e run with host
 wave 1 off (KALLISTO_TPU_HOST_WAVE1=0: the card's own routes), phases 4e
-and 5f with it on as well:
+and 5f with it on as well.  Phase 2's index and everything built on it
+take the bucketed layout (2^27 buckets would need 2 GiB of padded rows);
+tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
 
 1. device: requires CUDA, prints the card's name and power limit, builds
    the kernels (one nvcc per source, in parallel);
@@ -56,7 +60,25 @@ and 5f with it on as well:
    key; the both-failed slice through D, B and E with slots; timed, with
    torch.unique(h0, return_inverse=True) beside E's slots (stress slices:
    the kernels' rows are timed on phase 5f's own slices);
-4. golden bytes: `quant` paired, `--single -l 180 -s 20` and the half-mapped
+3g. the padded layout: an 800-gene transcriptome (seed 42; ~1.9M k-mers,
+   p = 23, S = 8: 1 GiB of bucket rows, the JAX package's budget) whose
+   index must take the padded layout (M, S, row bytes and nbytes()
+   printed), the same index bucketed (budget 0) beside it, and 524,288
+   simulated 2x100 bp pairs from it; kernels A, D, I, J and K against
+   their plain versions on the padded index, each on one batch of at most
+   65,536 reads (16,384 long reads) built and held by the same helpers
+   as phases 3, 3b, 3d, 3e and 3f (K after the host probe, with E's slots
+   and F slim): every field equal; kernel L (lookup_kmers) against the
+   plain lookup_kmers in both layouts on A's windows, invalid ones
+   included, and on windows 0 (q = mix64(0)): slot, hit and EC row
+   equal; then A (262,144 reads), I (524,288 reads, and single-end), L
+   (A's windows, with torch.searchsorted beside the bucketed form) timed
+   in both layouts, and D, J and K at their held shapes; L's bounds count
+   each table sector its probes read once (_probe_sectors);
+4. golden bytes (phases 4-4e: every device index that their runs place is
+   asserted padded (_padded_runs), so these are the padded path of A, D,
+   I, J and K on the card against the goldens):
+   `quant` paired, `--single -l 180 -s 20` and the half-mapped
    `-l 180 -s 20` pairs on tests/data, abundance.tsv byte-equal to
    tests/golden, run stats 10000/9413/7174, and the routes: per-read batches
    only for the paired run, turbo batches (no fallback) for the others;
@@ -145,6 +167,12 @@ and 5f with it on as well:
    bitwise equal); `dryrun_multichip(4)` on the card; K18's step (A + B +
    E on one shard of 16,384 pairs) held against its plain versions on
    every shard and timed, the whole 4-shard step beside it;
+5h. the padded layout end to end: `quant` of phase 3g's 524,288 pairs on
+   its padded index with the launch counts set to 0 just before and read
+   just after (A, B, I, E, F and G launched, the turbo batches through
+   I), then the same run with the padded budget set to 0 (bucketed): EC
+   counts and sets, FLD and est_counts equal; the wall, index_upload_s
+   and read_s of both printed;
 6. kernel G (em_step_batch) with one replicate, the main EM, on the main
    path's EM problem: the whole EM on the card against the plain version
    on the CPU, bitwise equal alpha and equal rounds; one update timed;
@@ -161,6 +189,7 @@ result line.  Without CUDA, or outside a checkout of the repo, it exits
 non-zero before doing anything.
 """
 
+import contextlib
 import gzip
 import json
 import os
@@ -192,10 +221,24 @@ N_SHARDS = 4
 MESH_PAIRS = 262_144
 MESH_BATCH = 65_536
 MESH_CELLS = 1_024
+# phases 3g and 5h: the padded index layout at the largest size the JAX
+# package keeps it (2^p * S * 16 bytes of bucket rows within its 1 GiB
+# budget: 800 simulated genes give p = 23, S = 8, exactly 1 GiB), pairs
+# of 5h's quant (two default batches: the first per read learns the FLD,
+# about 11 % of its pairs qualify, the second takes the turbo route), and
+# the reads of each of 3g's holds
+PADDED_GENES = 800
+PADDED_PAIRS = 524_288
+PADDED_HOLD = 65_536
+# phase 3g's long reads for kernel J (phase 3e's stress batch)
+PADDED_LONG = 16_384
 # the main path's kernels (phase 5); H runs under --bias, G also under -b N
 MAIN_PATH_KERNELS = ("pseudoalign_side", "read_keys", "em_step_batch",
                      "pseudoalign_anchor", "key_histogram", "gather_exemplars",
                      "gather_slim")
+# phase 5h's quant on the padded index: A, B, I, E, F and G
+PADDED_PATH_KERNELS = ("pseudoalign_side", "read_keys", "pseudoalign_anchor",
+                       "key_histogram", "gather_exemplars", "em_step_batch")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the scalar
 # (non-tensor) float32 rate, used here for integer operations, and float64.
@@ -323,59 +366,125 @@ def _equal_tables(torch, a, b, what):
           f"(n_uniq {int(a[0, 0])})")
 
 
+def _put(torch, np, a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _sparse_pairs(np, fastx, rbs, n, k, rng, lens=None, n_frac=5e-4):
+    """The first n reads of each mate batch in rbs, cut to lens (default
+    READ_LEN each) with sparse Ns: the turbo route's input."""
+    if lens is None:
+        lens = np.full(n, READ_LEN, np.int32)
+    return [_sparse_n_batch(rb.codes[:n], lens, k, rng, fastx, n_frac)
+            for rb in rbs]
+
+
+def _turbo_inputs(torch, np, bs, Bp, dev):
+    """The turbo route's device inputs of the packed mates bs, padded to Bp
+    rows as quant/pipeline.py builds them: (packed codes per mate, aux
+    vector, per-read lengths or None when uniform, Lp, uniform length or
+    0)."""
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.quant.pipeline import (
+        _pad_rows, _turbo_exceptions, _uniform_len)
+
+    exc = _turbo_exceptions(bs, Bp)
+    check(exc is not None, "the batch's N positions fit the aux vector")
+    rl = _uniform_len(*bs)
+    aux = turbo.make_aux(bs[0].n, rl or 0, exc)
+    packed = [_put(torch, np, _pad_rows(b.packed, Bp), dev) for b in bs]
+    lens = None
+    if rl is None:
+        lens = _put(torch, np, np.concatenate(
+            [_pad_rows(b.lens.astype(np.uint16), Bp) for b in bs]), dev)
+    return packed, _put(torch, np, aux, dev), lens, bs[0].Lp, rl or 0
+
+
+def _launch_d(kernels, didx, inputs, k):
+    """Kernel D on _turbo_inputs' tuple, R = min(16, W) as the route."""
+    packed, aux, lens, L, rl = inputs
+    R = min(16, (rl if 0 < rl < L else L) - k + 1)
+    return kernels.pseudoalign_turbo(didx, packed, aux, lens, k, L, rl, R)
+
+
+def _plain_d(pa, didx, inputs, k):
+    """Kernel D's plain version: (SideResult, codes, lengths)."""
+    from kallisto_tpu_torch.ops import turbo
+
+    packed, aux, lens, L, rl = inputs
+    codes, lens_v = turbo.codes_and_lens_plain(packed, aux, lens, L, rl)
+    return pa._pseudoalign_core(didx, codes, lens_v, k, 16), codes, lens_v
+
+
+def _hold_d(torch, pa, kernels, didx, inputs, k, tag):
+    """Kernel D against its plain version, both on the card: every field
+    equal.  Returns (kernel's SideResult, plain SideResult, codes,
+    lengths)."""
+    g = pa.SideResult(*_launch_d(kernels, didx, inputs, k))
+    c, codes, lens_v = _plain_d(pa, didx, inputs, k)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, g, c, f"kernel D {tag}")
+    return g, c, codes, lens_v
+
+
+def _launch_i(kernels, didx, sides, aux, k, L, rl):
+    """Kernel I on one or two mates of uniform length rl, R = 16."""
+    from kallisto_tpu_torch.ops import anchor
+
+    return kernels.pseudoalign_anchor(didx, sides, aux, k, L, rl, 16,
+                                      anchor.n_anchors_for(rl, k))
+
+
+def _plain_i(didx, sides, aux, k, L, rl):
+    """Kernel I's plain version: (SideResult, n_fail)."""
+    from kallisto_tpu_torch.ops import anchor, turbo
+
+    codes, _ = turbo.codes_and_lens_plain(sides, aux, None, L, rl)
+    real = anchor._real_rows(aux, int(sides[0].shape[0]), len(sides))
+    return anchor.anchor_side_plain(didx, codes, rl, real, k, 16,
+                                    anchor.n_anchors_for(rl, k))
+
+
+def _hold_i(torch, pa, kernels, didx, sides, aux, k, L, rl, tag):
+    """Kernel I against its plain version, both on the card: every field
+    and n_fail equal.  Returns (kernel's SideResult, plain SideResult,
+    plain n_fail)."""
+    gi, gf = _launch_i(kernels, didx, sides, aux, k, L, rl)
+    g = pa.SideResult(*gi)
+    c, cf = _plain_i(didx, sides, aux, k, L, rl)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, g, c, f"kernel I {tag}")
+    n = len(sides) * int(sides[0].shape[0])
+    check(torch.equal(gf, cf), f"kernel I {tag}: n_fail equal "
+          f"({int(cf)} of {n} reads in wave 2)")
+    return g, c, cf
+
+
 def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     """Kernels D, E, F and B with the compact key layout against their
     plain PyTorch versions, both on the card, on main-path shapes.  Returns
     {name: (ms, plain_ms, (bound_ms, bound_by), library_ms)} and B's
     compact-layout time."""
-    from kallisto_tpu_torch.ops import turbo
-    from kallisto_tpu_torch.quant.pipeline import (
-        _pad_rows, _turbo_exceptions, _uniform_len)
-
     rng = np.random.default_rng(99)
     Bp = rb1.n  # the default batch: 262,144 pairs
     out = {}
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def turbo_inputs(bs, Bp):
-        exc = _turbo_exceptions(bs, Bp)
-        check(exc is not None, "the batch's N positions fit the aux vector")
-        rl = _uniform_len(*bs)
-        aux = turbo.make_aux(bs[0].n, rl or 0, exc)
-        packed = [put(_pad_rows(b.packed, Bp)) for b in bs]
-        lens = None
-        if rl is None:
-            lens = put(np.concatenate(
-                [_pad_rows(b.lens.astype(np.uint16), Bp) for b in bs]))
-        return packed, put(aux), lens, bs[0].Lp, rl or 0
-
-    def plain_d(packed, aux, lens, L, rl):
-        codes, lens_v = turbo.codes_and_lens_plain(packed, aux, lens, L, rl)
-        return pa._pseudoalign_core(didx, codes, lens_v, k, 16), codes, lens_v
-
     # -- D on the main path's paired batch: 2x100 bp, Bp = 262,144, Ns
-    full_len = np.full(Bp, 100, np.int32)
-    bs = [_sparse_n_batch(rb.codes, full_len, k, rng, fastx, 5e-4)
-          for rb in (rb1, rb2)]
-    packed, aux, lens, L, rl = turbo_inputs(bs, Bp)
+    bs = _sparse_pairs(np, fastx, (rb1, rb2), Bp, k, rng)
+    inputs = _turbo_inputs(torch, np, bs, Bp, dev)
+    packed, aux, lens, L, rl = inputs
     check(0 < rl < L, f"uniform length {rl} trims the padded {L}")
     Lc = rl
     R = min(16, Lc - k + 1)
-    g = pa.SideResult(*kernels.pseudoalign_turbo(didx, packed, aux, lens, k, L,
-                                                 rl, R))
-    c, codes, lens_v = plain_d(packed, aux, lens, L, rl)
-    torch.cuda.synchronize()
-    _equal_sides(torch, pa, g, c, f"kernel D paired Bp={Bp}")
+    g, c, codes, lens_v = _hold_d(torch, pa, kernels, didx, inputs, k,
+                                  f"paired Bp={Bp}")
     canon, _, valid = pa.rolling_canonical_kmers(codes, lens_v, k)
     _, hit, _ = pa.lookup_kmers(didx, canon, valid)
     n_valid, n_hit = int(valid.sum()), int(hit.sum())
     n_has, n_win = int(c.has_hits.sum()), canon.numel()
     del canon, valid, hit, codes, lens_v
-    ms_d = cuda_ms(lambda: kernels.pseudoalign_turbo(
-        didx, packed, aux, lens, k, L, rl, R), 10, torch)
-    plain_ms_d = cuda_ms(lambda: plain_d(packed, aux, lens, L, rl), 3, torch)
+    ms_d = cuda_ms(lambda: _launch_d(kernels, didx, inputs, k), 10, torch)
+    plain_ms_d = cuda_ms(lambda: _plain_d(pa, didx, inputs, k), 3, torch)
     in_bytes = sum(p.numel() for p in packed) + 8 * aux.numel()
     out_bytes = 2 * Bp * (4 * R + 4 * 6 + 3)
     table_bytes = 32 * (2 * n_valid + n_hit + 4 * n_has)
@@ -441,7 +550,7 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     log(f"kernel B compact keys: {ms_b:.4f} ms options off, {ms_bx:.4f} ms "
         f"with min_range + strand + position rank (paired, B={Bp})")
     out["read_keys_compact"] = {"options_off_ms": ms_b, "all_options_ms": ms_bx}
-    del g, c, r1, r2, h, fl, ck, ckp, packed, aux
+    del g, c, r1, r2, h, fl, ck, ckp, packed, aux, inputs
 
     # -- ragged lengths (varlen), single-end, and the bitmask (N-dense)
     # route, each on 65,536 reads (the bitmask route's slices hold up to
@@ -450,24 +559,16 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     lens_r = rb1.lens[:n].copy()
     short = rng.random(n) < 0.2
     lens_r[short] = rng.integers(k, 101, int(short.sum()))
-    vb = [_sparse_n_batch(rb.codes[:n], lens_r, k, rng, fastx, 5e-4)
-          for rb in (rb1, rb2)]
+    vb = _sparse_pairs(np, fastx, (rb1, rb2), n, k, rng, lens_r)
     for tag, bsx in (("varlen paired", vb), ("single", vb[:1])):
-        packed, aux, lens, L, rl = turbo_inputs(bsx, n)
-        Lc = rl if 0 < rl < L else L
-        R = min(16, Lc - k + 1)
-        gx = pa.SideResult(*kernels.pseudoalign_turbo(
-            didx, packed, aux, lens, k, L, rl, R))
-        cx, _, _ = plain_d(packed, aux, lens, L, rl)
-        torch.cuda.synchronize()
-        _equal_sides(torch, pa, gx, cx, f"kernel D {tag}")
+        gx = _hold_d(torch, pa, kernels, didx,
+                     _turbo_inputs(torch, np, bsx, n, dev), k, tag)[0]
         ra, rb_ = (pa.SideResult(*(a[:n] for a in gx)),
                    pa.SideResult(*(a[n:] for a in gx)) if len(bsx) == 2 else None)
         hx, fx = pa.compact_key_hash(ra, rb_, spec, didx)
         _equal_tables(torch, pa.key_histogram(hx, fx, n + 1),
                       pa.key_histogram_plain(hx, fx, n + 1), f"kernel E {tag}")
-    nb = [_sparse_n_batch(rb.codes[:n], lens_r, k, rng, fastx, 2e-3)
-          for rb in (rb1, rb2)]
+    nb = _sparse_pairs(np, fastx, (rb1, rb2), n, k, rng, lens_r, 2e-3)
     args = [t for b in nb for t in pa.upload_batch(b, dev)]
     kw = dict(k=k, L=nb[0].Lp, max_keys=n + 1, min_range=50, strand_key=True,
               pos_fl=180, pos_depth=depth)
@@ -489,37 +590,19 @@ def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
     form, the kernel row's fields (ms, plain_ms, (bound_ms, bound_by)) and
     the wave-2 share, and kernel B's single-end ms on I's reads."""
     from kallisto_tpu_torch.ops import anchor, turbo
-    from kallisto_tpu_torch.quant.pipeline import _pad_rows, _turbo_exceptions
 
     rng = np.random.default_rng(77)
     Bp = rb1.n  # the default batch: 262,144 pairs
-    rl = READ_LEN
-    bs = [_sparse_n_batch(rb.codes, np.full(Bp, rl, np.int32), k, rng, fastx,
-                          5e-4) for rb in (rb1, rb2)]
-    exc = _turbo_exceptions(bs, Bp)
-    check(exc is not None, "the batch's N positions fit the aux vector")
-    L = bs[0].Lp
-    aux = torch.from_numpy(turbo.make_aux(Bp, rl, exc)).to(dev)
-    packed = [torch.from_numpy(np.ascontiguousarray(_pad_rows(b.packed, Bp)))
-              .to(dev) for b in bs]
+    bs = _sparse_pairs(np, fastx, (rb1, rb2), Bp, k, rng)
+    packed, aux, _, L, rl = _turbo_inputs(torch, np, bs, Bp, dev)
     na, R, K = anchor.n_anchors_for(rl, k), 16, Bp + 1
     spec0 = pa.KeySpec(k=k)
-
-    def plain_i(sides):
-        codes, _ = turbo.codes_and_lens_plain(sides, aux, None, L, rl)
-        real = anchor._real_rows(aux, Bp, len(sides))
-        return anchor.anchor_side_plain(didx, codes, rl, real, k, R, na)
 
     out = {}
     for tag, sides in (("paired", packed), ("single", packed[:1])):
         B2 = len(sides) * Bp
-        gi, gf = kernels.pseudoalign_anchor(didx, sides, aux, k, L, rl, R, na)
-        g = pa.SideResult(*gi)
-        c, cf = plain_i(sides)
-        torch.cuda.synchronize()
-        _equal_sides(torch, pa, g, c, f"kernel I {tag} Bp={Bp}")
-        check(torch.equal(gf, cf), f"kernel I {tag}: n_fail equal "
-              f"({int(cf)} of {B2} reads in wave 2)")
+        g, c, cf = _hold_i(torch, pa, kernels, didx, sides, aux, k, L, rl,
+                           f"{tag} Bp={Bp}")
         # I + B + E against the plain versions, n_fail in the meta row
         split = (lambda r: (pa.SideResult(*(a[:Bp] for a in r)),
                             pa.SideResult(*(a[Bp:] for a in r)))) \
@@ -551,9 +634,10 @@ def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
               f"(n_uniq {int(dck[0, 0])})")
 
         # time and bound
-        ms = cuda_ms(lambda: kernels.pseudoalign_anchor(
-            didx, sides, aux, k, L, rl, R, na), 10, torch)
-        plain_ms = cuda_ms(lambda: plain_i(sides), 3, torch)
+        ms = cuda_ms(lambda: _launch_i(kernels, didx, sides, aux, k, L, rl),
+                     10, torch)
+        plain_ms = cuda_ms(lambda: _plain_i(didx, sides, aux, k, L, rl), 3,
+                           torch)
         codes, _ = turbo.codes_and_lens_plain(sides, aux, None, L, rl)
         real = anchor._real_rows(aux, Bp, len(sides))
         w1 = anchor.anchor_wave1_plain(didx, codes, rl, real, k, na)
@@ -626,8 +710,36 @@ BUS_GOLDENS = (
 )
 
 
+@contextlib.contextmanager
+def _padded_runs(pa, what):
+    """The runs inside place their indexes on the padded layout: every
+    replica that MeshRunner.replicate returns (the one place where quant
+    and bus put an index on a device) is recorded, and after the block
+    each must be a PaddedDeviceIndex."""
+    from kallisto_tpu_torch.parallel.mesh import MeshRunner
+
+    placed = []
+    replicate = MeshRunner.replicate
+
+    def spy(self, *a, **kw):
+        didxs = replicate(self, *a, **kw)
+        placed.extend(didxs)
+        return didxs
+
+    MeshRunner.replicate = spy
+    try:
+        yield
+    finally:
+        MeshRunner.replicate = replicate
+    check(placed and all(isinstance(d, pa.PaddedDeviceIndex)
+                         for d in placed),
+          f"{what}: the {len(placed)} device indexes its runs placed are "
+          f"padded (p, S: {sorted({(d.p, getattr(d, 'S', 0)) for d in placed})})")
+
+
 def phase_4c(Options, build_index, run_bus, tidx, data, golden, work, dev):
-    """The bus goldens on the card.  Returns the chunks by route."""
+    """The bus goldens on the card (every index in the padded layout, which
+    the caller asserts with _padded_runs).  Returns the chunks by route."""
     def d(*names):
         return [os.path.join(data, n) for n in names]
 
@@ -755,10 +867,22 @@ def _long_plain(torch, pa, didx, args, k, L, step):
     return res, n_valid
 
 
+def _long_batch(fastx, fasta, path, B, k):
+    """B long reads from fasta's transcripts as one packed batch, a stress
+    mix: Ns, reads shorter than k, random reads, chimeras and mosaics past
+    kernel J's R rows and G groups."""
+    from kallisto_tpu_torch.utils.benchdata import generate_long_reads
+
+    generate_long_reads(fasta, path, B, seed=31, novel_frac=0.02,
+                        chimera_frac=0.04, mosaic_frac=0.005,
+                        short_frac=0.01, n_rate=0.001)
+    return next(fastx.packed_single_batches(path, B, k))
+
+
 def _hold_j(torch, np, pa, kernels, didx, pb, k, dev, tag):
     """Kernel J against its plain version, both on the card, on one packed
     batch of long reads: all eight fields equal.  Returns (ms, plain_ms,
-    (bound_ms, bound_by), the plain result)."""
+    (bound_ms, bound_by), the plain result, the uploaded batch)."""
     args = pa.upload_batch(pb, dev)
     B, L = pb.n, pb.Lp
     R, G = min(64, L - k + 1), 128
@@ -786,28 +910,21 @@ def _hold_j(torch, np, pa, kernels, didx, pb, k, dev, tag):
     log(f"kernel J {tag}: {ms:.3f} ms (plain on card {plain_ms:.3f} ms), "
         f"reads={B} Lp={L} windows={n_win} valid={n_valid} hits={n_hit}; "
         f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-    return ms, plain_ms, bnd, c
+    return ms, plain_ms, bnd, c, args
 
 
 def phase_3e(torch, np, pa, kernels, fastx, fasta, didx, k, work, dev,
              B=16384):
     """Kernel J against its plain version, both on the card, on a B-read
-    stress batch of long reads: Ns, reads shorter than k, chimeras and
-    mosaics past R rows and G groups.  Returns (ms, plain_ms, (bound_ms,
-    bound_by)) at this batch's shape."""
-    from kallisto_tpu_torch.utils.benchdata import generate_long_reads
-
-    path = os.path.join(work, "lr_3e.fastq.gz")
+    stress batch of long reads (_long_batch).  Returns (ms, plain_ms,
+    (bound_ms, bound_by)) at this batch's shape."""
     t0 = time.perf_counter()
-    generate_long_reads(fasta, path, B, seed=31, novel_frac=0.02,
-                        chimera_frac=0.04, mosaic_frac=0.005,
-                        short_frac=0.01, n_rate=0.001)
-    pb = next(fastx.packed_single_batches(path, B, k))
+    pb = _long_batch(fastx, fasta, os.path.join(work, "lr_3e.fastq.gz"), B, k)
     log(f"long reads: {pb.n}, padded to {pb.Lp}, lengths {int(pb.lens.min())}"
         f"-{int(pb.lens.max())} (mean {float(pb.lens.mean()):.0f}), "
         f"{time.perf_counter() - t0:.1f} s")
-    ms, plain_ms, bnd, c = _hold_j(torch, np, pa, kernels, didx, pb, k, dev,
-                                   "stress")
+    ms, plain_ms, bnd, c, _ = _hold_j(torch, np, pa, kernels, didx, pb, k,
+                                      dev, "stress")
     R = int(c.rows.shape[1])
     n_short = int((pb.lens < k).sum())
     check(bool(c.overflow.any()) and bool(c.g_overflow.any())
@@ -1244,6 +1361,43 @@ def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
             "gather_slim": (ms_f, plain_f, bnd_f, None)}
 
 
+def _host_probe(pa, index, bs, k):
+    """The port's host probe (host wave 1) of the pairs bs, keys with the
+    strand tail and the position rank: (probe, its result, seconds, kernel
+    K's keywords for its slices)."""
+    from kallisto_tpu_torch.ops.hostprobe import HostProbe
+    from kallisto_tpu_torch.quant import pipeline as qp
+
+    probe = HostProbe(index, strand_key=True, pos_key=True, pos_fl=180)
+    t0 = time.perf_counter()
+    hk = probe.probe_pair(bs[0], bs[1], READ_LEN, perread=True)
+    probe_s = time.perf_counter() - t0
+    kw = dict(k=k, min_range=0, strand_key=True, pos_fl=180,
+              pos_depth=pa.pf_probe_depth(index), L=bs[0].Lp,
+              max_rows=qp._W2ROWS, rl=READ_LEN)
+    return probe, hk, probe_s, kw
+
+
+def _half_slice(torch, np, hk, bs, pos, Bp, dev):
+    """The half-fail pairs hk.fail_idx[pos] as quant/pipeline.py hands them
+    to kernel K, padded to Bp rows: (failed mates' packed codes, verified
+    mates' EC sums, failed side, aux)."""
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.quant import pipeline as qp
+
+    sub = hk.fail_idx[pos].astype(np.int64)
+    side = hk.fail_side[pos]
+    m1 = (side == 1)[:, None]
+    pkf = np.where(m1, bs[0].packed[sub], bs[1].packed[sub])
+    nmf = np.where(m1, bs[0].nmask[sub], bs[1].nmask[sub])
+    exc = qp._rows_exceptions([(nmf, bs[0].lens[sub])], Bp, bs[0].Lp)
+    check(exc is not None, "the slice's N positions fit the aux vector")
+    return tuple(_put(torch, np, a, dev) for a in (
+        qp._pad_rows(pkf, Bp), qp._pad_rows(hk.fail_vsum[pos], Bp),
+        qp._pad_rows(side.astype(np.int32), Bp),
+        turbo.make_aux(sub.shape[0], READ_LEN, exc)))
+
+
 def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
              batch):
     """Kernels K, E with slots and F's slim layout against their plain
@@ -1254,26 +1408,19 @@ def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
     Returns {name: (ms, plain_ms, (bound_ms, bound_by), library_ms)} and
     the probe's figures."""
     from kallisto_tpu_torch.ops import turbo
-    from kallisto_tpu_torch.ops.hostprobe import HostProbe
     from kallisto_tpu_torch.quant import pipeline as qp
 
     rng = np.random.default_rng(66)
     rl, R = READ_LEN, qp._W2ROWS
     n = 2 * batch
-    bs = []
+    rbs = []
     for path in (r1p, r2p):
         fs = fastx.FastqStream(path)
-        rb = fs.next_batch(n)
+        rbs.append(fs.next_batch(n))
         fs.close()
-        bs.append(_sparse_n_batch(rb.codes, np.full(rb.n, rl, np.int32), k,
-                                  rng, fastx, 5e-4))
-    del rb
-    depth = pa.pf_probe_depth(index)
-    kw = dict(k=k, min_range=0, strand_key=True, pos_fl=180, pos_depth=depth)
-    probe = HostProbe(index, strand_key=True, pos_key=True, pos_fl=180)
-    t0 = time.perf_counter()
-    hk = probe.probe_pair(bs[0], bs[1], rl, perread=True)
-    probe_s = time.perf_counter() - t0
+    bs = _sparse_pairs(np, fastx, rbs, rbs[0].n, k, rng)
+    del rbs
+    probe, hk, probe_s, kw = _host_probe(pa, index, bs, k)
     half = np.flatnonzero(hk.fail_side != 3)
     both = np.flatnonzero(hk.fail_side == 3)
     n_pairs = bs[0].n
@@ -1281,31 +1428,17 @@ def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
         f"({probe.n_threads} threads): {n_pairs - hk.fail_idx.shape[0]} "
         f"verified, {half.shape[0]} half-fail, {both.shape[0]} both failed, "
         f"{hk.h128.shape[0]} host keys")
-    spec = pa.KeySpec(**kw)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def half_slice(pos, Bp):
-        sub = hk.fail_idx[pos].astype(np.int64)
-        side = hk.fail_side[pos]
-        m1 = (side == 1)[:, None]
-        pkf = np.where(m1, bs[0].packed[sub], bs[1].packed[sub])
-        nmf = np.where(m1, bs[0].nmask[sub], bs[1].nmask[sub])
-        exc = qp._rows_exceptions([(nmf, bs[0].lens[sub])], Bp, bs[0].Lp)
-        check(exc is not None, "the slice's N positions fit the aux vector")
-        aux = turbo.make_aux(sub.shape[0], rl, exc)
-        return (put(qp._pad_rows(pkf, Bp)),
-                put(qp._pad_rows(hk.fail_vsum[pos], Bp)),
-                put(qp._pad_rows(side.astype(np.int32), Bp)), put(aux))
+    depth = kw["pos_depth"]
+    spec = pa.KeySpec(k, kw["min_range"], kw["strand_key"], kw["pos_fl"],
+                      depth)
 
     out = {}
     L = bs[0].Lp
-    kw = dict(kw, L=L, max_rows=R, rl=rl)
     for Bp in (qp._W2MAX, qp._W2MIN):
         pos = half[: min(half.shape[0],
                          Bp if Bp == qp._W2MAX else 3 * Bp // 4)]
-        held = _hold_k(torch, np, pa, kernels, didx, half_slice(pos, Bp), kw,
+        held = _hold_k(torch, np, pa, kernels, didx,
+                       _half_slice(torch, np, hk, bs, pos, Bp, dev), kw,
                        f"3f Bp={Bp}")
         key = "" if Bp == qp._W2MAX else "_16k"
         out.update({name + key: v for name, v in held.items()})
@@ -1314,8 +1447,9 @@ def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
     sub = hk.fail_idx[both[: qp._W2MAX]].astype(np.int64)
     Bp = qp._bucket_size(sub.shape[0], lo=qp._W2MIN)
     exc = qp._rows_exceptions([(b.nmask[sub], b.lens[sub]) for b in bs], Bp, L)
-    aux = put(turbo.make_aux(sub.shape[0], rl, exc))
-    p1, p2 = (put(qp._pad_rows(b.packed[sub], Bp)) for b in bs)
+    aux = _put(torch, np, turbo.make_aux(sub.shape[0], rl, exc), dev)
+    p1, p2 = (_put(torch, np, qp._pad_rows(b.packed[sub], Bp), dev)
+              for b in bs)
     g1, g2, ck, slots = turbo.pseudoalign_pair_turbo(
         didx, p1, p2, aux, k=k, L=L, max_rows=R, max_keys=Bp + 1, rl=rl,
         with_slots=True, min_range=0, strand_key=True, pos_fl=180,
@@ -1331,6 +1465,322 @@ def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
                "half_fail": int(half.shape[0]), "both_failed":
                int(both.shape[0]), "host_keys": int(hk.h128.shape[0])}
     return out, summary
+
+
+def _padded_bound(pa, didx, nbytes_io, n_probe, n_hit, n_has, n_ops):
+    """A kernel's bound on a padded index: its own bytes nbytes_io, per
+    probed window the bucket row's key sectors (ceil(8S / 32)), per hit
+    one EC sector of the same row, per read with hits the four payload
+    sectors (uid, pos, fw, block); ~250 integer operations per window."""
+    key_sectors = -(-8 * didx.S // 32)
+    table = 32 * (key_sectors * n_probe + n_hit + 4 * n_has)
+    return bound(nbytes_io + table, n_ops, PEAK_INT_OPS)
+
+
+def _probe_sectors(torch, pa, didx, canon, valid, idx, hit):
+    """The 32-byte table sectors that the probes of (canon, valid) must
+    read, each counted once however many probes share it (idx, hit: the
+    plain lookup_kmers' slots and hits).  Padded: each probed bucket's
+    ceil(8S / 32) key sectors (the invalid windows all probe the bucket of
+    mix64(0)) and each hit's EC sector.  Bucketed: each probed bucket's
+    bucket_start sectors, the key sector at each probe's slot and each
+    hit's kmer_ec sector (the search's earlier steps are not counted)."""
+    def n_uniq(x):
+        return int(torch.unique(x).numel())
+
+    if isinstance(didx, pa.PaddedDeviceIndex):
+        S = didx.S
+        b = idx // S
+        return (n_uniq(b) * -(-8 * S // 32)
+                + n_uniq((b * 2 * S + S + idx % S)[hit] >> 2))
+    q = pa.mix64(torch.where(valid, canon, torch.zeros_like(canon)))
+    b = (q >> (64 - didx.p)) & ((1 << didx.p) - 1)
+    return (n_uniq(torch.cat([b >> 3, (b + 1) >> 3])) + n_uniq(idx >> 2)
+            + n_uniq(idx[hit] >> 3))
+
+
+def _time_layouts(torch, fn, dp, db, reps):
+    """fn(didx) timed on the padded and the bucketed index, in turns
+    (padded, bucketed, bucketed, padded): the medians of each."""
+    a = cuda_ms(lambda: fn(dp), reps, torch)
+    b = cuda_ms(lambda: fn(db), reps, torch)
+    b2 = cuda_ms(lambda: fn(db), reps, torch)
+    a2 = cuda_ms(lambda: fn(dp), reps, torch)
+    return statistics.median((a, a2)), statistics.median((b, b2))
+
+
+def _hold_l(torch, pa, kernels, dp, db, canon, valid, n):
+    """Kernel L against the plain lookup_kmers in both layouts, on the
+    first n of the windows (canon, valid), invalid ones included, and on
+    64 invalid windows 0 (q = mix64(0)): slot, hit and EC row equal.  Then
+    all the windows timed in both layouts, with the plain version, and
+    torch.searchsorted beside the bucketed form.  Returns L's row
+    fields."""
+    hc, hv = canon[:n].contiguous(), valid[:n].contiguous()
+    check(int((~hv).sum()) > 0, f"{int((~hv).sum())} invalid windows held")
+    z = torch.zeros(64, dtype=torch.int64, device=canon.device)
+    zf = torch.zeros(64, dtype=torch.bool, device=canon.device)
+    for tag, d in (("padded", dp), ("bucketed", db)):
+        for what, q, v in (("windows", hc, hv), ("invalid windows 0", z, zf)):
+            gl = kernels.lookup_kmers(d, q, v)
+            cl = pa.lookup_kmers(d, q, v)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("idx", "hit", "ec"), gl, cl):
+                check(x.dtype == y.dtype and torch.equal(x, y),
+                      f"kernel L {tag}: {name} equal on {q.numel()} {what} "
+                      f"({int(cl[1].sum())} hits)")
+        check(not bool(gl[1].any()), f"kernel L {tag}: window 0 never hits")
+    nq = canon.numel()
+    ms_p, ms_b = _time_layouts(
+        torch, lambda d: kernels.lookup_kmers(d, canon, valid), dp, db, 20)
+    plain_p, plain_b = _time_layouts(
+        torch, lambda d: pa.lookup_kmers(d, canon, valid), dp, db, 3)
+    # torch.searchsorted on the sign-flipped sorted keys finds the
+    # bucketed slot (not the padded b * S + j): timed beside it only
+    sk = db.kmer_hkeys ^ (-(2**63))
+    qs = pa.mix64(torch.where(valid, canon, torch.zeros_like(canon))) \
+        ^ (-(2**63))
+    lib_b = cuda_ms(lambda: torch.searchsorted(sk, qs), 20, torch)
+    del qs
+    # canon + valid in, slot + hit + EC row out (22 B a window); the table
+    # sectors the probes must read, each once (_probe_sectors)
+    bnd, sec = {}, {}
+    for tag, d in (("padded", dp), ("bucketed", db)):
+        idx, hit, _ = pa.lookup_kmers(d, canon, valid)
+        sec[tag] = _probe_sectors(torch, pa, d, canon, valid, idx, hit)
+        bnd[tag] = bound(22 * nq + 32 * sec[tag], 40 * nq, PEAK_INT_OPS)
+    n_hit = int(hit.sum())
+    log(f"kernel L on {nq} windows ({int(valid.sum())} valid, {n_hit} "
+        f"hits): padded {ms_p:.4f} ms (bound {bnd['padded'][0]:.4f} ms, "
+        f"{sec['padded']} distinct sectors, plain {plain_p:.3f} ms), "
+        f"bucketed {ms_b:.4f} ms (bound {bnd['bucketed'][0]:.4f} ms, "
+        f"{sec['bucketed']} distinct sectors, plain {plain_b:.3f} ms, "
+        f"torch.searchsorted {lib_b:.4f} ms)")
+    return dict(
+        ms=ms_p, plain_ms=plain_p, bound_ms=bnd["padded"][0],
+        bound_by=bnd["padded"][1], ms_padded=ms_p, ms_bucketed=ms_b,
+        bound_ms_padded=bnd["padded"][0], bound_ms_bucketed=bnd["bucketed"][0],
+        plain_ms_bucketed=plain_b, searchsorted_ms_bucketed=lib_b,
+        queries=nq, valid=int(valid.sum()), hits=n_hit,
+        sectors_padded=sec["padded"], sectors_bucketed=sec["bucketed"])
+
+
+def phase_3g(torch, np, pa, kernels, fastx, build_index,
+             generate_transcriptome, generate_paired, k, work, dev,
+             n_pairs, batch):
+    """The padded index layout on the card: the PADDED_GENES-gene index
+    (padded, asserted; the same index bucketed with the budget set to 0
+    beside it) and n_pairs simulated 2x100 bp pairs from it.  Kernels A,
+    D, I, J and K against their plain versions on the padded index, each
+    on one batch of at most PADDED_HOLD reads (PADDED_LONG long reads)
+    built by the set-up and hold helpers of phases 3, 3b, 3d, 3e and 3f;
+    kernel L in both layouts (_hold_l); then A (the batch's mate 1), I
+    (the batch's pairs, and mate 1 alone) and L (A's windows) timed in
+    both layouts, and D, J and K at their held shapes.  Returns the set-up
+    for phase 5h and {name: row fields}."""
+    from kallisto_tpu_torch.quant import pipeline as qp
+
+    rng = np.random.default_rng(4242)
+    fasta = os.path.join(work, "padded_tx.fasta.gz")
+    t0 = time.perf_counter()
+    n_tx = generate_transcriptome(fasta, n_genes=PADDED_GENES, seed=42)
+    index = build_index([fasta], k=k)
+    build_s = time.perf_counter() - t0
+    M, S = pa.padded_shape(pa.cached_probe_layout(index))
+    t0 = time.perf_counter()
+    dp = pa.device_index_from_host(index, dev, with_pos_tables=True)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    check(isinstance(dp, pa.PaddedDeviceIndex) and dp.S == S
+          and M * S * 16 <= pa._PADDED_BYTES_BUDGET,
+          f"{PADDED_GENES} genes, {index.num_kmers} k-mers: the padded "
+          f"layout, M={M} S={S}")
+    budget = pa._PADDED_BYTES_BUDGET
+    pa._PADDED_BYTES_BUDGET = 0
+    try:
+        db = pa.device_index_from_host(index, dev, with_pos_tables=True)
+    finally:
+        pa._PADDED_BYTES_BUDGET = budget
+    check(isinstance(db, pa.DeviceIndex), "budget 0: the bucketed layout")
+    r1p = os.path.join(work, "padded_1.fastq.gz")
+    r2p = os.path.join(work, "padded_2.fastq.gz")
+    t1 = time.perf_counter()
+    generate_paired(fasta, r1p, r2p, n_pairs, read_len=READ_LEN,
+                    frag_mean=180.0, frag_sd=20.0, error_rate=0.005)
+    log(f"padded index: {n_tx} targets, {index.num_kmers} k-mers, "
+        f"p={dp.p} M={M} S={S}, bucket rows {dp.bucket_rows.numel() * 8} "
+        f"bytes, nbytes() {dp.nbytes()} (bucketed {db.nbytes()}); build "
+        f"{build_s:.1f} s, layout + upload {up_s:.2f} s; {n_pairs} pairs "
+        f"2x{READ_LEN} in {time.perf_counter() - t1:.1f} s")
+    rbs = []
+    for path in (r1p, r2p):
+        fs = fastx.FastqStream(path)
+        rbs.append(fs.next_batch(batch))
+        fs.close()
+    n = min(PADDED_HOLD, rbs[0].n)
+    out = {}
+
+    # -- A: phase 3's shape (ragged_batch); held on the first n reads,
+    # timed on all of them
+    pbA = ragged_batch(rbs[0].codes, rbs[0].lens, k, rng, fastx)
+    gA = pa.upload_batch(pbA, dev)
+    LA = pbA.Lp
+    RA = min(16, LA - k + 1)
+    hA = [t[:n] for t in gA]
+    g = pa.pseudoalign_batch_packed(dp, *hA, k=k, L=LA)
+    c = pa.pseudoalign_batch_packed_plain(dp, *hA, k=k, L=LA)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, g, c, f"kernel A, padded index, B={n} Lp={LA}")
+    del hA, g, c
+    codes = pa.unpack_codes(gA[0], gA[1], LA)
+    canon, _, valid = pa.rolling_canonical_kmers(codes, gA[2], k)
+    del codes
+    _, hit, _ = pa.lookup_kmers(dp, canon, valid)
+    n_valid, n_hit = int(valid.sum()), int(hit.sum())
+    n_has = int(hit.any(dim=1).sum())
+    del hit
+
+    # -- L: A's windows, both layouts
+    out["lookup_kmers"] = _hold_l(torch, pa, kernels, dp, db, canon, valid, n)
+    del canon, valid
+    ms_ap, ms_ab = _time_layouts(torch, lambda d: kernels.pseudoalign_side(
+        d, *gA, k, LA, RA), dp, db, 10)
+    B = pbA.n
+    io_a = pbA.packed.nbytes + pbA.nmask.nbytes + 4 * B + B * (4 * RA + 27)
+    bnd_ap = _padded_bound(pa, dp, io_a, n_valid, n_hit, n_has,
+                           250 * B * (LA - k + 1))
+    out["pseudoalign_side"] = dict(ms_padded=ms_ap, ms_bucketed_5h=ms_ab,
+                                   bound_ms_padded=bnd_ap[0], reads_5h=B)
+    log(f"kernel A on {B} reads: padded {ms_ap:.3f} ms (bound "
+        f"{bnd_ap[0]:.4f} ms), bucketed {ms_ab:.3f} ms")
+    del gA
+
+    # -- D and I: phase 3b's and 3d's paired turbo batch, n / 2 pairs
+    n2 = n // 2
+    dinp = _turbo_inputs(torch, np, _sparse_pairs(np, fastx, rbs, n2, k, rng),
+                         n2, dev)
+    _hold_d(torch, pa, kernels, dp, dinp, k, f"padded index, {n} reads")
+    ms_dp, ms_db = _time_layouts(
+        torch, lambda d: _launch_d(kernels, d, dinp, k), dp, db, 10)
+    out["pseudoalign_turbo"] = dict(ms_padded=ms_dp, ms_bucketed_5h=ms_db,
+                                    reads_padded=n)
+    log(f"kernel D on {n} reads: padded {ms_dp:.3f} ms, bucketed "
+        f"{ms_db:.3f} ms")
+    packed, aux, _, L, rl = dinp
+    _hold_i(torch, pa, kernels, dp, packed, aux, k, L, rl,
+            f"padded index, {n} reads")
+    del dinp, packed, aux
+    # I timed on the batch's pairs
+    Bp = rbs[0].n
+    packed, aux, _, L, rl = _turbo_inputs(
+        torch, np, _sparse_pairs(np, fastx, rbs, Bp, k, rng), Bp, dev)
+    for tag, sides in (("paired", packed), ("single", packed[:1])):
+        ms_ip, ms_ib = _time_layouts(
+            torch, lambda d: _launch_i(kernels, d, sides, aux, k, L, rl), dp,
+            db, 10)
+        out["pseudoalign_anchor_" + tag] = dict(
+            ms_padded=ms_ip, ms_bucketed_5h=ms_ib,
+            reads_5h=len(sides) * Bp)
+        log(f"kernel I {tag} on {len(sides) * Bp} reads: padded "
+            f"{ms_ip:.3f} ms, bucketed {ms_ib:.3f} ms")
+    del packed, aux
+
+    # -- J: phase 3e's stress batch, from this transcriptome
+    pb = _long_batch(fastx, fasta, os.path.join(work, "lr_3g.fastq.gz"),
+                     PADDED_LONG, k)
+    args = _hold_j(torch, np, pa, kernels, dp, pb, k, dev,
+                   "3g padded index")[4]
+    RJ = min(64, pb.Lp - k + 1)
+    ms_jp, ms_jb = _time_layouts(torch, lambda d: kernels.pseudoalign_long(
+        d, *args, k, pb.Lp, RJ, 128), dp, db, 3)
+    out["pseudoalign_long"] = dict(ms_padded=ms_jp, ms_bucketed_5h=ms_jb,
+                                   reads_padded=pb.n)
+    log(f"kernel J on {pb.n} long reads: padded {ms_jp:.3f} ms, bucketed "
+        f"{ms_jb:.3f} ms")
+    del args, pb
+
+    # -- K: phase 3f's half-fail slice after the host probe, n pairs
+    bs = _sparse_pairs(np, fastx, rbs, n, k, rng)
+    _, hk, _, kw = _host_probe(pa, index, bs, k)
+    half = np.flatnonzero(hk.fail_side != 3)
+    Bp = qp._bucket_size(half.shape[0], lo=qp._W2MIN)
+    kargs = _half_slice(torch, np, hk, bs, half, Bp, dev)
+    held = _hold_k(torch, np, pa, kernels, dp, kargs, kw,
+                   f"3g padded index Bp={Bp}")
+    Rr = min(qp._W2ROWS, READ_LEN - k + 1)
+    ms_kp, ms_kb = _time_layouts(
+        torch, lambda d: kernels.pseudoalign_halffail(
+            d, *kargs, k, kw["L"], READ_LEN, Rr), dp, db, 10)
+    out["pseudoalign_halffail"] = dict(ms_padded=ms_kp, ms_bucketed_5h=ms_kb,
+                                       pairs_padded=int(half.shape[0]))
+    log(f"kernel K on {half.shape[0]} half-fail pairs (Bp={Bp}): padded "
+        f"{ms_kp:.4f} ms, bucketed {ms_kb:.4f} ms (_hold_k's own time "
+        f"{held['pseudoalign_halffail'][0]:.4f} ms)")
+    del db
+    ctx = dict(index=index, r1p=r1p, r2p=r2p, M=M, S=S, build_s=build_s,
+               nbytes=dp.nbytes(), row_bytes=dp.bucket_rows.numel() * 8)
+    return ctx, out
+
+
+def phase_5h(torch, np, pa, kernels, Options, run_quant, ctx, n_pairs, dev):
+    """`quant` of phase 3g's pairs on its padded index, launch counts set
+    to 0 just before and read just after (A, B, I, E, F and G launched),
+    then the same run with the padded budget set to 0 (the bucketed
+    layout): EC counts and sets, FLD and est_counts equal.  Returns the
+    summary."""
+    index = ctx["index"]
+    opt = Options(files=[ctx["r1p"], ctx["r2p"]], plaintext=True)
+    runs = {}
+    for layout in ("padded", "bucketed"):
+        budget = pa._PADDED_BYTES_BUDGET
+        if layout == "bucketed":
+            pa._PADDED_BYTES_BUDGET = 0
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = run_quant(opt, index=index, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            pa._PADDED_BYTES_BUDGET = budget
+        routes = {r: res.timings[r] for r in ROUTES + ("wave2_reads",)}
+        log(f"5h {layout}: wall {wall:.2f} s = {n_pairs / wall:,.0f} "
+            f"pairs/s, index_upload_s {res.timings['index_upload_s']:.3f}, "
+            f"read_s {res.timings['read_s']:.3f}; routes {routes}; launches "
+            f"{launches}")
+        runs[layout] = (res, wall, launches, routes)
+    res, _, launches, routes = runs["padded"]
+    for name in PADDED_PATH_KERNELS:
+        check(launches[name] > 0,
+              f"5h padded: launched {name} ({launches[name]} times)")
+    check(routes["turbo"] > 0 and routes["fallback"] == 0
+          and launches["pseudoalign_anchor"] == routes["turbo"],
+          f"5h padded: the turbo batches went through kernel I {routes}")
+    check(res.num_processed == n_pairs
+          and res.num_pseudoaligned > 0.9 * n_pairs,
+          f"5h padded: {res.num_pseudoaligned} of {res.num_processed} "
+          "pairs pseudoaligned")
+    rb = runs["bucketed"][0]
+    check(np.array_equal(res.counts, rb.counts)
+          and [s.tolist() for s in res.ec_sets]
+          == [s.tolist() for s in rb.ec_sets],
+          "5h: EC counts and sets equal, padded and bucketed")
+    check(np.array_equal(res.fld, rb.fld), "5h: FLD equal")
+    check(np.array_equal(res.est_counts, rb.est_counts),
+          "5h: est_counts bitwise equal")
+    summary = {}
+    for layout, (r, wall, _, rts) in runs.items():
+        summary[f"padded_5h_{layout}"] = {
+            "wall_s": wall, "pairs_per_s": n_pairs / wall,
+            "index_upload_s": r.timings["index_upload_s"],
+            "read_s": r.timings["read_s"], "routes": rts}
+    summary.update(padded_5h_pairs=n_pairs, padded_M=ctx["M"],
+                   padded_S=ctx["S"], padded_row_bytes=ctx["row_bytes"],
+                   padded_nbytes=ctx["nbytes"],
+                   padded_index_build_s=ctx["build_s"])
+    return summary
 
 
 def _split_bam(np, payload):
@@ -2217,6 +2667,14 @@ def main(argv=None):
                                       didx, r1p, r2p, k, dev,
                                       Options().batch_size)
 
+        # ------------------------------ 3g. the padded index layout
+        log(f"== phase 3g: kernels A, D, I, J, K and L on the padded index "
+            f"layout ({time.perf_counter() - t_start:.0f} s)")
+        padded_ctx, k3g = phase_3g(
+            torch, np, pa, kernels, fastx, build_index,
+            generate_transcriptome, generate_paired, k, work, dev,
+            PADDED_PAIRS, Options().batch_size)
+
         # ------------------------------------------------ 4. golden bytes
         log("== phase 4: golden bytes on the card")
         data = os.path.join(here, "tests", "data")
@@ -2224,51 +2682,58 @@ def main(argv=None):
         tidx = build_index([os.path.join(data, "transcripts.fasta.gz")], k=k)
         pf = [os.path.join(data, "reads_1.fastq.gz"),
               os.path.join(data, "reads_2.fastq.gz")]
-        for name, gdir, kw in (
-            ("paired", "quant_paired", dict(files=pf)),
-            ("single", "quant_single", dict(
-                files=pf[:1], single_end=True, fld_mean=180, fld_sd=20)),
-            ("halfmapped", "quant_halfmapped", dict(
-                files=[pf[0], os.path.join(data, "halfmapped_2.fastq.gz")],
-                fld_mean=180, fld_sd=20)),
-        ):
-            out = os.path.join(work, f"golden_{name}")
-            res = run_quant(Options(output_dir=out, batch_size=4096, **kw),
-                            index=tidx, device=dev)
-            mine = open(os.path.join(out, "abundance.tsv")).read()
-            want = open(os.path.join(golden, gdir, "abundance.tsv")).read()
-            check(mine == want, f"{name}: abundance.tsv byte-equal to {gdir}")
-            routes = {r: res.timings[r] for r in ROUTES}
-            if name == "paired":
-                check((res.num_processed, res.num_pseudoaligned,
-                       res.num_unique) == (10000, 9413, 7174),
-                      "paired run stats 10000 / 9413 / 7174")
-                check(routes["full"] > 0 and routes["turbo"] == 0
-                      and routes["compact"] == routes["fallback"] == 0,
-                      f"{name}: per-read batches only {routes}")
-            else:
-                check(routes["turbo"] > 0 and routes["fallback"] == 0
-                      and routes["full"] == 0,
-                      f"{name}: turbo batches, no fallback {routes}")
+        # phases 4-4e run on the padded layout (tests/data's indexes are
+        # small): each asserts the layout of the indexes its runs place
+        with _padded_runs(pa, "phase 4"):
+            for name, gdir, kw in (
+                ("paired", "quant_paired", dict(files=pf)),
+                ("single", "quant_single", dict(
+                    files=pf[:1], single_end=True, fld_mean=180, fld_sd=20)),
+                ("halfmapped", "quant_halfmapped", dict(
+                    files=[pf[0], os.path.join(data, "halfmapped_2.fastq.gz")],
+                    fld_mean=180, fld_sd=20)),
+            ):
+                out = os.path.join(work, f"golden_{name}")
+                res = run_quant(Options(output_dir=out, batch_size=4096, **kw),
+                                index=tidx, device=dev)
+                mine = open(os.path.join(out, "abundance.tsv")).read()
+                want = open(os.path.join(golden, gdir, "abundance.tsv")).read()
+                check(mine == want, f"{name}: abundance.tsv byte-equal to {gdir}")
+                routes = {r: res.timings[r] for r in ROUTES}
+                if name == "paired":
+                    check((res.num_processed, res.num_pseudoaligned,
+                           res.num_unique) == (10000, 9413, 7174),
+                          "paired run stats 10000 / 9413 / 7174")
+                    check(routes["full"] > 0 and routes["turbo"] == 0
+                          and routes["compact"] == routes["fallback"] == 0,
+                          f"{name}: per-read batches only {routes}")
+                else:
+                    check(routes["turbo"] > 0 and routes["fallback"] == 0
+                          and routes["full"] == 0,
+                          f"{name}: turbo batches, no fallback {routes}")
 
         log(f"== phase 4b: bootstraps and bias, card against CPU "
             f"({time.perf_counter() - t_start:.0f} s)")
-        phase_4b(np, run_quant, Options, tidx, pf, golden, work, dev)
+        with _padded_runs(pa, "phase 4b"):
+            phase_4b(np, run_quant, Options, tidx, pf, golden, work, dev)
 
         log(f"== phase 4c: bus goldens on the card "
             f"({time.perf_counter() - t_start:.0f} s)")
-        bus_golden_routes = phase_4c(Options, build_index, run_bus, tidx,
-                                     data, golden, work, dev)
+        with _padded_runs(pa, "phase 4c"):
+            bus_golden_routes = phase_4c(Options, build_index, run_bus,
+                                         tidx, data, golden, work, dev)
 
         log(f"== phase 4d: long-read and TCC goldens on the card "
             f"({time.perf_counter() - t_start:.0f} s)")
-        phase_4d(np, kernels, Options, run_quant, run_bus, run_quant_tcc,
-                 tidx, data, golden, work, dev)
+        with _padded_runs(pa, "phase 4d"):
+            phase_4d(np, kernels, Options, run_quant, run_bus, run_quant_tcc,
+                     tidx, data, golden, work, dev)
 
         log(f"== phase 4e: --pseudobam and --genomebam on the card "
             f"({time.perf_counter() - t_start:.0f} s)")
-        phase_4e(np, kernels, Options, run_quant, tidx, data, golden, work,
-                 dev)
+        with _padded_runs(pa, "phase 4e"):
+            phase_4e(np, kernels, Options, run_quant, tidx, data, golden,
+                     work, dev)
 
         # -------------------------------------- 5. main path, full size
         log(f"== phase 5: main path at realistic size "
@@ -2449,6 +2914,12 @@ def main(argv=None):
             run_quant_tcc, index, r1p, r2p,
             os.path.join(work, "bus_r1.fastq.gz"), bus_out, work, dev, k)
 
+        # ------------------------------- 5h. the padded layout, quant
+        log(f"== phase 5h: quant on the padded index, then bucketed "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        padded_summary = phase_5h(torch, np, pa, kernels, Options, run_quant,
+                                  padded_ctx, PADDED_PAIRS, dev)
+
         # ------------------------------------ 6. kernel G, one replicate
         log(f"== phase 6: kernel G with one replicate (the main EM) on the "
             f"main path's EM problem ({time.perf_counter() - t_start:.0f} s)")
@@ -2508,7 +2979,8 @@ def main(argv=None):
                  replaces="kallisto_tpu/ops/pseudoalign.py:479",
                  launches=launches["pseudoalign_side"], max_abs_err=0.0,
                  ms=ms_a, plain_ms=plain_a, bound_ms=bound_a[0],
-                 bound_by=bound_a[1], library_ms=None),
+                 bound_by=bound_a[1], library_ms=None,
+                 **k3g["pseudoalign_side"]),
             dict(name="read_keys", route="cuda",
                  source=csrc + "read_keys.cu",
                  replaces="kallisto_tpu/ops/pseudoalign.py:567",
@@ -2538,7 +3010,8 @@ def main(argv=None):
                 name=name, route="cuda", source=csrc + src, replaces=replaces,
                 launches=n, max_abs_err=0.0, ms=ms,
                 plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
-                library_ms=lib, main_path_launches=launches[name]))
+                library_ms=lib, main_path_launches=launches[name],
+                **k3g.get(name, {})))
         # kernel I has two rows: paired (quant, launches of phase 5) and
         # single-end (bus, launches of phase 5c)
         for form, replaces, n in (
@@ -2552,7 +3025,8 @@ def main(argv=None):
                 source=csrc + "pseudoalign.cu", replaces=replaces,
                 launches=n, max_abs_err=0.0, ms=ms_i, plain_ms=plain_i,
                 bound_ms=bound_i[0], bound_by=bound_i[1], library_ms=None,
-                mates=2 if form == "paired" else 1, wave2_share=share))
+                mates=2 if form == "paired" else 1, wave2_share=share,
+                **k3g["pseudoalign_anchor_" + form]))
         # the bus run's kernel time from this run's per-launch times: I and
         # B at the chunk's shape, F at phase 3b's
         bus_busy = {
@@ -2583,7 +3057,8 @@ def main(argv=None):
                  launches=launches_long["pseudoalign_long"], max_abs_err=0.0,
                  ms=k5d[0], plain_ms=k5d[1], bound_ms=k5d[2][0],
                  bound_by=k5d[2][1], library_ms=None, stress_ms=k3e[0],
-                 stress_plain_ms=k3e[1], stress_bound_ms=k3e[2][0]),
+                 stress_plain_ms=k3e[1], stress_bound_ms=k3e[2][0],
+                 **k3g["pseudoalign_long"]),
             # G per cell (quant-tcc, K15 with per-cell lengths): launches of
             # phase 5e
             dict(name="em_step_batch", route="cuda", source=csrc + "em.cu",
@@ -2618,7 +3093,15 @@ def main(argv=None):
                 bound_by=bnd[1], library_ms=lib, stress_ms=st,
                 stress_plain_ms=st_plain, stress_bound_ms=st_bnd[0],
                 stress_library_ms=st_lib, ms_16k=ms16, plain_ms_16k=plain16,
-                bound_ms_16k=bnd16[0], library_ms_16k=lib16, **extra))
+                bound_ms_16k=bnd16[0], library_ms_16k=lib16,
+                **k3g.get(name, {}), **extra))
+        # L, K2's probe alone (phase 3g: A's windows on the padded index
+        # and on the same index bucketed); no run loop launches it
+        rows.append(dict(
+            name="lookup_kmers", route="cuda", source=csrc + "pseudoalign.cu",
+            replaces="kallisto_tpu/ops/pseudoalign.py:325",
+            launches=launches["lookup_kmers"], max_abs_err=0.0,
+            library_ms=None, **k3g["lookup_kmers"]))
         # K18: one shard's A + B + E at 5g's shard shape; launches: the
         # shard steps of 5g's sharded quant (one E each)
         rows.append(dict(
@@ -2664,7 +3147,7 @@ def main(argv=None):
             **long_summary, "long_launches": launches_long, **tcc_summary,
             "tcc_launches": launches_tcc, **probe_summary, **hw1_summary,
             "hw1_launches": launches_hw1, "hw1_kernel_ms": hw1_busy,
-            **mesh_summary,
+            **mesh_summary, **padded_summary,
             "kernel_build_s": build_s, "n_targets": index.num_trans,
             "n_kmers": index.num_kmers, "card": smi,
             "smoke_s": time.perf_counter() - t_start,

@@ -15,16 +15,84 @@
     python -m kallisto_tpu_torch.cli quant -i idx.npz -o out --genomebam \
         -g genes.gtf.gz -c chrom.txt r1.fq.gz r2.fq.gz
 
-Mirrors the `index`, `quant`, `bus` and `quant-tcc` subcommands of
-kallisto_tpu/cli.py
-(the reference's src/main.cpp), flags and exit codes, for what the port
-supports.  `--device` picks the card (default) or the CPU; without a card
-the default raises.  The .npz index format is shared with the JAX package
-both ways.
+    python -m kallisto_tpu_torch.cli inspect idx.npz
+    python -m kallisto_tpu_torch.cli h5dump -o out_txt out/abundance.h5
+
+Mirrors every subcommand of kallisto_tpu/cli.py (the reference's
+src/main.cpp): `index`, `quant`, `bus`, `quant-tcc`, `inspect`, `h5dump`,
+`version`, `cite` and the deprecated `pseudo` and `merge` stubs, with
+their flags, outputs and exit codes.  `--device` picks the card (default)
+or the CPU for the commands that pseudoalign or run the EM; without a
+card the default raises.  The .npz index format is shared with the JAX
+package both ways.
 """
 
 import argparse
 import sys
+
+
+def _cmd_version(_args):
+    from . import KALLISTO_COMPAT_VERSION, __version__
+
+    print(f"kallisto-tpu, version {__version__} "
+          f"(kallisto {KALLISTO_COMPAT_VERSION} compatible)")
+
+
+def _cmd_cite(_args):
+    print(
+        "When using this program in your research, please cite\n\n"
+        "  Bray, N. L., Pimentel, H., Melsted, P. & Pachter, L.\n"
+        "  Near-optimal probabilistic RNA-seq quantification,\n"
+        "  Nature Biotechnology 34, 525-527 (2016), doi:10.1038/nbt.3519\n"
+    )
+
+
+def _cmd_h5dump(args):
+    from .io.h5 import h5dump
+
+    h5dump(args.h5file, args.output_dir)
+
+
+def _cmd_inspect(args):
+    """Reference-parity index inspection (reference: InspectIndex,
+    src/Inspect.h:120-140, and the KmerIndex::load prologue)."""
+    import numpy as np
+
+    from .common import REFERENCE_INDEX_VERSION
+    from .index import load_index
+
+    index = load_index(args.index)
+    # load prologue (stderr, reference: KmerIndex.cpp load chatter)
+    print(f"[index] k-mer length: {index.k}", file=sys.stderr)
+    print(f"[index] number of targets: {index.num_trans:,}", file=sys.stderr)
+    print(f"[index] number of k-mers: {index.kmer_keys.shape[0]:,}",
+          file=sys.stderr)
+    print(f"[inspect] Index version number = {REFERENCE_INDEX_VERSION}")
+    n_unitigs = index.unitig_nkmers.shape[0]
+    print(f"[inspect] number of unitigs = {n_unitigs}")
+    # the g the reference's Bifrost build would pick for this k
+    # (reference: KmerIndex.cpp:581-593); this index looks k-mers up by
+    # hash, so g is informational only
+    k = index.k
+    g = k - 2 if k <= 13 else k - 4 if k <= 17 else k - 6 if k <= 19 else k - 8
+    print(f"[inspect] minimizer length = {g}")
+    # the largest block EC, and the unitigs whose every block EC is empty
+    # (reference: KmerIndex::getECInfo, src/KmerIndex.cpp:215-234)
+    row_len = np.diff(index.ec_ptr)
+    card = np.where(index.block_ec >= 0,
+                    row_len[np.maximum(index.block_ec, 0)], 0)
+    max_ec = int(card.max()) if card.size else 0
+    nonzero_unitigs = np.unique(index.block_uid[card > 0])
+    discarded = n_unitigs - nonzero_unitigs.shape[0]
+    print(f"[inspect] max EC size = {max_ec}")
+    print(f"[inspect] number of ECs discarded = {discarded}")
+
+
+def _cmd_deprecated(name):
+    def run(_args):
+        sys.exit(f"Error: {name} is deprecated (as in kallisto 0.51.1)")
+
+    return run
 
 
 def _cmd_index(args):
@@ -351,6 +419,24 @@ def main(argv=None):
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("tcc")
     p.set_defaults(fn=_cmd_quant_tcc)
+
+    p = sub.add_parser("h5dump", help="convert abundance.h5 to plaintext")
+    p.add_argument("-o", "--output-dir", required=True)
+    p.add_argument("h5file")
+    p.set_defaults(fn=_cmd_h5dump)
+
+    p = sub.add_parser("inspect", help="inspect an index")
+    p.add_argument("index")
+    p.set_defaults(fn=_cmd_inspect)
+
+    p = sub.add_parser("version")
+    p.set_defaults(fn=_cmd_version)
+    p = sub.add_parser("cite")
+    p.set_defaults(fn=_cmd_cite)
+    p = sub.add_parser("pseudo", help="deprecated")
+    p.set_defaults(fn=_cmd_deprecated("pseudo"))
+    p = sub.add_parser("merge", help="deprecated")
+    p.set_defaults(fn=_cmd_deprecated("merge"))
 
     args = parser.parse_args(argv)
     if not args.cmd:

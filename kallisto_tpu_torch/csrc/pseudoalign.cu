@@ -1,4 +1,37 @@
-// Kernels A, D, I, K and J: per-read k-mer -> sorted distinct EC rows.
+// Kernels A, D, I, K and J: per-read k-mer -> sorted distinct EC rows;
+// kernel L: the k-mer probe alone.
+//
+// The probe (kt_probe), K2 of the JAX package, in both index layouts:
+//   bucketed -- kallisto_tpu/ops/pseudoalign.py lookup_kmers :367-382: a
+//     bucket_start pair, then a fixed-depth lower_bound over the bucket's
+//     sorted keys, then kmer_ec at the slot;
+//   padded -- PaddedDeviceIndex (:60-84, built :275-300, probed :325-365;
+//     the layout of indexes whose 2^p * S * 16 bytes of bucket rows fit
+//     1 GiB): one [2S] u64 row per bucket, S keys then S EC rows.  The
+//     lane reads its bucket's S keys as 16-byte vectors (S = 8: 64 bytes,
+//     two sectors), compares its query with each, and on a match reads
+//     the EC row from the same row's second half.
+// The layout is a field of IndexView, the same for every lane of a
+// launch, so kt_probe branches on it at run time (uniform over the warp):
+// one body per kernel, no template instantiation.  The padded branch
+// keeps no state across the kernels' loops (its S-key loop ends inside
+// kt_probe), so it costs few registers: with it ptxas reports A 48, D 55,
+// I 80, K 56, J 32 and L 34 registers and no spills (-Xptxas -v, which
+// ops/kernels.py passes for this file; printed at every build), and the
+// branch stays.
+// What bounds the padded probe on the H100: per valid window, ceil(8S/32)
+// key sectors plus one EC sector per hit, in a single dependent round
+// (the EC sector lies in the row's own 128-byte line once S <= 8).  The
+// bucketed probe reads a bucket_start sector, then 1-4 key sectors along
+// a chain of up to 6 dependent steps, then a kmer_ec sector.  So the
+// padded layout spends up to 2^p * S * 16 bytes of memory (at most 1 GiB)
+// to replace two to eight dependent DRAM round trips by one.
+//
+// Kernel L, lookup_kmers, is K2 taken alone: a grid-stride kernel over
+// [n] canonical k-mers and their valid mask that returns (slot int64, hit
+// bool, EC row int32) through kt_probe, equal to the plain lookup_kmers
+// of ops/pseudoalign.py in both layouts.  No run loop launches it; it is
+// the yardstick of the probe (chip_smoke.py times it in both layouts).
 //
 // Kernel A, pseudoalign_side, replaces the JAX device program
 // kallisto_tpu/ops/pseudoalign.py pseudoalign_batch_packed (:479) with its
@@ -28,8 +61,8 @@
 // read's codes into shared memory, then walks the W = Lc - k + 1 windows in
 // chunks of 32 (one window per lane).  Each lane builds its window's forward
 // and reverse-complement k-mers directly from the shared codes, takes
-// canon = min(f, r), mixes it with splitmix64 and runs the fixed-depth
-// (6-step) lower_bound inside its hash bucket.  The window's EC row goes to
+// canon = min(f, r), mixes it with splitmix64 and probes the index with
+// kt_probe (the bucket's row, or the lower_bound inside the bucket).  The window's EC row goes to
 // shared memory; ballots give has_hits, the leftmost hit (its slot and
 // orientation come over a shuffle) and the last hit.  The R = min(16, W)
 // smallest distinct rows then come from R rounds of masked warp minimum
@@ -37,14 +70,16 @@
 // `overflow` exactly as _pseudoalign_core :534-536.
 //
 // What bounds them on the H100: the random reads into the k-mer table.  Per
-// valid window: one 32-byte sector of bucket_start, the 1-4 sectors of the
-// bucket's sorted keys that the binary search touches (a bucket holds < 64
-// keys, <= 512 contiguous bytes), and for a hit one sector of kmer_ec.  At
-// realistic size the table (~1 GB) does not fit in the 50 MB L2, so these
-// are DRAM sector reads; the k-mer build itself is a few hundred integer
-// operations per window and never the limit.  What the design does about
-// it: no bucket padding (the bucketed layout keeps the table at 8N + 4N
-// bytes), invalid windows skip the lookup entirely, the search stops as
+// valid window of a bucketed index: one 32-byte sector of bucket_start, the
+// 1-4 sectors of the bucket's sorted keys that the binary search touches (a
+// bucket holds < 64 keys, <= 512 contiguous bytes), and for a hit one
+// sector of kmer_ec; of a padded index the row's key and EC sectors (see
+// kt_probe).  At realistic size the table (~1 GB) does not fit in the
+// 50 MB L2, so these are DRAM sector reads; the k-mer build itself is a
+// few hundred integer operations per window and never the limit.  What
+// the design does about it: a large index keeps the unpadded bucketed
+// layout (8N + 4N bytes), invalid windows skip the lookup entirely, the
+// search stops as
 // soon as its range is empty, and all 32 lanes of a warp issue their
 // lookups together so the memory system sees 32 independent requests per
 // warp.  Kernel D also trims the padding columns that a byte-aligned Lp
@@ -129,7 +164,7 @@
 // per-block slice when Lp is too long), then walks its own windows only
 // (w < len - k + 1: the batch's padded tail windows are never valid) in
 // chunks of 256, one window per thread, with kernel A's k-mer build and
-// kt_lookup.  Per chunk a block-wide max-scan of hit positions gives each
+// kt_probe.  Per chunk a block-wide max-scan of hit positions gives each
 // hit its previous hit (the chunk's uid/EC rows sit in shared memory; the
 // last hit of earlier chunks is a carry), and one add-scan of the packed
 // flags (boundary, boundary with EC row >= 0) gives the group index and
@@ -153,16 +188,22 @@
 #define KT_DEPTH 6
 #define KT_FULL 0xffffffffu
 
+// The device index in either layout (struct IndexView in ops/kernels.py,
+// passed by pointer).  Bucketed (S == 0): hkeys, bucket_start and ec, N
+// keys.  Padded (S > 0): rows, 2^p buckets of S slots, N = 2^p * S.  The
+// payloads uid, pos, fw and block have N entries in slot order.
 struct IndexView {
-    const unsigned long long* hkeys;  // [N] mixed canonical k-mers, sorted
-    const int* bucket_start;          // [2^p + 1]
+    const unsigned long long* hkeys;  // bucketed: [N] mixed keys, sorted
+    const int* bucket_start;          // bucketed: [2^p + 1]
+    const int* ec;                    // bucketed: [N] EC row, -1 = wildcard
+    const unsigned long long* rows;   // padded: [2^p, 2S] S keys, S EC rows
     const int* uid;                   // [N]
     const int* pos;                   // [N]
     const unsigned char* fw;          // [N] bool
     const int* block;                 // [N]
-    const int* ec;                    // [N] EC row, -1 = wildcard
     long long N;
     int p;
+    int S;                            // padded slots per bucket, 0 = bucketed
 };
 
 struct SideOut {
@@ -208,6 +249,44 @@ __device__ __forceinline__ long long kt_lookup(const IndexView& ix,
     return lo < ix.N - 1 ? lo : ix.N - 1;
 }
 
+// K2's probe in either layout: the slot of mixed key q in *idx, its EC
+// row in *ec (-1 on a miss), and whether q is in the index.  The layout
+// is a kernel argument, so the branch is uniform over the whole launch.
+// Padded: the S keys of q's bucket row, 16 bytes a load; a match at j
+// gives the slot b * S + j and the EC row from the low word of entry
+// S + j of the same row; a miss gives b * S (JAX's argmax of an
+// all-false row).  The mixed keys are distinct, so at most one slot
+// matches a key of the index.
+__device__ __forceinline__ int kt_probe(const IndexView& ix,
+                                        unsigned long long q, long long* idx,
+                                        int* ec) {
+    if (ix.S) {
+        const int S = ix.S;
+        const long long b = (long long)(q >> (64 - ix.p));
+        const unsigned long long* row = ix.rows + b * 2 * S;
+        int j = -1;
+        if (S == 1) {
+            if (__ldg(row) == q) j = 0;
+        } else {
+            const ulonglong2* r2 = (const ulonglong2*)row;
+#pragma unroll 4
+            for (int h = 0; h < (S >> 1); ++h) {
+                const ulonglong2 v = __ldg(r2 + h);
+                if (j < 0 && v.x == q) j = 2 * h;
+                if (j < 0 && v.y == q) j = 2 * h + 1;
+            }
+        }
+        *idx = b * S + (j < 0 ? 0 : j);
+        *ec = j < 0 ? -1 : (int)(unsigned int)__ldg(row + S + j);
+        return j >= 0;
+    }
+    const long long i = kt_lookup(ix, q);
+    const int hit = ix.hkeys[i] == q;
+    *idx = i;
+    *ec = hit ? ix.ec[i] : -1;
+    return hit;
+}
+
 // One read, one warp: codes (W + k - 1 of them) are in shared memory;
 // wrows is W ints of shared scratch.  Writes the read's SideResult row: R
 // row slots at a row stride of RS >= R.
@@ -240,9 +319,9 @@ __device__ void kt_side_read(const IndexView& ix,
             if (valid || w == 0) {
                 const unsigned long long q =
                     kt_mix64(valid ? (isfw ? f : r) : 0ULL);
-                idx = kt_lookup(ix, q);
-                hit = valid && ix.hkeys[idx] == q;
-                if (hit) ecv = ix.ec[idx];
+                int e;
+                hit = kt_probe(ix, q, &idx, &e) && valid;
+                if (hit) ecv = e;
             }
             wrows[w] = (hit && ecv >= 0) ? ecv : KT_INT32_MAX;
         }
@@ -381,7 +460,6 @@ __global__ void pseudoalign_turbo_kernel(
     long long Bp, int ns, int Lp, int Lc, int k, int R, int warp_bytes,
     SideOut o) {
     extern __shared__ int kt_smem[];
-    const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int wpb = blockDim.x >> 5;
     const int W = Lc - k + 1;
@@ -466,8 +544,9 @@ __global__ void pseudoalign_anchor_kernel(
                 if (valid || j == 0) {
                     const unsigned long long q =
                         kt_mix64(valid ? (isfw ? f : r) : 0ULL);
-                    const long long idx = kt_lookup(ix, q);
-                    hit = valid && ix.hkeys[idx] == q;
+                    long long idx;
+                    int e;
+                    hit = kt_probe(ix, q, &idx, &e) && valid;
                     strand = isfw == (int)(ix.fw[idx] != 0);
                     if (hit) {
                         uid = ix.uid[idx];
@@ -764,12 +843,13 @@ __global__ void __launch_bounds__(KJ_THREADS) pseudoalign_long_kernel(
                 if (!bad) {
                     ++n_valid;
                     const unsigned long long q = kt_mix64(f <= r ? f : r);
-                    const long long idx = kt_lookup(ix, q);
-                    if (ix.hkeys[idx] == q) {
+                    long long idx;
+                    int e;
+                    if (kt_probe(ix, q, &idx, &e)) {
                         hit = 1;
                         ++n_hit;
                         uid = ix.uid[idx];
-                        ecv = ix.ec[idx];
+                        ecv = e;
                     }
                 }
             }
@@ -855,20 +935,22 @@ __global__ void __launch_bounds__(KJ_THREADS) pseudoalign_long_kernel(
     }
 }
 
-static int kt_index_view(IndexView* ix, const void* hkeys,
-                         const void* bucket_start, const void* uid,
-                         const void* pos, const void* fw, const void* block,
-                         const void* ec, long long N, int p) {
-    if (N <= 0 || p < 1 || p > 63) return (int)cudaErrorInvalidValue;
-    ix->hkeys = (const unsigned long long*)hkeys;
-    ix->bucket_start = (const int*)bucket_start;
-    ix->uid = (const int*)uid;
-    ix->pos = (const int*)pos;
-    ix->fw = (const unsigned char*)fw;
-    ix->block = (const int*)block;
-    ix->ec = (const int*)ec;
-    ix->N = N;
-    ix->p = p;
+// The caller's index view, checked: the payloads, and either layout's
+// tables with N consistent with p and S.
+static int kt_index_view(IndexView* ix, const IndexView* in) {
+    if (in == 0) return (int)cudaErrorInvalidValue;
+    *ix = *in;
+    const int payloads = ix->uid && ix->pos && ix->fw && ix->block;
+    if (!payloads || ix->N <= 0 || ix->p < 1 || ix->p > 63)
+        return (int)cudaErrorInvalidValue;
+    if (ix->S) {
+        if (ix->S < 0 || ix->S > 64 || (ix->S & (ix->S - 1)) || !ix->rows ||
+            ix->p > 40 ||
+            ix->N != ((long long)ix->S << ix->p))
+            return (int)cudaErrorInvalidValue;
+    } else if (!ix->hkeys || !ix->bucket_start || !ix->ec) {
+        return (int)cudaErrorInvalidValue;
+    }
     return 0;
 }
 
@@ -920,9 +1002,7 @@ static unsigned int kt_blocks(long long B, int wpb) {
 }
 
 extern "C" int pseudoalign_side(
-    const void* hkeys, const void* bucket_start, const void* uid,
-    const void* pos, const void* fw, const void* block, const void* ec,
-    long long N, int p,
+    const IndexView* index,
     const void* packed, const void* nmask, const void* lens,
     int B, int Lp, int k, int R,
     void* rows, void* n_rows, void* has_hits, void* overflow,
@@ -932,8 +1012,7 @@ extern "C" int pseudoalign_side(
     if (Lp < k || (Lp & 7) != 0 || R <= 0 || R > Lp - k + 1 || k > 32)
         return (int)cudaErrorInvalidValue;
     IndexView ix;
-    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
-                            N, p);
+    int err = kt_index_view(&ix, index);
     if (err) return err;
     const int W = Lp - k + 1;
     int wpb, warp_bytes;
@@ -951,9 +1030,7 @@ extern "C" int pseudoalign_side(
 }
 
 extern "C" int pseudoalign_turbo(
-    const void* hkeys, const void* bucket_start, const void* uid,
-    const void* pos, const void* fw, const void* block, const void* ec,
-    long long N, int p,
+    const IndexView* index,
     const void* p1, const void* p2, const void* aux, long long n_exc,
     const void* lens, long long Bp, int ns, int Lp, int rl, int k, int R,
     void* rows, void* n_rows, void* has_hits, void* overflow,
@@ -965,8 +1042,7 @@ extern "C" int pseudoalign_turbo(
         Lc < k || (Lp & 3) != 0 || R <= 0 || R > Lc - k + 1 || k > 32)
         return (int)cudaErrorInvalidValue;
     IndexView ix;
-    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
-                            N, p);
+    int err = kt_index_view(&ix, index);
     if (err) return err;
     const int W = Lc - k + 1;
     int wpb, warp_bytes;
@@ -985,9 +1061,7 @@ extern "C" int pseudoalign_turbo(
 }
 
 extern "C" int pseudoalign_anchor(
-    const void* hkeys, const void* bucket_start, const void* uid,
-    const void* pos, const void* fw, const void* block, const void* ec,
-    long long N, int p, const void* block_ec8, long long n_be8,
+    const IndexView* index, const void* block_ec8, long long n_be8,
     const void* p1, const void* p2, const void* aux, long long n_exc,
     long long Bp, int ns, int Lp, int rl, int k, int R, int n_anchors,
     void* rows, void* n_rows, void* has_hits, void* overflow,
@@ -1005,8 +1079,7 @@ extern "C" int pseudoalign_anchor(
         k > 32 || n_anchors < 2 || n_be8 < 16)
         return (int)cudaErrorInvalidValue;
     IndexView ix;
-    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
-                            N, p);
+    int err = kt_index_view(&ix, index);
     if (err) return err;
     int wpb, warp_bytes;
     long long smem;
@@ -1027,9 +1100,7 @@ extern "C" int pseudoalign_anchor(
 // Kernel K.  Outputs: mate 1's ten SideResult fields, then mate 2's, each
 // [Bp] with R row slots.
 extern "C" int pseudoalign_halffail(
-    const void* hkeys, const void* bucket_start, const void* uid,
-    const void* pos, const void* fw, const void* block, const void* ec,
-    long long N, int p, const void* block_ec8, long long n_be8,
+    const IndexView* index, const void* block_ec8, long long n_be8,
     const void* pkf, const void* vsum, const void* sidev, const void* aux,
     long long n_exc, long long Bp, int Lp, int rl, int k, int R,
     void* rows1, void* n_rows1, void* has_hits1, void* overflow1,
@@ -1045,8 +1116,7 @@ extern "C" int pseudoalign_halffail(
         n_be8 < 16)
         return (int)cudaErrorInvalidValue;
     IndexView ix;
-    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
-                            N, p);
+    int err = kt_index_view(&ix, index);
     if (err) return err;
     int wpb, warp_bytes;
     long long smem;
@@ -1077,9 +1147,7 @@ extern "C" void pseudoalign_long_workspace(int Lp, int k, long long* ws) {
 // global workspaces that pseudoalign_long_workspace sizes: codes_ws [grid,
 // ws[0]] bytes and list_ws [grid, ws[1]] ints, each null where its size is 0.
 extern "C" int pseudoalign_long(
-    const void* hkeys, const void* bucket_start, const void* uid,
-    const void* pos, const void* fw, const void* block, const void* ec,
-    long long N, int p,
+    const IndexView* index,
     const void* packed, const void* nmask, const void* lens,
     long long B, int Lp, int k, int R, int G, int grid,
     void* codes_ws, void* list_ws,
@@ -1095,8 +1163,7 @@ extern "C" int pseudoalign_long(
         (codes_g != 0) != (codes_ws != 0))
         return (int)cudaErrorInvalidValue;
     IndexView ix;
-    int err = kt_index_view(&ix, hkeys, bucket_start, uid, pos, fw, block, ec,
-                            N, p);
+    int err = kt_index_view(&ix, index);
     if (err) return err;
     const int list_smem = need < KJ_SCAP ? (int)need : KJ_SCAP;
     // at most 4 * KJ_SCAP + KJ_CODES_SMEM = 160 KB, under Hopper's 227 KB
@@ -1121,5 +1188,46 @@ extern "C" int pseudoalign_long(
         ix, (const unsigned char*)packed, (const unsigned char*)nmask,
         (const int*)lens, B, Lp, k, R, G, (unsigned char*)codes_ws,
         (int*)list_ws, need, list_smem, o);
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- kernel L
+
+// Kernel L: one thread per query of n canonical k-mers, grid-stride;
+// invalid queries are probed with canon 0 and never hit (lookup_kmers).
+__global__ void lookup_kmers_kernel(IndexView ix,
+                                    const long long* __restrict__ canon,
+                                    const unsigned char* __restrict__ valid,
+                                    long long n, long long* __restrict__ idx,
+                                    unsigned char* __restrict__ hit,
+                                    int* __restrict__ ec) {
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += (long long)gridDim.x * blockDim.x) {
+        const int v = valid[i] != 0;
+        const unsigned long long q =
+            kt_mix64(v ? (unsigned long long)canon[i] : 0ULL);
+        long long s;
+        int e;
+        const int h = kt_probe(ix, q, &s, &e) && v;
+        idx[i] = s;
+        hit[i] = (unsigned char)h;
+        ec[i] = h ? e : -1;
+    }
+}
+
+// Kernel L: (idx int64, hit bool, ec int32) of n queries.
+extern "C" int lookup_kmers(const IndexView* index, const void* canon,
+                            const void* valid, long long n, void* idx,
+                            void* hit, void* ec, void* stream) {
+    if (n <= 0) return 0;
+    IndexView ix;
+    int err = kt_index_view(&ix, index);
+    if (err) return err;
+    long long blocks = (n + 255) / 256;
+    if (blocks > 132 * 32) blocks = 132 * 32;
+    lookup_kmers_kernel<<<(unsigned int)blocks, 256, 0,
+                          (cudaStream_t)stream>>>(
+        ix, (const long long*)canon, (const unsigned char*)valid, n,
+        (long long*)idx, (unsigned char*)hit, (int*)ec);
     return (int)cudaGetLastError();
 }

@@ -43,7 +43,7 @@ import torch
 from . import kernels
 from .pseudoalign import (
     INT32_MAX,
-    DeviceIndex,
+    AnyDeviceIndex,
     SideResult,
     _pseudoalign_core,
     compact_pair_keys,
@@ -102,7 +102,7 @@ class Wave1(NamedTuple):
     blk: torch.Tensor
 
 
-def anchor_wave1_plain(didx: DeviceIndex, codes: torch.Tensor, rlen: int,
+def anchor_wave1_plain(didx: AnyDeviceIndex, codes: torch.Tensor, rlen: int,
                        real: torch.Tensor, k: int, n_anchors: int) -> Wave1:
     """Plain version of kernel I's wave 1 (JAX _anchor_side :88-123)."""
     wlast = max(rlen - k, 0)
@@ -136,7 +136,7 @@ def anchor_wave1_plain(didx: DeviceIndex, codes: torch.Tensor, rlen: int,
     return Wave1(ok, ws, validA, hitA, uidA, uposA, strandA, blkA)
 
 
-def anchor_side_plain(didx: DeviceIndex, codes: torch.Tensor, rlen: int,
+def anchor_side_plain(didx: AnyDeviceIndex, codes: torch.Tensor, rlen: int,
                       real: torch.Tensor, k: int, max_rows: int,
                       n_anchors: int) -> Tuple[SideResult, torch.Tensor]:
     """Plain version of kernel I on decoded codes [B2, Lc] (JAX
@@ -207,8 +207,8 @@ def _real_rows(aux: torch.Tensor, B: int, ns: int) -> torch.Tensor:
     return side_idx < aux[1]
 
 
-def anchor_sides(didx: DeviceIndex, sides, aux: torch.Tensor, k: int, L: int,
-                 max_rows: int, n_anchors: int,
+def anchor_sides(didx: AnyDeviceIndex, sides, aux: torch.Tensor, k: int,
+                 L: int, max_rows: int, n_anchors: int,
                  rl: int = 0) -> Tuple[SideResult, torch.Tensor]:
     """Kernel I (or its plain version): the SideResult of every read of the
     concatenated mates ([ns * Bp] rows, max_rows slots) and n_fail."""
@@ -228,9 +228,9 @@ def _with_n_fail(ck: torch.Tensor, n_fail: torch.Tensor) -> torch.Tensor:
 
 
 def pseudoalign_pair_anchor(
-    didx: DeviceIndex, p1: torch.Tensor, p2: torch.Tensor, aux: torch.Tensor,
-    k: int, L: int, max_rows: int = 16, max_keys: int = 32768,
-    n_anchors: int = 2, min_range: int = 0, strand_key: bool = False,
+    didx: AnyDeviceIndex, p1: torch.Tensor, p2: torch.Tensor,
+    aux: torch.Tensor, k: int, L: int, max_rows: int = 16,
+    max_keys: int = 32768, n_anchors: int = 2, min_range: int = 0, strand_key: bool = False,
     rl: int = 0, pos_fl: int = -1, pos_depth: int = 0,
 ):
     """Uniform-length pair batch through the anchor kernel, then kernel B's
@@ -246,7 +246,7 @@ def pseudoalign_pair_anchor(
 
 
 def pseudoalign_single_anchor(
-    didx: DeviceIndex, p1: torch.Tensor, aux: torch.Tensor, k: int, L: int,
+    didx: AnyDeviceIndex, p1: torch.Tensor, aux: torch.Tensor, k: int, L: int,
     max_rows: int = 16, max_keys: int = 32768, n_anchors: int = 2,
     min_range: int = 0, strand_key: bool = False, rl: int = 0,
     pos_fl: int = -1, pos_depth: int = 0,

@@ -6,7 +6,9 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build
 happens at first use, into ``kallisto_tpu_torch/_kbuild/`` (gitignored),
 with one ``nvcc`` per source, all started together; a library is named by
 the hash of its source and flags, so an unchanged source is not rebuilt.
-Several kernels may share a source (A, D, I, J and K; E and F).
+Several kernels may share a source (A, D, I, J, K and L; E and F).
+Kernels A, D, I, J, K and L take the device index in either layout
+(ops/pseudoalign.py DeviceIndex or PaddedDeviceIndex) as one IndexView.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` on its inputs' device, launches with that
@@ -34,14 +36,19 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_kbuild")
 
+# -Xptxas -v: the build prints each probing kernel's registers and spills
+# (the register counts csrc/pseudoalign.cu's header comment cites)
+_PSEUDOALIGN = ("pseudoalign.cu", ("-Xptxas", "-v"))
+
 # kernel name -> (source file, extra nvcc flags)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
-    "pseudoalign_side": ("pseudoalign.cu", ()),
+    "pseudoalign_side": _PSEUDOALIGN,
     "read_keys": ("read_keys.cu", ()),
-    "pseudoalign_turbo": ("pseudoalign.cu", ()),
-    "pseudoalign_anchor": ("pseudoalign.cu", ()),
-    "pseudoalign_long": ("pseudoalign.cu", ()),
-    "pseudoalign_halffail": ("pseudoalign.cu", ()),
+    "pseudoalign_turbo": _PSEUDOALIGN,
+    "pseudoalign_anchor": _PSEUDOALIGN,
+    "pseudoalign_long": _PSEUDOALIGN,
+    "pseudoalign_halffail": _PSEUDOALIGN,
+    "lookup_kmers": _PSEUDOALIGN,
     "key_histogram": ("compact.cu", ()),
     "gather_exemplars": ("compact.cu", ()),
     "gather_slim": ("compact.cu", ()),
@@ -74,6 +81,18 @@ class KeySide(ctypes.Structure):
         ("R", ctypes.c_int)]
 
 
+class IndexView(ctypes.Structure):
+    """The device index in either layout (struct IndexView in
+    csrc/pseudoalign.cu): the bucketed tables (hkeys, bucket_start, ec)
+    with S = 0, or the padded bucket rows with S > 0; N slots of
+    payloads."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "hkeys", "bucket_start", "ec", "rows", "uid", "pos", "fw",
+        "block")] + [("N", ctypes.c_longlong), ("p", ctypes.c_int),
+                     ("S", ctypes.c_int)]
+
+
 class KeyOpts(ctypes.Structure):
     """Key options (struct KeyOpts in csrc/read_keys.cu)."""
 
@@ -87,18 +106,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIDE = ctypes.POINTER(KeySide)
+_IX = ctypes.POINTER(IndexView)
 _ARGTYPES = {
-    "pseudoalign_side": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_I] * 4
+    "pseudoalign_side": [_IX] + [_P] * 3 + [_I] * 4 + [_P] * 10 + [_P],
+    "pseudoalign_turbo": [_IX] + [_P] * 3 + [_LL, _P, _LL] + [_I] * 5
     + [_P] * 10 + [_P],
-    "pseudoalign_turbo": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_LL, _P, _LL]
-    + [_I] * 5 + [_P] * 10 + [_P],
-    "pseudoalign_anchor": [_P] * 7 + [_LL, _I, _P, _LL] + [_P] * 3
-    + [_LL, _LL] + [_I] * 6 + [_P] * 11 + [_P],
-    "pseudoalign_long": [_P] * 7 + [_LL, _I] + [_P] * 3 + [_LL] + [_I] * 5
-    + [_P, _P] + [_P] * 8 + [_P],
+    "pseudoalign_anchor": [_IX, _P, _LL] + [_P] * 3 + [_LL, _LL] + [_I] * 6
+    + [_P] * 11 + [_P],
+    "pseudoalign_long": [_IX] + [_P] * 3 + [_LL] + [_I] * 5 + [_P, _P]
+    + [_P] * 8 + [_P],
     "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
-    "pseudoalign_halffail": [_P] * 7 + [_LL, _I, _P, _LL] + [_P] * 4
-    + [_LL, _LL] + [_I] * 4 + [_P] * 20 + [_P],
+    "pseudoalign_halffail": [_IX, _P, _LL] + [_P] * 4 + [_LL, _LL] + [_I] * 4
+    + [_P] * 20 + [_P],
+    "lookup_kmers": [_IX, _P, _P, _LL, _P, _P, _P, _P],
     "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL] + [_P] * 6,
     "gather_slim": [_SIDE, _SIDE, _P, _LL, _LL, _P, _P],
     "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
@@ -238,7 +258,7 @@ def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
     """Kernel A on one mate's packed batch.  Returns the ten SideResult
     fields as a tuple of CUDA tensors (rows, n_rows, has_hits, overflow,
     f_uid, f_block, f_upos, f_rpos, f_strand, rng)."""
-    dev = didx.kmer_hkeys.device
+    dev = didx.device
     B = int(lens.shape[0])
     if L % 8 or L < k:
         raise ValueError(f"padded length {L} must be a multiple of 8 and >= k")
@@ -249,26 +269,38 @@ def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
     out = _side_outputs(B, R, dev)
     _launch(
         "pseudoalign_side", dev,
-        *ix, _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R,
+        ctypes.byref(ix), _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R,
         *[_ptr(t) for t in out])
     return out
 
 
-def _index_args(didx) -> tuple:
-    """Checked device-index pointers (+ N, p) for kernels A and D."""
-    dev = didx.kmer_hkeys.device
-    N = int(didx.kmer_hkeys.shape[0])
-    _check(didx.kmer_hkeys, "kmer_hkeys", torch.int64, (N,), dev)
-    _check(didx.bucket_start, "bucket_start", torch.int32,
-           ((1 << didx.p) + 1,), dev)
-    for nm in ("kmer_uid", "kmer_pos", "kmer_block", "kmer_ec"):
-        _check(getattr(didx, nm), nm, torch.int32, (N,), dev)
-    _check(didx.kmer_fw, "kmer_fw", torch.bool, (N,), dev)
-    return (
-        _ptr(didx.kmer_hkeys), _ptr(didx.bucket_start), _ptr(didx.kmer_uid),
-        _ptr(didx.kmer_pos), _ptr(didx.kmer_fw), _ptr(didx.kmer_block),
-        _ptr(didx.kmer_ec), N, didx.p,
-    )
+def _index_args(didx) -> IndexView:
+    """The checked IndexView of a device index in either layout (kernels
+    A, D, I, J, K and L): a PaddedDeviceIndex passes its bucket rows and
+    S, a DeviceIndex its sorted keys, bucket_start and kmer_ec."""
+    dev = didx.device
+    M = 1 << didx.p
+    ix = IndexView(p=didx.p)
+    if hasattr(didx, "bucket_rows"):
+        S = int(didx.bucket_rows.shape[1]) // 2
+        if S < 1 or S & (S - 1):
+            raise ValueError(f"bucket_rows: width {2 * S}, expected 2S "
+                             "with S a power of two")
+        _check(didx.bucket_rows, "bucket_rows", torch.int64, (M, 2 * S), dev)
+        ix.rows, ix.S, ix.N = _ptr(didx.bucket_rows), S, M * S
+    else:
+        N = int(didx.kmer_hkeys.shape[0])
+        _check(didx.kmer_hkeys, "kmer_hkeys", torch.int64, (N,), dev)
+        _check(didx.bucket_start, "bucket_start", torch.int32, (M + 1,), dev)
+        _check(didx.kmer_ec, "kmer_ec", torch.int32, (N,), dev)
+        ix.hkeys, ix.ec = _ptr(didx.kmer_hkeys), _ptr(didx.kmer_ec)
+        ix.bucket_start, ix.S, ix.N = _ptr(didx.bucket_start), 0, N
+    for nm in ("kmer_uid", "kmer_pos", "kmer_block"):
+        _check(getattr(didx, nm), nm, torch.int32, (ix.N,), dev)
+    _check(didx.kmer_fw, "kmer_fw", torch.bool, (ix.N,), dev)
+    ix.uid, ix.pos = _ptr(didx.kmer_uid), _ptr(didx.kmer_pos)
+    ix.fw, ix.block = _ptr(didx.kmer_fw), _ptr(didx.kmer_block)
+    return ix
 
 
 def _side_outputs(B: int, R: int, dev) -> tuple:
@@ -293,7 +325,7 @@ def pseudoalign_turbo(didx, sides, aux: torch.Tensor,
     uint8) with the aux vector [4 + n] int64 (N positions ascending) and,
     for a mixed-length batch, lens [ns * Bp] uint16.  Returns the ten
     SideResult fields for the ns * Bp reads, mate 1 first."""
-    dev = didx.kmer_hkeys.device
+    dev = didx.device
     ns = len(sides)
     if ns not in (1, 2):
         raise ValueError("kernel D takes one or two mates")
@@ -312,7 +344,7 @@ def pseudoalign_turbo(didx, sides, aux: torch.Tensor,
     out = _side_outputs(ns * Bp, R, dev)
     _launch(
         "pseudoalign_turbo", dev,
-        *ix, _ptr(sides[0]), _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
+        ctypes.byref(ix), _ptr(sides[0]), _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
         int(aux.shape[0]) - 4, _ptr(lens), Bp, ns, L, rl, k, R,
         *[_ptr(t) for t in out])
     return out
@@ -329,7 +361,7 @@ def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
     gives min(R, Lc - k + 1) rows, which must be R or 1 (a one-slot row
     fills every slot).  Returns the ten SideResult fields for the ns * Bp
     reads, mate 1 first, and n_fail ([1] int64, reads of wave 2)."""
-    dev = didx.kmer_hkeys.device
+    dev = didx.device
     ns = len(sides)
     if ns not in (1, 2):
         raise ValueError("kernel I takes one or two mates")
@@ -351,7 +383,7 @@ def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
     n_fail = torch.empty(1, dtype=torch.int64, device=dev)
     _launch(
         "pseudoalign_anchor", dev,
-        *ix, _ptr(be8), int(be8.numel()), _ptr(sides[0]),
+        ctypes.byref(ix), _ptr(be8), int(be8.numel()), _ptr(sides[0]),
         _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
         int(aux.shape[0]) - 4, Bp, ns, L, rl, k, R, n_anchors,
         *[_ptr(t) for t in out], _ptr(n_fail))
@@ -369,7 +401,7 @@ def pseudoalign_halffail(didx, pkf: torch.Tensor, vsum: torch.Tensor,
     verified mates' summaries, sidev [Bp] int32 (1: mate 1 failed), aux
     [4 + n] int64.  R is both mates' row width, min(max_rows, Lc - k + 1).
     Returns mate 1's and mate 2's ten SideResult fields."""
-    dev = didx.kmer_hkeys.device
+    dev = didx.device
     Bp = int(pkf.shape[0])
     Lc = rl if 0 < rl < L else L
     if L % 4 or Lc < k or not 0 < R <= Lc - k + 1:
@@ -387,7 +419,7 @@ def pseudoalign_halffail(didx, pkf: torch.Tensor, vsum: torch.Tensor,
     out2 = _side_outputs(Bp, R, dev)
     _launch(
         "pseudoalign_halffail", dev,
-        *ix, _ptr(be8), int(be8.numel()), _ptr(pkf), _ptr(vsum), _ptr(sidev),
+        ctypes.byref(ix), _ptr(be8), int(be8.numel()), _ptr(pkf), _ptr(vsum), _ptr(sidev),
         _ptr(aux), int(aux.shape[0]) - 4, Bp, L, rl, k, R,
         *[_ptr(t) for t in out1], *[_ptr(t) for t in out2])
     return out1, out2
@@ -417,7 +449,7 @@ def pseudoalign_long(didx, packed: torch.Tensor, nmask: torch.Tensor,
     """Kernel J on one packed batch of long reads.  Returns the eight
     LongResult fields as a tuple of CUDA tensors (rows [B, R], n_rows,
     has_hits, overflow, unmapped, groups [B, G], n_groups, g_overflow)."""
-    dev = didx.kmer_hkeys.device
+    dev = didx.device
     B = int(lens.shape[0])
     W = L - k + 1
     if L % 8 or L < k or not 0 < R <= W or G < 1:
@@ -441,9 +473,32 @@ def pseudoalign_long(didx, packed: torch.Tensor, nmask: torch.Tensor,
     list_ws = torch.empty(grid * list_n, **i32) if list_n else None
     _launch(
         "pseudoalign_long", dev,
-        *ix, _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R, G, grid,
+        ctypes.byref(ix), _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R, G, grid,
         _ptr(codes_ws), _ptr(list_ws), *[_ptr(t) for t in out])
     return out
+
+
+# ---------------------------------------------------------------- kernel L
+
+
+def lookup_kmers(didx, canon: torch.Tensor, valid: torch.Tensor):
+    """Kernel L, K2's probe alone: (slot int64, hit bool, EC row int32) of
+    each canonical k-mer of `canon` (int64, any shape) under `valid` (bool,
+    same shape), in either index layout; equal to the plain lookup_kmers
+    of ops/pseudoalign.py.  No run loop calls it."""
+    dev = didx.device
+    shape = tuple(canon.shape)
+    _check(canon, "canon", torch.int64, shape, dev)
+    _check(valid, "valid", torch.bool, shape, dev)
+    ix = _index_args(didx)
+    idx = torch.empty(shape, dtype=torch.int64, device=dev)
+    hit = torch.empty(shape, dtype=torch.bool, device=dev)
+    ec = torch.empty(shape, dtype=torch.int32, device=dev)
+    if canon.numel() == 0:
+        return idx, hit, ec
+    _launch("lookup_kmers", dev, ctypes.byref(ix), _ptr(canon), _ptr(valid),
+            canon.numel(), _ptr(idx), _ptr(hit), _ptr(ec))
+    return idx, hit, ec
 
 
 # ---------------------------------------------------------------- kernel B

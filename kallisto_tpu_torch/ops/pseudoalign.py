@@ -16,7 +16,7 @@ versions keep 64-bit hashes as int64 bit patterns: logical right shifts
 are masked arithmetic shifts and unsigned compares flip the sign bit.
 """
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +30,11 @@ _EMPTY_SLOT = np.uint64(0xFFFFFFFFFFFFFFFF)
 # Fixed probe depth: buckets are sized (by raising p) to hold < 2^DEPTH
 # entries, so the lower_bound below always terminates exactly.
 _BUCKET_SEARCH_DEPTH = 6
+
+# Padded layout budget: an index whose padded bucket rows (2^p * S * 16
+# bytes) fit takes the padded layout, any other the bucketed one -- the
+# JAX package's rule, so both packages pick the same layout.
+_PADDED_BYTES_BUDGET = 1 << 30
 
 _SIGN = -(2**63)
 
@@ -136,6 +141,45 @@ class DeviceIndex(NamedTuple):
             t.numel() * t.element_size() for t in self[:8]
         )
 
+    @property
+    def device(self) -> torch.device:
+        return self.kmer_hkeys.device
+
+
+class PaddedDeviceIndex(NamedTuple):
+    """Index tables resident on the device, padded layout (small indexes).
+
+    Each hash bucket is one fixed-width row of 2S int64 words (uint64 bit
+    patterns): its S mixed keys in ascending order, _EMPTY_SLOT padded,
+    then their S EC rows in the low 32 bits (2^32 - 1 = empty), so one row
+    read resolves a query.  The payloads are in slot order b * S + j, -1
+    (kmer_fw False) at empty slots.  Taken when 2^p * S * 16 bytes fit
+    _PADDED_BYTES_BUDGET (the JAX package's PaddedDeviceIndex)."""
+
+    bucket_rows: torch.Tensor  # [2^p, 2S] int64: S keys, then S EC rows
+    kmer_uid: torch.Tensor     # [2^p * S] int32 (slot order)
+    kmer_pos: torch.Tensor     # [2^p * S] int32
+    kmer_fw: torch.Tensor      # [2^p * S] bool
+    kmer_block: torch.Tensor   # [2^p * S] int32
+    block_ec8: torch.Tensor    # [ceil((NB+9)/8), 8] int32 (see DeviceIndex)
+    p: int                     # bucket bits
+    pf_ptr: Optional[torch.Tensor] = None   # see DeviceIndex
+    pf_base: Optional[torch.Tensor] = None
+
+    @property
+    def S(self) -> int:
+        """Slots per bucket (a power of two)."""
+        return int(self.bucket_rows.shape[1]) // 2
+
+    def nbytes(self) -> int:
+        return sum(
+            t.numel() * t.element_size() for t in self[:6]
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.bucket_rows.device
+
 
 def cached_probe_layout(index) -> ProbeLayout:
     """probe_layout memoized on the index object: the argsort over the
@@ -193,11 +237,20 @@ def pos_tables_from_host(index):
     )
 
 
+def padded_shape(layout: ProbeLayout) -> Tuple[int, int]:
+    """(M, S) of the padded layout: 2^p buckets of S = the next power of
+    two of the largest bucket's count."""
+    S = 1 << max(int(np.ceil(np.log2(max(int(layout.counts.max()), 1)))), 0)
+    return 1 << layout.p, S
+
+
 def device_index_from_host(index, device=None,
-                           with_pos_tables: bool = False) -> DeviceIndex:
+                           with_pos_tables: bool = False) -> "AnyDeviceIndex":
     """Put the index tables on `device` (default: the card; raises without
     one unless device='cpu').  with_pos_tables adds the FLD position-filter
-    tables (pf_ptr, pf_base) that the position key column reads."""
+    tables (pf_ptr, pf_base) that the position key column reads.  Returns
+    a PaddedDeviceIndex when its bucket rows fit _PADDED_BYTES_BUDGET, else
+    a DeviceIndex."""
     from .. import resolve_device
 
     dev = resolve_device(device)
@@ -227,6 +280,36 @@ def device_index_from_host(index, device=None,
     if with_pos_tables:
         ptr, base, _ = pos_tables_from_host(index)
         pf_ptr, pf_base = put(ptr), put(base)
+    M, S = padded_shape(layout)
+    if M * S * 16 <= _PADDED_BYTES_BUDGET:
+        # only the N keys and payloads cross to the device; the padded
+        # tables (up to 1 GiB of rows) are filled and scattered there
+        mk = layout.mk
+        bid = (mk >> np.uint64(64 - layout.p)).astype(np.int64)
+        flat = put(bid * S + (np.arange(mk.shape[0], dtype=np.int64)
+                              - layout.bucket_start[bid]))
+        at = flat // S * (2 * S) + flat % S
+        rows = torch.full((M * 2 * S,), -1, dtype=torch.int64, device=dev)
+        rows[at] = put(mk.view(np.int64))
+        rows[at + S] = put(kmer_ec).to(torch.int64) & 0xFFFFFFFF
+
+        def scatter(a, fill):
+            v = put(a)
+            out = torch.full((M * S,), fill, dtype=v.dtype, device=dev)
+            out[flat] = v
+            return out
+
+        return PaddedDeviceIndex(
+            bucket_rows=rows.view(M, 2 * S),
+            kmer_uid=scatter(index.kmer_uid[order].astype(np.int32), -1),
+            kmer_pos=scatter(index.kmer_pos[order].astype(np.int32), -1),
+            kmer_fw=scatter(index.kmer_fw[order].astype(bool), False),
+            kmer_block=scatter(kmer_block, -1),
+            block_ec8=put(be8.reshape(nb8, 8)),
+            p=int(layout.p),
+            pf_ptr=pf_ptr,
+            pf_base=pf_base,
+        )
     return DeviceIndex(
         kmer_hkeys=put(layout.mk.view(np.int64)),
         bucket_start=put(layout.bucket_start.astype(np.int32)),
@@ -240,6 +323,11 @@ def device_index_from_host(index, device=None,
         pf_ptr=pf_ptr,
         pf_base=pf_base,
     )
+
+
+# either layout: every function that takes a device index reads it
+# through lookup_kmers, the slot-ordered payloads and block_ec8
+AnyDeviceIndex = Union[DeviceIndex, PaddedDeviceIndex]
 
 
 class SideResult(NamedTuple):
@@ -304,10 +392,31 @@ def rolling_canonical_kmers(codes: torch.Tensor, lens: torch.Tensor, k: int):
     return canon, is_fw, valid
 
 
-def lookup_kmers(didx: DeviceIndex, canon: torch.Tensor, valid: torch.Tensor):
-    """Bucketed k-mer lookup -> (slot [..] int64, hit bool, ec int32)."""
+def lookup_kmers(didx: AnyDeviceIndex, canon: torch.Tensor,
+                 valid: torch.Tensor):
+    """K-mer lookup in either layout -> (slot [..] int64, hit bool, ec
+    int32); the plain version of kernel L (and of the probe inside kernels
+    A, D, I, J and K).  Invalid windows are probed with canon 0 and never
+    hit.  Padded: one row of the query's bucket; a match at j gives the
+    slot b * S + j and the EC row from the row's second half, a miss the
+    slot b * S (JAX's argmax of an all-false row).  Bucketed: the
+    fixed-depth lower_bound inside the bucket."""
     q = mix64(torch.where(valid, canon, torch.zeros_like(canon)))
     b = _lshr(q, 64 - didx.p)
+    if isinstance(didx, PaddedDeviceIndex):
+        S = didx.S
+        flat = didx.bucket_rows.reshape(-1)
+        col = torch.arange(S, dtype=torch.int64, device=q.device)
+        base = (b * (2 * S))[..., None]
+        match = flat[base + col] == q[..., None]
+        hit = valid & match.any(dim=-1)
+        j = torch.argmax(match.to(torch.int8), dim=-1)
+        # the matched entry's low 32 bits, as int32 (the mixed keys are
+        # distinct, so at most one slot matches a key of the index)
+        meta = flat[b * (2 * S) + S + j] & 0xFFFFFFFF
+        ec = ((meta ^ 0x80000000) - 0x80000000).to(torch.int32)
+        ec = torch.where(hit, ec, torch.full_like(ec, -1))
+        return b * S + j, hit, ec
     lo = didx.bucket_start[b].to(torch.int64)
     n = didx.bucket_start[b + 1].to(torch.int64) - lo
     N = didx.kmer_hkeys.shape[0]
@@ -324,7 +433,7 @@ def lookup_kmers(didx: DeviceIndex, canon: torch.Tensor, valid: torch.Tensor):
     return idx, hit, ec
 
 
-def _pseudoalign_core(didx: DeviceIndex, codes: torch.Tensor,
+def _pseudoalign_core(didx: AnyDeviceIndex, codes: torch.Tensor,
                       lens: torch.Tensor, k: int, max_rows: int) -> SideResult:
     canon, is_fw, valid = rolling_canonical_kmers(codes, lens, k)
     B, W = canon.shape
@@ -444,7 +553,7 @@ def _single_flags(s1: SideResult, k: int = 0, min_range: int = 0) -> torch.Tenso
     return fl
 
 
-def pos_filter_rank(didx: DeviceIndex, s: SideResult, fl: int,
+def pos_filter_rank(didx: AnyDeviceIndex, s: SideResult, fl: int,
                     depth: int) -> torch.Tensor:
     """Rank of a read's fragment coordinate among its first-hit block's
     position-filter thresholds (-1 for reads without hits): a fixed-depth
@@ -472,7 +581,7 @@ def pos_filter_rank(didx: DeviceIndex, s: SideResult, fl: int,
     return torch.where(s.has_hits, lo - lo0, -1).to(torch.int32)
 
 
-def pos_col_pair(didx: DeviceIndex, s1: SideResult, s2: SideResult, fl: int,
+def pos_col_pair(didx: AnyDeviceIndex, s1: SideResult, s2: SideResult, fl: int,
                  depth: int) -> torch.Tensor:
     """Pair position column: the filter applies only when exactly one mate
     mapped (reference: ProcessReads.cpp:1094, `!paired || v1.empty() ||
@@ -484,7 +593,7 @@ def pos_col_pair(didx: DeviceIndex, s1: SideResult, s2: SideResult, fl: int,
 
 
 def key_columns(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
-                didx: Optional[DeviceIndex] = None):
+                didx: Optional[AnyDeviceIndex] = None):
     """(key columns in hash order, flag column): rows1, rows2 (paired),
     flags, then the [f_block, f_strand] tail of each mate when strand_key
     or the position column is on, then the position rank."""
@@ -509,7 +618,7 @@ def key_columns(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
 
 
 def key_hash_plain(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
-                   didx: Optional[DeviceIndex] = None):
+                   didx: Optional[AnyDeviceIndex] = None):
     """Plain version of kernel B's key: (h [B, 2] int64, flags [B] int32)."""
     cols, flags = key_columns(s1, s2, spec, didx)
     return _hash_columns_128(cols), flags
@@ -790,7 +899,7 @@ def bias_hexamers(bt: BiasTables, s1: SideResult, valid: torch.Tensor,
 
 
 
-def pseudoalign_batch_packed(didx: DeviceIndex, packed: torch.Tensor,
+def pseudoalign_batch_packed(didx: AnyDeviceIndex, packed: torch.Tensor,
                              nmask: torch.Tensor, lens: torch.Tensor,
                              k: int, L: int, max_rows: int = 16) -> SideResult:
     """One mate's packed batch -> SideResult.  R = min(max_rows, L - k + 1)
@@ -803,7 +912,7 @@ def pseudoalign_batch_packed(didx: DeviceIndex, packed: torch.Tensor,
     return pseudoalign_batch_packed_plain(didx, packed, nmask, lens, k, L, max_rows)
 
 
-def pseudoalign_long_packed(didx: DeviceIndex, packed: torch.Tensor,
+def pseudoalign_long_packed(didx: AnyDeviceIndex, packed: torch.Tensor,
                             nmask: torch.Tensor, lens: torch.Tensor, k: int,
                             L: int, max_rows: int = 64,
                             max_groups: int = 128) -> LongResult:
@@ -827,7 +936,7 @@ def read_keys(s1: SideResult, s2: Optional[SideResult], k: int):
 
 
 def compact_key_hash(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
-                     didx: Optional[DeviceIndex] = None):
+                     didx: Optional[AnyDeviceIndex] = None):
     """The steady-state key of each read (kernel B with the compact key
     layout): (h [B, 2] int64, flags [B] int32).  didx carries the
     position-filter tables when spec.pos_key."""
@@ -886,8 +995,9 @@ def pair_fragment_lengths(s1: SideResult, s2: SideResult, k: int) -> torch.Tenso
 
 def compact_pair_keys(s1: SideResult, s2: SideResult, max_keys: int = 16384,
                       k: int = 0, min_range: int = 0, strand_key: bool = False,
-                      didx: Optional[DeviceIndex] = None, pos_fl: int = -1,
-                      pos_depth: int = 0, with_slots: bool = False):
+                      didx: Optional[AnyDeviceIndex] = None,
+                      pos_fl: int = -1, pos_depth: int = 0,
+                      with_slots: bool = False):
     """Per-batch key table of pairs, flat [max_keys+1, 5] int64.  With
     min_range/strand_key/pos_fl the key carries the filter inputs (veto
     bits, first-hit block+strand, position rank), so per-read filters
@@ -900,15 +1010,16 @@ def compact_pair_keys(s1: SideResult, s2: SideResult, max_keys: int = 16384,
 
 def compact_single_keys(s1: SideResult, max_keys: int = 16384, k: int = 0,
                         min_range: int = 0, strand_key: bool = False,
-                        didx: Optional[DeviceIndex] = None, pos_fl: int = -1,
+                        didx: Optional[AnyDeviceIndex] = None,
+                        pos_fl: int = -1,
                         pos_depth: int = 0) -> torch.Tensor:
     spec = KeySpec(k, min_range, strand_key, pos_fl, pos_depth)
     h, flags = compact_key_hash(s1, None, spec, didx)
     return key_histogram(h, flags, max_keys)
 
 
-def pseudoalign_pair_compact_packed(didx: DeviceIndex, p1, n1, l1, p2, n2, l2,
-                                    k: int, L: int, max_rows: int = 16,
+def pseudoalign_pair_compact_packed(didx: AnyDeviceIndex, p1, n1, l1, p2,
+                                    n2, l2, k: int, L: int, max_rows: int = 16,
                                     max_keys: int = 16384, min_range: int = 0,
                                     strand_key: bool = False, pos_fl: int = -1,
                                     pos_depth: int = 0):
@@ -922,7 +1033,7 @@ def pseudoalign_pair_compact_packed(didx: DeviceIndex, p1, n1, l1, p2, n2, l2,
     return r1, r2, ck
 
 
-def pseudoalign_single_compact_packed(didx: DeviceIndex, p1, n1, l1, k: int,
+def pseudoalign_single_compact_packed(didx: AnyDeviceIndex, p1, n1, l1, k: int,
                                       L: int, max_rows: int = 16,
                                       max_keys: int = 16384, min_range: int = 0,
                                       strand_key: bool = False,

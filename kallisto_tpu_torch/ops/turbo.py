@@ -32,7 +32,7 @@ import torch
 from . import kernels
 from .pseudoalign import (
     INT32_MAX,
-    DeviceIndex,
+    AnyDeviceIndex,
     SideResult,
     _pseudoalign_core,
     compact_pair_keys,
@@ -98,7 +98,7 @@ def codes_and_lens_plain(sides, aux: torch.Tensor, lens: Optional[torch.Tensor],
     return codes, lens_v
 
 
-def turbo_sides(didx: DeviceIndex, sides, aux: torch.Tensor,
+def turbo_sides(didx: AnyDeviceIndex, sides, aux: torch.Tensor,
                 lens: Optional[torch.Tensor], k: int, L: int, max_rows: int,
                 rl: int = 0) -> SideResult:
     """Kernel D (or its plain version): the SideResult of every read of the
@@ -148,7 +148,7 @@ def pseudoalign_pair_turbo(didx, p1, p2, aux, k: int, L: int,
                            with_slots)
 
 
-def verified_side_plain(didx: DeviceIndex, vsum: torch.Tensor, R: int,
+def verified_side_plain(didx: AnyDeviceIndex, vsum: torch.Tensor, R: int,
                         lens_v: torch.Tensor, k: int) -> SideResult:
     """A host-verified mate's SideResult from its 8-byte summary (JAX
     _verified_side_from_summary, turbo.py:153): rows = the distinct sorted
@@ -196,7 +196,7 @@ def verified_side_plain(didx: DeviceIndex, vsum: torch.Tensor, R: int,
     )
 
 
-def halffail_core(didx: DeviceIndex, pkf: torch.Tensor, vsum: torch.Tensor,
+def halffail_core(didx: AnyDeviceIndex, pkf: torch.Tensor, vsum: torch.Tensor,
                   sidev: torch.Tensor, aux: torch.Tensor, k: int, L: int,
                   max_rows: int, rl: int = 0):
     """Plain version of kernel K (JAX halffail_core, turbo.py:203): the

@@ -37,7 +37,7 @@ import torch
 
 from ..io.fastx import PackedBatch
 from ..ops.pseudoalign import (
-    DeviceIndex,
+    AnyDeviceIndex,
     SideResult,
     device_index_from_host,
     pseudoalign_batch_packed,
@@ -82,10 +82,10 @@ class MeshRunner:
     def __init__(self, devices):
         self.devices = list(devices)
         self.ndev = len(self.devices)
-        self.didxs: List[DeviceIndex] = []
+        self.didxs: List[AnyDeviceIndex] = []
 
     def replicate(self, index, with_pos_tables: bool = False
-                  ) -> List[DeviceIndex]:
+                  ) -> List[AnyDeviceIndex]:
         """One index replica per distinct device; returns (and keeps) the
         per-shard list, repeated devices sharing one replica."""
         reps = {}

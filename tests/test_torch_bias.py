@@ -52,8 +52,10 @@ def _read(path):
 
 
 def _sides(port_index, monkeypatch):
-    """(JAX, port) SideResults of both bundled mates (bucketed layout)."""
+    """(JAX, port) SideResults of both bundled mates (bucketed layout in
+    both packages)."""
     monkeypatch.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
+    monkeypatch.setattr(tpa, "_PADDED_BYTES_BUDGET", 0)
     jdidx = jpa.device_index_from_host(port_index)
     tdidx = tpa.device_index_from_host(port_index, "cpu")
     out = []

@@ -29,14 +29,23 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 K = 31
 
 
-@pytest.fixture(scope="module")
-def env():
+@pytest.fixture(scope="module", params=["padded", "bucketed"])
+def env(request):
+    """The bundled index and both packages' device index in one layout:
+    padded (the bundled index's own) or bucketed (both budgets 0)."""
     index = build_index([os.path.join(DATA, "transcripts.fasta.gz")], k=K)
     mp = pytest.MonkeyPatch()
-    mp.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
+    if request.param == "bucketed":
+        mp.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
+        mp.setattr(tpa, "_PADDED_BYTES_BUDGET", 0)
     jdidx = jpa.device_index_from_host(index, with_pos_tables=True)
-    mp.undo()
     tdidx = tpa.device_index_from_host(index, "cpu", with_pos_tables=True)
+    mp.undo()
+    padded = request.param == "padded"
+    assert isinstance(jdidx, jpa.PaddedDeviceIndex if padded
+                      else jpa.DeviceIndex)
+    assert isinstance(tdidx, tpa.PaddedDeviceIndex if padded
+                      else tpa.DeviceIndex)
     rng = np.random.default_rng(5)
     sides = []
     for seed in (1, 2):

@@ -174,7 +174,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError):
         kernels.read_keys(s, None, 31)
-    didx = SimpleNamespace(kmer_hkeys=torch.zeros(4, dtype=torch.int64))
+    didx = SimpleNamespace(kmer_hkeys=torch.zeros(4, dtype=torch.int64),
+                           device=torch.device("cpu"))
     with pytest.raises(ValueError):
         kernels.pseudoalign_long(didx, torch.zeros((4, 8), dtype=torch.uint8),
                                  torch.zeros((4, 4), dtype=torch.uint8), z,

@@ -3,7 +3,8 @@
 Each test runs a kernel on the card and the plain version on the CPU on
 the same seeded inputs (the bundled transcriptome's index and reads, plus
 random reads with Ns, ragged lengths and reads shorter than k) and
-requires equality: every SideResult field and every key bit for kernels
+requires equality, for kernels A, D, I, J and K and for kernel L (the
+k-mer probe alone) in both device index layouts (padded and bucketed): every SideResult field and every key bit for kernels
 A, B, D and I, every table entry and exemplar row for kernels E and F,
 every hexamer id for kernel H, bitwise alpha and equal rounds for
 kernel G (the main EM and the bootstraps), every LongResult field for
@@ -50,6 +51,16 @@ def port_index():
     return build_index([os.path.join(DATA, "transcripts.fasta.gz")], k=K)
 
 
+@pytest.fixture(params=["padded", "bucketed"])
+def layout(request, monkeypatch):
+    """The device index layout of the test: the bundled index takes the
+    padded one; a budget of 0 forces the bucketed one."""
+    if request.param == "bucketed":
+        monkeypatch.setattr(pa, "_PADDED_BYTES_BUDGET", 0)
+    return (pa.PaddedDeviceIndex if request.param == "padded"
+            else pa.DeviceIndex)
+
+
 def _random_batch(index, n, L, seed):
     """Reads sampled from the index's unitig sequences (so most k-mers
     hit), with 0.5% Ns, 10% ragged lengths (some shorter than k)."""
@@ -89,16 +100,43 @@ def _sides(didx, pb, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "which", ["bundled_1", "bundled_2", "rand100", "rand76", "rand_short"])
-def test_kernel_a_matches_plain(cuda, port_index, which):
+def test_kernel_a_matches_plain(cuda, port_index, layout, which):
     pb = _batches(port_index)[which]
     before = kernels.LAUNCHES["pseudoalign_side"]
-    g = _sides(pa.device_index_from_host(port_index, cuda), pb, cuda)
+    dg = pa.device_index_from_host(port_index, cuda)
+    assert isinstance(dg, layout)
+    g = _sides(dg, pb, cuda)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["pseudoalign_side"] == before + 1
     c = _sides(pa.device_index_from_host(port_index, "cpu"), pb, "cpu")
     for f in pa.SideResult._fields:
         a, b = getattr(g, f).cpu(), getattr(c, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+def test_kernel_l_matches_plain(cuda, port_index, layout):
+    """Kernel L (the probe alone): slot, hit and EC row equal to the plain
+    lookup_kmers on index k-mers, random k-mers and invalid windows
+    (window 0 of an empty read: canon 0, q = mix64(0))."""
+    rng = np.random.default_rng(9)
+    keys = port_index.kmer_keys.astype(np.int64)
+    canon = np.concatenate([
+        keys[rng.integers(0, keys.shape[0], 20000)],
+        rng.integers(0, 2**62, 20000, dtype=np.int64), np.zeros(8, np.int64)])
+    valid = rng.random(canon.shape[0]) < 0.9
+    valid[-8:] = False
+    c, v = torch.from_numpy(canon), torch.from_numpy(valid)
+    dg = pa.device_index_from_host(port_index, cuda)
+    assert isinstance(dg, layout)
+    before = kernels.LAUNCHES["lookup_kmers"]
+    g = kernels.lookup_kmers(dg, c.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lookup_kmers"] == before + 1
+    want = pa.lookup_kmers(pa.device_index_from_host(port_index, "cpu"), c, v)
+    assert int(want[1].sum()) > 10000
+    for a, b in zip(g, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
@@ -184,11 +222,12 @@ def _turbo_case(index, single, varlen, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("single,varlen", [(False, False), (False, True),
                                            (True, False), (True, True)])
-def test_kernel_d_matches_plain(cuda, port_index, single, varlen):
+def test_kernel_d_matches_plain(cuda, port_index, layout, single, varlen):
     from kallisto_tpu_torch.ops import turbo
 
     dg = pa.device_index_from_host(port_index, cuda)
     dc = pa.device_index_from_host(port_index, "cpu")
+    assert isinstance(dg, layout) and isinstance(dc, layout)
     out = {}
     for dev, d in ((cuda, dg), ("cpu", dc)):
         packed, aux, lens, L, rl = _turbo_case(port_index, single, varlen, dev)
@@ -374,7 +413,7 @@ def _anchor_case(index, single, L, rl, dev, n=3000):
 @pytest.mark.parametrize("single", [False, True])
 @pytest.mark.parametrize("L,trim", [(50, True), (50, False), (100, True),
                                     (31, True)])
-def test_kernel_i_matches_plain(cuda, port_index, single, L, trim):
+def test_kernel_i_matches_plain(cuda, port_index, layout, single, L, trim):
     """Every SideResult field and n_fail; L = 31 = k is the one-slot wave-2
     row that fills all 16 slots."""
     from kallisto_tpu_torch.ops import anchor
@@ -383,6 +422,7 @@ def test_kernel_i_matches_plain(cuda, port_index, single, L, trim):
     out = {}
     for dev in (cuda, "cpu"):
         d = pa.device_index_from_host(port_index, dev)
+        assert isinstance(d, layout)
         packed, aux, Lp, rl = _anchor_case(port_index, single, L,
                                            L if trim else 0, dev)
         before = kernels.LAUNCHES["pseudoalign_anchor"]
@@ -483,7 +523,8 @@ def _long_batch(index, which, tmp_dir):
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["bundled_lr", "generated", "huge"])
 @pytest.mark.parametrize("budgets", [(64, 128), (2, 4)])
-def test_kernel_j_matches_plain(cuda, port_index, tmp_path, which, budgets):
+def test_kernel_j_matches_plain(cuda, port_index, layout, tmp_path, which,
+                               budgets):
     """Every LongResult field equal, with the default budgets and with
     budgets small enough that n_rows and n_groups count past them."""
     R, G = budgets
@@ -491,6 +532,7 @@ def test_kernel_j_matches_plain(cuda, port_index, tmp_path, which, budgets):
     out = {}
     for dev in (cuda, "cpu"):
         d = pa.device_index_from_host(port_index, dev)
+        assert isinstance(d, layout)
         before = kernels.LAUNCHES["pseudoalign_long"]
         out[str(dev)] = pa.pseudoalign_long_packed(
             d, *pa.upload_batch(pb, dev), k=K, L=pb.Lp, max_rows=R,
@@ -577,7 +619,8 @@ def _halffail_slice(index, n, L, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,max_rows", [(50, 16), (100, 32), (100, 16)])
 @pytest.mark.parametrize("opts", [False, True])
-def test_kernel_k_matches_plain(cuda, port_index, L, max_rows, opts):
+def test_kernel_k_matches_plain(cuda, port_index, layout, L, max_rows,
+                               opts):
     from kallisto_tpu_torch.ops import turbo
 
     args = _halffail_slice(port_index, 6000, L, 5)
@@ -589,6 +632,7 @@ def test_kernel_k_matches_plain(cuda, port_index, L, max_rows, opts):
     res = {}
     for dev in (cuda, "cpu"):
         d = pa.device_index_from_host(port_index, dev, with_pos_tables=True)
+        assert isinstance(d, layout)
         t = [torch.from_numpy(a).to(dev) for a in args[:4]]
         before = kernels.LAUNCHES["pseudoalign_halffail"]
         res[str(dev)] = turbo.pseudoalign_pair_halffail(d, *t, **kw)

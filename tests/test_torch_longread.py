@@ -76,10 +76,13 @@ def _port_long(tdidx, pb, **kw):
 @pytest.mark.parametrize("which", ["bundled_lr", "generated"])
 def test_long_result_matches_jax(indexes, generated, monkeypatch, which,
                                  layout, budgets):
-    jindex, _, tdidx = indexes
+    jindex, tindex, _ = indexes
     if layout == "bucketed":
         monkeypatch.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
+        monkeypatch.setattr(tpa, "_PADDED_BYTES_BUDGET", 0)
     jdidx = jpa.device_index_from_host(jindex)
+    tdidx = tpa.device_index_from_host(tindex, "cpu")
+    assert type(tdidx).__name__ == type(jdidx).__name__
     pb = _batch(which, generated)
     R, G = budgets
     rj = jpa.pseudoalign_long_packed(jdidx, pb.packed, pb.nmask, pb.lens,

@@ -1,0 +1,146 @@
+"""The port's padded device index layout against the JAX package's, on
+the CPU (the plain PyTorch versions).
+
+The port's device_index_from_host must choose JAX's layout (padded when
+2^p * S * 16 bytes of bucket rows fit _PADDED_BYTES_BUDGET), its padded
+tables must equal JAX's PaddedDeviceIndex bit for bit, and the plain
+lookup_kmers (kernel L's plain version, the probe of kernels A, D, I, J
+and K) must equal JAX's padded lookup_kmers in slot, hit and EC row on
+index k-mers, random k-mers and invalid windows.  Each case that forces
+a layout patches both packages' budgets together.  The bucketed run loop
+stays covered: `quant` forced to the bucketed layout gives the golden
+bytes.  The kernels themselves are held against these plain versions on
+the card by tests/test_torch_kernels.py, in both layouts.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import kallisto_tpu.ops.pseudoalign as jpa
+from kallisto_tpu.index import build_index as jbuild
+from kallisto_tpu_torch.common import Options
+from kallisto_tpu_torch.index import build_index as tbuild
+from kallisto_tpu_torch.ops import pseudoalign as tpa
+from kallisto_tpu_torch.quant.pipeline import run_quant
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(HERE, "data")
+GOLDEN = os.path.join(HERE, "golden")
+FASTA = os.path.join(DATA, "transcripts.fasta.gz")
+K = 31
+
+
+@pytest.fixture(scope="module")
+def indexes():
+    return jbuild([FASTA], k=K), tbuild([FASTA], k=K)
+
+
+@pytest.fixture(scope="module")
+def padded(indexes):
+    """Both packages' device indexes in the bundled index's own layout."""
+    jindex, tindex = indexes
+    return (jpa.device_index_from_host(jindex),
+            tpa.device_index_from_host(tindex, "cpu"))
+
+
+def _set_budget(monkeypatch, budget):
+    monkeypatch.setattr(jpa, "_PADDED_BYTES_BUDGET", budget)
+    monkeypatch.setattr(tpa, "_PADDED_BYTES_BUDGET", budget)
+
+
+@pytest.mark.parametrize("budget", ["default", "one_byte_under", "at"])
+def test_layout_choice_matches_jax(indexes, monkeypatch, budget):
+    jindex, tindex = indexes
+    M, S = tpa.padded_shape(tpa.cached_probe_layout(tindex))
+    need = M * S * 16
+    if budget != "default":
+        _set_budget(monkeypatch, need - 1 if budget == "one_byte_under"
+                    else need)
+    j = jpa.device_index_from_host(jindex)
+    t = tpa.device_index_from_host(tindex, "cpu")
+    want_padded = budget != "one_byte_under"
+    assert isinstance(j, jpa.PaddedDeviceIndex) == want_padded
+    assert isinstance(t, tpa.PaddedDeviceIndex) == want_padded
+    assert t.p == int(np.log2(M)) and (not want_padded or t.S == S)
+    assert t.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("field", ["bucket_rows", "kmer_uid", "kmer_pos",
+                                   "kmer_fw", "kmer_block", "block_ec8"])
+def test_padded_tables_match_jax(padded, field):
+    j, t = padded
+    want = np.asarray(getattr(j, field))
+    if field == "bucket_rows":
+        want = want.view(np.int64)
+    got = getattr(t, field).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_padded_nbytes(padded):
+    _, t = padded
+    M, S2 = t.bucket_rows.shape
+    assert t.nbytes() == (8 * M * S2 + M * S2 // 2 * (3 * 4 + 1)
+                          + 4 * t.block_ec8.numel())
+
+
+@pytest.mark.parametrize("which", ["hits", "misses", "invalid", "mixed"])
+def test_lookup_matches_jax(indexes, padded, which):
+    """Slot, hit and EC row equal to JAX's padded lookup_kmers: a miss
+    names slot b * S of its bucket, an invalid window is probed with
+    canon 0 and never hits."""
+    _, tindex = indexes
+    jd, td = padded
+    rng = np.random.default_rng(17)
+    n = 6000
+    keys = tindex.kmer_keys.astype(np.int64)
+    canon = {
+        "hits": keys[rng.integers(0, keys.shape[0], n)],
+        "misses": rng.integers(0, 2**62, n, dtype=np.int64),
+        "invalid": keys[rng.integers(0, keys.shape[0], n)],
+        "mixed": np.where(rng.random(n) < 0.5,
+                          keys[rng.integers(0, keys.shape[0], n)],
+                          rng.integers(0, 2**62, n, dtype=np.int64)),
+    }[which]
+    valid = {"invalid": np.zeros(n, bool),
+             "mixed": rng.random(n) < 0.8}.get(which, np.ones(n, bool))
+    canon, valid = canon.reshape(60, 100), valid.reshape(60, 100)
+    want = jpa.lookup_kmers(jd, jnp.asarray(canon), jnp.asarray(valid))
+    got = tpa.lookup_kmers(td, torch.from_numpy(canon),
+                           torch.from_numpy(valid))
+    for name, a, b in zip(("idx", "hit", "ec"), want, got):
+        a = np.asarray(a)
+        assert b.shape == a.shape, name
+        np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
+    hit = got[1].numpy()
+    assert hit.all() if which == "hits" else (
+        not hit.any() if which in ("invalid", "misses") else 0 < hit.sum())
+    if which != "hits":
+        # a miss's slot is its bucket's first: b * S
+        S = td.S
+        miss = ~hit
+        assert (got[0].numpy()[miss] % S == 0).all()
+        assert (got[2].numpy()[miss] == -1).all()
+
+
+def test_bucketed_quant_is_golden(indexes, monkeypatch, tmp_path):
+    """`quant` forced to the bucketed layout (both budgets 0) on the
+    bundled pairs: abundance.tsv byte-equal to tests/golden/quant_paired."""
+    _, tindex = indexes
+    _set_budget(monkeypatch, 0)
+    assert isinstance(tpa.device_index_from_host(tindex, "cpu"),
+                      tpa.DeviceIndex)
+    out = str(tmp_path / "out")
+    run_quant(Options(files=[os.path.join(DATA, "reads_1.fastq.gz"),
+                             os.path.join(DATA, "reads_2.fastq.gz")],
+                      output_dir=out, plaintext=True),
+              index=tindex, device="cpu")
+    with open(os.path.join(out, "abundance.tsv")) as f, \
+            open(os.path.join(GOLDEN, "quant_paired", "abundance.tsv")) as g:
+        assert f.read() == g.read()

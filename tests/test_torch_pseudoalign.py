@@ -1,12 +1,10 @@
 """The port's per-read pseudoalignment, read keys and fragment lengths
 against the JAX package, on the CPU (the port's plain PyTorch versions).
 
-All ten SideResult fields must be equal to pseudoalign_batch_packed's under
-both JAX device layouts.  One caveat, by construction: for a read with no
-hit, f_strand is an artefact of window 0's lookup slot, whose number
-differs between the JAX padded layout and the bucketed one; the port keeps
-the bucketed layout, so against the padded layout f_strand is compared on
-reads with hits only (the only reads whose f_strand anything reads).
+All ten SideResult fields must be equal to pseudoalign_batch_packed's in
+both device layouts, both packages on the same one (padded: the bundled
+index's own; bucketed: both budgets set to 0), f_strand of reads without
+hits included (window 0's lookup slot, which the layout decides).
 """
 
 import os
@@ -39,8 +37,7 @@ K = 31
 @pytest.fixture(scope="module")
 def indexes():
     fa = os.path.join(DATA, "transcripts.fasta.gz")
-    t = tbuild([fa], k=K)
-    return jbuild([fa], k=K), t, tpa.device_index_from_host(t, "cpu")
+    return jbuild([fa], k=K), tbuild([fa], k=K)
 
 
 def _random_batch(index, n, L, seed):
@@ -69,6 +66,21 @@ def _batch(index, which):
     return _random_batch(index, 4000, L, seed)
 
 
+def _layout(jindex, tindex, monkeypatch, layout):
+    """(JAX, port) device indexes of the bundled index in `layout`."""
+    if layout == "bucketed":
+        monkeypatch.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
+        monkeypatch.setattr(tpa, "_PADDED_BYTES_BUDGET", 0)
+    jdidx = jpa.device_index_from_host(jindex)
+    tdidx = tpa.device_index_from_host(tindex, "cpu")
+    padded = layout == "padded"
+    assert isinstance(jdidx, jpa.PaddedDeviceIndex if padded
+                      else jpa.DeviceIndex)
+    assert isinstance(tdidx, tpa.PaddedDeviceIndex if padded
+                      else tpa.DeviceIndex)
+    return jdidx, tdidx
+
+
 def _jax_side(didx, pb):
     return jpa.pseudoalign_batch_packed(
         didx, pb.packed, pb.nmask, pb.lens, k=K, L=pb.Lp)
@@ -84,12 +96,8 @@ def _port_side(didx, pb):
     "which", ["bundled_1", "bundled_2", "rand100", "rand76", "rand40",
               "rand_short"])
 def test_side_result_matches_jax(indexes, monkeypatch, layout, which):
-    jindex, tindex, tdidx = indexes
-    if layout == "bucketed":
-        monkeypatch.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
-    jdidx = jpa.device_index_from_host(jindex)
-    assert isinstance(jdidx, jpa.DeviceIndex if layout == "bucketed"
-                      else jpa.PaddedDeviceIndex)
+    jindex, tindex = indexes
+    jdidx, tdidx = _layout(jindex, tindex, monkeypatch, layout)
     pb = _batch(tindex, which)
     rj = _jax_side(jdidx, pb)
     rt = _port_side(tdidx, pb)
@@ -99,18 +107,17 @@ def test_side_result_matches_jax(indexes, monkeypatch, layout, which):
     for f in jpa.SideResult._fields:
         a = np.asarray(getattr(rj, f))
         b = getattr(rt, f).numpy()
-        if f == "f_strand" and layout == "padded":
-            a, b = a[has], b[has]
         assert a.dtype == b.dtype and a.shape == b.shape, f
         np.testing.assert_array_equal(a, b, err_msg=f)
 
 
+@pytest.mark.parametrize("layout", ["padded", "bucketed"])
 @pytest.mark.parametrize("pair", [("bundled_1", "bundled_2"),
                                   ("rand100", "rand100")])
-def test_pair_keys_and_fragment_lengths_match_jax(indexes, monkeypatch, pair):
-    jindex, tindex, tdidx = indexes
-    monkeypatch.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
-    jdidx = jpa.device_index_from_host(jindex)
+def test_pair_keys_and_fragment_lengths_match_jax(indexes, monkeypatch, pair,
+                                                  layout):
+    jindex, tindex = indexes
+    jdidx, tdidx = _layout(jindex, tindex, monkeypatch, layout)
     p1 = _batch(tindex, pair[0])
     p2 = _batch(tindex, pair[1]) if pair[1] != pair[0] else _random_batch(
         tindex, 4000, 100, 11)
@@ -126,11 +133,11 @@ def test_pair_keys_and_fragment_lengths_match_jax(indexes, monkeypatch, pair):
     assert (tl >= 0).any()
 
 
+@pytest.mark.parametrize("layout", ["padded", "bucketed"])
 @pytest.mark.parametrize("which", ["bundled_1", "rand76", "rand_short"])
-def test_single_keys_match_jax(indexes, monkeypatch, which):
-    jindex, tindex, tdidx = indexes
-    monkeypatch.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
-    jdidx = jpa.device_index_from_host(jindex)
+def test_single_keys_match_jax(indexes, monkeypatch, which, layout):
+    jindex, tindex = indexes
+    jdidx, tdidx = _layout(jindex, tindex, monkeypatch, layout)
     pb = _batch(tindex, which)
     np.testing.assert_array_equal(
         np.asarray(jpa.single_key_hash(_jax_side(jdidx, pb))),
@@ -157,9 +164,8 @@ def test_unpack_matches_jax():
 
 
 def test_device_index_tables_match_jax_bucketed(indexes, monkeypatch):
-    jindex, _, tdidx = indexes
-    monkeypatch.setattr(jpa, "_PADDED_BYTES_BUDGET", 0)
-    j = jpa.device_index_from_host(jindex)
+    jindex, tindex = indexes
+    j, tdidx = _layout(jindex, tindex, monkeypatch, "bucketed")
     np.testing.assert_array_equal(
         np.asarray(j.kmer_hkeys).view(np.int64), tdidx.kmer_hkeys.numpy())
     for f in ("bucket_start", "kmer_uid", "kmer_pos", "kmer_fw",

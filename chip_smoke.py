@@ -50,7 +50,9 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    random Ns, reads shorter than k, random reads, chimeras of 3-8
    transcripts and mosaics of 140-180 pieces, so that reads pass both the
    64-row and the 128-group budgets): all eight fields equal; timed (a
-   stress test: J's row is timed at phase 5d's shape);
+   stress test: J's row is timed at phase 5d's shape); J's byte bound,
+   like A's, D's, I's, K's and L's, counts each 32-byte table sector its
+   probes and payload reads touch once (_sector_ids);
 3f. kernels K (pseudoalign_halffail), E with per-read slots and F's slim
    layout (gather_slim) against their plain versions on the card: the
    first 524,288 of phase 2's pairs with sparse Ns through the port's host
@@ -74,7 +76,7 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    equal; then A (262,144 reads), I (524,288 reads, and single-end), L
    (A's windows, with torch.searchsorted beside the bucketed form) timed
    in both layouts, and D, J and K at their held shapes; L's bounds count
-   each table sector its probes read once (_probe_sectors);
+   each table sector its probes read once (_sector_ids);
 4. golden bytes (phases 4-4e: every device index that their runs place is
    asserted padded (_padded_runs), so these are the padded path of A, D,
    I, J and K on the card against the goldens):
@@ -135,17 +137,22 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    --plaintext` with the launch counts set to 0 just before and read just
    after (J once per 16,384-read batch, G launched), >= 90 % of the random
    reads in novel.fastq and >= 90 % of the others pseudoaligned; `bus -x
-   bulk --long` (J launched); the first 4,096 reads on the card and on the
+   bulk --long` (J launched; no bus run of this phase writes index.saved,
+   ~1 min of host compression, for the time limit); the first 4,096 reads on the card and on the
    CPU: abundance.tsv and output.bus byte-equal;
 5e. `quant-tcc` at realistic size: phase 5c's output.bus collapsed to a
    cells x ECs MatrixMarket file (distinct UMIs per barcode and EC, as
    `bustools count --tcc`), with 5c's matrix.ec and the index, no -l/-s:
    ~4,096 cells in chunks of 256 through kernel G with per-cell lengths
-   (launch counts set to 0 just before, G launched once per EM round);
+   (launch counts set to 0 just before; G counts the EM_CHUNK rounds of
+   each graph replay, and the replays must cover the rounds read back
+   from the card with less than a chunk to spare per EM);
    the first 256 cells on the card and on the CPU: est_counts bitwise
    equal and matrix.abundance.mtx byte-equal; one update of kernel G at
    that shape (modes mixed) bitwise equal to the plain version on the
-   CPU; kernel G timed at that shape;
+   CPU; kernel G timed at that shape per round, by CUDA events over one
+   chunk of the EM loop's rounds (one graph replay), and the EM's host
+   reads printed;
 5f. host wave 1 at realistic size: the 1M pairs with the switch on and the
    launch counts set to 0 just before (hw1pb while the FLD is learned,
    then hw1; K, E with slots, F slim, D, B, F and G launched), FLD, EC
@@ -174,14 +181,18 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    counts and sets, FLD and est_counts equal; the wall, index_upload_s
    and read_s of both printed;
 6. kernel G (em_step_batch) with one replicate, the main EM, on the main
-   path's EM problem: the whole EM on the card against the plain version
-   on the CPU, bitwise equal alpha and equal rounds; one update timed;
+   path's EM problem: the whole EM (its rounds and stop rule on the card,
+   CUDA graph chunks) against the plain loop on the CPU, bitwise equal
+   alpha and equal rounds, G's launches the chunks that cover its rounds;
+   the whole EM's wall and host reads; the round timed over one chunk
+   (em_chunk_ms);
 6b. kernel G on the same problem with replicates: 8 resampled from phase
    5's counts, the whole batched EM on the card bitwise equal to the plain
    version on the CPU with equal rounds per replicate; then one update of
-   100 replicates with frozen, updating and zeroing replicates mixed,
-   bitwise equal to the plain version on the CPU; then 100 replicates'
-   EM on the card, timed;
+   100 replicates (a graph of one round) with frozen, updating and
+   zeroing replicates mixed, bitwise equal to the plain version on the
+   CPU; then 100 replicates' EM on the card, its wall, host reads and
+   launches against its rounds, and the round timed over one chunk;
 7. one `kernels` JSON line, then the result line.
 
 Any failed check raises, which ends the run with a non-zero exit and no
@@ -307,6 +318,48 @@ def em_bound(Bb, T, E, M, own_eff=False):
     nbytes = (8 * Bb * (3 * T + E) + 8 * T * (Bb if own_eff else 1) + 8 * M
               + 8 * (T + E + 2) + 8 * Bb)
     return bound(nbytes, Bb * (4 * M + 3 * E + 10 * T), PEAK_F64)
+
+
+def em_update(np, emq, prob, alpha, mode):
+    """One round of kernel G's loop (a graph of one round on the card)
+    from alpha [Bb, T] with per-replicate modes (0 frozen, 1 update, 2
+    update from the zeroed alpha) and the stop rule out of reach: (next
+    [Bb, T], change counts [Bb]) as numpy, read back from the state."""
+    Bb = alpha.shape[0]
+    loop = emq.EmLoop(prob, alpha, min_rounds=2**31 - 1,
+                      mode=mode.astype(np.int64), rounds=1)
+    loop.set_bound(1)
+    try:
+        loop.run_chunk()
+        st, bufs = loop.read(with_alpha=True)
+    finally:
+        loop.close()
+    return bufs[1].T.copy(), st[4 + 2 * Bb:].astype(np.int32)
+
+
+def g_launches_cover(emq, launches, rounds, loops):
+    """Kernel G's launches, counted at each graph replay (EM_CHUNK rounds
+    each), against the rounds that ran, read back from the card, over
+    `loops` EM loops of one segment: each loop replays the fewest chunks
+    that cover its rounds, so launches are whole chunks in
+    [rounds, rounds + loops * (EM_CHUNK - 1)]."""
+    c = emq.EM_CHUNK
+    return (launches % c == 0
+            and rounds <= launches <= rounds + loops * (c - 1))
+
+
+def em_chunk_ms(torch, np, emq, prob):
+    """Kernel G's ms per round on `prob` with every replicate running: CUDA
+    events over one chunk of the EM loop (EM_CHUNK rounds, one graph
+    replay; no replicate may stop: min_rounds is past the chunks timed),
+    divided by its rounds."""
+    T = prob.num_trans
+    loop = emq.EmLoop(prob, np.full(T, 1.0 / T), min_rounds=2**31 - 1)
+    loop.set_bound(2**62)
+    try:
+        return cuda_ms(loop.run_chunk, 10, torch) / loop.rounds
+    finally:
+        loop.close()
 
 
 def truncate_fastq(src, dst, n_records, ragged=False):
@@ -478,16 +531,15 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     R = min(16, Lc - k + 1)
     g, c, codes, lens_v = _hold_d(torch, pa, kernels, didx, inputs, k,
                                   f"paired Bp={Bp}")
-    canon, _, valid = pa.rolling_canonical_kmers(codes, lens_v, k)
-    _, hit, _ = pa.lookup_kmers(didx, canon, valid)
-    n_valid, n_hit = int(valid.sum()), int(hit.sum())
-    n_has, n_win = int(c.has_hits.sum()), canon.numel()
-    del canon, valid, hit, codes, lens_v
+    # the table sectors its probes and first-hit payloads read, each once
+    table_bytes, n_win, n_valid, n_hit = _window_bytes(torch, pa, didx, codes,
+                                                       lens_v, k)
+    n_has = int(c.has_hits.sum())
+    del codes, lens_v
     ms_d = cuda_ms(lambda: _launch_d(kernels, didx, inputs, k), 10, torch)
     plain_ms_d = cuda_ms(lambda: _plain_d(pa, didx, inputs, k), 3, torch)
     in_bytes = sum(p.numel() for p in packed) + 8 * aux.numel()
     out_bytes = 2 * Bp * (4 * R + 4 * 6 + 3)
-    table_bytes = 32 * (2 * n_valid + n_hit + 4 * n_has)
     out["pseudoalign_turbo"] = (ms_d, plain_ms_d, bound(
         in_bytes + out_bytes + table_bytes, 250 * n_win, PEAK_INT_OPS), None)
     log(f"kernel D: {ms_d:.3f} ms (plain on card {plain_ms_d:.3f} ms), "
@@ -640,25 +692,12 @@ def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
                            torch)
         codes, _ = turbo.codes_and_lens_plain(sides, aux, None, L, rl)
         real = anchor._real_rows(aux, Bp, len(sides))
-        w1 = anchor.anchor_wave1_plain(didx, codes, rl, real, k, na)
-        fail = ~w1.ok & real
-        canon, _, valid = pa.rolling_canonical_kmers(
-            codes[fail], torch.full((int(fail.sum()),), rl,
-                                    dtype=torch.int32, device=dev), k)
-        _, hit, _ = pa.lookup_kmers(didx, canon, valid)
-        n_has2 = int(hit.any(dim=1).sum())
-        n_ok, n_fail = int(w1.ok.sum()), int(fail.sum())
-        # per valid anchor a bucket_start and a key sector, per hit anchor
-        # its uid, pos, fw and block sectors, per verified read two
-        # block_ec8 rows; per wave-2 read kernel D's per-window sectors;
-        # packed codes and aux read, the SideResult rows written
-        table = 32 * (2 * int(w1.valid.sum()) + 4 * int(w1.hit.sum())
-                      + 2 * n_ok + 2 * int(valid.sum()) + int(hit.sum())
-                      + 4 * n_has2)
+        table, n_win2, n_ok, n_fail = _anchor_bytes(
+            torch, pa, anchor, didx, codes, real, rl, k, na)
         io = (sum(p.numel() for p in sides) + 8 * aux.numel()
               + B2 * (4 * R + 4 * 6 + 3) + 8)
-        bnd = bound(table + io, 250 * (B2 * na + canon.numel()), PEAK_INT_OPS)
-        del codes, canon, valid, hit, w1
+        bnd = bound(table + io, 250 * (B2 * na + n_win2), PEAK_INT_OPS)
+        del codes
         log(f"kernel I {tag}: {ms:.3f} ms (plain on card {plain_ms:.3f} ms), "
             f"reads={B2} Lc={rl} anchors={na} verified={n_ok} wave 2="
             f"{n_fail} ({n_fail / B2:.4f}); bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -853,18 +892,32 @@ def phase_5c(torch, np, kernels, Options, run_bus, index, cdna, n_reads,
 
 def _long_plain(torch, pa, didx, args, k, L, step):
     """Kernel J's plain version in slices of `step` reads (each read's
-    result depends on its own row and the batch width L only), plus the
-    valid windows it looked up."""
-    parts, n_valid = [], 0
+    result depends on its own row and the batch width L only)."""
+    B = int(args[2].shape[0])
+    parts = [pa.pseudoalign_long_plain(didx, *(a[lo:lo + step] for a in args),
+                                       k, L) for lo in range(0, B, step)]
+    return pa.LongResult(*(torch.cat([getattr(p, f) for p in parts])
+                           for f in pa.LongResult._fields))
+
+
+def _long_bytes(torch, pa, didx, args, k, L, step):
+    """Kernel J's table bytes on a batch, each sector once: its probes of
+    the valid windows, their EC sectors and the kmer_uid sector of every
+    hit (_sector_ids over the batch, in slices of `step` reads).  Returns
+    (bytes, valid windows, hits)."""
+    ids, n_valid, n_hit = None, 0, 0
     B = int(args[2].shape[0])
     for lo in range(0, B, step):
-        sl = [a[lo:lo + step] for a in args]
-        parts.append(pa.pseudoalign_long_plain(didx, *sl, k, L))
-        codes = pa.unpack_codes(sl[0], sl[1], L)
-        n_valid += int(pa.rolling_canonical_kmers(codes, sl[2], k)[2].sum())
-    res = pa.LongResult(*(torch.cat([getattr(p, f) for p in parts])
-                          for f in pa.LongResult._fields))
-    return res, n_valid
+        packed, nmask, lens = (a[lo:lo + step] for a in args)
+        codes = pa.unpack_codes(packed, nmask, L)
+        canon, _, valid = pa.rolling_canonical_kmers(codes, lens, k)
+        del codes
+        idx, hit, _ = pa.lookup_kmers(didx, canon, valid)
+        part = _sector_ids(torch, pa, didx, canon[valid], valid[valid],
+                           idx[valid], hit[valid], uids=True)
+        ids = part if ids is None else _merge_sectors(torch, ids, part)
+        n_valid, n_hit = n_valid + int(valid.sum()), n_hit + int(hit.sum())
+    return 32 * _n_sectors(didx, ids), n_valid, n_hit
 
 
 def _long_batch(fastx, fasta, path, B, k):
@@ -888,28 +941,27 @@ def _hold_j(torch, np, pa, kernels, didx, pb, k, dev, tag):
     R, G = min(64, L - k + 1), 128
     g = pa.LongResult(*kernels.pseudoalign_long(didx, *args, k, L, R, G))
     step = max(1, (1 << 25) // L)  # ~32M windows per plain slice
-    c, n_valid = _long_plain(torch, pa, didx, args, k, L, step)
+    c = _long_plain(torch, pa, didx, args, k, L, step)
     torch.cuda.synchronize()
     for f in pa.LongResult._fields:
         x, y = getattr(g, f), getattr(c, f)
         check(x.dtype == y.dtype and torch.equal(x, y),
               f"kernel J {tag} B={B} Lp={L}: {f} equal")
-    n_hit = n_valid - int(c.unmapped.sum())
     ms = cuda_ms(lambda: kernels.pseudoalign_long(didx, *args, k, L, R, G),
                  5, torch)
     plain_ms = cuda_ms(lambda: _long_plain(torch, pa, didx, args, k, L, step),
                        1, torch)
-    # per valid window kernel A's sectors (bucket_start, the search's key,
-    # kmer_ec), per hit one kmer_uid sector; codes, N mask and lengths
-    # read; R + G + 6 int32 written per read; ~250 integer operations per
-    # window of a read
+    # the table sectors of its probes and hits, each once (_long_bytes);
+    # codes, N mask and lengths read; R + G + 6 int32 written per read;
+    # ~250 integer operations per window of a read
+    table, n_valid, n_hit = _long_bytes(torch, pa, didx, args, k, L, step)
     n_win = int(np.maximum(pb.lens.astype(np.int64) - k + 1, 0).sum())
-    nbytes = (32 * (2 * n_valid + 2 * n_hit) + pb.packed.nbytes
-              + pb.nmask.nbytes + 4 * B + 4 * B * (R + G + 6))
+    nbytes = (table + pb.packed.nbytes + pb.nmask.nbytes + 4 * B
+              + 4 * B * (R + G + 6))
     bnd = bound(nbytes, 250 * n_win, PEAK_INT_OPS)
     log(f"kernel J {tag}: {ms:.3f} ms (plain on card {plain_ms:.3f} ms), "
-        f"reads={B} Lp={L} windows={n_win} valid={n_valid} hits={n_hit}; "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        f"reads={B} Lp={L} windows={n_win} valid={n_valid} hits={n_hit} "
+        f"table sectors={table // 32}; bound {bnd[0]:.4f} ms ({bnd[1]})")
     return ms, plain_ms, bnd, c, args
 
 
@@ -1119,30 +1171,33 @@ def phase_5d(torch, np, pa, kernels, fastx, Options, run_quant, run_bus,
     log(f"quant --long wall {quant_s:.2f} s = {n_long / quant_s:,.0f} "
         f"reads/s; host seconds by phase: " + json.dumps(t))
 
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    bres = run_bus(Options(files=[lr], technology="bulk", long_read=True,
-                           output_dir=os.path.join(work, "long_bus")),
-                   index=index, device=dev)
-    torch.cuda.synchronize()
-    bus_s = time.perf_counter() - t0
-    blaunches = dict(kernels.LAUNCHES)
-    check(blaunches["pseudoalign_long"] == bres.timings["long"] > 0
-          and bres.num_processed == n_long,
-          f"bus --long: kernel J launched {blaunches['pseudoalign_long']} "
-          f"times, {bres.num_pseudoaligned} of {n_long} reads aligned")
-    log(f"bus --long wall {bus_s:.2f} s = {n_long / bus_s:,.0f} reads/s; "
-        "host seconds by phase: " + json.dumps(bres.timings))
-
-    # the first 4,096 reads on the card and on the CPU; index.saved (the
-    # same index both times, ~1 min to compress at this size) is not
-    # written for these two bus runs
-    sub = os.path.join(work, "lr_5d_4096.fastq.gz")
-    truncate_fastq(lr, sub, 4096)
+    # index.saved (the same index every time, ~1 min of host compression
+    # at this size, no kernel) is not written by this phase's bus runs:
+    # the time limit
     saved = busmod.save_index
     busmod.save_index = lambda *a: None
     try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        bres = run_bus(Options(files=[lr], technology="bulk", long_read=True,
+                               output_dir=os.path.join(work, "long_bus")),
+                       index=index, device=dev)
+        torch.cuda.synchronize()
+        bus_s = time.perf_counter() - t0
+        blaunches = dict(kernels.LAUNCHES)
+        check(blaunches["pseudoalign_long"] == bres.timings["long"] > 0
+              and bres.num_processed == n_long,
+              f"bus --long: kernel J launched "
+              f"{blaunches['pseudoalign_long']} times, "
+              f"{bres.num_pseudoaligned} of {n_long} reads aligned")
+        log(f"bus --long wall {bus_s:.2f} s = {n_long / bus_s:,.0f} "
+            "reads/s (index.saved not written); host seconds by phase: "
+            + json.dumps(bres.timings))
+
+        # the first 4,096 reads on the card and on the CPU
+        sub = os.path.join(work, "lr_5d_4096.fastq.gz")
+        truncate_fastq(lr, sub, 4096)
         subs = {}
         for where in (dev, "cpu"):
             oq = os.path.join(work, f"long_quant_{where}")
@@ -1213,10 +1268,12 @@ def phase_5e(torch, np, kernels, emq, Options, run_quant_tcc, index,
     tcc_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     t = res.timings
-    check(launches["em_step_batch"] == t["em_rounds"] > 0
-          and t["chunks"] == -(-len(cells) // 256),
+    check(t["em_rounds"] > 0 and t["chunks"] == -(-len(cells) // 256)
+          and g_launches_cover(emq, launches["em_step_batch"],
+                               t["em_rounds"], t["chunks"]),
           f"quant-tcc: {len(cells)} cells in {t['chunks']} chunks, kernel G "
-          f"launched {launches['em_step_batch']} times")
+          f"launched {launches['em_step_batch']} times (rounds of "
+          f"{emq.EM_CHUNK} per replay) for {t['em_rounds']} rounds")
     check(np.isfinite(res.est_counts).all()
           and (res.est_counts.sum(axis=1) > 0).mean() > 0.99,
           "quant-tcc: finite abundances, > 99 % of cells with counts")
@@ -1253,27 +1310,31 @@ def phase_5e(torch, np, kernels, emq, Options, run_quant_tcc, index,
     sa_b, mc_b = emq.em_inputs(problem, counts)
     inv = 1.0 / res.eff_lens[:C]
     prob = emq.device_em_problem(problem, sa_b, mc_b, inv, dev)
-    alpha = torch.from_numpy(res.est_counts[:C].copy()).to(dev)
+    alpha_h = res.est_counts[:C].copy()
+    alpha = torch.from_numpy(alpha_h).to(dev)
     # modes 0/1/2 mixed: frozen, updating, and updating from zeroed values
-    mixed = torch.from_numpy(np.arange(C, dtype=np.int32) % 3)
-    ng, cg = kernels.em_step_batch(alpha, prob, mixed.to(dev))
+    mixed = np.arange(C, dtype=np.int32) % 3
+    ng, cg = em_update(np, emq, prob, alpha_h, mixed)
     prob_cpu = emq.device_em_problem(problem, sa_b, mc_b, inv, "cpu")
-    npl, cpl = emq.em_step_batch_plain(alpha.cpu(), prob_cpu, mixed)
-    check(torch.equal(ng.cpu(), npl) and torch.equal(cg.cpu(), cpl),
+    npl, cpl = emq.em_step_batch_plain(torch.from_numpy(alpha_h), prob_cpu,
+                                       torch.from_numpy(mixed))
+    npl, cpl = npl.numpy(), cpl.numpy()
+    check(np.array_equal(ng, npl) and np.array_equal(cg, cpl),
           f"kernel G, one update of {C} cells with their own lengths (modes "
           "0/1/2 mixed): next and change counts bitwise equal to the plain "
           "version on the CPU")
-    err = float((ng.cpu() - npl).abs().max())
+    err = float(np.abs(ng - npl).max())
     del ng, cg, npl, cpl, prob_cpu
     mode = torch.ones(C, dtype=torch.int32, device=dev)
-    step = kernels.bind_em_step(prob)
-    ms = cuda_ms(lambda: step(alpha, mode), 20, torch)
+    ms = em_chunk_ms(torch, np, emq, prob)
     plain = cuda_ms(lambda: emq.em_step_batch_plain(alpha, prob, mode), 5,
                     torch)
     E, M = prob.num_multi, int(prob.flat_tx.shape[0])
     bnd = em_bound(C, T, E, M, own_eff=True)
     log(f"kernel G, {C} cells with their own lengths: {ms:.4f} ms per round "
-        f"(plain on card {plain:.3f} ms); T={T} E={E} M={M}")
+        f"over chunks of {emq.EM_CHUNK} (plain on card "
+        f"{plain:.3f} ms); the run's EM {t['em_s']:.3f} s, "
+        f"{t['em_host_reads']} host reads; T={T} E={E} M={M}")
     summary = {"tcc_cells": len(cells), "tcc_ecs": n_ec,
                "tcc_entries": len(pairs), "tcc_s": tcc_s,
                "tcc_cells_per_s": len(cells) / tcc_s, "tcc_phases_s": t,
@@ -1327,15 +1388,14 @@ def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
     # the failed mates' table reads as kernel D's, per real pair two
     # block_ec8 rows and its summary; codes, aux in, both mates out
     codes, lens_v = turbo.codes_and_lens_plain((pkf,), aux, None, L, rl)
-    canon, _, valid = pa.rolling_canonical_kmers(codes, lens_v, k)
-    _, hit, _ = pa.lookup_kmers(didx, canon, valid)
-    n_valid, n_hit = int(valid.sum()), int(hit.sum())
-    n_has = int(hit.any(dim=1).sum())
-    n_win = canon.numel()
-    del codes, canon, valid, hit
+    table, n_win, n_valid, n_hit = _window_bytes(torch, pa, didx, codes,
+                                                 lens_v, k)
+    del codes, lens_v
+    # the verified mates' two block_ec8 rows (32 B each), each row once
+    r0 = vsum[sidev != 0, 0].clamp(min=0) >> 3
+    table += 32 * int(torch.unique(torch.cat([r0, r0 + 1])).numel())
     io = (pkf.numel() + 8 * Bp + 4 * Bp + 8 * aux.numel()
-          + 2 * Bp * (4 * Rr + 4 * 6 + 3) + 64 * n_real)
-    table = 32 * (2 * n_valid + n_hit + 4 * n_has)
+          + 2 * Bp * (4 * Rr + 4 * 6 + 3))
     bnd_k = bound(io + table, 250 * n_win, PEAK_INT_OPS)
     ms_e = cuda_ms(lambda: kernels.key_histogram(h, fl, Bp + 1, True), 20,
                    torch)
@@ -1467,36 +1527,92 @@ def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
     return out, summary
 
 
-def _padded_bound(pa, didx, nbytes_io, n_probe, n_hit, n_has, n_ops):
-    """A kernel's bound on a padded index: its own bytes nbytes_io, per
-    probed window the bucket row's key sectors (ceil(8S / 32)), per hit
-    one EC sector of the same row, per read with hits the four payload
-    sectors (uid, pos, fw, block); ~250 integer operations per window."""
-    key_sectors = -(-8 * didx.S // 32)
-    table = 32 * (key_sectors * n_probe + n_hit + 4 * n_has)
-    return bound(nbytes_io + table, n_ops, PEAK_INT_OPS)
+def _first_hits(torch, idx, hit):
+    """The slot of each read's first hit (idx, hit: [reads, windows]), for
+    the reads with hits."""
+    j = hit.to(torch.int32).argmax(dim=1, keepdim=True)
+    return idx.gather(1, j)[:, 0][hit.any(dim=1)]
 
 
-def _probe_sectors(torch, pa, didx, canon, valid, idx, hit):
-    """The 32-byte table sectors that the probes of (canon, valid) must
-    read, each counted once however many probes share it (idx, hit: the
-    plain lookup_kmers' slots and hits).  Padded: each probed bucket's
-    ceil(8S / 32) key sectors (the invalid windows all probe the bucket of
-    mix64(0)) and each hit's EC sector.  Bucketed: each probed bucket's
-    bucket_start sectors, the key sector at each probe's slot and each
-    hit's kmer_ec sector (the search's earlier steps are not counted)."""
-    def n_uniq(x):
-        return int(torch.unique(x).numel())
-
+def _sector_ids(torch, pa, didx, canon, valid, idx, hit, payload=None,
+                uids=False):
+    """The distinct 32-byte table sectors that the probes of (canon,
+    valid) must read, each once however many probes share it (idx, hit:
+    the plain lookup_kmers' slots and hits), as {table: sector ids}.
+    Padded: each probed bucket's row (ceil(8S / 32) key sectors: the
+    invalid windows all probe the bucket of mix64(0)) and each hit's EC
+    sector.  Bucketed: each probed bucket's bucket_start sectors, the key
+    sector at each probe's slot and each hit's kmer_ec sector (the
+    search's earlier steps are not counted).  payload: slots whose uid,
+    pos and block sectors (4 B each) and fw sector (1 B) are read; uids:
+    the kmer_uid sector of every hit."""
+    u = torch.unique
     if isinstance(didx, pa.PaddedDeviceIndex):
         S = didx.S
         b = idx // S
-        return (n_uniq(b) * -(-8 * S // 32)
-                + n_uniq((b * 2 * S + S + idx % S)[hit] >> 2))
-    q = pa.mix64(torch.where(valid, canon, torch.zeros_like(canon)))
-    b = (q >> (64 - didx.p)) & ((1 << didx.p) - 1)
-    return (n_uniq(torch.cat([b >> 3, (b + 1) >> 3])) + n_uniq(idx >> 2)
-            + n_uniq(idx[hit] >> 3))
+        ids = {"rows": u(b), "ec": u((b * 2 * S + S + idx % S)[hit] >> 2)}
+    else:
+        q = pa.mix64(torch.where(valid, canon, torch.zeros_like(canon)))
+        b = (q >> (64 - didx.p)) & ((1 << didx.p) - 1)
+        ids = {"bucket_start": u(torch.cat([b >> 3, (b + 1) >> 3])),
+               "keys": u(idx >> 2), "ec": u(idx[hit] >> 3)}
+    if payload is not None:
+        ids["payload"], ids["fw"] = u(payload >> 3), u(payload >> 5)
+    if uids:
+        ids["uid"] = u(idx[hit] >> 3)
+    return ids
+
+
+def _merge_sectors(torch, a, b):
+    """The union of two _sector_ids results (slices of one batch)."""
+    return {t: torch.unique(torch.cat([a[t], b[t]])) for t in a}
+
+
+def _n_sectors(didx, ids):
+    """The sector count of _sector_ids: a padded bucket row's key sectors
+    each, the three 4-byte payload tables (uid, pos, block) each."""
+    w = {"rows": -(-8 * getattr(didx, "S", 1) // 32), "payload": 3}
+    return sum(w.get(t, 1) * int(v.numel()) for t, v in ids.items())
+
+
+def _window_bytes(torch, pa, didx, codes, lens, k):
+    """A probing kernel's table bytes on reads (codes [B, L], lens [B]):
+    every window's probe and each read's first-hit payload, each sector
+    once (_sector_ids).  Returns (bytes, windows, valid, hits)."""
+    canon, _, valid = pa.rolling_canonical_kmers(codes, lens, k)
+    idx, hit, _ = pa.lookup_kmers(didx, canon, valid)
+    ids = _sector_ids(torch, pa, didx, canon, valid, idx, hit,
+                      payload=_first_hits(torch, idx, hit))
+    return (32 * _n_sectors(didx, ids), canon.numel(), int(valid.sum()),
+            int(hit.sum()))
+
+
+def _anchor_bytes(torch, pa, anchor, didx, codes, real, rl, k, na):
+    """Kernel I's table bytes on its reads (codes [B2, L] of uniform length
+    rl, real rows, na anchors), each sector once: the anchors' probes and
+    every hit anchor's payload (uid, pos, fw, block), each verified read's
+    two block_ec8 rows (32 B each), and the wave-2 reads' window probes
+    and first-hit payloads.  Returns (bytes, wave-2 windows, verified
+    reads, wave-2 reads)."""
+    w1 = anchor.anchor_wave1_plain(didx, codes, rl, real, k, na)
+    can_a = torch.stack([anchor._anchor_canon(codes, w, k)[0]
+                         for w in w1.ws], dim=1)
+    idx_a, hit_a, _ = pa.lookup_kmers(didx, can_a, w1.valid)
+    fail = ~w1.ok & real
+    lens = torch.full((int(fail.sum()),), rl, dtype=torch.int32,
+                      device=codes.device)
+    canon, _, valid = pa.rolling_canonical_kmers(codes[fail], lens, k)
+    idx, hit, _ = pa.lookup_kmers(didx, canon, valid)
+    ids = _sector_ids(
+        torch, pa, didx, torch.cat([can_a.flatten(), canon.flatten()]),
+        torch.cat([w1.valid.flatten(), valid.flatten()]),
+        torch.cat([idx_a.flatten(), idx.flatten()]),
+        torch.cat([hit_a.flatten(), hit.flatten()]),
+        payload=torch.cat([idx_a[hit_a], _first_hits(torch, idx, hit)]))
+    r0 = w1.blk.amin(dim=1)[w1.ok].clamp(min=0) >> 3
+    ids["block_ec8"] = torch.unique(torch.cat([r0, r0 + 1]))
+    return (32 * _n_sectors(didx, ids), canon.numel(), int(w1.ok.sum()),
+            int(fail.sum()))
 
 
 def _time_layouts(torch, fn, dp, db, reps):
@@ -1543,11 +1659,12 @@ def _hold_l(torch, pa, kernels, dp, db, canon, valid, n):
     lib_b = cuda_ms(lambda: torch.searchsorted(sk, qs), 20, torch)
     del qs
     # canon + valid in, slot + hit + EC row out (22 B a window); the table
-    # sectors the probes must read, each once (_probe_sectors)
+    # sectors the probes must read, each once (_sector_ids)
     bnd, sec = {}, {}
     for tag, d in (("padded", dp), ("bucketed", db)):
         idx, hit, _ = pa.lookup_kmers(d, canon, valid)
-        sec[tag] = _probe_sectors(torch, pa, d, canon, valid, idx, hit)
+        sec[tag] = _n_sectors(d, _sector_ids(torch, pa, d, canon, valid,
+                                             idx, hit))
         bnd[tag] = bound(22 * nq + 32 * sec[tag], 40 * nq, PEAK_INT_OPS)
     n_hit = int(hit.sum())
     log(f"kernel L on {nq} windows ({int(valid.sum())} valid, {n_hit} "
@@ -1634,11 +1751,8 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     del hA, g, c
     codes = pa.unpack_codes(gA[0], gA[1], LA)
     canon, _, valid = pa.rolling_canonical_kmers(codes, gA[2], k)
+    tab_a = _window_bytes(torch, pa, dp, codes, gA[2], k)[0]
     del codes
-    _, hit, _ = pa.lookup_kmers(dp, canon, valid)
-    n_valid, n_hit = int(valid.sum()), int(hit.sum())
-    n_has = int(hit.any(dim=1).sum())
-    del hit
 
     # -- L: A's windows, both layouts
     out["lookup_kmers"] = _hold_l(torch, pa, kernels, dp, db, canon, valid, n)
@@ -1647,8 +1761,7 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
         d, *gA, k, LA, RA), dp, db, 10)
     B = pbA.n
     io_a = pbA.packed.nbytes + pbA.nmask.nbytes + 4 * B + B * (4 * RA + 27)
-    bnd_ap = _padded_bound(pa, dp, io_a, n_valid, n_hit, n_has,
-                           250 * B * (LA - k + 1))
+    bnd_ap = bound(io_a + tab_a, 250 * B * (LA - k + 1), PEAK_INT_OPS)
     out["pseudoalign_side"] = dict(ms_padded=ms_ap, ms_bucketed_5h=ms_ab,
                                    bound_ms_padded=bnd_ap[0], reads_5h=B)
     log(f"kernel A on {B} reads: padded {ms_ap:.3f} ms (bound "
@@ -2185,10 +2298,16 @@ def phase_6b(torch, np, emq, bsq, kernels, problem, res, dev):
     resampled = np.stack([bsq.resample_counts(res.counts, s)
                           for s in bsq.bootstrap_seeds(42, n_bs)])
     t1 = time.perf_counter()
+    before = kernels.LAUNCHES["em_step_batch"]
     eb = emq.run_em_batch(problem, resampled, res.eff_lens, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    rounds = int(eb.n_rounds.max()) + 1  # launches of G in this run
+    launched = kernels.LAUNCHES["em_step_batch"] - before
+    rounds = eb.rounds
+    check(rounds == int(eb.n_rounds.max()) + 1
+          and g_launches_cover(emq, launched, rounds, 1),
+          f"{n_bs} replicates: {rounds} rounds on the card, kernel G "
+          f"launched {launched} times (rounds of {emq.EM_CHUNK} per replay)")
     sa_b, mc_b = emq.em_inputs(problem, resampled)
     prob = emq.device_em_problem(problem, sa_b, mc_b, 1.0 / res.eff_lens, dev)
     alpha = torch.from_numpy(eb.alpha_before_zeroes).to(dev)
@@ -2196,38 +2315,41 @@ def phase_6b(torch, np, emq, bsq, kernels, problem, res, dev):
     # and zeroing (the converged alphas hold values below the zeroing
     # limit), against the plain version on the CPU
     mixed = np.arange(n_bs, dtype=np.int32) % 3
-    ng, cg = kernels.em_step_batch(alpha, prob,
-                                   torch.from_numpy(mixed).to(dev))
+    ng, cg = em_update(np, emq, prob, eb.alpha_before_zeroes, mixed)
     prob_cpu = emq.device_em_problem(problem, sa_b, mc_b, 1.0 / res.eff_lens,
                                      "cpu")
-    npl, cpl = emq.em_step_batch_plain(alpha.cpu(), prob_cpu,
-                                       torch.from_numpy(mixed))
+    npl, cpl = emq.em_step_batch_plain(
+        torch.from_numpy(eb.alpha_before_zeroes), prob_cpu,
+        torch.from_numpy(mixed))
+    npl, cpl = npl.numpy(), cpl.numpy()
     n_zeroed = int((eb.alpha_before_zeroes[mixed == 2] < 1e-8).sum())
-    check(n_zeroed > 0 and torch.equal(ng.cpu(), npl)
-          and torch.equal(cg.cpu(), cpl),
+    check(n_zeroed > 0 and np.array_equal(ng, npl)
+          and np.array_equal(cg, cpl),
           f"kernel G, one update of {n_bs} replicates (modes 0/1/2 mixed, "
           f"{n_zeroed} values zeroed): next and change counts bitwise equal "
           "to the plain version on the CPU")
-    err = max(err, float((ng.cpu() - npl).abs().max()))
+    err = max(err, float(np.abs(ng - npl).max()))
     del ng, cg, npl, cpl, prob_cpu
     mode = torch.ones(n_bs, dtype=torch.int32, device=dev)
-    step = kernels.bind_em_step(prob)  # as the EM loop launches it
-    ms = cuda_ms(lambda: step(alpha, mode), 20, torch)
+    ms = em_chunk_ms(torch, np, emq, prob)
     plain = cuda_ms(lambda: emq.em_step_batch_plain(alpha, prob, mode), 5,
                     torch)
     T, E = problem.num_trans, prob.num_multi
     M = int(prob.flat_tx.shape[0])
     bnd = em_bound(n_bs, T, E, M)
-    log(f"kernel G: {ms:.4f} ms per round of {n_bs} replicates (plain on "
-        f"card {plain:.3f} ms); bootstraps: resampling {t1 - t0:.3f} s, "
-        f"batched EM {t2 - t1:.3f} s over {rounds} rounds "
-        f"({(t2 - t1) / rounds * 1e3:.4f} ms per round with the host read of "
-        f"the change counts), replicate rounds {int(eb.n_rounds.min())}-"
-        f"{int(eb.n_rounds.max())}; T={T} E={E} M={M}")
+    log(f"kernel G: {ms:.4f} ms per round of {n_bs} replicates over chunks "
+        f"of {emq.EM_CHUNK} (plain on card {plain:.3f} "
+        f"ms); bootstraps: resampling {t1 - t0:.3f} s, batched EM "
+        f"{t2 - t1:.3f} s over {rounds} rounds "
+        f"({(t2 - t1) / rounds * 1e3:.4f} ms per round, host wall), "
+        f"{eb.host_reads} host reads, replicate rounds "
+        f"{int(eb.n_rounds.min())}-{int(eb.n_rounds.max())}; T={T} E={E} "
+        f"M={M}")
     summary = {"bs100_resample_s": t1 - t0, "bs100_em_s": t2 - t1,
                "bs100_rounds": rounds,
-               "bs100_round_ms": (t2 - t1) / rounds * 1e3}
-    return (ms, plain, bnd, err), summary
+               "bs100_round_ms": (t2 - t1) / rounds * 1e3,
+               "bs100_host_reads": eb.host_reads}
+    return (ms, plain, bnd, err, eb.host_reads), summary
 
 
 def _mesh_side_bytes(torch, pa, didx, up, L, k, side):
@@ -2573,10 +2695,8 @@ def main(argv=None):
             side_gpu[tag], side_cpu[tag] = sg, sc
             # this input's data-dependent work, for the bound
             codes = pa.unpack_codes(c_in[0], c_in[1], pb.Lp)
-            canon, _, valid = pa.rolling_canonical_kmers(codes, c_in[2], k)
-            _, hit, _ = pa.lookup_kmers(didx_cpu, canon, valid)
-            stats_a[tag] = (g_in, int(valid.sum()), int(hit.sum()),
-                            int(sc.has_hits.sum()), canon.numel())
+            stats_a[tag] = (g_in, *_window_bytes(torch, pa, didx_cpu, codes,
+                                                 c_in[2], k))
         # kernel B: paired on (m1, m2), single-end on r76
         for tag, s1, s2, c1, c2 in (
             ("paired", side_gpu["m1"], side_gpu["m2"], side_cpu["m1"],
@@ -2592,7 +2712,7 @@ def main(argv=None):
                       f"kernel B {tag}: fragment lengths equal")
 
         # timings at the main path's shape (mate 1, 2x100 bp batch)
-        g_in, n_valid, n_hit, n_has, n_win = stats_a["m1"]
+        g_in, table_bytes, n_win, n_valid, n_hit = stats_a["m1"]
         R = min(16, pb1.Lp - k + 1)
         ms_a = cuda_ms(lambda: kernels.pseudoalign_side(
             didx, *g_in, k, pb1.Lp, R), 10, torch)
@@ -2600,10 +2720,8 @@ def main(argv=None):
             didx, *g_in, k=k, L=pb1.Lp), 3, torch)
         in_bytes = pb1.packed.nbytes + pb1.nmask.nbytes + 4 * B
         out_bytes = B * (4 * R + 4 * 6 + 3)
-        # per valid window one 32 B sector of bucket_start and one of the
-        # sorted keys, per hit one of kmer_ec, per read with hits the four
-        # payload sectors (uid, pos, fw, block)
-        table_bytes = 32 * (2 * n_valid + n_hit + 4 * n_has)
+        # table_bytes: the sectors its probes and first-hit payloads read,
+        # each once (_window_bytes)
         ops_a = 250 * n_win
         bound_a = bound(in_bytes + out_bytes + table_bytes, ops_a, PEAK_INT_OPS)
         s1g, s2g = side_gpu["m1"], side_gpu["m2"]
@@ -2927,13 +3045,17 @@ def main(argv=None):
         em_walls = []
         for _ in range(5):
             torch.cuda.synchronize()
+            before = kernels.LAUNCHES["em_step_batch"]
             t0 = time.perf_counter()
             emg = emq.run_em(problem, res.counts, res.eff_lens, device=dev)
             em_walls.append(time.perf_counter() - t0)
+            launched_1 = kernels.LAUNCHES["em_step_batch"] - before
         em_wall_s = statistics.median(em_walls)
         emc = emq.run_em(problem, res.counts, res.eff_lens, device="cpu")
-        check(emg.n_rounds == emc.n_rounds,
-              f"EM rounds equal ({emg.n_rounds})")
+        check(emg.n_rounds == emc.n_rounds and emg.rounds == emc.rounds
+              and g_launches_cover(emq, launched_1, emg.rounds, 1),
+              f"EM rounds equal ({emg.n_rounds}; {emg.rounds} rounds ran, "
+              f"kernel G launched {launched_1} times)")
         check(np.array_equal(emg.alpha, emc.alpha)
               and np.array_equal(emg.alpha_before_zeroes,
                                  emc.alpha_before_zeroes),
@@ -2943,29 +3065,25 @@ def main(argv=None):
         prob = emq.device_em_problem(problem, sa, mc, 1.0 / res.eff_lens, dev)
         alpha = torch.from_numpy(emg.alpha_before_zeroes[None]).to(dev)
         mode = torch.ones(1, dtype=torch.int32, device=dev)
-        step = kernels.bind_em_step(prob)  # as the EM loop launches it
-        ms_1 = cuda_ms(lambda: step(alpha, mode), 50, torch)
+        ms_1 = em_chunk_ms(torch, np, emq, prob)
         plain_1 = cuda_ms(lambda: emq.em_step_batch_plain(alpha, prob, mode),
                           10, torch)
         T, E = problem.num_trans, prob.num_multi
         M = int(prob.flat_tx.shape[0])
         bound_1 = em_bound(1, T, E, M)
-        t0 = time.perf_counter()
-        for _ in range(200):
-            _, ch = step(alpha, mode)
-            ch.cpu()
-        loop_ms = (time.perf_counter() - t0) / 200 * 1e3
-        log(f"kernel G, one replicate: {ms_1:.4f} ms per update (plain on "
-            f"card {plain_1:.4f} ms); loop step with the host read of the "
-            f"change count: {loop_ms:.4f} ms; whole EM {em_wall_s * 1e3:.2f} "
-            f"ms over {emg.n_rounds + 1} updates (median of 5: "
+        round_wall_ms = em_wall_s / emg.rounds * 1e3
+        log(f"kernel G, one replicate: {ms_1:.4f} ms per round over chunks "
+            f"of {emq.EM_CHUNK} (plain on card "
+            f"{plain_1:.4f} ms); whole EM {em_wall_s * 1e3:.2f} ms over "
+            f"{emg.rounds} rounds, {round_wall_ms:.4f} ms per round "
+            f"(host wall), {emg.host_reads} host reads (median of 5: "
             f"{', '.join(f'{w * 1e3:.2f}' for w in em_walls)}); "
             f"T={T} E={E} M={M}")
 
         # -------------------------------------------------- 6b. kernel G
         log(f"== phase 6b: kernel G on the main path's EM problem "
             f"({time.perf_counter() - t_start:.0f} s)")
-        (ms_g, plain_g, bound_g, err_g), bs_summary = phase_6b(
+        (ms_g, plain_g, bound_g, err_g, reads_g), bs_summary = phase_6b(
             torch, np, emq, bsq, kernels, problem, res, dev)
 
         # ----------------------------------------------------- 7. summary
@@ -2991,7 +3109,9 @@ def main(argv=None):
                  replaces="kallisto_tpu/quant/em.py:112",
                  launches=launches["em_step_batch"], max_abs_err=err_1,
                  ms=ms_1, plain_ms=plain_1, bound_ms=bound_1[0],
-                 bound_by=bound_1[1], library_ms=None, replicates=1),
+                 bound_by=bound_1[1], library_ms=None, replicates=1,
+                 em_wall_s=em_wall_s, host_reads=emg.host_reads,
+                 rounds=emg.rounds),
         ]
         # kernel D: launches of its own path (phase 5's mixed-length run);
         # the main path's count beside it
@@ -3043,7 +3163,9 @@ def main(argv=None):
                  replaces="kallisto_tpu/quant/em.py:236",
                  launches=launches_b["em_step_batch"], max_abs_err=err_g,
                  ms=ms_g, plain_ms=plain_g, bound_ms=bound_g[0],
-                 bound_by=bound_g[1], library_ms=None, replicates=100),
+                 bound_by=bound_g[1], library_ms=None, replicates=100,
+                 em_wall_s=bs_summary["bs100_em_s"],
+                 host_reads=reads_g, rounds=bs_summary["bs100_rounds"]),
             dict(name="bias_hexamers", route="cuda", source=csrc + "bias.cu",
                  replaces="kallisto_tpu/ops/pseudoalign.py:1172",
                  launches=launches_b["bias_hexamers"], max_abs_err=0.0,
@@ -3056,7 +3178,8 @@ def main(argv=None):
                  replaces="kallisto_tpu/ops/pseudoalign.py:1082",
                  launches=launches_long["pseudoalign_long"], max_abs_err=0.0,
                  ms=k5d[0], plain_ms=k5d[1], bound_ms=k5d[2][0],
-                 bound_by=k5d[2][1], library_ms=None, stress_ms=k3e[0],
+                 bound_by=k5d[2][1], library_ms=None,
+                 stress_ms=k3e[0],
                  stress_plain_ms=k3e[1], stress_bound_ms=k3e[2][0],
                  **k3g["pseudoalign_long"]),
             # G per cell (quant-tcc, K15 with per-cell lengths): launches of
@@ -3066,7 +3189,10 @@ def main(argv=None):
                  launches=launches_tcc["em_step_batch"], max_abs_err=k5e[3],
                  ms=k5e[0], plain_ms=k5e[1], bound_ms=k5e[2][0],
                  bound_by=k5e[2][1], library_ms=None, replicates=256,
-                 form="tcc"),
+                 form="tcc",
+                 em_wall_s=tcc_summary["tcc_phases_s"]["em_s"],
+                 host_reads=tcc_summary["tcc_phases_s"]["em_host_reads"],
+                 rounds=tcc_summary["tcc_phases_s"]["em_rounds"]),
         ]
         # host wave 1's kernels (launches of phase 5f, held and timed on
         # its first hw1 batch's half-fail slice; phase 3f's stress slices,
@@ -3136,8 +3262,8 @@ def main(argv=None):
             "per_read_phases_s": rfull.timings,
             "read_keys_compact_ms": k3b["read_keys_compact"],
             "n_pairs": n_pairs, "n_genes": n_genes, "em_rounds": res.em.n_rounds,
-            "em_s": res.timings["em_s"], "em_loop_step_ms": loop_ms,
-            "em_wall_s": em_wall_s,
+            "em_s": res.timings["em_s"], "em_round_wall_ms": round_wall_ms,
+            "em_wall_s": em_wall_s, "em_host_reads": emg.host_reads,
             "quant_phases_s": res.timings,
             "bias_bs100_quant_s": bias_quant_s,
             "bias_bs100_phases_s": bias_timings, **bs_summary,

@@ -16,7 +16,7 @@
 // one body per kernel, no template instantiation.  The padded branch
 // keeps no state across the kernels' loops (its S-key loop ends inside
 // kt_probe), so it costs few registers: with it ptxas reports A 48, D 55,
-// I 80, K 56, J 32 and L 34 registers and no spills (-Xptxas -v, which
+// I 80, K 56, J 80 (a run of windows in registers) and L 34 registers and no spills (-Xptxas -v, which
 // ops/kernels.py passes for this file; printed at every build), and the
 // branch stays.
 // What bounds the padded probe on the H100: per valid window, ceil(8S/32)
@@ -159,28 +159,44 @@
 // group when no earlier hit exists or its uid or EC row differs from the
 // LAST EARLIER HIT's -- written at their index below G (-2 elsewhere),
 // with their exact count n_groups.
-// Design: one block of 256 threads per read (grid-stride over reads).  The
-// block decodes the read's first len codes into shared memory (a global
-// per-block slice when Lp is too long), then walks its own windows only
-// (w < len - k + 1: the batch's padded tail windows are never valid) in
-// chunks of 256, one window per thread, with kernel A's k-mer build and
-// kt_probe.  Per chunk a block-wide max-scan of hit positions gives each
-// hit its previous hit (the chunk's uid/EC rows sit in shared memory; the
-// last hit of earlier chunks is a carry), and one add-scan of the packed
-// flags (boundary, boundary with EC row >= 0) gives the group index and
-// the slot in the read's row list.  Every hit's EC row equals its group's,
-// so the distinct rows of the hits are the distinct rows of the group
-// openers: only those are listed, then bitonic-sorted in place (shared
-// memory up to 8,192 entries, else the block's slice of a global
-// workspace), and an add-scan of "differs from its left neighbour" gives
-// n_rows and each distinct row's rank.  Scans are warp shuffles plus one
-// pass over the eight warp totals.
+// Design: a persistent grid (the blocks of 256 threads that the SMs hold
+// at once) whose blocks take reads from a counter on the card, so a long
+// read holds one block while the others go on with the rest.  A block
+// walks its read's own windows (w < len - k + 1: the batch's padded tail
+// windows are never valid) in tiles of 1,024: it decodes the tile's
+// codes into shared memory, then each thread takes a run of 4
+// consecutive windows, builds the first k-mer once and rolls the forward
+// and reverse-complement k-mers one base at a time, and issues the
+// run's probes (kt_probe, then kmer_uid on a hit) before it looks at any
+// of them, holding each window's (uid, EC row) or miss in registers.
+// Then ONE scan runs over the tile in window order: each thread finds
+// its run's first and last hit and the groups that its later hits open;
+// a block-wide max-scan of "run has a hit" gives each run its previous
+// hit (the last hit of the runs before it, or of earlier tiles: a
+// carry), which decides whether its first hit opens a group; one
+// add-scan of the packed counts (groups, groups with EC row >= 0) gives
+// each opener its group index and its slot in the read's row list.  So
+// a tile of 1,024 windows pays one set of barriers where the first
+// design paid one per 256.  Every hit's EC row equals its group's, so
+// the distinct rows of the hits are the distinct rows of the group
+// openers: only those are listed -- the first 512 in shared memory, any
+// more in the block's slice of a global spill (mosaic reads) -- then
+// bitonic-sorted in place, and an add-scan of "differs from its left
+// neighbour" gives n_rows and each distinct row's rank.  Scans are warp
+// shuffles plus one pass over the eight warp totals.  The block's shared
+// memory is fixed (~6 KB) whatever the batch's padded length.
 // What bounds it: as kernel A, the random reads into the k-mer table (a
-// bucket_start sector, the search's key sectors and a kmer_ec sector per
-// valid window), plus a kmer_uid sector per hit.  What the design does
-// about it: the padded tail windows of short reads cost nothing, invalid
-// windows skip the lookup, and 256 independent lookups per block are in
-// flight.  A simple kernel that is right comes first; see PERF.md.
+// padded bucket row's key sectors, or a bucket_start sector and the
+// search's key sectors, and an EC sector per hit), plus a kmer_uid sector
+// per hit; chip_smoke.py counts each table sector once (_sector_ids).
+// What the design does about it: the padded tail windows of short reads
+// cost nothing, invalid windows skip the lookup, and no barrier stands
+// between a tile's 1,024 probes.  On the card (PERF.md) the time hardly
+// moved with the run length (2, 4 or 8 windows), with a register cap for
+// more resident blocks, or with the run's probes issued in lockstep
+// (each tried, not kept): what is left is the latency of the
+// dependent random table reads of each window (bucket_start, key, EC row,
+// kmer_uid), several times the bound that counts each sector once.
 
 #include <cuda_runtime.h>
 
@@ -726,22 +742,13 @@ __global__ void pseudoalign_halffail_kernel(
 
 #define KJ_THREADS 256
 #define KJ_WARPS (KJ_THREADS / 32)
-#define KJ_SCAP 8192  // row-list entries kept in shared memory
-#define KJ_CODES_SMEM (128 * 1024)  // longest read decoded into shared memory
-
-// Kernel J's workspace policy at padded width Lp, decided here only:
-// *cap is the row list's length (the power of two >= Lp - k + 1); the
-// list lives in shared memory up to KJ_SCAP entries, else *list_ws ints per
-// block of global memory; the read's codes live in shared memory up to
-// KJ_CODES_SMEM bytes, else *codes_ws bytes per block of global memory.
-static void kj_plan(int Lp, int k, long long* cap, long long* list_ws,
-                    long long* codes_ws) {
-    long long need = 1;
-    while (need < Lp - k + 1) need <<= 1;
-    *cap = need;
-    *list_ws = need > KJ_SCAP ? need : 0;
-    *codes_ws = ((Lp + 15) & ~15) > KJ_CODES_SMEM ? Lp : 0;
-}
+#define KJ_RUN 4                       // windows of a thread in a tile
+#define KJ_TILE (KJ_THREADS * KJ_RUN)  // windows probed before one scan
+// KJ_SLIST, the row-list entries of a read in shared memory, comes from
+// the build (ops/kernels.py LONG_SLIST, which also plans the spill)
+#ifndef KJ_SLIST
+#error "KJ_SLIST is given by ops/kernels.py"
+#endif
 
 struct LongOut {
     int* rows;                        // [B, R]
@@ -782,114 +789,202 @@ __device__ __forceinline__ int kj_scan(int v, int* wt, int* total) {
     return v;
 }
 
+// A listed row at position pos: the first KJ_SLIST in shared memory, the
+// rest in the block's global spill at the same position.
+__device__ __forceinline__ void kj_list_put(int* slist, int* spill, int pos,
+                                            int v) {
+    if (pos < KJ_SLIST)
+        slist[pos] = v;
+    else
+        spill[pos] = v;
+}
+
 __global__ void __launch_bounds__(KJ_THREADS) pseudoalign_long_kernel(
     IndexView ix,
     const unsigned char* __restrict__ packed,  // [B, Lp/4]
     const unsigned char* __restrict__ nmask,   // [B, Lp/8]
     const int* __restrict__ lens,              // [B]
-    long long B, int Lp, int k, int R, int G,
-    unsigned char* codes_ws,                   // [grid, Lp] or null
-    int* list_ws, long long list_cap,          // [grid, list_cap] or null
-    int list_smem, LongOut o) {
-    extern __shared__ int kj_smem[];
-    __shared__ int s_uid[KJ_THREADS];
-    __shared__ int s_ec[KJ_THREADS];
+    int B, int Lp, int k, int R, int G,
+    int* next_read,                            // [1], 0 at launch
+    int* spill, long long cap,                 // [grid, cap] or null
+    LongOut o) {
+    __shared__ unsigned char s_codes[KJ_TILE + 32];
+    __shared__ int s_list[KJ_SLIST];
+    __shared__ int s_luid[KJ_THREADS];
+    __shared__ int s_lec[KJ_THREADS];
     __shared__ int s_last[KJ_THREADS];
     __shared__ int wt[KJ_WARPS];
+    __shared__ int s_read;
     const int tid = threadIdx.x;
     const int W = Lp - k + 1;
-    int* smem_list = kj_smem;
-    unsigned char* codes =
-        codes_ws ? codes_ws + (long long)blockIdx.x * Lp
-                 : (unsigned char*)(kj_smem + list_smem);
     const int LB = Lp >> 2;
     const int NB = Lp >> 3;
+    const unsigned long long kmask =
+        k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
+    const int rshift = 2 * (k - 1);
+    int* gl = spill ? spill + (long long)blockIdx.x * cap : 0;
 
-    for (long long read = blockIdx.x; read < B; read += gridDim.x) {
+    for (;;) {
+        if (tid == 0) s_read = atomicAdd(next_read, 1);
+        __syncthreads();
+        const int read = s_read;
+        if (read >= B) break;
         const int len = lens[read];
         int wr = len - k + 1;
         wr = wr < 0 ? 0 : (wr > W ? W : wr);
-        const unsigned char* pk = packed + read * LB;
-        const unsigned char* nm = nmask + read * NB;
+        const unsigned char* pk = packed + (long long)read * LB;
+        const unsigned char* nm = nmask + (long long)read * NB;
         const int ncodes = len < Lp ? len : Lp;
-        for (int j = tid; j < ncodes; j += KJ_THREADS) {
-            const int c = (pk[j >> 2] >> ((j & 3) * 2)) & 3;
-            const int isn = (nm[j >> 3] >> (j & 7)) & 1;
-            codes[j] = (unsigned char)(isn ? 4 : c);
-        }
-        for (int g = tid; g < G; g += KJ_THREADS) o.groups[read * G + g] = -2;
-        int cap = 1;
-        while (cap < wr) cap <<= 1;
-        int* list = cap <= list_smem ? smem_list
-                                     : list_ws + (long long)blockIdx.x * list_cap;
-        __syncthreads();
+        for (int g = tid; g < G; g += KJ_THREADS)
+            o.groups[(long long)read * G + g] = -2;
 
-        // carries across chunks: the last hit so far, groups and listed rows
+        // carries across tiles: the last hit so far, groups and listed rows
         int c_has = 0, c_uid = 0, c_ec = 0, c_gid = 0, c_lst = 0;
         int n_valid = 0, n_hit = 0;
-        for (int base = 0; base < wr; base += KJ_THREADS) {
-            const int w = base + tid;
-            int hit = 0, uid = -1, ecv = -1;
-            if (w < wr) {
+        for (int base = 0; base < wr; base += KJ_TILE) {
+            // the tile's codes: its windows read codes [base, base + TILE + k - 1)
+            int nc = ncodes - base;
+            nc = nc < KJ_TILE + k - 1 ? nc : KJ_TILE + k - 1;
+            for (int j = tid; j < nc; j += KJ_THREADS) {
+                const int p = base + j;
+                const int c = (pk[p >> 2] >> ((p & 3) * 2)) & 3;
+                const int isn = (nm[p >> 3] >> (p & 7)) & 1;
+                s_codes[j] = (unsigned char)(isn ? 4 : c);
+            }
+            __syncthreads();
+
+            // probes: the thread's run of KJ_RUN windows, its k-mers rolled
+            // one base at a time, every probe of the run issued before any
+            // of them is scanned
+            const int o0 = tid * KJ_RUN;
+            int nw = wr - (base + o0);
+            nw = nw < 0 ? 0 : (nw > KJ_RUN ? KJ_RUN : nw);
+            unsigned int validm = 0, hitm;
+            unsigned long long q[KJ_RUN];
+            int uid[KJ_RUN], ecv[KJ_RUN];
+#pragma unroll
+            for (int j = 0; j < KJ_RUN; ++j) q[j] = 0;
+            if (nw > 0) {
                 unsigned long long f = 0, r = 0;
-                int bad = 0;
-                for (int d = 0; d < k; ++d) {
-                    const int c = codes[w + d];
-                    bad |= c >> 2;
+                int lastn = -1;  // tile offset of the last N read so far
+                for (int d = 0; d < k - 1; ++d) {
+                    const int c = s_codes[o0 + d];
+                    if (c > 3) lastn = o0 + d;
                     const unsigned long long cc = (unsigned long long)(c & 3);
-                    f = (f << 2) | cc;
-                    r |= (3ULL - cc) << (2 * d);
+                    f = ((f << 2) | cc) & kmask;
+                    r = (r >> 2) | ((3ULL - cc) << rshift);
                 }
-                if (!bad) {
-                    ++n_valid;
-                    const unsigned long long q = kt_mix64(f <= r ? f : r);
-                    long long idx;
-                    int e;
-                    if (kt_probe(ix, q, &idx, &e)) {
-                        hit = 1;
-                        ++n_hit;
-                        uid = ix.uid[idx];
-                        ecv = e;
+#pragma unroll
+                for (int j = 0; j < KJ_RUN; ++j) {
+                    if (j < nw) {
+                        const int c = s_codes[o0 + j + k - 1];
+                        if (c > 3) lastn = o0 + j + k - 1;
+                        const unsigned long long cc = (unsigned long long)(c & 3);
+                        f = ((f << 2) | cc) & kmask;
+                        r = (r >> 2) | ((3ULL - cc) << rshift);
+                        if (lastn < o0 + j) {
+                            validm |= 1u << j;
+                            q[j] = kt_mix64(f <= r ? f : r);
+                        }
                     }
                 }
             }
-            s_uid[tid] = uid;
-            s_ec[tid] = ecv;
+            hitm = 0;
+#pragma unroll
+            for (int j = 0; j < KJ_RUN; ++j) {
+                uid[j] = -1;
+                ecv[j] = -1;
+                if ((validm >> j) & 1) {
+                    long long idx;
+                    int e;
+                    if (kt_probe(ix, q[j], &idx, &e)) {
+                        hitm |= 1u << j;
+                        uid[j] = ix.uid[idx];
+                        ecv[j] = e;
+                    }
+                }
+            }
+            n_valid += __popc(validm);
+            n_hit += __popc(hitm);
+
+            // the run's first and last hit, and the groups its later hits open
+            int fuid = 0, fec = 0, luid = 0, lec = 0, nb = 0, nl = 0;
+            {
+                int seen = 0;
+#pragma unroll
+                for (int j = 0; j < KJ_RUN; ++j) {
+                    if ((hitm >> j) & 1) {
+                        if (!seen) {
+                            fuid = uid[j];
+                            fec = ecv[j];
+                            seen = 1;
+                        } else if (uid[j] != luid || ecv[j] != lec) {
+                            ++nb;
+                            nl += ecv[j] >= 0;
+                        }
+                        luid = uid[j];
+                        lec = ecv[j];
+                    }
+                }
+            }
+            // one scan over the tile in window order: each run's previous
+            // hit is the last hit of the runs before it (or of earlier tiles)
+            s_luid[tid] = luid;
+            s_lec[tid] = lec;
             int tot;
-            const int last = kj_scan<true>(hit ? tid : -1, wt, &tot);
+            const int last = kj_scan<true>(hitm ? tid : -1, wt, &tot);
             s_last[tid] = last;
             __syncthreads();
             const int pl = tid > 0 ? s_last[tid - 1] : -1;
             int has_prev = c_has, puid = c_uid, pec = c_ec;
             if (pl >= 0) {
                 has_prev = 1;
-                puid = s_uid[pl];
-                pec = s_ec[pl];
+                puid = s_luid[pl];
+                pec = s_lec[pl];
             }
-            const int bnd = hit && (!has_prev || uid != puid || ecv != pec);
-            const int lst = bnd && ecv >= 0;
-            const int flags = bnd | (lst << 16);
+            const int fb = hitm && (!has_prev || fuid != puid || fec != pec);
+            nb += fb;
+            nl += fb && fec >= 0;
+            const int flags = nb | (nl << 16);
             const int excl = kj_scan<false>(flags, wt, &tot) - flags;
-            const int gid = c_gid + (excl & 0xffff);
-            if (bnd && gid < G) o.groups[read * G + gid] = ecv;
-            if (lst) list[c_lst + (excl >> 16)] = ecv;
-            const int chunk_last = s_last[KJ_THREADS - 1];
-            if (chunk_last >= 0) {
+            int gid = c_gid + (excl & 0xffff);
+            int lst = c_lst + (excl >> 16);
+#pragma unroll
+            for (int j = 0; j < KJ_RUN; ++j) {
+                if ((hitm >> j) & 1) {
+                    if (!has_prev || uid[j] != puid || ecv[j] != pec) {
+                        if (gid < G) o.groups[(long long)read * G + gid] = ecv[j];
+                        ++gid;
+                        if (ecv[j] >= 0) kj_list_put(s_list, gl, lst++, ecv[j]);
+                    }
+                    has_prev = 1;
+                    puid = uid[j];
+                    pec = ecv[j];
+                }
+            }
+            const int tile_last = s_last[KJ_THREADS - 1];
+            if (tile_last >= 0) {
                 c_has = 1;
-                c_uid = s_uid[chunk_last];
-                c_ec = s_ec[chunk_last];
+                c_uid = s_luid[tile_last];
+                c_ec = s_lec[tile_last];
             }
             c_gid += tot & 0xffff;
             c_lst += tot >> 16;
-            __syncthreads();  // s_uid, s_ec, s_last are rewritten next chunk
+            __syncthreads();  // the tile's shared arrays are rewritten next
         }
         int tot_valid, tot_hit;
         kj_scan<false>(n_valid, wt, &tot_valid);
         kj_scan<false>(n_hit, wt, &tot_hit);
 
         // the listed rows sorted ascending (bitonic, INT32_MAX padded to a
-        // power of two), then the distinct ones ranked by an add-scan
+        // power of two) in shared memory, or in the block's spill once they
+        // pass KJ_SLIST; then the distinct ones ranked by an add-scan
         const int n = c_lst;
+        int* list = s_list;
+        if (n > KJ_SLIST) {
+            for (int i = tid; i < KJ_SLIST; i += KJ_THREADS) gl[i] = s_list[i];
+            list = gl;
+        }
         int npow = 1;
         while (npow < n) npow <<= 1;
         if (n > 1) {
@@ -918,11 +1013,11 @@ __global__ void __launch_bounds__(KJ_THREADS) pseudoalign_long_kernel(
             const int isnew = i < n && (i == 0 || list[i] != list[i - 1]);
             int tot;
             const int rank = nr + kj_scan<false>(isnew, wt, &tot) - isnew;
-            if (isnew && rank < R) o.rows[read * R + rank] = list[i];
+            if (isnew && rank < R) o.rows[(long long)read * R + rank] = list[i];
             nr += tot;
         }
         for (int s = (nr < R ? nr : R) + tid; s < R; s += KJ_THREADS)
-            o.rows[read * R + s] = KT_INT32_MAX;
+            o.rows[(long long)read * R + s] = KT_INT32_MAX;
         if (tid == 0) {
             o.n_rows[read] = nr;
             o.has_hits[read] = (unsigned char)(tot_hit > 0);
@@ -931,7 +1026,7 @@ __global__ void __launch_bounds__(KJ_THREADS) pseudoalign_long_kernel(
             o.n_groups[read] = c_gid;
             o.g_overflow[read] = (unsigned char)(c_gid > G);
         }
-        __syncthreads();  // codes and the row list are reused by the next read
+        __syncthreads();  // s_read and the row list are reused by the next read
     }
 }
 
@@ -1135,45 +1230,45 @@ extern "C" int pseudoalign_halffail(
     return (int)cudaGetLastError();
 }
 
-// The per-block sizes of kernel J's global workspaces at padded width Lp
-// (kj_plan): ws[0] bytes of codes, ws[1] ints of row list; 0 where the
-// block's shared memory holds it.
-extern "C" void pseudoalign_long_workspace(int Lp, int k, long long* ws) {
-    long long cap;
-    kj_plan(Lp, k, &cap, ws + 1, ws);
+// Kernel J's persistent grid on the current device: the SMs times the
+// blocks of KJ_THREADS that one SM holds at once.
+extern "C" int pseudoalign_long_grid(int* blocks) {
+    int dev, sms, per;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per, pseudoalign_long_kernel, KJ_THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    *blocks = sms * per;
+    return 0;
 }
 
-// Kernel J.  grid blocks of KJ_THREADS threads; the caller allocates the
-// global workspaces that pseudoalign_long_workspace sizes: codes_ws [grid,
-// ws[0]] bytes and list_ws [grid, ws[1]] ints, each null where its size is 0.
+// Kernel J.  grid blocks of KJ_THREADS threads take reads from next_read
+// (one int, 0 at launch).  The row list of a read lives in shared memory
+// up to KJ_SLIST entries; cap is the power of two >= Lp - k + 1 (the most
+// a read can list, padded for the sort), and spill, [grid, cap] ints, is
+// given exactly when cap > KJ_SLIST (ops/kernels.py long_plan).
 extern "C" int pseudoalign_long(
     const IndexView* index,
     const void* packed, const void* nmask, const void* lens,
     long long B, int Lp, int k, int R, int G, int grid,
-    void* codes_ws, void* list_ws,
+    void* next_read, void* spill, long long cap,
     void* rows, void* n_rows, void* has_hits, void* overflow,
     void* unmapped, void* groups, void* n_groups, void* g_overflow,
     void* stream) {
     if (B <= 0) return 0;
     const int W = Lp - k + 1;
-    long long need, list_g, codes_g;
-    kj_plan(Lp, k, &need, &list_g, &codes_g);
+    long long need = 1;
+    while (need < W) need <<= 1;
     if (Lp < k || (Lp & 7) != 0 || k > 32 || R <= 0 || R > W || G <= 0 ||
-        grid <= 0 || grid > B || (list_g != 0) != (list_ws != 0) ||
-        (codes_g != 0) != (codes_ws != 0))
+        B > 0x7fffffffLL || grid <= 0 || grid > B ||
+        !next_read || cap != need || (cap > KJ_SLIST) != (spill != 0))
         return (int)cudaErrorInvalidValue;
     IndexView ix;
     int err = kt_index_view(&ix, index);
     if (err) return err;
-    const int list_smem = need < KJ_SCAP ? (int)need : KJ_SCAP;
-    // at most 4 * KJ_SCAP + KJ_CODES_SMEM = 160 KB, under Hopper's 227 KB
-    const long long smem = 4LL * list_smem + (codes_g ? 0 : ((Lp + 15) & ~15));
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            pseudoalign_long_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
     LongOut o;
     o.rows = (int*)rows;
     o.n_rows = (int*)n_rows;
@@ -1183,11 +1278,10 @@ extern "C" int pseudoalign_long(
     o.groups = (int*)groups;
     o.n_groups = (int*)n_groups;
     o.g_overflow = (unsigned char*)g_overflow;
-    pseudoalign_long_kernel<<<grid, KJ_THREADS, (size_t)smem,
-                              (cudaStream_t)stream>>>(
+    pseudoalign_long_kernel<<<grid, KJ_THREADS, 0, (cudaStream_t)stream>>>(
         ix, (const unsigned char*)packed, (const unsigned char*)nmask,
-        (const int*)lens, B, Lp, k, R, G, (unsigned char*)codes_ws,
-        (int*)list_ws, need, list_smem, o);
+        (const int*)lens, (int)B, Lp, k, R, G, (int*)next_read, (int*)spill,
+        cap, o);
     return (int)cudaGetLastError();
 }
 

@@ -16,6 +16,8 @@ device made current and on that device's current stream (``_launch``: a
 shard on cuda:1 is never launched from cuda:0), raises
 when the C function returns a non-zero ``cudaError_t``, and adds one to
 ``LAUNCHES[name]`` -- the count that shows a run went through the kernel.
+Kernel G's loop replays rounds captured in a CUDA graph (EmGraph): each
+replay adds the rounds it holds.
 There is no fallback: a CPU tensor never reaches these functions (the
 dispatching callers send it to the plain PyTorch version instead), and a
 failed build raises.
@@ -36,9 +38,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_kbuild")
 
+# row-list entries of a read that kernel J keeps in shared memory (its
+# KJ_SLIST, given to the compiler); long_plan spills the rest
+LONG_SLIST = 512
+
 # -Xptxas -v: the build prints each probing kernel's registers and spills
 # (the register counts csrc/pseudoalign.cu's header comment cites)
-_PSEUDOALIGN = ("pseudoalign.cu", ("-Xptxas", "-v"))
+_PSEUDOALIGN = ("pseudoalign.cu", ("-Xptxas", "-v", f"-DKJ_SLIST={LONG_SLIST}"))
 
 # kernel name -> (source file, extra nvcc flags)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
@@ -93,6 +99,16 @@ class IndexView(ctypes.Structure):
                      ("S", ctypes.c_int)]
 
 
+class EmArgs(ctypes.Structure):
+    """Kernel G's tensors and sizes (struct EmArgs in csrc/em.cu)."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "bufs", "singleton", "inv_eff", "flat_tx", "ec_ptr", "multi",
+        "tx_ptr", "tx_ec", "scale", "st", "changed")] + [
+        (f, ctypes.c_int) for f in (
+            "Bb", "T", "E", "batched_eff", "min_rounds")]
+
+
 class KeyOpts(ctypes.Structure):
     """Key options (struct KeyOpts in csrc/read_keys.cu)."""
 
@@ -113,7 +129,7 @@ _ARGTYPES = {
     + [_P] * 10 + [_P],
     "pseudoalign_anchor": [_IX, _P, _LL] + [_P] * 3 + [_LL, _LL] + [_I] * 6
     + [_P] * 11 + [_P],
-    "pseudoalign_long": [_IX] + [_P] * 3 + [_LL] + [_I] * 5 + [_P, _P]
+    "pseudoalign_long": [_IX] + [_P] * 3 + [_LL] + [_I] * 5 + [_P, _P, _LL]
     + [_P] * 8 + [_P],
     "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
     "pseudoalign_halffail": [_IX, _P, _LL] + [_P] * 4 + [_LL, _LL] + [_I] * 4
@@ -122,8 +138,20 @@ _ARGTYPES = {
     "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL] + [_P] * 6,
     "gather_slim": [_SIDE, _SIDE, _P, _LL, _LL, _P, _P],
     "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
-    "em_step_batch": [_P] * 12 + [_I] * 4 + [_P],
+    "em_step_batch": [_P, _P],
     "bias_hexamers": [_P] * 11 + [_LL, _LL, _I, _P, _P],
+}
+
+
+# the other C functions of a kernel's library: (kernel, function) ->
+# (argtypes, restype)
+_AUX: Dict[Tuple[str, str], Tuple[list, object]] = {
+    ("em_step_batch", "em_graph_create"): (
+        [ctypes.POINTER(EmArgs), _I, ctypes.POINTER(ctypes.c_void_p)],
+        ctypes.c_int),
+    ("em_step_batch", "em_graph_destroy"): ([_P], ctypes.c_int),
+    ("pseudoalign_long", "pseudoalign_long_grid"): (
+        [ctypes.POINTER(_I)], ctypes.c_int),
 }
 
 
@@ -211,23 +239,33 @@ def _fn(name: str):
     return getattr(_libs[unit], name)
 
 
+def _aux_fn(kernel: str, name: str):
+    """C function `name` of kernel `kernel`'s library (built at first
+    use), with its argtypes from _AUX."""
+    _fn(kernel)
+    f = getattr(_libs[SOURCES[kernel]], name)
+    f.argtypes, f.restype = _AUX[(kernel, name)]
+    return f
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, dev: torch.device, *args, count: str = "") -> None:
+def _launch(name: str, dev: torch.device, *args, count: str = "",
+            n: int = 1) -> None:
     """Call kernel `name`'s C function with `args` and the current stream of
     `dev`, with `dev` made the current device: the libraries' CUDA runtime
     launches on the device current in the calling thread, so a kernel whose
     inputs lie on cuda:1 must not be launched from cuda:0.  Raises on a
-    non-zero cudaError_t; counts the launch under `count` (default
-    `name`)."""
+    non-zero cudaError_t; counts n launches (a graph replay: the rounds it
+    holds) under `count` (default `name`)."""
     fn = _fn(name)
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
     with _count_lock:
-        LAUNCHES[count or name] += 1
+        LAUNCHES[count or name] += n
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
@@ -427,21 +465,33 @@ def pseudoalign_halffail(didx, pkf: torch.Tensor, vsum: torch.Tensor,
 
 # ---------------------------------------------------------------- kernel J
 
-# blocks of kernel J (one read per block at a time, grid-stride: 8 per SM
-# of an H100); sizes its per-block workspaces
-_LONG_GRID = 1056
+_long_grids: Dict[int, int] = {}
 
 
-def _long_workspace(L: int, k: int) -> Tuple[int, int]:
-    """Per-block sizes of kernel J's global workspaces at padded width L:
-    (bytes of codes, ints of row list), 0 where shared memory holds it --
-    the policy of csrc/pseudoalign.cu's kj_plan, asked of the library."""
-    _fn("pseudoalign_long")  # builds and loads the library
-    q = _libs[SOURCES["pseudoalign_long"]].pseudoalign_long_workspace
-    q.argtypes, q.restype = [_I, _I, ctypes.POINTER(_LL)], None
-    ws = (_LL * 2)()
-    q(L, k, ws)
-    return int(ws[0]), int(ws[1])
+def long_plan(L: int, k: int) -> Tuple[int, int]:
+    """Kernel J's row-list plan at padded width L: (cap, spill).  cap is
+    the power of two >= W = L - k + 1, the most openers a read can list,
+    padded for the sort; spill is the ints of global row list each block
+    needs (cap once cap passes LONG_SLIST, the shared list, else 0)."""
+    W = L - k + 1
+    cap = 1
+    while cap < W:
+        cap <<= 1
+    return cap, (cap if cap > LONG_SLIST else 0)
+
+
+def _long_grid(dev) -> int:
+    """Kernel J's persistent grid on `dev`: SMs x the blocks one SM holds
+    (the occupancy of the built kernel, asked of the library once)."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _long_grids:
+        n = ctypes.c_int()
+        with torch.cuda.device(dev):
+            err = _aux_fn("pseudoalign_long", "pseudoalign_long_grid")(
+                ctypes.byref(n))
+        _raise_on(err, "pseudoalign_long (grid)")
+        _long_grids[key] = int(n.value)
+    return _long_grids[key]
 
 
 def pseudoalign_long(didx, packed: torch.Tensor, nmask: torch.Tensor,
@@ -466,15 +516,14 @@ def pseudoalign_long(didx, packed: torch.Tensor, nmask: torch.Tensor,
            torch.empty(B, **b8))
     if B == 0:
         return out
-    grid = min(B, _LONG_GRID)
-    code_n, list_n = _long_workspace(L, k)
-    codes_ws = (torch.empty(grid * code_n, dtype=torch.uint8, device=dev)
-                if code_n else None)
-    list_ws = torch.empty(grid * list_n, **i32) if list_n else None
+    grid = min(B, _long_grid(dev))
+    cap, spill_n = long_plan(L, k)
+    spill = torch.empty(grid * spill_n, **i32) if spill_n else None
+    next_read = torch.zeros(1, **i32)
     _launch(
         "pseudoalign_long", dev,
-        ctypes.byref(ix), _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R, G, grid,
-        _ptr(codes_ws), _ptr(list_ws), *[_ptr(t) for t in out])
+        ctypes.byref(ix), _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R,
+        G, grid, _ptr(next_read), _ptr(spill), cap, *[_ptr(t) for t in out])
     return out
 
 
@@ -640,56 +689,84 @@ def gather_slim(idx: torch.Tensor, s1, s2) -> torch.Tensor:
 # ---------------------------------------------------------------- kernel G
 
 
-def bind_em_step(prob):
-    """Kernel G over `prob`, a DeviceEmProblem with [Bb, T] singletons,
-    [Bb, E] counts and [T] or [Bb, T] inv_eff (the main EM is Bb = 1).
-    Checks the problem's tensors once and returns step(alpha, mode) ->
-    (next [Bb, T] f64, changed [Bb] int32 -- the change counts, on the
-    card): one EM update of every replicate whose mode is not 0 (2: from
-    its zeroed alpha); a frozen replicate's row is copied.  step checks
-    only alpha and mode: the EM loop calls it once per round, and at
-    Bb = 1 checking the whole problem each time costs the host more than
-    the update costs the card.  The step launches on the problem's own
-    device: cells split across cards bind one problem per card."""
-    dev = prob.flat_tx.device
-    T, E = prob.num_trans, prob.num_multi
-    M = int(prob.flat_tx.shape[0])
-    if prob.singleton_alpha.dim() != 2:
-        raise ValueError("singleton_alpha must be [Bb, T]")
-    Bb = int(prob.singleton_alpha.shape[0])
-    _check(prob.singleton_alpha, "singleton_alpha", torch.float64, (Bb, T), dev)
-    _check(prob.multi_counts, "multi_counts", torch.float64, (Bb, E), dev)
-    batched_eff = prob.inv_eff.dim() == 2
-    _check(prob.inv_eff, "inv_eff", torch.float64,
-           (Bb, T) if batched_eff else (T,), dev)
-    _check(prob.flat_tx, "flat_tx", torch.int32, (M,), dev)
-    _check(prob.ec_ptr, "ec_ptr", torch.int64, (E + 1,), dev)
-    _check(prob.tx_ptr, "tx_ptr", torch.int64, (T + 1,), dev)
-    _check(prob.tx_ec, "tx_ec", torch.int32, (M,), dev)
-
-    def step(alpha: torch.Tensor, mode: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        _check(alpha, "alpha", torch.float64, (Bb, T), dev)
-        _check(mode, "mode", torch.int32, (Bb,), dev)
-        nxt = torch.empty((Bb, T), dtype=torch.float64, device=dev)
-        scale = torch.empty(max(Bb * E, 1), dtype=torch.float64, device=dev)
-        changed = torch.empty(Bb, dtype=torch.int32, device=dev)
-        _launch(
-            "em_step_batch", dev,
-            _ptr(alpha), _ptr(nxt), _ptr(prob.singleton_alpha),
-            _ptr(prob.inv_eff), _ptr(prob.flat_tx), _ptr(prob.ec_ptr),
-            _ptr(prob.multi_counts), _ptr(prob.tx_ptr), _ptr(prob.tx_ec),
-            _ptr(scale), _ptr(mode), _ptr(changed), Bb, T, E,
-            int(batched_eff))
-        return nxt, changed
-
-    return step
+def em_layout(prob) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel G's replicate-minor rows of a DeviceEmProblem: singletons
+    [T, Bb], multi counts [E, Bb] and inv_eff ([T] shared, the problem's
+    own tensor, or [T, Bb]) -- the transposes of its [Bb, item] rows."""
+    inv = prob.inv_eff
+    return (prob.singleton_alpha.t().contiguous(),
+            prob.multi_counts.t().contiguous(),
+            inv.t().contiguous() if inv.dim() == 2 else inv)
 
 
-def em_step_batch(alpha: torch.Tensor, prob, mode: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel G, one update: bind_em_step(prob)(alpha, mode)."""
-    return bind_em_step(prob)(alpha, mode)
+class EmGraph:
+    """`rounds` rounds of kernel G's loop captured once into a CUDA graph
+    (csrc/em.cu em_graph_create: a private stream in thread-local capture
+    mode, so that several threads may capture at once) and replayed by
+    launch() on the device's current stream, each replay counted as
+    `rounds` launches.  The loop's state: bufs [2, T, Bb] f64 (alpha,
+    ping-pong), st [4 + 3 Bb] int64 (i, bound, running, 0, mode[Bb],
+    done_at[Bb], last[Bb]) and changed [Bb] int32.  A round past the
+    state's bound, or after every replicate froze, does nothing and does
+    not advance i, so the rounds that ran are read back from the state.
+
+    `prob` is a DeviceEmProblem with [Bb, T] singletons, [Bb, E] counts
+    and [T] or [Bb, T] inv_eff; its tensors are checked once, here, and
+    its replicate-minor rows (em_layout) made once.  A shared inv_eff is
+    passed as the problem's own tensor, so the loop may rewrite it in
+    place between bias segments.  Launches on the problem's own device:
+    cells split across cards bind one problem per card.  A failed capture
+    or launch raises."""
+
+    def __init__(self, prob, bufs: torch.Tensor, st: torch.Tensor,
+                 changed: torch.Tensor, min_rounds: int, rounds: int):
+        dev = prob.flat_tx.device
+        T, E = prob.num_trans, prob.num_multi
+        M = int(prob.flat_tx.shape[0])
+        if prob.singleton_alpha.dim() != 2:
+            raise ValueError("singleton_alpha must be [Bb, T]")
+        Bb = int(prob.singleton_alpha.shape[0])
+        _check(prob.singleton_alpha, "singleton_alpha", torch.float64,
+               (Bb, T), dev)
+        _check(prob.multi_counts, "multi_counts", torch.float64, (Bb, E), dev)
+        batched_eff = prob.inv_eff.dim() == 2
+        _check(prob.inv_eff, "inv_eff", torch.float64,
+               (Bb, T) if batched_eff else (T,), dev)
+        _check(prob.flat_tx, "flat_tx", torch.int32, (M,), dev)
+        _check(prob.ec_ptr, "ec_ptr", torch.int64, (E + 1,), dev)
+        _check(prob.tx_ptr, "tx_ptr", torch.int64, (T + 1,), dev)
+        _check(prob.tx_ec, "tx_ec", torch.int32, (M,), dev)
+        _check(bufs, "bufs", torch.float64, (2, T, Bb), dev)
+        _check(st, "st", torch.int64, (4 + 3 * Bb,), dev)
+        _check(changed, "changed", torch.int32, (Bb,), dev)
+        self.dev, self.rounds = dev, int(rounds)
+        self.lay = em_layout(prob)
+        self.scale = torch.empty(max(E * Bb, 1), dtype=torch.float64,
+                                 device=dev)
+        self._keep = (prob, bufs, st, changed)
+        sing, multi, inv = self.lay
+        self.args = EmArgs(
+            bufs=_ptr(bufs), singleton=_ptr(sing), inv_eff=_ptr(inv),
+            flat_tx=_ptr(prob.flat_tx), ec_ptr=_ptr(prob.ec_ptr),
+            multi=_ptr(multi), tx_ptr=_ptr(prob.tx_ptr),
+            tx_ec=_ptr(prob.tx_ec), scale=_ptr(self.scale), st=_ptr(st),
+            changed=_ptr(changed), Bb=Bb, T=T, E=E,
+            batched_eff=int(batched_eff), min_rounds=int(min_rounds))
+        self.exec = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            err = _aux_fn("em_step_batch", "em_graph_create")(
+                ctypes.byref(self.args), self.rounds, ctypes.byref(self.exec))
+        _raise_on(err, "em_step_batch (graph capture)")
+
+    def launch(self) -> None:
+        _launch("em_step_batch", self.dev, self.exec, n=self.rounds)
+
+    def close(self) -> None:
+        if self.exec:
+            with torch.cuda.device(self.dev):
+                err = _aux_fn("em_step_batch", "em_graph_destroy")(self.exec)
+            self.exec = ctypes.c_void_p()
+            _raise_on(err, "em_step_batch (graph destroy)")
 
 
 # ---------------------------------------------------------------- kernel H

@@ -138,7 +138,8 @@ class TccResult:
     gene_counts: Optional[np.ndarray]
     gene_tpm: Optional[np.ndarray]
     # host seconds (`load_s`, `eff_s`, `em_s`, `write_s`) and the EM's
-    # `chunks` and `em_rounds` (the rounds of its chunks, summed)
+    # `chunks`, `em_rounds` (the rounds of its chunks, summed) and
+    # `em_host_reads` (its loops' reads of their state, summed)
     timings: dict
 
 
@@ -167,7 +168,7 @@ def run_quant_tcc(opt: Options, index=None, chunk: int = 256,
     dev = resolve_device(device)
     n_dev = n_shards(opt, dev, tcc=True)
     timings = dict.fromkeys(("load_s", "eff_s", "em_s", "write_s"), 0.0)
-    timings.update(chunks=0, em_rounds=0)
+    timings.update(chunks=0, em_rounds=0, em_host_reads=0)
     t0 = time.perf_counter()
     if opt.txnames_file:
         # index-free: names from file, zero lengths
@@ -280,7 +281,8 @@ def run_quant_tcc(opt: Options, index=None, chunk: int = 256,
             for (a, b), r in zip(bounds, rs):
                 est[a:b] = r.alpha
             timings["chunks"] += 1
-            timings["em_rounds"] += max(int(r.n_rounds.max()) for r in rs) + 1
+            timings["em_rounds"] += max(r.rounds for r in rs)
+            timings["em_host_reads"] += sum(r.host_reads for r in rs)
     t3 = time.perf_counter()
     timings["em_s"] = t3 - t2
 

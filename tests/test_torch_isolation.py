@@ -180,4 +180,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.pseudoalign_long(didx, torch.zeros((4, 8), dtype=torch.uint8),
                                  torch.zeros((4, 4), dtype=torch.uint8), z,
                                  31, 32, 2, 128)
+    import numpy as np
+
+    from kallisto_tpu_torch.quant import em as tem
+
+    p = tem.build_em_problem([np.array([0], np.int32),
+                              np.array([0, 1], np.int32)], 2)
+    prob = tem.device_em_problem(p, np.zeros((1, 2)), np.ones((1, 1)),
+                                 np.ones(2), "cpu")
+    with pytest.raises(ValueError):
+        kernels.EmGraph(prob, torch.zeros((2, 2, 1), dtype=torch.float64),
+                        torch.zeros(7, dtype=torch.int64),
+                        torch.zeros(1, dtype=torch.int32), 0, 1)
     assert kernels.LAUNCHES == before

@@ -336,6 +336,29 @@ def _batch_problem(Bb, seed):
     return problem, counts_b, rng.uniform(50, 3000, T), rng
 
 
+def _g_update(prob, alpha, mode):
+    """One round of kernel G's loop (EmLoop, a graph of one round on the
+    card) from alpha [Bb, T] with per-replicate modes and the stop rule
+    out of reach: (next [Bb, T], change counts [Bb]) as CPU tensors."""
+    Bb = alpha.shape[0]
+    loop = emq.EmLoop(prob, alpha, 2**31 - 1, mode=mode.astype(np.int64),
+                      rounds=1)
+    loop.set_bound(1)
+    try:
+        loop.run_chunk()
+        st, bufs = loop.read(with_alpha=True)
+    finally:
+        loop.close()
+    return (torch.from_numpy(bufs[1].T.copy()),
+            torch.from_numpy(st[4 + 2 * Bb:].astype(np.int32)))
+
+
+def _g_launches(rounds):
+    """Kernel G's launches for one segment of `rounds` rounds: every
+    graph replay counts the EM_CHUNK rounds it holds."""
+    return -(-rounds // emq.EM_CHUNK) * emq.EM_CHUNK
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batched_eff", [False, True])
 def test_kernel_g_step_bitwise(cuda, batched_eff):
@@ -347,14 +370,13 @@ def test_kernel_g_step_bitwise(cuda, batched_eff):
     alpha = rng.uniform(0, 50, (6, T))
     alpha[:, ::5] = 1e-9
     mode = np.array([1, 0, 2, 1, 2, 0], np.int32)
-    out = {}
-    for dev in (cuda, "cpu"):
-        prob = emq.device_em_problem(problem, sa_b, mc_b, inv, dev)
-        out[str(dev)] = emq.em_step_batch(
-            torch.from_numpy(alpha).to(dev), prob,
-            torch.from_numpy(mode).to(dev))
-    (ng, cg), (nc, cc) = out[str(cuda)], out["cpu"]
-    assert torch.equal(ng.cpu(), nc) and torch.equal(cg.cpu(), cc)
+    ng, cg = _g_update(emq.device_em_problem(problem, sa_b, mc_b, inv, cuda),
+                       alpha, mode)
+    nc, cc = emq.em_step_batch_plain(
+        torch.from_numpy(alpha),
+        emq.device_em_problem(problem, sa_b, mc_b, inv, "cpu"),
+        torch.from_numpy(mode))
+    assert torch.equal(ng, nc) and torch.equal(cg, cc)
     assert int(cc[1]) == 0 and torch.equal(nc[1], torch.from_numpy(alpha[1]))
 
 
@@ -369,10 +391,101 @@ def test_kernel_g_whole_batch_em_bitwise(cuda):
     launched = kernels.LAUNCHES["em_step_batch"] - before
     c = emq.run_em_batch(problem, counts_b, eff, device="cpu")
     assert np.array_equal(g.n_rounds, c.n_rounds)
-    assert launched == int(c.n_rounds.max()) + 1
+    assert g.rounds == c.rounds == int(c.n_rounds.max()) + 1
+    assert launched == _g_launches(g.rounds)
     assert g.n_rounds[0] < g.n_rounds[1:].min()
     assert np.array_equal(g.alpha, c.alpha)
     assert np.array_equal(g.alpha_before_zeroes, c.alpha_before_zeroes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bb,own_lengths", [(1, False), (8, False),
+                                            (100, False), (256, True)])
+def test_kernel_g_update_bitwise(cuda, Bb, own_lengths):
+    """One update through the replicate-minor lanes (a graph of one round)
+    at Bb = 1, 8, 100 and 256 with their own lengths (quant-tcc's chunk),
+    modes 0/1/2 mixed (Bb = 1: each mode in turn): next and change counts
+    bitwise the plain version's on the CPU."""
+    problem, counts_b, eff, rng = _batch_problem(Bb, 31)
+    T = problem.num_trans
+    sa_b, mc_b = emq.em_inputs(problem, counts_b)
+    inv = 1.0 / (eff[None, :] * rng.uniform(0.8, 1.2, (Bb, T))
+                 if own_lengths else eff)
+    alpha = rng.uniform(0, 50, (Bb, T))
+    alpha[:, ::5] = 1e-9
+    modes = ([np.array([m], np.int32) for m in (1, 2, 0)] if Bb == 1
+             else [(np.arange(Bb) % 3).astype(np.int32)])
+    prob_g = emq.device_em_problem(problem, sa_b, mc_b, inv, cuda)
+    prob_c = emq.device_em_problem(problem, sa_b, mc_b, inv, "cpu")
+    for mode in modes:
+        ng, cg = _g_update(prob_g, alpha, mode)
+        nc, cc = emq.em_step_batch_plain(torch.from_numpy(alpha), prob_c,
+                                         torch.from_numpy(mode))
+        assert torch.equal(ng, nc) and torch.equal(cg, cc)
+        assert int(cc.sum()) > 0 or not (mode != 0).any()
+
+
+def _slow_problem():
+    """Transcript 0 decays by ~2 % a round against transcript 1, so the
+    EM runs ~660 rounds (tests/test_torch_em.py's problem)."""
+    ec_sets = [np.array([t], np.int32) for t in range(6)] + [
+        np.array([0, 1], np.int32), np.array([2, 3], np.int32)]
+    counts = np.array([0, 200, 0, 100, 50, 70, 10000, 100], np.float64)
+    return emq.build_em_problem(ec_sets, 6), counts, np.full(6, 1000.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bb", [1, 100])
+def test_kernel_g_loop_bitwise(cuda, Bb):
+    """The whole run_em_batch with its rounds on the card (CUDA graph
+    chunks, the stop rule on the card) against the plain loop on the CPU:
+    equal rounds per replicate, bitwise alpha and alpha_before_zeroes; G
+    counted EM_CHUNK rounds per graph replay, the replays covering the
+    rounds read back from the card; one host read per chunk plus one."""
+    problem, counts_b, eff, _ = _batch_problem(max(Bb, 2), 32)
+    if Bb == 1:
+        counts_b = counts_b[1:2]
+    before = kernels.LAUNCHES["em_step_batch"]
+    g = emq.run_em_batch(problem, counts_b, eff, device=cuda)
+    launched = kernels.LAUNCHES["em_step_batch"] - before
+    c = emq.run_em_batch(problem, counts_b, eff, device="cpu")
+    assert np.array_equal(g.n_rounds, c.n_rounds)
+    assert np.array_equal(g.alpha, c.alpha)
+    assert np.array_equal(g.alpha_before_zeroes, c.alpha_before_zeroes)
+    rounds = int(c.n_rounds.max()) + 1
+    assert g.rounds == c.rounds == rounds
+    assert launched == _g_launches(rounds)
+    assert g.host_reads == c.host_reads <= -(-rounds // emq.EM_CHUNK) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_rounds", [50, 163])
+def test_kernel_g_bias_segments_bitwise(cuda, min_rounds):
+    """run_em with a bias hook (lengths doubled, alpha reported back) over
+    its three segments on the card: the hook sees the same alphas as on
+    the CPU, the shared lengths are rewritten in place under the graph,
+    and the result is bitwise the CPU's."""
+    problem, counts, eff = _slow_problem()
+    seen = {}
+
+    def hook(tag):
+        seen[tag] = []
+
+        def f(alpha, e):
+            seen[tag].append(alpha.copy())
+            return e * 2.0, alpha.copy()
+        return f
+
+    g = emq.run_em(problem, counts, eff, min_rounds=min_rounds,
+                   bias_update=hook("card"), device=cuda)
+    c = emq.run_em(problem, counts, eff, min_rounds=min_rounds,
+                   bias_update=hook("cpu"), device="cpu")
+    assert g.n_rounds == c.n_rounds and len(seen["card"]) == 2
+    assert all(np.array_equal(a, b) for a, b in zip(seen["card"],
+                                                    seen["cpu"]))
+    assert np.array_equal(g.alpha, c.alpha)
+    assert np.array_equal(g.alpha_before_zeroes, c.alpha_before_zeroes)
+    assert np.array_equal(g.eff_lens, c.eff_lens)
 
 
 @pytest.mark.cuda
@@ -544,6 +657,54 @@ def test_kernel_j_matches_plain(cuda, port_index, layout, tmp_path, which,
     assert bool(c.has_hits.any())
     if budgets == (2, 4):
         assert bool(c.overflow.any()) and bool(c.g_overflow.any())
+    for f in pa.LongResult._fields:
+        a, b = getattr(g, f).cpu(), getattr(c, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def _mixed_long_batch(index):
+    """Long reads of 600 and 5,500 bases (5d's range), reads shorter than
+    k, and two 60,000-base mosaics of 40-100-base pieces from random
+    places in the unitig sequences, whose group openers pass the 512 rows
+    that kernel J keeps in shared memory; 0.1 % Ns."""
+    rng = np.random.default_rng(41)
+    seq = index.unitig_seq
+    lens = np.array([600] * 6 + [5500] * 6 + [0, 12, 30] + [60000] * 2,
+                    np.int32)
+    L = int(lens.max())
+    codes = np.full((lens.shape[0], L), 4, np.uint8)
+    for r, n in enumerate(lens):
+        pos = 0
+        while pos < n:
+            hi = 100 if n == 60000 else 3000
+            m = min(int(rng.integers(40, hi)), n - pos)
+            s = int(rng.integers(0, seq.shape[0] - m))
+            codes[r, pos:pos + m] = seq[s:s + m]
+            pos += m
+        codes[r, :n][rng.random(n) < 0.001] = 4
+    return _read_batch_to_packed(ReadBatch(codes=codes, lens=lens), K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budgets", [(64, 128), (64, 4096)])
+def test_kernel_j_mixed_lengths_and_spill(cuda, port_index, layout, budgets):
+    """Kernel J on reads of 600 and 5,500 bases, reads shorter than k and
+    mosaics past its shared row list: every LongResult field equal to the
+    plain version in both layouts (G = 4096 keeps every group)."""
+    R, G = budgets
+    pb = _mixed_long_batch(port_index)
+    out = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        assert isinstance(d, layout)
+        out[str(dev)] = pa.pseudoalign_long_packed(
+            d, *pa.upload_batch(pb, dev), k=K, L=pb.Lp, max_rows=R,
+            max_groups=G)
+    g, c = out[str(cuda)], out["cpu"]
+    if G == 4096:
+        listed = (c.groups >= 0).sum(dim=1)
+        assert int(listed.max()) > kernels.LONG_SLIST
+    assert (c.n_groups[12:15] == 0).all() and bool(c.has_hits[:12].all())
     for f in pa.LongResult._fields:
         a, b = getattr(g, f).cpu(), getattr(c, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f

@@ -120,6 +120,37 @@ def test_long_result_counts_every_window(indexes, generated):
     assert torch.equal(r.groups == -2, past)
 
 
+@pytest.mark.parametrize("L,cap,spill", [
+    (32, 2, 0), (536, 512, 0), (544, 1024, 1024), (5504, 8192, 8192),
+    (140000, 262144, 262144)])
+def test_kernel_j_row_list_plan(L, cap, spill):
+    """Kernel J's row-list plan (ops/kernels.py long_plan): cap is the
+    power of two >= W = L - k + 1, and a global spill of cap ints per
+    block is planned exactly when cap passes the 512 entries that shared
+    memory holds."""
+    from kallisto_tpu_torch.ops import kernels
+
+    assert kernels.long_plan(L, K) == (cap, spill)
+    assert cap >= L - K + 1 > cap // 2
+
+
+def test_kernel_j_plan_holds_every_listed_row(indexes, generated):
+    """A read lists at most one row per group opener, and n_groups <= its
+    windows <= cap; mosaic reads list more rows than the shared list
+    holds, so their batch plans a spill."""
+    from kallisto_tpu_torch.ops import kernels
+
+    _, _, tdidx = indexes
+    pb = _batch("generated", generated)
+    r = _port_long(tdidx, pb)
+    cap, spill = kernels.long_plan(pb.Lp, K)
+    listed = ((r.groups >= 0) & (r.groups != -2)).sum(dim=1)
+    assert int(r.n_groups.max()) <= pb.Lp - K + 1 <= cap
+    assert (listed <= r.n_groups).all()
+    if int(r.n_groups.max()) > kernels.LONG_SLIST:
+        assert spill == cap
+
+
 def test_mode_ecs_batch_matches_jax(indexes):
     jindex, tindex, _ = indexes
     resolver = EcResolver(tindex, mask_offlist=False)

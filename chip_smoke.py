@@ -28,7 +28,12 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
 3. kernels A (pseudoalign_side) and B (read_keys) on the card against their
    plain versions on the CPU, at the main path's batch shape (2x100 bp and
    76 bp reads with random Ns, ragged lengths and reads shorter than k):
-   every field must be equal;
+   every field must be equal; then pseudoalign_batch, kernel A on unpacked
+   codes (pseudoalign_codes), on the batch's mate-1 codes (width 100, Ns
+   and codes above 4, ragged lengths, reads shorter than k) with the launch
+   counts set to 0 just before and read just after (its own path, the
+   JAX package's single-chip program), held against _pseudoalign_core on
+   the card and timed;
 3b. kernels D (pseudoalign_turbo), E (key_histogram), F (gather_exemplars)
    and B with the compact key layout against their plain versions on the
    card: a paired turbo batch at the main path's Bp = 262,144 with sparse
@@ -42,7 +47,9 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    anchors, sparse Ns), paired and single-end: every field and n_fail
    equal, and with kernels B and E the key table (n_fail in its meta row)
    equal; against kernel D on the same batch: rows, row counts, hits,
-   overflow flags and the key table equal; both forms timed, and kernel
+   overflow flags and the key table equal; both forms timed (I's two
+   launches, wave 1 and wave 2 on the reads it listed, together, and the
+   paired form's waves alone, wave 2 beside its plain version), and kernel
    B's single-end form on I's reads (bus's chunk);
 3e. kernel J (pseudoalign_long) against its plain version on the card, on
    16,384 long reads generated from phase 2's transcriptome (whole and
@@ -73,10 +80,14 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    and F slim): every field equal; kernel L (lookup_kmers) against the
    plain lookup_kmers in both layouts on A's windows, invalid ones
    included, and on windows 0 (q = mix64(0)): slot, hit and EC row
-   equal; then A (262,144 reads), I (524,288 reads, and single-end), L
-   (A's windows, with torch.searchsorted beside the bucketed form) timed
-   in both layouts, and D, J and K at their held shapes; L's bounds count
-   each table sector its probes read once (_sector_ids);
+   equal; A on codes held in both layouts; then A and A on codes (262,144
+   reads), D and I (524,288 reads, phases 3b/3d's shape; I also
+   single-end, with its wave-2 share), L (A's windows, with
+   torch.searchsorted beside the bucketed form) timed in both layouts, and
+   D, J and K at their held shapes; D and I (paired) again at 524,288 reads
+   on an L2_GENES-gene index whose tables fit in the 50 MB L2 (I held
+   there first); L's bounds count each table sector its probes read once
+   (_sector_ids);
 4. golden bytes (phases 4-4e: every device index that their runs place is
    asserted padded (_padded_runs), so these are the padded path of A, D,
    I, J and K on the card against the goldens):
@@ -111,7 +122,8 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    CPU; `quant_paired` with host wave 1 on (hw1pb) byte-equal to the golden;
 5. the main path at realistic size: `quant` of the 1M pairs on the card
    with every launch count set to 0 just before and read just after, the
-   kernels A, B, I, E, F (and its slim layout) and G all launched; checks
+   kernels A, B, I (both waves), E, F (and its slim layout) and G all
+   launched; checks
    of its output; the same pairs again with every batch per read (equal EC counts and sets); kernel D's path:
    the first 65,536 pairs, mate 1 cut to mixed lengths (96-100 bp), with
    batch 8192 and an FLD goal of 1000, so that the turbo batches take
@@ -160,7 +172,7 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    with slots and F slim held against their plain versions and timed on
    the first hw1 batch's half-fail slice, D + B + E with slots on its
    both-failed slice, K and D timed on every slice of the run (the card's
-   busy time); then `--pseudobam` of the first 65,536 pairs with the
+   busy time); then `--pseudobam` of the first 32,768 pairs with the
    switch on and off: BAM byte-equal;
 5g. several devices: N_SHARDS = 4 shards on the visible cards (with one
    card all four share cuda:0, and the phase says so): `quant` of the
@@ -219,8 +231,8 @@ CPU_RERUN_PAIRS = 65536
 N_LONG = 100_000
 # pairs of phase 5f's --pseudobam runs: the BAM writer is host Python at
 # 3-4 s per 10,000 pairs on the H100 machine, and the whole smoke must stay
-# well inside its 1,200 s limit
-PSEUDOBAM_PAIRS = 65_536
+# well inside its 1,200 s limit (a slow host took it to 1,005 s with 65,536)
+PSEUDOBAM_PAIRS = 32_768
 # batch counts by route in run_quant's timings
 ROUTES = ("full", "turbo", "compact", "fallback")
 # chunk counts by route, and kernel I's wave-2 reads, in run_bus's timings
@@ -245,11 +257,16 @@ PADDED_HOLD = 65_536
 PADDED_LONG = 16_384
 # the main path's kernels (phase 5); H runs under --bias, G also under -b N
 MAIN_PATH_KERNELS = ("pseudoalign_side", "read_keys", "em_step_batch",
-                     "pseudoalign_anchor", "key_histogram", "gather_exemplars",
-                     "gather_slim")
-# phase 5h's quant on the padded index: A, B, I, E, F and G
+                     "pseudoalign_anchor", "pseudoalign_anchor_wave2",
+                     "key_histogram", "gather_exemplars", "gather_slim")
+# phase 5h's quant on the padded index: A, B, I (both waves), E, F and G
 PADDED_PATH_KERNELS = ("pseudoalign_side", "read_keys", "pseudoalign_anchor",
-                       "key_histogram", "gather_exemplars", "em_step_batch")
+                       "pseudoalign_anchor_wave2", "key_histogram",
+                       "gather_exemplars", "em_step_batch")
+# phase 3g: genes of an index whose tables fit in the card's 50 MB L2,
+# beside which D and I are timed at the same batch shape as on the 800-gene
+# and 10,000-gene indexes
+L2_GENES = 100
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the scalar
 # (non-tensor) float32 rate, used here for integer operations, and float64.
@@ -513,6 +530,66 @@ def _hold_i(torch, pa, kernels, didx, sides, aux, k, L, rl, tag):
     return g, c, cf
 
 
+def _code_batch(np, codes, lens_full, k, rng):
+    """Unpacked codes for kernel A on codes (pseudoalign_batch): random Ns
+    (code 4) and codes above 4, 5% ragged lengths (some shorter than k),
+    the columns past a read's length N as the reader marks them."""
+    codes = codes.copy()
+    B, L = codes.shape
+    codes[rng.random((B, L)) < 0.002] = 4
+    codes[rng.random((B, L)) < 0.0005] = 7
+    lens = lens_full.astype(np.int32).copy()
+    short = rng.random(B) < 0.05
+    lens[short] = rng.integers(1, L + 1, int(short.sum()))
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 4
+    return np.ascontiguousarray(codes), lens
+
+
+def _hold_codes(torch, pa, didx, codes, lens, k, tag):
+    """Kernel A on codes against _pseudoalign_core, both on the card: every
+    field equal."""
+    g = pa.pseudoalign_batch(didx, codes, lens, k)
+    c = pa._pseudoalign_core(didx, codes, lens, k, 16)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, g, c, f"kernel A on codes {tag}")
+
+
+def phase_3_codes(torch, np, pa, kernels, didx, rb1, k, dev, rng):
+    """pseudoalign_batch -- kernel A on unpacked codes, the entry point the
+    JAX package's single-chip program calls -- on the main path's batch of
+    mate-1 reads (width 100, not a multiple of 8): the path run with the
+    launch counts set to 0 just before and read just after, then held
+    against _pseudoalign_core on the card and timed.  Returns its row
+    fields."""
+    cn, ln = _code_batch(np, rb1.codes, rb1.lens, k, rng)
+    codes, lens = _put(torch, np, cn, dev), _put(torch, np, ln, dev)
+    B, L = codes.shape
+    check(L % 8 != 0, f"code width {L} is not a multiple of 8")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    pa.pseudoalign_batch(didx, codes, lens, k)
+    torch.cuda.synchronize()
+    n = kernels.LAUNCHES["pseudoalign_codes"]
+    check(n > 0, f"pseudoalign_batch launched pseudoalign_codes ({n} times)")
+    _hold_codes(torch, pa, didx, codes, lens, k, f"B={B} L={L}")
+    R = min(16, L - k + 1)
+    ms = cuda_ms(lambda: kernels.pseudoalign_codes(didx, codes, lens, k, R),
+                 10, torch)
+    plain = cuda_ms(lambda: pa._pseudoalign_core(didx, codes, lens, k, 16), 3,
+                    torch)
+    # codes and lengths in, SideResults out, the table sectors its probes
+    # and first-hit payloads read, each once
+    table, n_win, n_valid, n_hit = _window_bytes(torch, pa, didx, codes, lens,
+                                                 k)
+    bnd = bound(B * L + 4 * B + B * (4 * R + 27) + table, 250 * n_win,
+                PEAK_INT_OPS)
+    log(f"kernel A on codes: {ms:.3f} ms (plain on card {plain:.3f} ms, "
+        f"bound {bnd[0]:.4f} ms), B={B} L={L} windows={n_win} "
+        f"valid={n_valid} hits={n_hit}; its path launched it {n} times")
+    return dict(launches=n, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                bound_by=bnd[1], reads=B, width=L)
+
+
 def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     """Kernels D, E, F and B with the compact key layout against their
     plain PyTorch versions, both on the card, on main-path shapes.  Returns
@@ -636,6 +713,35 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     return out
 
 
+def _time_waves(torch, pa, kernels, didx, sides, aux, codes, k, L, rl, na):
+    """Kernel I's two launches timed alone on one batch (codes: its decoded
+    reads): wave 1, and wave 2 on the reads wave 1 listed, with wave 2's
+    plain version (_pseudoalign_core on those reads) and bound (their
+    window probes and first-hit payloads, each table sector once, their
+    packed rows, the list and the outputs).  Returns wave 2's row fields
+    and wave 1's ms."""
+    R = 16
+    o, fl, nf = kernels.anchor_wave1(didx, sides, aux, k, L, rl, R, na)
+    ms1 = cuda_ms(lambda: kernels.anchor_wave1(didx, sides, aux, k, L, rl, R,
+                                               na), 10, torch)
+    ms2 = cuda_ms(lambda: kernels.anchor_wave2(didx, sides, aux, k, L, rl, R,
+                                               o, fl, nf), 10, torch)
+    n = int(nf)
+    sel = torch.sort(fl[:n].long()).values
+    lens = torch.full((n,), rl, dtype=torch.int32, device=codes.device)
+    sub = codes[sel].contiguous()
+    plain = cuda_ms(lambda: pa._pseudoalign_core(didx, sub, lens, k, R), 3,
+                    torch)
+    table, n_win, _, _ = _window_bytes(torch, pa, didx, sub, lens, k)
+    io = n * (int(sides[0].shape[1]) + 4 + 4 * R + 27) + 8 * aux.numel()
+    bnd = bound(table + io, 250 * n_win, PEAK_INT_OPS)
+    log(f"kernel I's waves alone: wave 1 {ms1:.3f} ms, wave 2 {ms2:.3f} ms "
+        f"on {n} listed reads (plain on card {plain:.3f} ms, bound "
+        f"{bnd[0]:.4f} ms)")
+    return dict(ms=ms2, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                reads=n, wave1_ms=ms1)
+
+
 def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
     """Kernel I against its plain version and kernel D, both on the card,
     at the main path's shapes.  Returns, for the paired and the single-end
@@ -697,11 +803,14 @@ def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
         io = (sum(p.numel() for p in sides) + 8 * aux.numel()
               + B2 * (4 * R + 4 * 6 + 3) + 8)
         bnd = bound(table + io, 250 * (B2 * na + n_win2), PEAK_INT_OPS)
-        del codes
         log(f"kernel I {tag}: {ms:.3f} ms (plain on card {plain_ms:.3f} ms), "
             f"reads={B2} Lc={rl} anchors={na} verified={n_ok} wave 2="
             f"{n_fail} ({n_fail / B2:.4f}); bound {bnd[0]:.4f} ms ({bnd[1]})")
         out[tag] = ((ms, plain_ms, bnd), n_fail / B2)
+        if tag == "paired":
+            out["wave2"] = _time_waves(torch, pa, kernels, didx, sides, aux,
+                                       codes, k, L, rl, na)
+        del codes
         if tag == "single":
             # kernel B single-end on I's reads: bus's per-chunk key launch
             ms_b1 = cuda_ms(lambda: kernels.read_keys(g, None, k), 20, torch)
@@ -867,7 +976,9 @@ def phase_5c(torch, np, kernels, Options, run_bus, index, cdna, n_reads,
         rres, rout, rwall, rlaunches = run("per_read")
     finally:
         busmod._BusRun._anchor_pair, busmod._BusRun._anchor_single = saved
-    check(rlaunches["pseudoalign_anchor"] == 0 and rres.timings["full"] > 0,
+    check(rlaunches["pseudoalign_anchor"] == 0
+          and rlaunches["pseudoalign_anchor_wave2"] == 0
+          and rres.timings["full"] > 0,
           "bus with the anchor route bypassed: kernel A only "
           f"({rlaunches['pseudoalign_side']} launches)")
     for fn in ("output.bus", "matrix.ec"):
@@ -1682,6 +1793,63 @@ def _hold_l(torch, pa, kernels, dp, db, canon, valid, n):
         sectors_padded=sec["padded"], sectors_bucketed=sec["bucketed"])
 
 
+def _index_set(torch, np, pa, fastx, build_index, generate_transcriptome,
+               generate_paired, k, work, dev, genes, n_pairs):
+    """A `genes`-gene simulated transcriptome (seed 42), its index on the
+    card in the layout the JAX package's rule gives it and, with the padded
+    budget set to 0, bucketed, and the first batch of n_pairs simulated
+    2x100 bp pairs from it.  Returns (index, that device index, the
+    bucketed one, [mate-1 batch, mate-2 batch])."""
+    fasta = os.path.join(work, f"tx{genes}.fasta.gz")
+    generate_transcriptome(fasta, n_genes=genes, seed=42)
+    index = build_index([fasta], k=k)
+    d = pa.device_index_from_host(index, dev)
+    budget = pa._PADDED_BYTES_BUDGET
+    pa._PADDED_BYTES_BUDGET = 0
+    try:
+        db = pa.device_index_from_host(index, dev)
+    finally:
+        pa._PADDED_BYTES_BUDGET = budget
+    r1p = os.path.join(work, f"tx{genes}_1.fastq.gz")
+    r2p = os.path.join(work, f"tx{genes}_2.fastq.gz")
+    generate_paired(fasta, r1p, r2p, n_pairs, read_len=READ_LEN,
+                    frag_mean=180.0, frag_sd=20.0, error_rate=0.005)
+    rbs = []
+    for path in (r1p, r2p):
+        fs = fastx.FastqStream(path)
+        rbs.append(fs.next_batch(n_pairs))
+        fs.close()
+    return index, d, db, rbs
+
+
+def _same_shape_times(torch, np, pa, kernels, fastx, dp, db, rbs, k, dev,
+                      rng, tag):
+    """D and I on the pairs of rbs (2x100 bp, sparse Ns): I held against its
+    plain version on dp, then D and I (paired and single-end) timed on dp
+    and db in turns (_time_layouts), with I's wave-2 share on dp.  The
+    batch shape of phases 3b and 3d (Bp = 262,144 pairs), so that the
+    index alone differs.  Returns the times."""
+    Bp = rbs[0].n
+    packed, aux, _, L, rl = _turbo_inputs(
+        torch, np, _sparse_pairs(np, fastx, rbs, Bp, k, rng), Bp, dev)
+    _hold_i(torch, pa, kernels, dp, packed, aux, k, L, rl,
+            f"{tag}, {2 * Bp} reads")
+    out = {"reads": 2 * Bp}
+    out["d_ms_1"], out["d_ms_2"] = _time_layouts(
+        torch, lambda d: _launch_d(kernels, d, (packed, aux, None, L, rl), k),
+        dp, db, 10)
+    for form, sides in (("paired", packed), ("single", packed[:1])):
+        out[f"i_{form}_ms_1"], out[f"i_{form}_ms_2"] = _time_layouts(
+            torch, lambda d: _launch_i(kernels, d, sides, aux, k, L, rl), dp,
+            db, 10)
+        nf = int(_launch_i(kernels, dp, sides, aux, k, L, rl)[1])
+        out[f"i_{form}_wave2_share"] = nf / (len(sides) * Bp)
+    log(f"{tag} ({type(dp).__name__} {dp.nbytes()} B, then "
+        f"{type(db).__name__} {db.nbytes()} B), {2 * Bp} reads: " + ", ".join(
+            f"{key} {v:.4f}" for key, v in out.items() if key != "reads"))
+    return out
+
+
 def phase_3g(torch, np, pa, kernels, fastx, build_index,
              generate_transcriptome, generate_paired, k, work, dev,
              n_pairs, batch):
@@ -1749,6 +1917,19 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     torch.cuda.synchronize()
     _equal_sides(torch, pa, g, c, f"kernel A, padded index, B={n} Lp={LA}")
     del hA, g, c
+    # -- A on codes: the first n reads, held in both layouts, timed on all
+    cn, ln = _code_batch(np, rbs[0].codes, rbs[0].lens, k, rng)
+    codes_c, lens_c = _put(torch, np, cn, dev), _put(torch, np, ln, dev)
+    for tag, d in (("padded", dp), ("bucketed", db)):
+        _hold_codes(torch, pa, d, codes_c[:n], lens_c[:n], k,
+                    f"{tag} index, B={n} L={cn.shape[1]}")
+    ms_cp, ms_cb = _time_layouts(torch, lambda d: kernels.pseudoalign_codes(
+        d, codes_c, lens_c, k, min(16, cn.shape[1] - k + 1)), dp, db, 10)
+    out["pseudoalign_codes"] = dict(ms_padded=ms_cp, ms_bucketed_5h=ms_cb,
+                                    reads_padded=int(cn.shape[0]))
+    log(f"kernel A on codes on {cn.shape[0]} reads: padded {ms_cp:.3f} ms, "
+        f"bucketed {ms_cb:.3f} ms")
+    del codes_c, lens_c
     codes = pa.unpack_codes(gA[0], gA[1], LA)
     canon, _, valid = pa.rolling_canonical_kmers(codes, gA[2], k)
     tab_a = _window_bytes(torch, pa, dp, codes, gA[2], k)[0]
@@ -1783,20 +1964,28 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     _hold_i(torch, pa, kernels, dp, packed, aux, k, L, rl,
             f"padded index, {n} reads")
     del dinp, packed, aux
-    # I timed on the batch's pairs
-    Bp = rbs[0].n
-    packed, aux, _, L, rl = _turbo_inputs(
-        torch, np, _sparse_pairs(np, fastx, rbs, Bp, k, rng), Bp, dev)
-    for tag, sides in (("paired", packed), ("single", packed[:1])):
-        ms_ip, ms_ib = _time_layouts(
-            torch, lambda d: _launch_i(kernels, d, sides, aux, k, L, rl), dp,
-            db, 10)
-        out["pseudoalign_anchor_" + tag] = dict(
-            ms_padded=ms_ip, ms_bucketed_5h=ms_ib,
-            reads_5h=len(sides) * Bp)
-        log(f"kernel I {tag} on {len(sides) * Bp} reads: padded "
-            f"{ms_ip:.3f} ms, bucketed {ms_ib:.3f} ms")
-    del packed, aux
+    # D and I at phases 3b/3d's batch shape, both layouts; then the same on
+    # an index whose bucketed tables fit in the L2
+    t = _same_shape_times(torch, np, pa, kernels, fastx, dp, db, rbs, k, dev,
+                          rng, f"{PADDED_GENES}-gene index")
+    for form in ("paired", "single"):
+        out["pseudoalign_anchor_" + form] = dict(
+            ms_padded=t[f"i_{form}_ms_1"], ms_bucketed_5h=t[f"i_{form}_ms_2"],
+            reads_5h=t["reads"] // (1 if form == "paired" else 2),
+            wave2_share_5h=t[f"i_{form}_wave2_share"])
+    out["pseudoalign_turbo"].update(ms_800g_padded=t["d_ms_1"],
+                                    ms_800g_bucketed=t["d_ms_2"],
+                                    reads_800g=t["reads"])
+    _, dl, dlb, lrbs = _index_set(
+        torch, np, pa, fastx, build_index, generate_transcriptome,
+        generate_paired, k, work, dev, L2_GENES, rbs[0].n)
+    check(dlb.nbytes() < 50e6,
+          f"{L2_GENES} genes: bucketed tables of {dlb.nbytes()} bytes, under "
+          f"the 50 MB L2 ({type(dl).__name__}: {dl.nbytes()} bytes)")
+    out["l2_index"] = _same_shape_times(
+        torch, np, pa, kernels, fastx, dl, dlb, lrbs, k, dev, rng,
+        f"{L2_GENES}-gene index")
+    del dl, dlb, lrbs
 
     # -- J: phase 3e's stress batch, from this transcriptome
     pb = _long_batch(fastx, fasta, os.path.join(work, "lr_3g.fastq.gz"),
@@ -1869,7 +2058,8 @@ def phase_5h(torch, np, pa, kernels, Options, run_quant, ctx, n_pairs, dev):
         check(launches[name] > 0,
               f"5h padded: launched {name} ({launches[name]} times)")
     check(routes["turbo"] > 0 and routes["fallback"] == 0
-          and launches["pseudoalign_anchor"] == routes["turbo"],
+          and launches["pseudoalign_anchor"] == routes["turbo"]
+          and launches["pseudoalign_anchor_wave2"] == routes["turbo"],
           f"5h padded: the turbo batches went through kernel I {routes}")
     check(res.num_processed == n_pairs
           and res.num_pseudoaligned > 0.9 * n_pairs,
@@ -2412,8 +2602,8 @@ def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
                  "gather_exemplars", "em_step_batch"):
         check(launches[name] > 0, f"{n} shards: {name} launched "
               f"({launches[name]} times)")
-    for name in ("pseudoalign_anchor", "pseudoalign_turbo",
-                 "pseudoalign_halffail"):
+    for name in ("pseudoalign_anchor", "pseudoalign_anchor_wave2",
+                 "pseudoalign_turbo", "pseudoalign_halffail"):
         check(launches[name] == 0, f"{n} shards: {name} not launched")
     check(t["full"] > 0 and t["cmesh"] > 0 and t["full"] + t["cmesh"]
           == -(-MESH_PAIRS // MESH_BATCH) and t["fallback"] == 0,
@@ -2733,6 +2923,7 @@ def main(argv=None):
         log(f"kernel A: {ms_a:.3f} ms (plain on card {plain_a:.3f} ms), "
             f"B={B} Lp={pb1.Lp} windows={n_win} valid={n_valid} hits={n_hit}")
         log(f"kernel B: {ms_b:.3f} ms (plain on card {plain_b:.3f} ms)")
+        k3codes = phase_3_codes(torch, np, pa, kernels, didx, rb1, k, dev, rng)
 
         # ------------------------------------------------- 3c. kernel H
         log(f"== phase 3c: kernel H against its plain version "
@@ -2883,6 +3074,7 @@ def main(argv=None):
               and routes["fallback"] == 0,
               f"main path: FLD batches per read, then turbo {routes}")
         check(launches["pseudoalign_anchor"] == routes["turbo"]
+              and launches["pseudoalign_anchor_wave2"] == routes["turbo"]
               and launches["pseudoalign_turbo"] == 0,
               f"main path: the turbo batches went through kernel I "
               f"({launches['pseudoalign_anchor']} launches, "
@@ -2935,7 +3127,8 @@ def main(argv=None):
               f"first {n_sub} pairs: turbo batches on the card "
               f"({rg.timings['turbo']}) and on the CPU ({rc.timings['turbo']})")
         check(launches_d["pseudoalign_turbo"] == rg.timings["turbo"]
-              and launches_d["pseudoalign_anchor"] == 0,
+              and launches_d["pseudoalign_anchor"] == 0
+              and launches_d["pseudoalign_anchor_wave2"] == 0,
               f"first {n_sub} pairs, mixed lengths: the turbo batches went "
               f"through kernel D ({launches_d['pseudoalign_turbo']} "
               "launches), none through I")
@@ -3147,6 +3340,30 @@ def main(argv=None):
                 bound_ms=bound_i[0], bound_by=bound_i[1], library_ms=None,
                 mates=2 if form == "paired" else 1, wave2_share=share,
                 **k3g["pseudoalign_anchor_" + form]))
+        # kernel I's wave 2 alone (phase 3d's paired batch) and A on codes
+        # (launches: its own path, pseudoalign_batch in phase 3); D and I at
+        # the same shape on an index that fits in the L2 (phase 3g)
+        rows.append(dict(
+            name="pseudoalign_anchor_wave2", route="cuda",
+            source=csrc + "pseudoalign.cu",
+            replaces="kallisto_tpu/ops/anchor.py:143",
+            launches=launches["pseudoalign_anchor_wave2"], max_abs_err=0.0,
+            library_ms=None, **k3d["wave2"]))
+        rows.append(dict(
+            name="pseudoalign_codes", route="cuda",
+            source=csrc + "pseudoalign.cu",
+            replaces="kallisto_tpu/ops/pseudoalign.py:493", max_abs_err=0.0,
+            library_ms=None, **k3codes, **k3g["pseudoalign_codes"]))
+        l2 = k3g["l2_index"]
+        for r in rows:
+            if r["name"] == "pseudoalign_turbo":
+                r.update(l2_index_ms_padded=l2["d_ms_1"],
+                         l2_index_ms_bucketed=l2["d_ms_2"])
+            if r["name"] == "pseudoalign_anchor":
+                form = "paired" if r["mates"] == 2 else "single"
+                r.update(l2_index_ms_padded=l2[f"i_{form}_ms_1"],
+                         l2_index_ms_bucketed=l2[f"i_{form}_ms_2"],
+                         l2_index_wave2_share=l2[f"i_{form}_wave2_share"])
         # the bus run's kernel time from this run's per-launch times: I and
         # B at the chunk's shape, F at phase 3b's
         bus_busy = {

@@ -1,7 +1,8 @@
 // Kernels A, D, I, K and J: per-read k-mer -> sorted distinct EC rows;
 // kernel L: the k-mer probe alone.
 //
-// The probe (kt_probe), K2 of the JAX package, in both index layouts:
+// The probe (kt_probe; kt_probe_n for several queries of one lane), K2 of
+// the JAX package, in both index layouts:
 //   bucketed -- kallisto_tpu/ops/pseudoalign.py lookup_kmers :367-382: a
 //     bucket_start pair, then a fixed-depth lower_bound over the bucket's
 //     sorted keys, then kmer_ec at the slot;
@@ -12,13 +13,8 @@
 //     two sectors), compares its query with each, and on a match reads
 //     the EC row from the same row's second half.
 // The layout is a field of IndexView, the same for every lane of a
-// launch, so kt_probe branches on it at run time (uniform over the warp):
-// one body per kernel, no template instantiation.  The padded branch
-// keeps no state across the kernels' loops (its S-key loop ends inside
-// kt_probe), so it costs few registers: with it ptxas reports A 48, D 55,
-// I 80, K 56, J 80 (a run of windows in registers) and L 34 registers and no spills (-Xptxas -v, which
-// ops/kernels.py passes for this file; printed at every build), and the
-// branch stays.
+// launch, so the probe branches on it at run time (uniform over the
+// warp): one body per kernel, no template instantiation.
 // What bounds the padded probe on the H100: per valid window, ceil(8S/32)
 // key sectors plus one EC sector per hit, in a single dependent round
 // (the EC sector lies in the row's own 128-byte line once S <= 8).  The
@@ -33,98 +29,125 @@
 // of ops/pseudoalign.py in both layouts.  No run loop launches it; it is
 // the yardstick of the probe (chip_smoke.py times it in both layouts).
 //
-// Kernel A, pseudoalign_side, replaces the JAX device program
-// kallisto_tpu/ops/pseudoalign.py pseudoalign_batch_packed (:479) with its
-// body: unpack_codes_device (:469), rolling_canonical_kmers (:385), the
-// bucketed lookup_kmers (:316-382, with _mix64_jnp :109) and
-// _pseudoalign_core (:504-564).
+// One per-read core, kt_core, serves kernels A, A on codes, D, I's wave 2
+// and K's failed mate; only the decode in front of it differs:
+//   A, pseudoalign_side -- the JAX device program
+//     kallisto_tpu/ops/pseudoalign.py pseudoalign_batch_packed (:479):
+//     unpack_codes_device (:469), rolling_canonical_kmers (:385),
+//     lookup_kmers (:316-382) and _pseudoalign_core (:504-564), on packed
+//     codes with an N bitmask;
+//   A on codes, pseudoalign_codes -- pseudoalign_batch (:493), the same
+//     core on unpacked [B, L] uint8 codes (any L >= k; a code above 3 is
+//     an N), packed per read in the warp by three ballots per 32 columns;
+//   D, pseudoalign_turbo -- the decode and core of the turbo steady state,
+//     kallisto_tpu/ops/turbo.py pair_turbo_core (:104) and
+//     single_turbo_core (:254) as reached through
+//     pseudoalign_pair_turbo(_varlen) and pseudoalign_single_turbo(_varlen)
+//     (:131-150, :268-289): _codes_and_lens (:74, with _codes_from_packed,
+//     pseudoalign.py:924) and _pseudoalign_core.  It takes one or two
+//     mates' packed codes without an N bitmask, and an aux vector [rlen,
+//     n_real, 0, 0, N positions ascending, INT64_MAX pad]; each read finds
+//     its own N positions (kt_exc_lower: 2,048 splitters of the list in the
+//     block's shared memory, then one segment), its length is (read % Bp < n_real) ? (lens ?
+//     lens[read] : rlen) : 0, and with 0 < rl < Lp only the first rl
+//     columns count.  Exception indices address the padded [ns*Bp, Lp]
+//     matrix (row stride Lp), so an exception at a column >= rl is dropped
+//     by the trim.
+// They produce the ten SideResult fields, equal in every bit to the plain
+// PyTorch versions in kallisto_tpu_torch/ops/pseudoalign.py and
+// ops/turbo.py.
 //
-// Kernel D, pseudoalign_turbo, replaces the decode and core of the turbo
-// steady state, kallisto_tpu/ops/turbo.py pair_turbo_core (:104) and
-// single_turbo_core (:254) as reached through pseudoalign_pair_turbo(_varlen)
-// and pseudoalign_single_turbo(_varlen) (:131-150, :268-289):
-// _codes_and_lens (:74, with _codes_from_packed, pseudoalign.py:924) and the
-// same _pseudoalign_core.  It takes one or two mates' packed codes without an
-// N bitmask, and an aux vector [rlen, n_real, 0, 0, N positions ascending,
-// INT64_MAX pad]; each read finds its own N positions by binary search, its
-// length is (read % Bp < n_real) ? (lens ? lens[read] : rlen) : 0, and with
-// 0 < rl < Lp only the first rl columns count.  Exception indices address the
-// padded [ns*Bp, Lp] matrix (row stride Lp), so an exception at a column >= rl
-// is dropped by the trim.
+// The core, one warp per read (grid-stride over a grid sized by the
+// occupancy of the built kernel, kt_grid).  The decode leaves the read in
+// the warp's shared memory as 2-bit codes packed 32 to a word (N bases
+// cleared to 0, the low bits of code 4) and an N bitmask.  Lane l owns
+// windows l and l + 32 of each pass of 64 (KT_PER = 2).  Each window's
+// k-mers come from words, not bytes: the 64 bits at bit 2w (two shared
+// words and a shift) hold the window's bases low base first, so the
+// reverse complement is their complement under the k-mer mask and the
+// forward k-mer their 2-bit groups reversed (__brevll and a swap of
+// adjacent bits); the window is valid when its k bits of the N mask are 0
+// and w + k <= len.  The lane then probes its windows together
+// (kt_probe_n: each dependent step of the probe is issued for every query
+// before the next step; a bucketed query whose bucket is empty, or whose
+// key the search met, reads no key at the end), and no warp-wide step
+// stands between a pass's probes.  Each window's EC row goes to the lane's
+// own slots of a shared scratch; the lane keeps its first hit (window,
+// slot, orientation) and last hit, and one warp minimum and maximum give
+// the read's first and last hit, whose slot and orientation come over a
+// shuffle.  The R = min(16, W) smallest distinct rows then come from
+// rounds of masked warp minimum over the lanes' own rows that stop once
+// nothing is left (a read with n distinct rows pays n + 1 rounds, the
+// (R+1)-th round deciding `overflow` exactly as _pseudoalign_core
+// :534-536), and the row slots are written by one lane a round.
 //
-// Both produce the ten SideResult fields, equal in every bit to the plain
-// PyTorch versions in kallisto_tpu_torch/ops/pseudoalign.py and ops/turbo.py.
-// They share one per-read device function; only the decode into shared
-// memory differs.
-//
-// Design: one warp per read (grid-stride over reads).  The warp decodes the
-// read's codes into shared memory, then walks the W = Lc - k + 1 windows in
-// chunks of 32 (one window per lane).  Each lane builds its window's forward
-// and reverse-complement k-mers directly from the shared codes, takes
-// canon = min(f, r), mixes it with splitmix64 and probes the index with
-// kt_probe (the bucket's row, or the lower_bound inside the bucket).  The window's EC row goes to
-// shared memory; ballots give has_hits, the leftmost hit (its slot and
-// orientation come over a shuffle) and the last hit.  The R = min(16, W)
-// smallest distinct rows then come from R rounds of masked warp minimum
-// (__reduce_min_sync) over the shared rows, and one more pass decides
-// `overflow` exactly as _pseudoalign_core :534-536.
-//
-// What bounds them on the H100: the random reads into the k-mer table.  Per
-// valid window of a bucketed index: one 32-byte sector of bucket_start, the
-// 1-4 sectors of the bucket's sorted keys that the binary search touches (a
-// bucket holds < 64 keys, <= 512 contiguous bytes), and for a hit one
-// sector of kmer_ec; of a padded index the row's key and EC sectors (see
-// kt_probe).  At realistic size the table (~1 GB) does not fit in the
-// 50 MB L2, so these are DRAM sector reads; the k-mer build itself is a
-// few hundred integer operations per window and never the limit.  What
-// the design does about it: a large index keeps the unpadded bucketed
-// layout (8N + 4N bytes), invalid windows skip the lookup entirely, the
-// search stops as
-// soon as its range is empty, and all 32 lanes of a warp issue their
-// lookups together so the memory system sees 32 independent requests per
-// warp.  Kernel D also trims the padding columns that a byte-aligned Lp
-// adds (rl < Lp), which removes their probes, and reads 25 bytes per
-// 100 bp read instead of 25 + 13.  A simple kernel that is right comes
-// first; see PERF.md.
+// What bounds them on the H100: the rate of random requests into the
+// k-mer table.  Per valid window of a bucketed index: a 32-byte sector of
+// bucket_start, the sectors of the bucket's sorted keys that the search
+// touches (a bucket holds < 64 keys, 0.2 on average at the smoke's p),
+// and for a hit one sector of kmer_ec -- three dependent requests for a
+// typical hit; of a padded index the row's two key sectors and its EC
+// sector.  Repeated k-mers of a batch request their sectors again, so a
+// batch of 2 x 262,144 reads of 100 bp makes ~110 M requests where the
+// distinct sectors number ~25 M.  A table that fits in the 50 MB L2
+// serves them from L2, a larger one from DRAM, and the time follows the
+// table's size at one batch shape (chip_smoke.py phase 3g; PERF.md), not
+// the probe passes, the resident warps or the block size (each tried on
+// the card).  What the design does about it: invalid
+// windows and empty buckets skip table reads, the search stops as soon as
+// its range is empty, kernel D trims the padding columns that a
+// byte-aligned Lp adds (rl < Lp), which removes their probes, and reads
+// 25 bytes per 100 bp read instead of 25 + 13.
 //
 // Trap kept on purpose: a read without hits still reports f_strand from
 // window 0's lookup slot (JAX argmax of an all-false row is 0), so window 0
-// is always looked up (with q = mix64(0) when it is invalid).  Padding reads
-// of kernel D have length 0 and follow the same rule.
+// is always looked up (with q = mix64(0) when it is invalid), and its
+// orientation comes from its bases with N read as 0.  Padding reads of
+// kernel D have length 0 and follow the same rule.
 //
-// Kernel I, pseudoalign_anchor, replaces the two-wave anchor program,
-// kallisto_tpu/ops/anchor.py _anchor_canon (:66), _anchor_side (:85) and
-// _apply_aux (:189) as reached through pseudoalign_pair_anchor (:218) and
+// Kernel I, pseudoalign_anchor (wave 1) and pseudoalign_anchor_wave2,
+// replaces the two-wave anchor program, kallisto_tpu/ops/anchor.py
+// _anchor_canon (:66), _anchor_side (:85) and _apply_aux (:189) as
+// reached through pseudoalign_pair_anchor (:218) and
 // pseudoalign_single_anchor (:249); the keys and the table after it are
 // kernels B and E.  It takes kernel D's inputs (uniform length: rlen and
-// n_real from the aux vector) and shares its decode.  Per read, one warp:
-//   wave 1 -- lanes 0..n_anchors-1 (32 at a time) each build one anchor's
-//     window w_j = (wlast * j) / (n_anchors - 1), wlast = max(rlen - k, 0),
-//     look it up (anchor 0 even when invalid, for f_strand), and read its
-//     uid, pos, fw and block on a hit.  __all_sync gives "every anchor hits
-//     one unitig on one strand at upos_0 + sgn * w_j"; warp min/max give
-//     the block range [blo, bhi].  A verified read (also blo >= 0, the
-//     range within two 8-wide rows of block_ec8, the read real and >= k
-//     long) takes the sorted distinct block ECs of that range, 16 lanes
-//     loading the two rows and R rounds of __reduce_min_sync; its first
-//     hit is anchor 0 with f_rpos = 0 and rng = wlast.
-//   wave 2 -- any other real read of length >= k goes straight on into
-//     kt_side_read, kernel D's per-read core.  JAX packs these reads into a
-//     fixed-size sub-batch with a stable argsort, for the TPU's static
-//     shapes; a warp per read needs neither.  The core's rows number
-//     min(R, W); a one-slot row fills all R slots, as JAX's broadcast does
-//     (the wrapper refuses 1 < min(R, W) < R, where JAX raises).
-//   n_fail -- wave-2 reads, counted per block in shared memory and added
-//     once per block into an int64 on the card (the anchor functions put
-//     it in the key table's meta row).  There is no wave-2 capacity: JAX's
-//     overflow marker and redo exist only for its fixed-size sub-batch.
+// n_real from the aux vector).
+//   wave 1 -- a group of g lanes per read (g the power of two >= n_anchors,
+//     at most 32: 100 bp reads have 4 anchors, so a warp holds 8 reads;
+//     past 32 anchors the group is the warp and loops).  Lane j of the
+//     group takes anchor j's window w_j = (wlast * j) / (n_anchors - 1),
+//     wlast = max(rlen - k, 0), builds its k-mers from the 9 bytes of the
+//     packed row in device memory that hold them (the read's N positions
+//     from kt_exc_lower over the group, cleared and marking the window
+//     invalid), looks it up (anchor 0 even when invalid, for f_strand),
+//     and reads its uid, pos, fw and block on a hit.  A vote over the
+//     group gives "every anchor hits one unitig on one strand at upos_0 +
+//     sgn * w_j", shuffle minimum and maximum over the group the block
+//     range [blo, bhi].  A verified read (also blo >= 0, the range within
+//     two 8-wide rows of block_ec8, the read real and >= k long) takes
+//     the sorted distinct block ECs of that range from the two rows
+//     spread over the group, by rounds of group minimum; its first hit is
+//     anchor 0 with f_rpos = 0 and rng = wlast.  Padding reads (and every
+//     read when rlen < k) are written as reads without hits.  Any other
+//     read is failing: its index is appended to a list on the card with a
+//     warp-aggregated atomic on the counter n_fail.
+//   wave 2 -- a second launch on the same stream: a grid of warps sized
+//     by occupancy takes the listed reads in list order and runs kernel
+//     D's decode and core on each (the list's order is free: outputs are
+//     indexed by read).  JAX packs these reads into a fixed-size
+//     sub-batch for the TPU's static shapes; here every failing read gets
+//     its result and no capacity exists.  The core's rows number min(R,
+//     W); a one-slot row fills all R slots, as JAX's broadcast does (the
+//     wrapper refuses 1 < min(R, W) < R, where JAX raises).
+//   n_fail -- the wave-2 read count (an int64 on the card, zeroed before
+//     wave 1); the anchor functions put it in the key table's meta row.
 // What bounds it: the same random table reads as D, for n_anchors lookups
 // per verified read instead of W, plus D's per-window reads for the
 // wave-2 share (51 % of reads on the smoke's simulated 2x100 bp data).
 // What the design does about it: verified reads cost n_anchors lookups
-// and two 32-byte block_ec8 rows; a failing read pays what kernel D pays
-// and nothing more (no second pass, no compaction).  Warps of verified and
-// failing reads finish at different times; balancing them is later work.
+// and two 32-byte block_ec8 rows, eight reads to a warp; failing reads pay
+// what kernel D pays, in warps of their own, so a warp of verified reads
+// never waits on a failing one.
 //
 // Kernel K, pseudoalign_halffail, replaces the half-fail wave 2 of host
 // wave 1, kallisto_tpu/ops/turbo.py _verified_side_from_summary (:153) and
@@ -135,12 +158,14 @@
 // for its Ns and n_real, uniform length), with the other mate's 8-byte
 // summary (blo; upos0<<5 | span<<1 | strand) and sidev (1: mate 1 failed,
 // anything else: mate 2).  Per pair, one warp:
-//   the failed mate -- kernel D's decode and kt_side_read, R = min(max_rows,
-//     W) rows (the core's clamp);
+//   the failed mate -- kernel D's decode and core, R = min(max_rows, W)
+//     rows (the core's clamp);
 //   the verified mate -- rebuilt as kernel I rebuilds a verified read: the
 //     sorted distinct block ECs of [blo, blo + span], 16 lanes loading the
-//     two block_ec8 rows of r0 = max(blo, 0) >> 3 and min(R, 16) rounds of
-//     __reduce_min_sync, the rest of the R slots INT32_MAX, with the SAME
+//     two block_ec8 rows of r0 = max(blo, 0) >> 3 and up to min(R, 16)
+//     rounds of __reduce_min_sync (until nothing is left: the core's
+//     lower residency left K 9-15 % slower while they ran all 16), the
+//     rest of the R slots INT32_MAX, with the SAME
 //     width R as the failed mate (JAX turbo.py:215-221); first hit block
 //     blo (forward) or blo + span (reverse), upos0, f_rpos 0, f_uid 0, rng
 //     len - k.  A padding pair (row >= n_real) stays no-hit on both mates.
@@ -197,6 +222,10 @@
 // (each tried, not kept): what is left is the latency of the
 // dependent random table reads of each window (bucket_start, key, EC row,
 // kmer_uid), several times the bound that counts each sector once.
+//
+// Registers and spills of every kernel are printed at each build
+// (-Xptxas -v, which ops/kernels.py passes for this file); PERF.md keeps
+// the counts of the measured build.
 
 #include <cuda_runtime.h>
 
@@ -303,101 +332,456 @@ __device__ __forceinline__ int kt_probe(const IndexView& ix,
     return hit;
 }
 
-// One read, one warp: codes (W + k - 1 of them) are in shared memory;
-// wrows is W ints of shared scratch.  Writes the read's SideResult row: R
-// row slots at a row stride of RS >= R.
-__device__ void kt_side_read(const IndexView& ix,
-                             const unsigned char* codes, int* wrows,
-                             long long read, int len, int W, int k, int R,
-                             int RS, const SideOut& o) {
-    const int lane = threadIdx.x & 31;
-    int has = 0, first = 0, last = 0;
-    long long fidx = 0;
-    int ffw = 0;
-    for (int base = 0; base < W; base += 32) {
-        const int w = base + lane;
-        int hit = 0;
-        long long idx = 0;
-        int isfw = 0;
-        if (w < W) {
-            unsigned long long f = 0, r = 0;
-            int bad = 0;
-            for (int d = 0; d < k; ++d) {
-                const int c = codes[w + d];
-                bad |= c >> 2;
-                const unsigned long long cc = (unsigned long long)(c & 3);
-                f = (f << 2) | cc;
-                r |= (3ULL - cc) << (2 * d);
-            }
-            const int valid = !bad && (w + k <= len);
-            isfw = f <= r;
-            int ecv = -1;
-            if (valid || w == 0) {
-                const unsigned long long q =
-                    kt_mix64(valid ? (isfw ? f : r) : 0ULL);
-                int e;
-                hit = kt_probe(ix, q, &idx, &e) && valid;
-                if (hit) ecv = e;
-            }
-            wrows[w] = (hit && ecv >= 0) ? ecv : KT_INT32_MAX;
-        }
-        const unsigned int hb = __ballot_sync(KT_FULL, hit);
-        // window 0 stands in for the first hit of a read without hits
-        const int src = hb ? __ffs(hb) - 1 : 0;
-        const long long sidx = __shfl_sync(KT_FULL, idx, src);
-        const int sfw = __shfl_sync(KT_FULL, isfw, src);
-        if ((base == 0) || (hb && !has)) {
-            fidx = sidx;
-            ffw = sfw;
-        }
-        if (hb) {
-            if (!has) first = base + src;
-            has = 1;
-            last = base + 31 - __clz(hb);
-        }
-    }
-    __syncwarp();
+#define KT_PER 2    // windows of a lane probed together (a pass: 64)
+#define KT_WPB 8    // warps per block, fewer when shared memory runs short
 
-    // R smallest distinct non-empty rows: R rounds of masked warp minimum
-    int prev = -1, nr = 0;
-    for (int s = 0; s < R; ++s) {
-        int m = KT_INT32_MAX;
-        if (prev != KT_INT32_MAX) {
-            for (int w = lane; w < W; w += 32) {
-                const int v = wrows[w];
-                if (v > prev && v < m) m = v;
-            }
-            m = __reduce_min_sync(KT_FULL, m);
-        }
-        if (lane == 0) o.rows[read * RS + s] = m;
-        if (m != KT_INT32_MAX) {
-            prev = m;
-            ++nr;
-        } else {
-            prev = KT_INT32_MAX;  // nothing left: fill the rest
+// The warp's shared words for a read of Lc code columns: the 2-bit codes
+// (32 a word) and the N mask (64 a word), each with one spare word.
+__host__ __device__ static inline int kt_pkw(int Lc) { return (Lc + 31) / 32 + 1; }
+__host__ __device__ static inline int kt_nmw(int Lc) { return (Lc + 63) / 64 + 1; }
+
+// Bits [bit, bit + 64) of the little-endian bit string a (its word
+// bit >> 6 and the next one).
+__device__ __forceinline__ unsigned long long kt_bits(
+    const unsigned long long* a, int bit) {
+    const int wi = bit >> 6, s = bit & 63;
+    const unsigned long long lo = a[wi];
+    return s ? (lo >> s) | (a[wi + 1] << (64 - s)) : lo;
+}
+
+// Bits [bit, bit + nbits) (nbits <= 64) of a packed row of LB bytes in
+// device memory; bytes past the row read as 0.
+__device__ __forceinline__ unsigned long long kt_row_bits(
+    const unsigned char* __restrict__ row, int LB, int bit, int nbits) {
+    const int b0 = bit >> 3, s = bit & 7;
+    const int nb = (s + nbits + 7) >> 3;
+    unsigned long long lo = 0, hi = 0;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+        if (t < nb && b0 + t < LB) {
+            const unsigned long long v = __ldg(row + b0 + t);
+            if (t < 8)
+                lo |= v << (8 * t);
+            else
+                hi = v;
         }
     }
-    // overflow: a distinct row beyond the R smallest (core :534-536).
-    // Only possible when all R rounds found a row; prev is then the R-th.
-    int ov = 0;
-    if (nr == R) {
+    return s ? (lo >> s) | (hi << (64 - s)) : lo;
+}
+
+// The 32 2-bit groups of x in reverse order.
+__device__ __forceinline__ unsigned long long kt_rev2(unsigned long long x) {
+    x = __brevll(x);
+    return ((x >> 1) & 0x5555555555555555ULL) |
+           ((x & 0x5555555555555555ULL) << 1);
+}
+
+// Bit i of v moved to bit 2i.
+__device__ __forceinline__ unsigned long long kt_spread(unsigned int v) {
+    unsigned long long x = v;
+    x = (x | (x << 16)) & 0x0000FFFF0000FFFFULL;
+    x = (x | (x << 8)) & 0x00FF00FF00FF00FFULL;
+    x = (x | (x << 4)) & 0x0F0F0F0F0F0F0F0FULL;
+    x = (x | (x << 2)) & 0x3333333333333333ULL;
+    x = (x | (x << 1)) & 0x5555555555555555ULL;
+    return x;
+}
+
+// Minimum, maximum and "all" over the aligned group of g lanes (g a power
+// of two <= 32) that holds this lane; every lane of the warp calls them.
+__device__ __forceinline__ int kt_group_min(int v, int g) {
+    for (int o = g >> 1; o > 0; o >>= 1)
+        v = min(v, __shfl_xor_sync(KT_FULL, v, o));
+    return v;
+}
+__device__ __forceinline__ int kt_group_max(int v, int g) {
+    for (int o = g >> 1; o > 0; o >>= 1)
+        v = max(v, __shfl_xor_sync(KT_FULL, v, o));
+    return v;
+}
+__device__ __forceinline__ int kt_group_all(int p, int g) {
+    const int gbase = (threadIdx.x & 31) & ~(g - 1);
+    const unsigned gm = g == 32 ? KT_FULL : ((1u << g) - 1u) << gbase;
+    return (__ballot_sync(KT_FULL, p) & gm) == gm;
+}
+
+// The exception list's splitters in shared memory: s[i] = exc[min((i + 1)
+// * st, n) - 1], the last entry of segment i, for the ns = ceil(n / st)
+// segments of st = ceil(n / KT_SPLIT) entries.  Every thread of the block
+// calls kt_split_init (one barrier).
+#define KT_SPLIT 2048
+
+struct KtSplit {
+    const long long* s;
+    int ns;
+    long long st;
+};
+
+__device__ KtSplit kt_split_init(long long* s, const long long* __restrict__ exc,
+                                 long long n) {
+    KtSplit sp;
+    sp.st = n > 0 ? (n + KT_SPLIT - 1) / KT_SPLIT : 1;
+    sp.ns = (int)((n + sp.st - 1) / sp.st);
+    for (int i = threadIdx.x; i < sp.ns; i += blockDim.x) {
+        const long long e = (long long)(i + 1) * sp.st;
+        s[i] = exc[(e < n ? e : n) - 1];
+    }
+    __syncthreads();
+    sp.s = s;
+    return sp;
+}
+
+// First index of the sorted exc[0, n) whose value is >= key: a binary
+// search over the splitters in shared memory, then over one segment.
+__device__ __forceinline__ long long kt_exc_lower(
+    const KtSplit& sp, const long long* __restrict__ exc, long long n,
+    long long key) {
+    int lo = 0, hi = sp.ns;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (sp.s[mid] < key)
+            lo = mid + 1;
+        else
+            hi = mid;
+    }
+    long long a = (long long)lo * sp.st;
+    long long b = a + sp.st < n ? a + sp.st : n;
+    if (a > n) a = n;
+    while (a < b) {
+        const long long mid = (a + b) >> 1;
+        if (exc[mid] < key)
+            a = mid + 1;
+        else
+            b = mid;
+    }
+    return a;
+}
+
+// The probes of NQ queries of one lane (bit j of act: query j is probed),
+// each dependent step issued for every query before the next step: slot
+// idx[j] and EC row ec[j] (-1 on a miss) as kt_probe gives them; returns
+// the hit bits.  Padded rows wider than 8 slots probe one query at a time.
+template <int NQ>
+__device__ __forceinline__ unsigned kt_probe_n(const IndexView& ix,
+                                               const unsigned long long* q,
+                                               unsigned act, long long* idx,
+                                               int* ec) {
+    unsigned hit = 0;
+    const int sh = 64 - ix.p;
+    if (ix.S > 8) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+            long long t = 0;
+            int e = -1;
+            if (((act >> j) & 1) && kt_probe(ix, q[j], &t, &e)) hit |= 1u << j;
+            idx[j] = t;
+            ec[j] = e;
+        }
+        return hit;
+    }
+    if (ix.S) {
+        const int S = ix.S;
+        int jm[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+            const long long b = (long long)(q[j] >> sh);
+            idx[j] = b * S;
+            jm[j] = -1;
+            if ((act >> j) & 1) {
+                const ulonglong2* r2 = (const ulonglong2*)(ix.rows + b * 2 * S);
+                ulonglong2 v[4];
+#pragma unroll
+                for (int h = 0; h < 4; ++h)
+                    if (2 * h < S) v[h] = __ldg(r2 + h);
+                // the first matching slot, as kt_probe and JAX's argmax
+#pragma unroll
+                for (int h = 3; h >= 0; --h) {
+                    if (2 * h + 1 < S && v[h].y == q[j]) jm[j] = 2 * h + 1;
+                    if (2 * h < S && v[h].x == q[j]) jm[j] = 2 * h;
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+            ec[j] = -1;
+            if (jm[j] >= 0) {
+                ec[j] = (int)(unsigned int)__ldg(ix.rows + 2 * idx[j] + S + jm[j]);
+                idx[j] += jm[j];
+                hit |= 1u << j;
+            }
+        }
+        return hit;
+    }
+    const int nm1 = (int)(ix.N - 1);
+    int lo[NQ], n[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+        lo[j] = 0;
+        n[j] = 0;
+        if ((act >> j) & 1) {
+            const long long b = (long long)(q[j] >> sh);
+            lo[j] = ix.bucket_start[b];
+            n[j] = ix.bucket_start[b + 1] - lo[j];
+        }
+    }
+    // a query whose bucket is empty misses; one whose key the search
+    // meets is a hit at that slot (the keys are distinct, so it is the
+    // lower bound): neither reads the key at the end
+    unsigned live = 0, eq = 0;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+        if (((act >> j) & 1) && n[j] > 0) live |= 1u << j;
+    for (int s = 0; s < KT_DEPTH; ++s) {
+        unsigned more = 0;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+            if (((act >> j) & 1) && n[j] > 0) more |= 1u << j;
+        if (!more) break;
+        int m[NQ];
+        unsigned long long key[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+            m[j] = min(lo[j] + (n[j] >> 1), nm1);
+            key[j] = ((more >> j) & 1) ? ix.hkeys[m[j]] : 0ULL;
+        }
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+            if ((more >> j) & 1) {
+                const int half = n[j] >> 1;
+                if (key[j] < q[j]) {
+                    lo[j] = m[j] + 1;
+                    n[j] = n[j] - half - 1;
+                } else {
+                    n[j] = half;
+                    if (key[j] == q[j]) eq |= 1u << j;
+                }
+            }
+        }
+    }
+    const unsigned rest = live & ~eq;
+    unsigned long long key[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+        idx[j] = min(lo[j], nm1);
+        key[j] = ((rest >> j) & 1) ? ix.hkeys[idx[j]] : 0ULL;
+    }
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+        ec[j] = -1;
+        if (((eq >> j) & 1) || (((rest >> j) & 1) && key[j] == q[j])) {
+            ec[j] = ix.ec[idx[j]];
+            hit |= 1u << j;
+        }
+    }
+    return hit;
+}
+
+// One read, one warp (see the file header).  pk holds the read's 2-bit
+// codes (base j at bits 2j, 2j + 1 of the little-endian words, N bases
+// 0), nm its N mask (bit j), each with a spare word; wrows is W ints of
+// the warp's shared scratch, of which lane l uses the slots w = l mod 32.
+// Writes the read's SideResult: R row slots at a row stride of RS >= R.
+// Returns the read's first row slot (the same in every lane).
+__device__ int kt_core(const IndexView& ix, const unsigned long long* pk,
+                       const unsigned long long* nm, int* wrows,
+                       long long read, int len, int W, int k, int R, int RS,
+                       const SideOut& o) {
+    const int lane = threadIdx.x & 31;
+    const unsigned long long kmask =
+        k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
+    const unsigned long long nmk = (1ULL << k) - 1ULL;
+    const int fsh = 64 - 2 * k;
+    int lfirst = KT_INT32_MAX, llast = -1, lfw = 0, fw0 = 0;
+    long long lidx = 0, idx0 = 0;
+    for (int base = 0; base < W; base += 32 * KT_PER) {
+        unsigned long long q[KT_PER];
+        unsigned act = 0, val = 0, fwm = 0;
+#pragma unroll
+        for (int j = 0; j < KT_PER; ++j) {
+            const int w = base + 32 * j + lane;
+            q[j] = 0;
+            if (w < W) {
+                const unsigned long long x = kt_bits(pk, 2 * w);
+                const unsigned long long f = kt_rev2(x) >> fsh;
+                const unsigned long long r = ~x & kmask;
+                const int valid = (kt_bits(nm, w) & nmk) == 0 && w + k <= len;
+                const int isfw = f <= r;
+                fwm |= (unsigned)isfw << j;
+                val |= (unsigned)valid << j;
+                if (valid || w == 0) {
+                    act |= 1u << j;
+                    q[j] = kt_mix64(valid ? (isfw ? f : r) : 0ULL);
+                }
+            }
+        }
+        long long idx[KT_PER];
+        int ec[KT_PER];
+        const unsigned hm = kt_probe_n<KT_PER>(ix, q, act, idx, ec) & val;
+#pragma unroll
+        for (int j = 0; j < KT_PER; ++j) {
+            const int w = base + 32 * j + lane;
+            if (w < W) {
+                const int hit = (hm >> j) & 1;
+                wrows[w] = (hit && ec[j] >= 0) ? ec[j] : KT_INT32_MAX;
+                if (hit) {
+                    if (lfirst == KT_INT32_MAX) {
+                        lfirst = w;
+                        lidx = idx[j];
+                        lfw = (fwm >> j) & 1;
+                    }
+                    llast = w;
+                }
+                if (w == 0) {
+                    idx0 = idx[j];
+                    fw0 = fwm & 1;
+                }
+            }
+        }
+    }
+    // window 0 stands in for the first hit of a read without hits
+    const int first = __reduce_min_sync(KT_FULL, lfirst);
+    const int last = __reduce_max_sync(KT_FULL, llast);
+    const int has = first != KT_INT32_MAX;
+    const int src = has ? (first & 31) : 0;
+    const long long fidx = __shfl_sync(KT_FULL, has ? lidx : idx0, src);
+    const int ffw = __shfl_sync(KT_FULL, has ? lfw : fw0, src);
+
+    // the R smallest distinct non-empty rows, then one more round for
+    // `overflow`: a distinct row beyond the R-th (core :534-536)
+    int prev = -1, nr = 0, ov = 0, row0 = KT_INT32_MAX;
+    for (int s = 0; s <= R; ++s) {
+        int m = KT_INT32_MAX;
         for (int w = lane; w < W; w += 32) {
             const int v = wrows[w];
-            ov |= (v > prev) && (v != KT_INT32_MAX);
+            if (v > prev && v < m) m = v;
         }
+        m = __reduce_min_sync(KT_FULL, m);
+        if (m == KT_INT32_MAX) break;
+        if (s == R) {
+            ov = 1;
+            break;
+        }
+        if (lane == (s & 31)) o.rows[read * RS + s] = m;
+        if (s == 0) row0 = m;
+        prev = m;
+        ++nr;
     }
-    ov = __any_sync(KT_FULL, ov);
-
+    for (int s = nr + lane; s < R; s += 32) o.rows[read * RS + s] = KT_INT32_MAX;
     if (lane == 0) {
         o.n_rows[read] = nr;
         o.has_hits[read] = (unsigned char)has;
         o.overflow[read] = (unsigned char)ov;
         o.f_strand[read] = (unsigned char)(ffw == (int)(ix.fw[fidx] != 0));
-        o.f_uid[read] = has ? ix.uid[fidx] : -1;
-        o.f_block[read] = has ? ix.block[fidx] : -1;
-        o.f_upos[read] = has ? ix.pos[fidx] : -1;
         o.f_rpos[read] = has ? first : -1;
         o.rng[read] = has ? last - first : -1;
+    } else if (lane == 1) {
+        o.f_uid[read] = has ? ix.uid[fidx] : -1;
+    } else if (lane == 2) {
+        o.f_block[read] = has ? ix.block[fidx] : -1;
+    } else if (lane == 3) {
+        o.f_upos[read] = has ? ix.pos[fidx] : -1;
+    }
+    __syncwarp();  // the next read's decode rewrites the warp's words
+    return row0;
+}
+
+// The warp's share of the block's dynamic shared memory for reads of Lc
+// code columns: pk, nm and the row scratch (kt_launch_shape sizes it).
+struct KtWarpMem {
+    unsigned long long* pk;
+    unsigned long long* nm;
+    int* wrows;
+};
+
+__device__ __forceinline__ KtWarpMem kt_warp_mem(int Lc, int warp_bytes) {
+    extern __shared__ unsigned long long kt_smem[];
+    unsigned char* base =
+        (unsigned char*)kt_smem + (long long)(threadIdx.x >> 5) * warp_bytes;
+    KtWarpMem m;
+    m.pk = (unsigned long long*)base;
+    m.nm = m.pk + kt_pkw(Lc);
+    m.wrows = (int*)(m.nm + kt_nmw(Lc));
+    return m;
+}
+
+// Kernel A's decode: Lp columns of a packed row and its N bitmask (both
+// rows of device memory) into the warp's words, the codes under N
+// cleared (unpack_codes gives them 4, whose low bits are 0).
+__device__ void kt_decode_nmask(const KtWarpMem& m, int Lp,
+                                const unsigned char* __restrict__ pkr,
+                                const unsigned char* __restrict__ nmr) {
+    const int lane = threadIdx.x & 31;
+    const int PKW = kt_pkw(Lp), NMW = kt_nmw(Lp);
+    unsigned char* pb = (unsigned char*)m.pk;
+    unsigned char* nb = (unsigned char*)m.nm;
+    for (int t = lane; t < 8 * PKW; t += 32) pb[t] = t < (Lp >> 2) ? pkr[t] : 0;
+    for (int t = lane; t < 8 * NMW; t += 32) nb[t] = t < (Lp >> 3) ? nmr[t] : 0;
+    __syncwarp();
+    unsigned int* p32 = (unsigned int*)m.pk;
+    const unsigned int* n32 = (const unsigned int*)m.nm;
+    for (int t = lane; t < 2 * PKW; t += 32) {
+        const unsigned int n16 = (n32[t >> 1] >> (16 * (t & 1))) & 0xffffu;
+        if (n16) {
+            const unsigned int e = (unsigned int)kt_spread(n16);
+            p32[t] &= ~(e | (e << 1));
+        }
+    }
+    __syncwarp();
+}
+
+// A on codes: L columns of a row of unpacked codes (a code above 3 is an
+// N) into the warp's words: per 32 columns, three ballots give the low
+// and high code bits and the N bits.
+__device__ void kt_decode_codes(const KtWarpMem& m, int L,
+                                const unsigned char* __restrict__ cr) {
+    const int lane = threadIdx.x & 31;
+    const int PKW = kt_pkw(L), NMW = kt_nmw(L);
+    unsigned int* n32 = (unsigned int*)m.nm;
+    for (int t = lane; t < 2 * NMW; t += 32) n32[t] = 0;
+    __syncwarp();
+    for (int c0 = 0; c0 < 32 * PKW; c0 += 32) {
+        const int j = c0 + lane;
+        const int c = j < L ? cr[j] : 0;
+        const unsigned int lo = __ballot_sync(KT_FULL, c & 1);
+        const unsigned int hi = __ballot_sync(KT_FULL, (c >> 1) & 1);
+        const unsigned int nn = __ballot_sync(KT_FULL, c > 3);
+        if (lane == 0) {
+            m.pk[c0 >> 5] = kt_spread(lo) | (kt_spread(hi) << 1);
+            n32[c0 >> 5] = nn;
+        }
+    }
+    __syncwarp();
+}
+
+// Kernel D's decode (also I's wave 2 and K's failed mate): row `row` of
+// one mate's packed codes, first Lc columns, into the warp's words; this
+// read's N positions [read * Lp, read * Lp + Lp) come from the sorted
+// exception list (kt_exc_lower), cleared in the codes and
+// set in the N mask (columns >= Lc are dropped).
+__device__ void kt_decode_exc(const KtWarpMem& m, int Lc,
+                              const unsigned char* __restrict__ packed,
+                              const KtSplit& sp,
+                              const long long* __restrict__ exc,
+                              long long n_exc, long long read, long long row,
+                              int Lp) {
+    const int lane = threadIdx.x & 31;
+    const int PKW = kt_pkw(Lc), NMW = kt_nmw(Lc);
+    const unsigned char* src = packed + row * (Lp >> 2);
+    unsigned char* pb = (unsigned char*)m.pk;
+    const int nb = (Lc + 3) >> 2;
+    for (int t = lane; t < 8 * PKW; t += 32) pb[t] = t < nb ? src[t] : 0;
+    for (int t = lane; t < NMW; t += 32) m.nm[t] = 0;
+    const long long lo_key = read * (long long)Lp;
+    const long long a = kt_exc_lower(sp, exc, n_exc, lo_key);
+    __syncwarp();
+    for (long long e = a + lane; e < n_exc; e += 32) {
+        const long long col = exc[e] - lo_key;
+        if (col >= Lp) break;
+        if (col < Lc) {
+            atomicAnd((unsigned int*)m.pk + (col >> 4),
+                      ~(3u << (2 * (col & 15))));
+            atomicOr((unsigned int*)m.nm + (col >> 5), 1u << (col & 31));
+        }
     }
     __syncwarp();
 }
@@ -408,62 +792,31 @@ __global__ void pseudoalign_side_kernel(
     const unsigned char* __restrict__ nmask,   // [B, Lp/8]
     const int* __restrict__ lens,              // [B]
     int B, int Lp, int k, int R, int warp_bytes, SideOut o) {
-    extern __shared__ int kt_smem[];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+    const KtWarpMem m = kt_warp_mem(Lp, warp_bytes);
     const int wpb = blockDim.x >> 5;
     const int W = Lp - k + 1;
-    const int code_bytes = (Lp + 15) & ~15;
-    unsigned char* codes = (unsigned char*)kt_smem + (long long)warp * warp_bytes;
-    int* wrows = (int*)(codes + code_bytes);
-    const int LB = Lp >> 2;
-    const int NB = Lp >> 3;
-
-    for (long long read = (long long)blockIdx.x * wpb + warp; read < B;
-         read += (long long)gridDim.x * wpb) {
-        const unsigned char* pk = packed + read * LB;
-        const unsigned char* nm = nmask + read * NB;
-        for (int j = lane; j < Lp; j += 32) {
-            int c = (pk[j >> 2] >> ((j & 3) * 2)) & 3;
-            int isn = (nm[j >> 3] >> (j & 7)) & 1;
-            codes[j] = (unsigned char)(isn ? 4 : c);
-        }
-        __syncwarp();
-        kt_side_read(ix, codes, wrows, read, lens[read], W, k, R, R, o);
+    for (long long read = (long long)blockIdx.x * wpb + (threadIdx.x >> 5);
+         read < B; read += (long long)gridDim.x * wpb) {
+        kt_decode_nmask(m, Lp, packed + read * (Lp >> 2),
+                        nmask + read * (Lp >> 3));
+        kt_core(ix, m.pk, m.nm, m.wrows, read, lens[read], W, k, R, R, o);
     }
 }
 
-// Kernel D's decode (also kernel I's): row `row` of one mate's packed
-// codes, first Lc columns, into the warp's shared codes; this read's N
-// positions [read * Lp, read * Lp + Lp) are found in the sorted exception
-// list by binary search and set to 4 (columns >= Lc are dropped).
-__device__ void kt_turbo_decode(unsigned char* codes,
-                                const unsigned char* __restrict__ packed,
-                                const long long* __restrict__ exc,
-                                long long n_exc, long long read,
-                                long long row, int Lp, int Lc) {
-    const int lane = threadIdx.x & 31;
-    const unsigned char* pk = packed + row * (Lp >> 2);
-    for (int j = lane; j < Lc; j += 32)
-        codes[j] = (unsigned char)((pk[j >> 2] >> ((j & 3) * 2)) & 3);
-    __syncwarp();
-    const long long lo_key = read * (long long)Lp;
-    long long a = 0, n = n_exc;
-    while (n > 0) {
-        const long long half = n >> 1;
-        if (exc[a + half] < lo_key) {
-            a += half + 1;
-            n -= half + 1;
-        } else {
-            n = half;
-        }
+// Kernel A on unpacked codes (pseudoalign_batch).
+__global__ void pseudoalign_codes_kernel(
+    IndexView ix,
+    const unsigned char* __restrict__ codes,   // [B, L]
+    const int* __restrict__ lens,              // [B]
+    int B, int L, int k, int R, int warp_bytes, SideOut o) {
+    const KtWarpMem m = kt_warp_mem(L, warp_bytes);
+    const int wpb = blockDim.x >> 5;
+    const int W = L - k + 1;
+    for (long long read = (long long)blockIdx.x * wpb + (threadIdx.x >> 5);
+         read < B; read += (long long)gridDim.x * wpb) {
+        kt_decode_codes(m, L, codes + read * L);
+        kt_core(ix, m.pk, m.nm, m.wrows, read, lens[read], W, k, R, R, o);
     }
-    for (long long e = a + lane; e < n_exc; e += 32) {
-        const long long col = exc[e] - lo_key;
-        if (col >= Lp) break;
-        if (col < Lc) codes[col] = 4;
-    }
-    __syncwarp();
 }
 
 __global__ void pseudoalign_turbo_kernel(
@@ -475,30 +828,28 @@ __global__ void pseudoalign_turbo_kernel(
     const unsigned short* __restrict__ lens,   // [ns*Bp] or null
     long long Bp, int ns, int Lp, int Lc, int k, int R, int warp_bytes,
     SideOut o) {
-    extern __shared__ int kt_smem[];
-    const int warp = threadIdx.x >> 5;
+    const KtWarpMem m = kt_warp_mem(Lc, warp_bytes);
     const int wpb = blockDim.x >> 5;
     const int W = Lc - k + 1;
-    const int code_bytes = (Lc + 15) & ~15;
-    unsigned char* codes = (unsigned char*)kt_smem + (long long)warp * warp_bytes;
-    int* wrows = (int*)(codes + code_bytes);
     const long long rlen = aux[0];
     const long long n_real = aux[1];
     const long long* exc = aux + 4;
     const long long B = Bp * ns;
-
-    for (long long read = (long long)blockIdx.x * wpb + warp; read < B;
-         read += (long long)gridDim.x * wpb) {
+    __shared__ long long s_split[KT_SPLIT];
+    const KtSplit sp = kt_split_init(s_split, exc, n_exc);
+    for (long long read = (long long)blockIdx.x * wpb + (threadIdx.x >> 5);
+         read < B; read += (long long)gridDim.x * wpb) {
         const long long row = read % Bp;
-        kt_turbo_decode(codes, read < Bp ? p1 : p2, exc, n_exc, read, row, Lp,
-                        Lc);
+        kt_decode_exc(m, Lc, read < Bp ? p1 : p2, sp, exc, n_exc, read, row,
+                      Lp);
         int len = 0;
         if (row < n_real) len = lens ? (int)lens[read] : (int)rlen;
-        kt_side_read(ix, codes, wrows, read, len, W, k, R, R, o);
+        kt_core(ix, m.pk, m.nm, m.wrows, read, len, W, k, R, R, o);
     }
 }
 
-// Kernel I: one warp per read of the ns*Bp turbo reads (see the file header).
+// Kernel I, wave 1: a group of g lanes per read of the ns*Bp turbo reads
+// (see the file header); failing reads go to fail_list, counted in n_fail.
 __global__ void pseudoalign_anchor_kernel(
     IndexView ix,
     const int* __restrict__ be8,               // [n_be8] block_ec8, flat
@@ -507,19 +858,14 @@ __global__ void pseudoalign_anchor_kernel(
     const unsigned char* __restrict__ p2,      // [Bp, Lp/4] mate 2 or null
     const long long* __restrict__ aux,         // [4 + n_exc]
     long long n_exc, long long Bp, int ns, int Lp, int Lc, int k, int R,
-    int Rc, int n_anchors, int warp_bytes, SideOut o,
+    int n_anchors, int g, SideOut o, int* __restrict__ fail_list,
     unsigned long long* __restrict__ n_fail) {
-    extern __shared__ int kt_smem[];
-    __shared__ unsigned int blk_fail;
-    if (threadIdx.x == 0) blk_fail = 0;
-    __syncthreads();
     const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int wpb = blockDim.x >> 5;
-    const int W = Lc - k + 1;
-    const int code_bytes = (Lc + 15) & ~15;
-    unsigned char* codes = (unsigned char*)kt_smem + (long long)warp * warp_bytes;
-    int* wrows = (int*)(codes + code_bytes);
+    const int jl = lane & (g - 1);
+    const int rpw = 32 / g;
+    const long long gw =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const long long nw = ((long long)gridDim.x * blockDim.x) >> 5;
     const int rlen = (int)aux[0];
     const long long n_real = aux[1];
     const long long* exc = aux + 4;
@@ -527,32 +873,44 @@ __global__ void pseudoalign_anchor_kernel(
     const int long_enough = rlen >= k;
     const int wlast = rlen - k > 0 ? rlen - k : 0;
     const int n_gaps = n_anchors - 1;
+    const int LB = Lp >> 2;
+    const unsigned long long kmask =
+        k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
+    const int fsh = 64 - 2 * k;
+    const int Rv = R < 16 ? R : 16;
+    __shared__ long long s_split[KT_SPLIT];
+    const KtSplit sp = kt_split_init(s_split, exc, n_exc);
 
-    for (long long read = (long long)blockIdx.x * wpb + warp; read < B;
-         read += (long long)gridDim.x * wpb) {
-        const long long row = read % Bp;
-        kt_turbo_decode(codes, read < Bp ? p1 : p2, exc, n_exc, read, row, Lp,
-                        Lc);
+    for (long long rb = gw * rpw; rb < B; rb += nw * rpw) {
+        const long long read = rb + lane / g;
+        const int act = read < B;
+        const long long rd = act ? read : B - 1;  // writes nothing
+        const long long row = rd % Bp;
         const int real = row < n_real;
+        const unsigned char* src = (rd < Bp ? p1 : p2) + row * LB;
+        const long long lo_key = rd * (long long)Lp;
+        const long long ea = kt_exc_lower(sp, exc, n_exc, lo_key);
 
-        // wave 1: one anchor per lane, 32 at a time
         int all_ok = 1, blo = KT_INT32_MAX, bhi = -KT_INT32_MAX - 1;
-        int uid0 = 0, upos0 = 0, str0 = 0, blk0 = 0, sgn = 1;
-        for (int base = 0; base < n_anchors; base += 32) {
-            const int j = base + lane;
-            const int act = j < n_anchors;
+        int uid0 = 0, upos0 = 0, str0 = 0, blk0 = 0;
+        for (int base = 0; base < n_anchors; base += g) {
+            const int j = base + jl;
+            const int a = j < n_anchors;
             int hit = 0, uid = -1, upos = 0, strand = 0, blk = 0, w = 0;
-            if (act) {
+            if (a) {
                 w = (int)(((long long)wlast * j) / n_gaps);
-                unsigned long long f = 0, r = 0;
+                unsigned long long x = kt_row_bits(src, LB, 2 * w, 2 * k);
                 int bad = 0;
-                for (int d = 0; d < k; ++d) {
-                    const int c = codes[w + d];
-                    bad |= c >> 2;
-                    const unsigned long long cc = (unsigned long long)(c & 3);
-                    f = (f << 2) | cc;
-                    r |= (3ULL - cc) << (2 * d);
+                for (long long e = ea; e < n_exc; ++e) {
+                    const long long col = exc[e] - lo_key;
+                    if (col >= Lp) break;
+                    if (col < Lc && col >= w && col < w + k) {
+                        x &= ~(3ULL << (2 * (col - w)));
+                        bad = 1;
+                    }
                 }
+                const unsigned long long f = kt_rev2(x) >> fsh;
+                const unsigned long long r = ~x & kmask;
                 const int valid = !bad && long_enough && real;
                 const int isfw = f <= r;
                 // anchor 0 is looked up even when invalid: its strand
@@ -574,94 +932,126 @@ __global__ void pseudoalign_anchor_kernel(
                 bhi = max(bhi, blk);
             }
             if (base == 0) {
-                uid0 = __shfl_sync(KT_FULL, uid, 0);
-                upos0 = __shfl_sync(KT_FULL, upos, 0);
-                str0 = __shfl_sync(KT_FULL, strand, 0);
-                blk0 = __shfl_sync(KT_FULL, blk, 0);
-                sgn = str0 ? 1 : -1;
+                uid0 = __shfl_sync(KT_FULL, uid, 0, g);
+                upos0 = __shfl_sync(KT_FULL, upos, 0, g);
+                str0 = __shfl_sync(KT_FULL, strand, 0, g);
+                blk0 = __shfl_sync(KT_FULL, blk, 0, g);
             }
-            const int lane_ok = !act || (hit && uid == uid0 && strand == str0 &&
-                                         upos == upos0 + sgn * w);
-            all_ok &= __all_sync(KT_FULL, lane_ok);
+            const int sgn = str0 ? 1 : -1;
+            const int lane_ok = !a || (hit && uid == uid0 && strand == str0 &&
+                                       upos == upos0 + sgn * w);
+            all_ok &= kt_group_all(lane_ok, g);
         }
-        blo = __reduce_min_sync(KT_FULL, blo);
-        bhi = __reduce_max_sync(KT_FULL, bhi);
+        blo = kt_group_min(blo, g);
+        bhi = kt_group_max(bhi, g);
         const int ok = all_ok && (bhi >> 3) <= (blo >> 3) + 1 && blo >= 0 &&
                        real && long_enough;
 
-        if (ok) {
-            // the stretch's distinct block ECs: two 8-wide rows of block_ec8
-            // restricted to block ids [blo, bhi], R rounds of warp minimum
-            const int r0 = blo >> 3;
-            int v = KT_INT32_MAX;
-            if (lane < 16) {
-                const long long fid = (long long)r0 * 8 + lane;
-                if (fid >= blo && fid <= bhi && fid < n_be8) {
-                    const int c = be8[fid];
-                    if (c >= 0) v = c;
+        // a verified read's rows: the block ECs of [blo, bhi] in two 8-wide
+        // rows of block_ec8, spread over the group (entry c at lane c mod
+        // g), by rounds of group minimum
+        int cv[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+            const int c = jl + g * t;
+            cv[t] = KT_INT32_MAX;
+            if (ok && c < 16) {
+                const long long fid = (long long)(blo >> 3) * 8 + c;
+                if (fid <= bhi && fid >= blo && fid < n_be8) {
+                    const int e = be8[fid];
+                    if (e >= 0) cv[t] = e;
                 }
-            }
-            int prev = -1, nr = 0;
-            const int Rv = R < 16 ? R : 16;
-            for (int s = 0; s < Rv; ++s) {
-                const int m = __reduce_min_sync(KT_FULL,
-                                                v > prev ? v : KT_INT32_MAX);
-                if (lane == 0) o.rows[read * R + s] = m;
-                if (m != KT_INT32_MAX) {
-                    prev = m;
-                    ++nr;
-                }
-            }
-            for (int s = Rv + lane; s < R; s += 32)
-                o.rows[read * R + s] = KT_INT32_MAX;
-            const int ov = __any_sync(KT_FULL, v > prev && v != KT_INT32_MAX);
-            if (lane == 0) {
-                o.n_rows[read] = nr;
-                o.has_hits[read] = 1;
-                o.overflow[read] = (unsigned char)ov;
-                o.f_uid[read] = uid0;
-                o.f_block[read] = blk0;
-                o.f_upos[read] = upos0;
-                o.f_rpos[read] = 0;
-                o.f_strand[read] = (unsigned char)str0;
-                o.rng[read] = wlast;
-            }
-        } else if (real && long_enough) {
-            // wave 2, inline: every window of this read
-            kt_side_read(ix, codes, wrows, read, rlen, W, k, Rc, R, o);
-            if (lane == 0) {
-                // a one-slot core row fills every slot (JAX's broadcast)
-                for (int s = Rc; s < R; ++s)
-                    o.rows[read * R + s] = o.rows[read * R];
-                atomicAdd(&blk_fail, 1u);
-            }
-        } else {
-            // padding reads (and every read when rlen < k)
-            for (int s = lane; s < R; s += 32)
-                o.rows[read * R + s] = KT_INT32_MAX;
-            if (lane == 0) {
-                o.n_rows[read] = 0;
-                o.has_hits[read] = 0;
-                o.overflow[read] = 0;
-                o.f_uid[read] = -1;
-                o.f_block[read] = -1;
-                o.f_upos[read] = -1;
-                o.f_rpos[read] = -1;
-                o.f_strand[read] = (unsigned char)str0;
-                o.rng[read] = -1;
             }
         }
-        __syncwarp();
+        int prev = -1, nr = 0;
+        for (int s = 0; s < Rv; ++s) {
+            int mm = KT_INT32_MAX;
+#pragma unroll
+            for (int t = 0; t < 8; ++t)
+                if (cv[t] > prev && cv[t] < mm) mm = cv[t];
+            mm = kt_group_min(mm, g);
+            if (mm != KT_INT32_MAX) {
+                if (act && jl == s % g) o.rows[read * R + s] = mm;
+                prev = mm;
+                ++nr;
+            }
+            if (__all_sync(KT_FULL, mm == KT_INT32_MAX)) break;
+        }
+        int ovl = 0;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+            ovl |= cv[t] > prev && cv[t] != KT_INT32_MAX;
+        const int ov = !kt_group_all(!ovl, g);
+
+        const int fail = act && !ok && real && long_enough;
+        if (act && !fail) {
+            // verified, or padding (and every read when rlen < k)
+            for (int s = (ok ? nr : 0) + jl; s < R; s += g)
+                o.rows[read * R + s] = KT_INT32_MAX;
+            if (jl == 0) {
+                o.n_rows[read] = ok ? nr : 0;
+                o.has_hits[read] = (unsigned char)ok;
+                o.overflow[read] = (unsigned char)(ok && ov);
+                o.f_uid[read] = ok ? uid0 : -1;
+                o.f_block[read] = ok ? blk0 : -1;
+                o.f_upos[read] = ok ? upos0 : -1;
+                o.f_rpos[read] = ok ? 0 : -1;
+                o.f_strand[read] = (unsigned char)str0;
+                o.rng[read] = ok ? wlast : -1;
+            }
+        }
+        // failing reads to the list: one atomic per warp
+        const unsigned lead = __ballot_sync(KT_FULL, fail && jl == 0);
+        if (lead) {
+            const int leader = __ffs(lead) - 1;
+            unsigned long long at = 0;
+            if (lane == leader)
+                at = atomicAdd(n_fail, (unsigned long long)__popc(lead));
+            at = __shfl_sync(KT_FULL, at, leader);
+            if (fail && jl == 0)
+                fail_list[at + __popc(lead & ((1u << lane) - 1u))] = (int)read;
+        }
     }
-    __syncthreads();
-    if (threadIdx.x == 0 && blk_fail)
-        atomicAdd(n_fail, (unsigned long long)blk_fail);
+}
+
+// Kernel I, wave 2: kernel D's decode and core on every read of
+// fail_list[0, *n_fail), one warp a read.  The core gives min(R, W) = Rc
+// rows; a one-slot row fills all R slots (JAX's broadcast).
+__global__ void pseudoalign_anchor_wave2_kernel(
+    IndexView ix,
+    const unsigned char* __restrict__ p1,      // [Bp, Lp/4] mate 1
+    const unsigned char* __restrict__ p2,      // [Bp, Lp/4] mate 2 or null
+    const long long* __restrict__ aux,         // [4 + n_exc]
+    long long n_exc, long long Bp, int Lp, int Lc, int k, int R, int Rc,
+    int warp_bytes, SideOut o, const int* __restrict__ fail_list,
+    const unsigned long long* __restrict__ n_fail) {
+    const KtWarpMem m = kt_warp_mem(Lc, warp_bytes);
+    const int lane = threadIdx.x & 31;
+    const int wpb = blockDim.x >> 5;
+    const int W = Lc - k + 1;
+    const int rlen = (int)aux[0];
+    const long long* exc = aux + 4;
+    const long long n = (long long)*n_fail;
+    __shared__ long long s_split[KT_SPLIT];
+    const KtSplit sp = kt_split_init(s_split, exc, n_exc);
+    for (long long i = (long long)blockIdx.x * wpb + (threadIdx.x >> 5); i < n;
+         i += (long long)gridDim.x * wpb) {
+        const long long read = fail_list[i];
+        kt_decode_exc(m, Lc, read < Bp ? p1 : p2, sp, exc, n_exc, read,
+                      read % Bp, Lp);
+        const int row0 =
+            kt_core(ix, m.pk, m.nm, m.wrows, read, rlen, W, k, Rc, R, o);
+        for (int s = Rc + lane; s < R; s += 32) o.rows[read * R + s] = row0;
+    }
 }
 
 // ------------------------------------------------------------- kernel K
 
 // Kernel K: one warp per pair of the Bp half-fail pairs (file header).
-__global__ void pseudoalign_halffail_kernel(
+// Its registers are capped for three resident blocks of KT_WPB warps an
+// SM: uncapped, the core, the splitters and the verified mate took 92,
+// which left room for two.
+__global__ void __launch_bounds__(KT_WPB * 32, 3) pseudoalign_halffail_kernel(
     IndexView ix,
     const int* __restrict__ be8,               // [n_be8] block_ec8, flat
     long long n_be8,
@@ -671,29 +1061,27 @@ __global__ void pseudoalign_halffail_kernel(
     const long long* __restrict__ aux,         // [4 + n_exc]
     long long n_exc, long long Bp, int Lp, int Lc, int k, int R,
     int warp_bytes, SideOut o1, SideOut o2) {
-    extern __shared__ int kt_smem[];
+    const KtWarpMem mem = kt_warp_mem(Lc, warp_bytes);
     const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
     const int wpb = blockDim.x >> 5;
     const int W = Lc - k + 1;
-    const int code_bytes = (Lc + 15) & ~15;
-    unsigned char* codes = (unsigned char*)kt_smem + (long long)warp * warp_bytes;
-    int* wrows = (int*)(codes + code_bytes);
     const int rlen = (int)aux[0];
     const long long n_real = aux[1];
     const long long* exc = aux + 4;
     const int Rv = R < 16 ? R : 16;
+    __shared__ long long s_split[KT_SPLIT];
+    const KtSplit sp = kt_split_init(s_split, exc, n_exc);
 
-    for (long long read = (long long)blockIdx.x * wpb + warp; read < Bp;
-         read += (long long)gridDim.x * wpb) {
+    for (long long read = (long long)blockIdx.x * wpb + (threadIdx.x >> 5);
+         read < Bp; read += (long long)gridDim.x * wpb) {
         const int m1 = sidev[read] == 1;
         const SideOut of = m1 ? o1 : o2;
         const SideOut ov = m1 ? o2 : o1;
         const int len = read < n_real ? rlen : 0;
 
-        // the failed mate: kernel D's decode and per-read core
-        kt_turbo_decode(codes, pkf, exc, n_exc, read, read, Lp, Lc);
-        kt_side_read(ix, codes, wrows, read, len, W, k, R, R, of);
+        // the failed mate: kernel D's decode and core
+        kt_decode_exc(mem, Lc, pkf, sp, exc, n_exc, read, read, Lp);
+        kt_core(ix, mem.pk, mem.nm, mem.wrows, read, len, W, k, R, R, of);
 
         // the verified mate from its summary
         const int blo = vsum[2 * read];
@@ -715,13 +1103,12 @@ __global__ void pseudoalign_halffail_kernel(
         for (int s = 0; s < Rv; ++s) {
             const int m = __reduce_min_sync(KT_FULL,
                                             v > prev ? v : KT_INT32_MAX);
+            if (m == KT_INT32_MAX) break;
             if (lane == 0) ov.rows[read * R + s] = m;
-            if (m != KT_INT32_MAX) {
-                prev = m;
-                ++nr;
-            }
+            prev = m;
+            ++nr;
         }
-        for (int s = Rv + lane; s < R; s += 32)
+        for (int s = nr + lane; s < R; s += 32)
             ov.rows[read * R + s] = KT_INT32_MAX;
         if (lane == 0) {
             ov.n_rows[read] = nr;
@@ -1067,19 +1454,44 @@ static SideOut kt_side_out(void* rows, void* n_rows, void* has_hits,
     return o;
 }
 
-// Warps per block and the per-warp shared bytes for Lc code columns;
-// returns 0 when one warp's share does not fit.
+// The grid of `kernel` for `blocks` blocks of `threads` threads with
+// `smem` bytes of dynamic shared memory: at most the blocks that the SMs
+// of the current device hold at once (the built kernel's occupancy), the
+// kernels' grid-stride loops taking the rest.
 template <typename K>
-static int kt_launch_shape(K kernel, int Lc, int W, int* wpb_out,
-                           int* warp_bytes_out, long long* smem_out) {
-    const int code_bytes = (Lc + 15) & ~15;
-    const int warp_bytes = (code_bytes + 4 * W + 15) & ~15;
-    const int max_smem = 227 * 1024;
-    int wpb = 4;
-    while (wpb > 1 && wpb * warp_bytes > max_smem) wpb >>= 1;
+static int kt_grid(K kernel, int threads, long long smem, long long blocks,
+                   unsigned int* grid) {
+    int dev, sms, per;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads,
+                                                          (size_t)smem);
+    if (e != cudaSuccess) return (int)e;
+    const long long cap = (long long)sms * (per > 0 ? per : 1);
+    if (blocks > cap) blocks = cap;
+    *grid = (unsigned int)(blocks > 0 ? blocks : 1);
+    return 0;
+}
+
+// Warps per block (KT_WPB, halved while the block's shared memory does
+// not fit beside the kernel's static_bytes), the per-warp shared bytes for
+// Lc code columns and the grid for `reads` reads (a warp each); returns
+// non-zero when one warp's share does not fit.
+template <typename K>
+static int kt_launch_shape(K kernel, int Lc, int W, long long reads,
+                           int static_bytes, int* wpb_out,
+                           int* warp_bytes_out, long long* smem_out,
+                           unsigned int* grid_out) {
+    const int warp_bytes = 8 * (kt_pkw(Lc) + kt_nmw(Lc)) + ((4 * W + 15) & ~15);
+    const int max_smem = 227 * 1024 - static_bytes;
+    int wpb = KT_WPB;
+    while (wpb > 1 && (long long)wpb * warp_bytes > max_smem) wpb >>= 1;
     const long long smem = (long long)wpb * warp_bytes;
     if (smem > max_smem) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
+    // past 48 KB of static and dynamic shared memory a kernel must opt in
+    if (smem + static_bytes > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
@@ -1087,13 +1499,7 @@ static int kt_launch_shape(K kernel, int Lc, int W, int* wpb_out,
     *wpb_out = wpb;
     *warp_bytes_out = warp_bytes;
     *smem_out = smem;
-    return 0;
-}
-
-static unsigned int kt_blocks(long long B, int wpb) {
-    long long blocks = (B + wpb - 1) / wpb;
-    if (blocks > 1048576) blocks = 1048576;
-    return (unsigned int)blocks;
+    return kt_grid(kernel, wpb * 32, smem, (reads + wpb - 1) / wpb, grid_out);
 }
 
 extern "C" int pseudoalign_side(
@@ -1109,16 +1515,44 @@ extern "C" int pseudoalign_side(
     IndexView ix;
     int err = kt_index_view(&ix, index);
     if (err) return err;
-    const int W = Lp - k + 1;
     int wpb, warp_bytes;
     long long smem;
-    err = kt_launch_shape(pseudoalign_side_kernel, Lp, W, &wpb, &warp_bytes,
-                          &smem);
+    unsigned int grid;
+    err = kt_launch_shape(pseudoalign_side_kernel, Lp, Lp - k + 1, B, 0, &wpb,
+                          &warp_bytes, &smem, &grid);
     if (err) return err;
-    pseudoalign_side_kernel<<<kt_blocks(B, wpb), wpb * 32, (size_t)smem,
+    pseudoalign_side_kernel<<<grid, wpb * 32, (size_t)smem,
                               (cudaStream_t)stream>>>(
         ix, (const unsigned char*)packed, (const unsigned char*)nmask,
         (const int*)lens, B, Lp, k, R, warp_bytes,
+        kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
+                    f_rpos, f_strand, rng));
+    return (int)cudaGetLastError();
+}
+
+// Kernel A on unpacked codes [B, L] uint8 (any L >= k).
+extern "C" int pseudoalign_codes(
+    const IndexView* index, const void* codes, const void* lens,
+    int B, int L, int k, int R,
+    void* rows, void* n_rows, void* has_hits, void* overflow,
+    void* f_uid, void* f_block, void* f_upos, void* f_rpos,
+    void* f_strand, void* rng, void* stream) {
+    if (B <= 0) return 0;
+    if (L < k || R <= 0 || R > L - k + 1 || k > 32)
+        return (int)cudaErrorInvalidValue;
+    IndexView ix;
+    int err = kt_index_view(&ix, index);
+    if (err) return err;
+    int wpb, warp_bytes;
+    long long smem;
+    unsigned int grid;
+    err = kt_launch_shape(pseudoalign_codes_kernel, L, L - k + 1, B, 0, &wpb,
+                          &warp_bytes, &smem, &grid);
+    if (err) return err;
+    pseudoalign_codes_kernel<<<grid, wpb * 32, (size_t)smem,
+                               (cudaStream_t)stream>>>(
+        ix, (const unsigned char*)codes, (const int*)lens, B, L, k, R,
+        warp_bytes,
         kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
                     f_rpos, f_strand, rng));
     return (int)cudaGetLastError();
@@ -1139,14 +1573,14 @@ extern "C" int pseudoalign_turbo(
     IndexView ix;
     int err = kt_index_view(&ix, index);
     if (err) return err;
-    const int W = Lc - k + 1;
     int wpb, warp_bytes;
     long long smem;
-    err = kt_launch_shape(pseudoalign_turbo_kernel, Lc, W, &wpb, &warp_bytes,
-                          &smem);
+    unsigned int grid;
+    err = kt_launch_shape(pseudoalign_turbo_kernel, Lc, Lc - k + 1, Bp * ns,
+                          8 * KT_SPLIT, &wpb, &warp_bytes, &smem, &grid);
     if (err) return err;
-    pseudoalign_turbo_kernel<<<kt_blocks(Bp * ns, wpb), wpb * 32,
-                               (size_t)smem, (cudaStream_t)stream>>>(
+    pseudoalign_turbo_kernel<<<grid, wpb * 32, (size_t)smem,
+                               (cudaStream_t)stream>>>(
         ix, (const unsigned char*)p1, (const unsigned char*)p2,
         (const long long*)aux, n_exc, (const unsigned short*)lens, Bp, ns, Lp,
         Lc, k, R, warp_bytes,
@@ -1155,40 +1589,92 @@ extern "C" int pseudoalign_turbo(
     return (int)cudaGetLastError();
 }
 
+// Kernel I's checks shared by its two launches: Lc and Rc = min(R, W),
+// which must be R or 1.
+static int kt_anchor_shape(int ns, const void* p2, long long n_exc, int Lp,
+                           int rl, int k, int R, int* Lc_out, int* Rc_out) {
+    const int Lc = (rl > 0 && rl < Lp) ? rl : Lp;
+    const int W = Lc - k + 1;
+    const int Rc = R < W ? R : W;
+    if (ns < 1 || ns > 2 || (ns == 2 && p2 == 0) || n_exc < 0 || Lc < k ||
+        (Lp & 3) != 0 || R <= 0 || (Rc != R && Rc != 1) || k > 32)
+        return (int)cudaErrorInvalidValue;
+    *Lc_out = Lc;
+    *Rc_out = Rc;
+    return 0;
+}
+
+// Kernel I, wave 1: zeroes n_fail, then writes every verified and padding
+// read in full and lists the failing ones (fail_list, [ns*Bp] ints).  g,
+// the lanes of a read, is a power of two in [2, 32] with g >= n_anchors
+// unless g is 32.
 extern "C" int pseudoalign_anchor(
     const IndexView* index, const void* block_ec8, long long n_be8,
     const void* p1, const void* p2, const void* aux, long long n_exc,
-    long long Bp, int ns, int Lp, int rl, int k, int R, int n_anchors,
+    long long Bp, int ns, int Lp, int rl, int k, int R, int n_anchors, int g,
     void* rows, void* n_rows, void* has_hits, void* overflow,
     void* f_uid, void* f_block, void* f_upos, void* f_rpos,
-    void* f_strand, void* rng, void* n_fail, void* stream) {
+    void* f_strand, void* rng, void* fail_list, void* n_fail, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     cudaError_t e = cudaMemsetAsync(n_fail, 0, 8, st);
     if (e != cudaSuccess) return (int)e;
     if (Bp <= 0) return 0;
-    const int Lc = (rl > 0 && rl < Lp) ? rl : Lp;
-    const int W = Lc - k + 1;
-    const int Rc = R < W ? R : W;
-    if (ns < 1 || ns > 2 || (ns == 2 && p2 == 0) || n_exc < 0 ||
-        Lc < k || (Lp & 3) != 0 || R <= 0 || (Rc != R && Rc != 1) ||
-        k > 32 || n_anchors < 2 || n_be8 < 16)
+    int Lc, Rc;
+    int err = kt_anchor_shape(ns, p2, n_exc, Lp, rl, k, R, &Lc, &Rc);
+    if (err) return err;
+    if (n_anchors < 2 || n_be8 < 16 || g < 2 || g > 32 || (g & (g - 1)) ||
+        (g < n_anchors && g != 32) || Bp * ns > 0x7fffffffLL || !fail_list)
         return (int)cudaErrorInvalidValue;
     IndexView ix;
-    int err = kt_index_view(&ix, index);
+    err = kt_index_view(&ix, index);
+    if (err) return err;
+    const int threads = KT_WPB * 32;
+    const long long warps = (Bp * ns + 32 / g - 1) / (32 / g);
+    unsigned int grid;
+    err = kt_grid(pseudoalign_anchor_kernel, threads, 0,
+                  (warps + KT_WPB - 1) / KT_WPB, &grid);
+    if (err) return err;
+    pseudoalign_anchor_kernel<<<grid, threads, 0, st>>>(
+        ix, (const int*)block_ec8, n_be8, (const unsigned char*)p1,
+        (const unsigned char*)p2, (const long long*)aux, n_exc, Bp, ns, Lp,
+        Lc, k, R, n_anchors, g,
+        kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
+                    f_rpos, f_strand, rng),
+        (int*)fail_list, (unsigned long long*)n_fail);
+    return (int)cudaGetLastError();
+}
+
+// Kernel I, wave 2: the reads wave 1 listed, through kernel D's decode and
+// core, on a grid of as many warps as the SMs hold at once (the list's
+// length is on the card).
+extern "C" int pseudoalign_anchor_wave2(
+    const IndexView* index, const void* p1, const void* p2, const void* aux,
+    long long n_exc, long long Bp, int ns, int Lp, int rl, int k, int R,
+    void* rows, void* n_rows, void* has_hits, void* overflow,
+    void* f_uid, void* f_block, void* f_upos, void* f_rpos,
+    void* f_strand, void* rng, void* fail_list, void* n_fail, void* stream) {
+    if (Bp <= 0) return 0;
+    int Lc, Rc;
+    int err = kt_anchor_shape(ns, p2, n_exc, Lp, rl, k, R, &Lc, &Rc);
+    if (err) return err;
+    if (!fail_list || !n_fail) return (int)cudaErrorInvalidValue;
+    IndexView ix;
+    err = kt_index_view(&ix, index);
     if (err) return err;
     int wpb, warp_bytes;
     long long smem;
-    err = kt_launch_shape(pseudoalign_anchor_kernel, Lc, W, &wpb, &warp_bytes,
-                          &smem);
+    unsigned int grid;
+    err = kt_launch_shape(pseudoalign_anchor_wave2_kernel, Lc, Lc - k + 1,
+                          Bp * ns, 8 * KT_SPLIT, &wpb, &warp_bytes, &smem,
+                          &grid);
     if (err) return err;
-    pseudoalign_anchor_kernel<<<kt_blocks(Bp * ns, wpb), wpb * 32,
-                                (size_t)smem, st>>>(
-        ix, (const int*)block_ec8, n_be8, (const unsigned char*)p1,
-        (const unsigned char*)p2, (const long long*)aux, n_exc, Bp, ns, Lp,
-        Lc, k, R, Rc, n_anchors, warp_bytes,
+    pseudoalign_anchor_wave2_kernel<<<grid, wpb * 32, (size_t)smem,
+                                      (cudaStream_t)stream>>>(
+        ix, (const unsigned char*)p1, (const unsigned char*)p2,
+        (const long long*)aux, n_exc, Bp, Lp, Lc, k, R, Rc, warp_bytes,
         kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
                     f_rpos, f_strand, rng),
-        (unsigned long long*)n_fail);
+        (const int*)fail_list, (const unsigned long long*)n_fail);
     return (int)cudaGetLastError();
 }
 
@@ -1215,10 +1701,11 @@ extern "C" int pseudoalign_halffail(
     if (err) return err;
     int wpb, warp_bytes;
     long long smem;
-    err = kt_launch_shape(pseudoalign_halffail_kernel, Lc, W, &wpb,
-                          &warp_bytes, &smem);
+    unsigned int grid;
+    err = kt_launch_shape(pseudoalign_halffail_kernel, Lc, W, Bp, 8 * KT_SPLIT,
+                          &wpb, &warp_bytes, &smem, &grid);
     if (err) return err;
-    pseudoalign_halffail_kernel<<<kt_blocks(Bp, wpb), wpb * 32, (size_t)smem,
+    pseudoalign_halffail_kernel<<<grid, wpb * 32, (size_t)smem,
                                   (cudaStream_t)stream>>>(
         ix, (const int*)block_ec8, n_be8, (const unsigned char*)pkf,
         (const int*)vsum, (const int*)sidev, (const long long*)aux, n_exc, Bp,

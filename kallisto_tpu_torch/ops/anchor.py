@@ -20,9 +20,10 @@ wave 2 -- every other real read at least k long is evaluated window by
 window, as kernel D evaluates it.  n_fail counts them and goes to the key
 table's meta row.  In the JAX package wave 2 is a fixed-size sub-batch
 for the TPU's static shapes: failures past its capacity mark the table
-overflowed and the caller redoes the batch through kernel D.  Here a warp
-per read needs no capacity, so every read gets its real result and no
-table is marked; JAX's wave2_cap / wave2_denom arguments are not taken.
+overflowed and the caller redoes the batch through kernel D.  Here wave 1
+lists the failing reads on the card and wave 2 takes the whole list, so
+every read gets its real result and no table is marked; JAX's wave2_cap
+/ wave2_denom arguments are not taken.
 
 Row width: a verified read has R = max_rows slots; the wave-2 core gives
 min(max_rows, W) with W = Lc - k + 1.  JAX merges the two by broadcasting,
@@ -31,9 +32,10 @@ every slot) and raises ValueError ("Incompatible shapes for broadcasting")
 otherwise, i.e. for k + 1 < Lc < k + max_rows - 1.  These functions do the
 same (`row_width_ok` says which lengths have an anchor route).
 
-On the card wave 1 and wave 2 are kernel I (csrc/pseudoalign.cu
-pseudoalign_anchor), followed by kernel B's compact keys and kernel E's
-table; on the CPU each is its plain PyTorch version.
+On the card wave 1 and wave 2 are kernel I's two launches
+(csrc/pseudoalign.cu pseudoalign_anchor, then pseudoalign_anchor_wave2 on
+the reads wave 1 listed), followed by kernel B's compact keys and kernel
+E's table; on the CPU each is its plain PyTorch version.
 """
 
 from typing import NamedTuple, Tuple

@@ -6,8 +6,9 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build
 happens at first use, into ``kallisto_tpu_torch/_kbuild/`` (gitignored),
 with one ``nvcc`` per source, all started together; a library is named by
 the hash of its source and flags, so an unchanged source is not rebuilt.
-Several kernels may share a source (A, D, I, J, K and L; E and F).
-Kernels A, D, I, J, K and L take the device index in either layout
+Several kernels may share a source (A, A on codes, D, I's two waves, J, K
+and L; E and F).  Kernels A, D, I, J, K and L take the device index in
+either layout
 (ops/pseudoalign.py DeviceIndex or PaddedDeviceIndex) as one IndexView.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
@@ -49,9 +50,11 @@ _PSEUDOALIGN = ("pseudoalign.cu", ("-Xptxas", "-v", f"-DKJ_SLIST={LONG_SLIST}"))
 # kernel name -> (source file, extra nvcc flags)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "pseudoalign_side": _PSEUDOALIGN,
+    "pseudoalign_codes": _PSEUDOALIGN,
     "read_keys": ("read_keys.cu", ()),
     "pseudoalign_turbo": _PSEUDOALIGN,
     "pseudoalign_anchor": _PSEUDOALIGN,
+    "pseudoalign_anchor_wave2": _PSEUDOALIGN,
     "pseudoalign_long": _PSEUDOALIGN,
     "pseudoalign_halffail": _PSEUDOALIGN,
     "lookup_kmers": _PSEUDOALIGN,
@@ -125,10 +128,13 @@ _SIDE = ctypes.POINTER(KeySide)
 _IX = ctypes.POINTER(IndexView)
 _ARGTYPES = {
     "pseudoalign_side": [_IX] + [_P] * 3 + [_I] * 4 + [_P] * 10 + [_P],
+    "pseudoalign_codes": [_IX] + [_P] * 2 + [_I] * 4 + [_P] * 10 + [_P],
     "pseudoalign_turbo": [_IX] + [_P] * 3 + [_LL, _P, _LL] + [_I] * 5
     + [_P] * 10 + [_P],
-    "pseudoalign_anchor": [_IX, _P, _LL] + [_P] * 3 + [_LL, _LL] + [_I] * 6
-    + [_P] * 11 + [_P],
+    "pseudoalign_anchor": [_IX, _P, _LL] + [_P] * 3 + [_LL, _LL] + [_I] * 7
+    + [_P] * 12 + [_P],
+    "pseudoalign_anchor_wave2": [_IX] + [_P] * 3 + [_LL, _LL] + [_I] * 5
+    + [_P] * 12 + [_P],
     "pseudoalign_long": [_IX] + [_P] * 3 + [_LL] + [_I] * 5 + [_P, _P, _LL]
     + [_P] * 8 + [_P],
     "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
@@ -312,6 +318,25 @@ def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
     return out
 
 
+def pseudoalign_codes(didx, codes: torch.Tensor, lens: torch.Tensor, k: int,
+                      R: int):
+    """Kernel A on unpacked codes [B, L] uint8 (any L >= k; a code above 3
+    is an N) with lens [B] int32.  Returns the ten SideResult fields."""
+    dev = didx.device
+    if codes.dim() != 2:
+        raise ValueError("codes must be [B, L]")
+    B, L = int(codes.shape[0]), int(codes.shape[1])
+    if L < k or not 0 < R <= L - k + 1:
+        raise ValueError(f"bad shape: L={L} k={k} R={R}")
+    _check(codes, "codes", torch.uint8, (B, L), dev)
+    _check(lens, "lens", torch.int32, (B,), dev)
+    ix = _index_args(didx)
+    out = _side_outputs(B, R, dev)
+    _launch("pseudoalign_codes", dev, ctypes.byref(ix), _ptr(codes),
+            _ptr(lens), B, L, k, R, *[_ptr(t) for t in out])
+    return out
+
+
 def _index_args(didx) -> IndexView:
     """The checked IndexView of a device index in either layout (kernels
     A, D, I, J, K and L): a PaddedDeviceIndex passes its bucket rows and
@@ -391,14 +416,19 @@ def pseudoalign_turbo(didx, sides, aux: torch.Tensor,
 # ---------------------------------------------------------------- kernel I
 
 
-def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
-                       rl: int, R: int, n_anchors: int):
-    """Kernel I, the two-wave anchor kernel, on one or two mates' packed
-    codes (`sides`, each [Bp, L/4] uint8) with the aux vector [4 + n]
-    int64.  R is the row width of every read (max_rows); the wave-2 core
-    gives min(R, Lc - k + 1) rows, which must be R or 1 (a one-slot row
-    fills every slot).  Returns the ten SideResult fields for the ns * Bp
-    reads, mate 1 first, and n_fail ([1] int64, reads of wave 2)."""
+def anchor_group_width(n_anchors: int) -> int:
+    """Kernel I's wave-1 lanes per read: the smallest power of two >=
+    n_anchors, at most 32 (a read of more anchors loops over its warp)."""
+    g = 2
+    while g < min(n_anchors, 32):
+        g <<= 1
+    return g
+
+
+def _anchor_args(didx, sides, aux: torch.Tensor, k: int, L: int, rl: int,
+                 R: int):
+    """Kernel I's checked inputs shared by its two launches: (dev, ns, Bp,
+    IndexView)."""
     dev = didx.device
     ns = len(sides)
     if ns not in (1, 2):
@@ -406,25 +436,69 @@ def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
     Bp = int(sides[0].shape[0])
     Lc = rl if 0 < rl < L else L
     Rc = min(R, Lc - k + 1)
-    if L % 4 or Lc < k or R < 1 or Rc not in (1, R) or n_anchors < 2:
-        raise ValueError(f"bad shape: L={L} rl={rl} k={k} R={R} "
-                         f"n_anchors={n_anchors}")
+    if L % 4 or Lc < k or R < 1 or Rc not in (1, R):
+        raise ValueError(f"bad shape: L={L} rl={rl} k={k} R={R}")
     for j, p in enumerate(sides):
         _check(p, f"packed{j + 1}", torch.uint8, (Bp, L // 4), dev)
     if aux.dim() != 1 or aux.shape[0] < 4:
         raise ValueError("aux must be [4 + n] int64")
     _check(aux, "aux", torch.int64, None, dev)
+    return dev, ns, Bp, _index_args(didx)
+
+
+def anchor_wave1(didx, sides, aux: torch.Tensor, k: int, L: int, rl: int,
+                 R: int, n_anchors: int):
+    """Kernel I's wave 1 (pseudoalign_anchor) on one or two mates' packed
+    codes (`sides`, each [Bp, L/4] uint8) with the aux vector [4 + n]
+    int64: every verified and padding read written in full, every failing
+    read listed.  Returns (the ten SideResult fields for the ns * Bp
+    reads, mate 1 first; fail_list [ns * Bp] int32; n_fail [1] int64, the
+    length of the list)."""
+    dev, ns, Bp, ix = _anchor_args(didx, sides, aux, k, L, rl, R)
+    if n_anchors < 2:
+        raise ValueError(f"n_anchors={n_anchors}")
     be8 = didx.block_ec8
     _check(be8, "block_ec8", torch.int32, (be8.shape[0], 8), dev)
-    ix = _index_args(didx)
     out = _side_outputs(ns * Bp, R, dev)
+    fail_list = torch.empty(max(ns * Bp, 1), dtype=torch.int32, device=dev)
     n_fail = torch.empty(1, dtype=torch.int64, device=dev)
     _launch(
         "pseudoalign_anchor", dev,
         ctypes.byref(ix), _ptr(be8), int(be8.numel()), _ptr(sides[0]),
         _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
         int(aux.shape[0]) - 4, Bp, ns, L, rl, k, R, n_anchors,
-        *[_ptr(t) for t in out], _ptr(n_fail))
+        anchor_group_width(n_anchors), *[_ptr(t) for t in out],
+        _ptr(fail_list), _ptr(n_fail))
+    return out, fail_list, n_fail
+
+
+def anchor_wave2(didx, sides, aux: torch.Tensor, k: int, L: int, rl: int,
+                 R: int, out, fail_list: torch.Tensor,
+                 n_fail: torch.Tensor) -> None:
+    """Kernel I's wave 2 (pseudoalign_anchor_wave2): kernel D's decode and
+    core on the reads that wave 1 listed, written into its outputs `out`."""
+    dev, ns, Bp, ix = _anchor_args(didx, sides, aux, k, L, rl, R)
+    _check(fail_list, "fail_list", torch.int32, (max(ns * Bp, 1),), dev)
+    _check(n_fail, "n_fail", torch.int64, (1,), dev)
+    _launch(
+        "pseudoalign_anchor_wave2", dev,
+        ctypes.byref(ix), _ptr(sides[0]),
+        _ptr(sides[1]) if ns == 2 else None, _ptr(aux),
+        int(aux.shape[0]) - 4, Bp, ns, L, rl, k, R, *[_ptr(t) for t in out],
+        _ptr(fail_list), _ptr(n_fail))
+
+
+def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
+                       rl: int, R: int, n_anchors: int):
+    """Kernel I, the two-wave anchor kernel, on one or two mates' packed
+    codes: wave 1, then wave 2 on the reads it listed, two launches on one
+    stream.  R is the row width of every read (max_rows); the wave-2 core
+    gives min(R, Lc - k + 1) rows, which must be R or 1 (a one-slot row
+    fills every slot).  Returns the ten SideResult fields for the ns * Bp
+    reads, mate 1 first, and n_fail ([1] int64, reads of wave 2)."""
+    out, fail_list, n_fail = anchor_wave1(didx, sides, aux, k, L, rl, R,
+                                          n_anchors)
+    anchor_wave2(didx, sides, aux, k, L, rl, R, out, fail_list, n_fail)
     return out, n_fail
 
 

@@ -912,6 +912,23 @@ def pseudoalign_batch_packed(didx: AnyDeviceIndex, packed: torch.Tensor,
     return pseudoalign_batch_packed_plain(didx, packed, nmask, lens, k, L, max_rows)
 
 
+def pseudoalign_batch(didx: AnyDeviceIndex, codes: torch.Tensor,
+                      lens: torch.Tensor, k: int,
+                      max_rows: int = 16) -> SideResult:
+    """[B, L] uint8 base codes (0-3; a code above 3 is an N and makes its
+    windows invalid) with lens [B] int32 -> SideResult (JAX
+    pseudoalign_batch, ops/pseudoalign.py:493): kernel A on unpacked codes
+    for tensors on the card, _pseudoalign_core on the CPU.  Any L >= k; R
+    = min(max_rows, L - k + 1)."""
+    L = int(codes.shape[1])
+    if L < k:
+        raise ValueError(f"reads of {L} columns have no {k}-mer window")
+    if codes.is_cuda:
+        return SideResult(*kernels.pseudoalign_codes(
+            didx, codes, lens, k, min(max_rows, L - k + 1)))
+    return _pseudoalign_core(didx, codes, lens, k, max_rows)
+
+
 def pseudoalign_long_packed(didx: AnyDeviceIndex, packed: torch.Tensor,
                             nmask: torch.Tensor, lens: torch.Tensor, k: int,
                             L: int, max_rows: int = 64,

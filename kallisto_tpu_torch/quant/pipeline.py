@@ -195,6 +195,33 @@ def _log(msg: str, end: str = "\n"):
     print(msg, file=sys.stderr, end=end, flush=True)
 
 
+# reads between two progress lines (reference: MasterProcessor::update,
+# src/ProcessReads.cpp:634-643)
+_PROGRESS_EVERY = 1000000
+
+
+class _Progress:
+    """The progress line with %mapped, once per _PROGRESS_EVERY reads
+    (JAX pipeline.py _Progress)."""
+
+    def __init__(self, resolver):
+        self._resolver = resolver
+        self._counter = 0
+        self.printed = False
+
+    def update(self, n: int, num_processed: int):
+        self._counter += n
+        if self._counter >= _PROGRESS_EVERY:
+            self._counter = 0
+            pct = 100.0 * self._resolver.num_mapped / max(num_processed, 1)
+            _log(
+                f"\r[progress] {num_processed // 1000000}M reads processed"
+                f" ({pct:5.1f}% mapped)             ",
+                end="",
+            )
+            self.printed = True
+
+
 @dataclass
 class QuantResult:
     target_names: List[str]
@@ -519,6 +546,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         ("full", "turbo", "compact", "cmesh", "fallback", "long", "hw1pb",
          "hw1", "hw1s", "wave2_reads", "n_uniq_max", "n_uniq_sum", "novel"),
         0))
+    hw1_stats = [0, 0]  # mates verified on the host, steady-state mates
     t0 = time.perf_counter()
     if index is None:
         index = load_index(opt.index_path)
@@ -887,8 +915,12 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         if paired_b:
             timings["wave2_reads"] += int(
                 nf + (hk.fail_side == 3).sum())
+            hw1_stats[0] += 2 * b1.n - 2 * nf
+            hw1_stats[1] += 2 * b1.n
         else:
             timings["wave2_reads"] += nf
+            hw1_stats[0] += b1.n - nf
+            hw1_stats[1] += b1.n
         if route == "hw1pb":
             B = b1.n
             read_ec = np.full(B, -1, np.int64)
@@ -1154,6 +1186,15 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             for b in packed_single_batches(f, opt.batch_size, k)
         )
     _log("[quant] finding pseudoalignments for the reads ...", end="")
+    if opt.verbose:
+        _log("")
+    progress = _Progress(resolver)
+
+    def drain():
+        ctx = pend.popleft()
+        process(ctx)
+        progress.update(ctx[1].n, num_processed)
+
     t0 = time.perf_counter()
     # pipelined loop: up to two batches stay pending (dispatched, their
     # kernels running on the card) while the oldest resolves on the host,
@@ -1173,23 +1214,38 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         timings["read_s"] += t1 - t_read
         if estimate_fld and tlencount < flen_goal and hostprobe is None:
             while pend:
-                process(pend.popleft())
+                drain()
             t1 = time.perf_counter()
         want_fld = estimate_fld and tlencount < flen_goal
         pend.append(dispatch_long(b1) if opt.long_read
                     else dispatch(b1, b2, want_fld))
         timings["dispatch_s"] += time.perf_counter() - t1
         if len(pend) > 2:
-            process(pend.popleft())
+            drain()
         t_read = time.perf_counter()
     while pend:
-        process(pend.popleft())
+        drain()
     if opt.long_read and opt.output_dir:
         os.makedirs(opt.output_dir, exist_ok=True)
         with open(os.path.join(opt.output_dir, "novel.fastq"), "w") as f:
             f.write("".join(novel_recs))
     timings["pseudoalign_s"] = time.perf_counter() - t0
-    _log(" done")
+    # completion summary (JAX :1724-1740)
+    if opt.verbose or progress.printed:
+        _log("\n[quant] done ")
+    else:
+        _log(" done")
+    if opt.verbose and timings["pseudoalign_s"] > 0:
+        _log(
+            f"[quant] pseudoalignment throughput: "
+            f"{num_processed / timings['pseudoalign_s']:,.0f} reads/s"
+        )
+    if opt.verbose and hw1_stats[1]:
+        _log(
+            "[quant] host wave-1 verified "
+            f"{100.0 * hw1_stats[0] / hw1_stats[1]:.1f}% of "
+            f"{hw1_stats[1]:,} steady-state mates on the host"
+        )
     fl_vec = np.concatenate(fl_samples) if fl_samples else np.empty(0, np.int64)
     if n_hosts > 1:
         # every rank merges in rank order, the global read order (JAX

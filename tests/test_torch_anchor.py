@@ -190,3 +190,16 @@ def test_block_ec8_matches_jax(env):
     np.testing.assert_array_equal(np.asarray(jdidx.block_ec8),
                                   tdidx.block_ec8.numpy())
     assert tdidx.block_ec8.dtype == torch.int32
+
+
+@pytest.mark.parametrize("rlen,g", [(50, 2), (100, 4), (150, 8), (250, 16),
+                                    (500, 32), (1000, 32)])
+def test_wave1_group_width(rlen, g):
+    """Kernel I's wave 1 gives each read the smallest power of two of lanes
+    that holds its anchors (2x100 bp: 4 anchors, 8 reads a warp); past 32
+    anchors (1,000 bp: 33) the read keeps a whole warp and loops."""
+    from kallisto_tpu_torch.ops import kernels
+
+    na = tanchor.n_anchors_for(rlen, 31)
+    assert kernels.anchor_group_width(na) == g
+    assert g >= min(na, 32) and g // 2 < min(na, 32) or g == 2

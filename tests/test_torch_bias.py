@@ -12,7 +12,6 @@ agree on to rtol 1e-12 (tests/test_torch_em.py).
 
 import os
 
-import h5py
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -172,6 +171,8 @@ def _bias_runs(port_index, tmp_path, kw):
 
 
 def _assert_bias_equal(res, jres, pd, jd):
+    import h5py  # here, not at the top: the card's machine has no h5py
+
     assert _read(os.path.join(pd, "abundance.tsv")) == \
         _read(os.path.join(jd, "abundance.tsv"))
     with h5py.File(os.path.join(pd, "abundance.h5")) as p, \

@@ -10,7 +10,6 @@ distribution can be compared (tests/test_bootstrap.py explains why).
 
 import os
 
-import h5py
 import numpy as np
 import pytest
 import torch
@@ -135,6 +134,8 @@ def test_bs_abundance_files_byte_equal_to_jax(bs_runs):
 def test_abundance_h5_equal_to_jax(bs_runs):
     """abundance.h5 datasets: est_counts and bootstrap/bs* to rtol 1e-12,
     the aux datasets exactly (but start_time: each run stamps its own)."""
+    import h5py  # here, not at the top: the card's machine has no h5py
+
     assert th5.HAVE_H5PY
     (_, pd), (_, jd) = bs_runs["port", False], bs_runs["jax", False]
     assert not os.path.exists(os.path.join(pd, "bs_abundance_0.tsv"))

@@ -180,6 +180,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.pseudoalign_long(didx, torch.zeros((4, 8), dtype=torch.uint8),
                                  torch.zeros((4, 4), dtype=torch.uint8), z,
                                  31, 32, 2, 128)
+    with pytest.raises(ValueError):
+        kernels.pseudoalign_codes(didx, torch.zeros((4, 40), dtype=torch.uint8),
+                                  z, 31, 10)
     import numpy as np
 
     from kallisto_tpu_torch.quant import em as tem

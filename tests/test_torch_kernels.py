@@ -3,9 +3,10 @@
 Each test runs a kernel on the card and the plain version on the CPU on
 the same seeded inputs (the bundled transcriptome's index and reads, plus
 random reads with Ns, ragged lengths and reads shorter than k) and
-requires equality, for kernels A, D, I, J and K and for kernel L (the
-k-mer probe alone) in both device index layouts (padded and bucketed): every SideResult field and every key bit for kernels
-A, B, D and I, every table entry and exemplar row for kernels E and F,
+requires equality, for kernels A, A on unpacked codes, D, I (both
+waves), J and K and for kernel L (the k-mer probe alone) in both device
+index layouts (padded and bucketed): every SideResult field and every
+key bit for kernels A, B, D and I, every table entry and exemplar row for kernels E and F,
 every hexamer id for kernel H, bitwise alpha and equal rounds for
 kernel G (the main EM and the bootstraps), every LongResult field for
 kernel J, both mates' SideResult fields, the key table and the per-read
@@ -599,6 +600,153 @@ def test_kernel_i_key_table_matches_plain(cuda, port_index, single):
     g, c = res[str(cuda)], res["cpu"]
     assert 0 < int(c[0, 0]) <= 4097 and int(c[0, 1]) > 0
     assert torch.equal(g, c)
+
+
+def _unitig_reads(index, n, L, seed, miss0):
+    """n reads of length L copied from inside unitigs of at least L bases
+    (half reverse-complemented): kernel I verifies every one in wave 1;
+    with miss0 a substitution at column 5 makes anchor 0 miss, which sends
+    every one to wave 2."""
+    rng = np.random.default_rng(seed)
+    off = index.unitig_seq_off
+    ulen = np.diff(off)
+    ok = np.flatnonzero(ulen >= L)
+    u = ok[rng.integers(0, ok.shape[0], n)]
+    starts = off[u] + (rng.random(n) * (ulen[u] - L + 1)).astype(np.int64)
+    codes = index.unitig_seq[starts[:, None] + np.arange(L)[None, :]]
+    codes = codes.astype(np.uint8)
+    rc = rng.random(n) < 0.5
+    codes[rc] = (3 - codes[rc])[:, ::-1]
+    if miss0:
+        codes[:, 5] = (codes[:, 5] + 1) % 4
+    return _read_batch_to_packed(
+        ReadBatch(codes=codes, lens=np.full(n, L, np.int32)), K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,miss0,single", [
+    (100, False, False), (100, True, False), (100, True, True),
+    (1000, False, True), (1000, True, False)])
+def test_kernel_i_all_or_no_reads_in_wave_2(cuda, port_index, layout, L,
+                                            miss0, single):
+    """Kernel I with no read in wave 2 and with every real read in wave 2
+    (padding rows beside them), 100 bp and 1,000 bp reads (33 anchors, past
+    a warp's 32 lanes): every field and n_fail equal to the plain version,
+    wave 1 and wave 2 launched once each."""
+    from kallisto_tpu_torch.ops import anchor, turbo
+    from kallisto_tpu_torch.quant.pipeline import (
+        _bucket_size, _pad_rows, _turbo_exceptions)
+
+    n = 700
+    bs = [_unitig_reads(port_index, n, L, s, miss0)
+          for s in ((31,) if single else (31, 32))]
+    Bp = _bucket_size(n, lo=256)
+    aux = turbo.make_aux(n, L, _turbo_exceptions(bs, Bp))
+    na = anchor.n_anchors_for(L, K)
+    out = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        assert isinstance(d, layout)
+        packed = [torch.from_numpy(_pad_rows(b.packed, Bp)).to(dev) for b in bs]
+        kernels.reset_launches()
+        out[str(dev)] = anchor.anchor_sides(d, packed,
+                                            torch.from_numpy(aux).to(dev), K,
+                                            bs[0].Lp, 16, na, L)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["pseudoalign_anchor"] == 1
+            assert kernels.LAUNCHES["pseudoalign_anchor_wave2"] == 1
+    (g, gf), (c, cf) = out[str(cuda)], out["cpu"]
+    assert int(cf) == (n * len(bs) if miss0 else 0)
+    assert int(gf) == int(cf)
+    for f in pa.SideResult._fields:
+        a, b = getattr(g, f).cpu(), getattr(c, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def _code_batch(index, L, seed, lens_cut):
+    """Unpacked [n, L] uint8 codes for kernel A on codes: reads of the
+    unitig sequences with 1% Ns (code 4) and 0.2% codes above 4, some
+    lengths cut below L and some below k (lens_cut)."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    seq = index.unitig_seq
+    starts = rng.integers(0, seq.shape[0] - L, n)
+    codes = seq[starts[:, None] + np.arange(L)[None, :]].astype(np.uint8)
+    rc = rng.random(n) < 0.5
+    codes[rc] = (3 - codes[rc])[:, ::-1]
+    codes[rng.random((n, L)) < 0.01] = 4
+    codes[rng.random((n, L)) < 0.002] = 7
+    lens = np.full(n, L, np.int32)
+    if lens_cut:
+        cut = rng.random(n) < 0.3
+        lens[cut] = rng.integers(1, L + 1, int(cut.sum()))
+    return np.ascontiguousarray(codes), lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,lens_cut", [(100, False), (93, True), (45, True),
+                                        (230, True)])
+def test_kernel_a_on_codes_matches_plain(cuda, port_index, layout, L,
+                                         lens_cut):
+    """pseudoalign_batch on unpacked codes (Ns and codes above 4, widths
+    not a multiple of 8, lengths below the width and below k, 200 windows:
+    two passes of the core) on the card: every field equal to
+    _pseudoalign_core on the CPU."""
+    codes, lens = _code_batch(port_index, L, L, lens_cut)
+    out = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        assert isinstance(d, layout)
+        kernels.reset_launches()
+        out[str(dev)] = pa.pseudoalign_batch(
+            d, torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev),
+            K)
+        assert kernels.LAUNCHES["pseudoalign_codes"] == (dev == cuda)
+    g, c = out[str(cuda)], out["cpu"]
+    assert bool(c.has_hits.any())
+    for f in pa.SideResult._fields:
+        a, b = getattr(g, f).cpu(), getattr(c, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [100, 200])
+@pytest.mark.parametrize("varlen", [False, True])
+def test_kernel_d_past_64_windows_matches_plain(cuda, port_index, layout, L,
+                                                varlen):
+    """Kernel D on 100 bp pairs (70 windows: three per lane) and 200 bp
+    pairs (170 windows: two passes of the core), uniform and mixed
+    lengths, Ns through the aux vector and padding rows: every field equal
+    to the plain version."""
+    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.quant.pipeline import (
+        _bucket_size, _pad_rows, _turbo_exceptions, _uniform_len)
+
+    bs = [_random_batch(port_index, 3000, L, s) for s in (13, 14)]
+    if not varlen:
+        for b in bs:
+            b.lens[:] = L
+    Bp = _bucket_size(3000, lo=256)
+    rl = _uniform_len(*bs) or 0
+    aux = turbo.make_aux(3000, rl, _turbo_exceptions(bs, Bp))
+    out = {}
+    for dev in (cuda, "cpu"):
+        d = pa.device_index_from_host(port_index, dev)
+        assert isinstance(d, layout)
+        packed = [torch.from_numpy(_pad_rows(b.packed, Bp)).to(dev) for b in bs]
+        lens = None
+        if varlen:
+            lens = torch.from_numpy(np.concatenate(
+                [_pad_rows(b.lens.astype(np.uint16), Bp) for b in bs])).to(dev)
+        out[str(dev)] = turbo.turbo_sides(d, packed,
+                                          torch.from_numpy(aux).to(dev), lens,
+                                          K, bs[0].Lp, 16, rl)
+    g, c = out[str(cuda)], out["cpu"]
+    assert bool(c.has_hits.any())
+    for f in pa.SideResult._fields:
+        a, b = getattr(g, f).cpu(), getattr(c, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
 
 
 def _long_batch(index, which, tmp_dir):

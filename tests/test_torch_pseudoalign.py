@@ -172,3 +172,78 @@ def test_device_index_tables_match_jax_bucketed(indexes, monkeypatch):
               "kmer_block", "kmer_ec"):
         np.testing.assert_array_equal(
             np.asarray(getattr(j, f)), getattr(tdidx, f).numpy(), err_msg=f)
+
+
+def _code_batch(index, case):
+    """Unpacked [B, L] uint8 codes and lens for pseudoalign_batch: reads
+    from the unitig sequences with 1% substitutions, then per case Ns
+    (code 4 and codes above 4), a width not a multiple of 8, lengths
+    below the width, or reads shorter than k."""
+    rng = np.random.default_rng({"ns": 5, "l93": 6, "lens": 7,
+                                 "short": 8}[case])
+    n, L = 2000, {"ns": 100, "l93": 93, "lens": 100, "short": 45}[case]
+    seq = index.unitig_seq
+    starts = rng.integers(0, seq.shape[0] - L, n)
+    codes = seq[starts[:, None] + np.arange(L)[None, :]].astype(np.uint8)
+    rc = rng.random(n) < 0.5
+    codes[rc] = (3 - codes[rc])[:, ::-1]
+    err = rng.random((n, L)) < 0.01
+    codes[err] = (codes[err] + 1) % 4
+    lens = np.full(n, L, np.int32)
+    if case == "ns":
+        codes[rng.random((n, L)) < 0.01] = 4
+        codes[rng.random((n, L)) < 0.002] = 7
+    if case in ("lens", "short"):
+        lens = rng.integers(1, L + 1, n).astype(np.int32)
+    if case == "short":
+        lens[: n // 2] = rng.integers(1, K, n // 2)
+    return np.ascontiguousarray(codes), lens
+
+
+def _equal_fields(rj, rt):
+    for f in jpa.SideResult._fields:
+        a = np.asarray(getattr(rj, f))
+        b = getattr(rt, f).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+@pytest.mark.parametrize("layout", ["padded", "bucketed"])
+@pytest.mark.parametrize("case", ["ns", "l93", "lens", "short"])
+def test_pseudoalign_batch_matches_jax(indexes, monkeypatch, layout, case):
+    """pseudoalign_batch on unpacked codes: all ten fields equal to JAX's
+    pseudoalign_batch in both layouts."""
+    jindex, tindex = indexes
+    jdidx, tdidx = _layout(jindex, tindex, monkeypatch, layout)
+    codes, lens = _code_batch(tindex, case)
+    rj = jpa.pseudoalign_batch(jdidx, jnp.asarray(codes), jnp.asarray(lens),
+                               k=K)
+    rt = tpa.pseudoalign_batch(tdidx, torch.from_numpy(codes),
+                               torch.from_numpy(lens), K)
+    assert np.asarray(rj.has_hits).any()
+    assert rt.rows.shape[1] == min(16, codes.shape[1] - K + 1)
+    _equal_fields(rj, rt)
+
+
+@pytest.mark.parametrize("layout", ["padded", "bucketed"])
+def test_pseudoalign_batch_on_the_graft_entry_batch(monkeypatch, layout):
+    """The single-chip entry of __graft_entry__.py: its index and
+    batch through the port's pseudoalign_batch equal JAX's."""
+    import __graft_entry__
+
+    index, codes, lens = __graft_entry__._tiny_index_and_batch()
+    jdidx, tdidx = _layout(index, index, monkeypatch, layout)
+    rj = jpa.pseudoalign_batch(jdidx, jnp.asarray(codes), jnp.asarray(lens),
+                               k=index.k)
+    rt = tpa.pseudoalign_batch(tdidx, torch.from_numpy(codes),
+                               torch.from_numpy(lens), index.k)
+    assert np.asarray(rj.has_hits).all()
+    _equal_fields(rj, rt)
+
+
+def test_pseudoalign_batch_refuses_reads_narrower_than_k(indexes):
+    _, tindex = indexes
+    tdidx = tpa.device_index_from_host(tindex, "cpu")
+    with pytest.raises(ValueError):
+        tpa.pseudoalign_batch(tdidx, torch.zeros((4, K - 1), dtype=torch.uint8),
+                              torch.full((4,), K - 1, dtype=torch.int32), K)

@@ -7,6 +7,7 @@ the run statistics and EC tables equal to the JAX run's.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -168,6 +169,44 @@ def test_paired_run_stats_match_golden_and_jax(paired_runs):
     np.testing.assert_array_equal(port.eff_lens, jax.eff_lens)
     assert port.em.n_rounds == jax.em.n_rounds
     np.testing.assert_allclose(port.est_counts, jax.est_counts, rtol=1e-12)
+
+
+# the progress line every T reads, T lowered from 1,000,000 in both
+# packages: the port through its module constant, JAX by counting each read
+# of a batch as 1,000,000 / T reads in its _Progress.update
+PROGRESS_T = 2000
+
+
+@pytest.mark.parametrize("verbose,hw1", [(False, "0"), (True, "0"),
+                                         (True, "1")])
+def test_stderr_matches_jax_with_progress(port_index, monkeypatch, capsys,
+                                          verbose, hw1):
+    """The read loop's stderr -- the progress lines, the done line, and under
+    --verbose the blank line, the throughput line (its figure masked) and
+    host wave 1's verified share -- equals JAX's on a run past the progress
+    threshold (10,000 pairs in batches of 1,000)."""
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", hw1)
+    monkeypatch.setattr(tpipe, "_PROGRESS_EVERY", PROGRESS_T)
+    jupdate = jpipe._Progress.update
+    monkeypatch.setattr(
+        jpipe._Progress, "update",
+        lambda self, n, done: jupdate(self, n * (1000000 // PROGRESS_T),
+                                      done))
+    kw = dict(files=[R1, R2], batch_size=1000, fld_mean=180, fld_sd=20,
+              verbose=verbose)
+    capsys.readouterr()
+    jrun_quant(JOptions(**kw), index=port_index)
+    want = capsys.readouterr().err
+    run_quant(Options(**kw), index=port_index, device="cpu")
+    got = capsys.readouterr().err
+
+    def mask(err):
+        return re.sub(r"throughput: [0-9,]+ reads/s", "throughput: X", err)
+
+    assert "[progress] 0M reads processed" in got
+    assert ("throughput: " in got) == verbose
+    assert ("host wave-1 verified" in got) == (verbose and hw1 == "1")
+    assert mask(got) == mask(want)
 
 
 def test_batch_size_invariance(port_index):

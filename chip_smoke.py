@@ -25,10 +25,15 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
 2. set-up at realistic size: a 10,000-gene isoform-structured transcriptome
    (~29k targets, ~24M distinct 31-mers), its index built by the port's
    numpy builder, and 1,000,000 simulated 2x100 bp pairs;
-3. kernels A (pseudoalign_side) and B (read_keys) on the card against their
-   plain versions on the CPU, at the main path's batch shape (2x100 bp and
-   76 bp reads with random Ns, ragged lengths and reads shorter than k):
-   every field must be equal; then pseudoalign_batch, kernel A on unpacked
+3. kernels A (pseudoalign_side: wave 1, then wave 2, from one call) and B
+   (read_keys) on the card against their plain versions on the CPU, at
+   the main path's batch shape (2x100 bp and 76 bp reads with random Ns,
+   ragged lengths and reads shorter than k): every field must be equal,
+   and A's wave-2 count equal to the plain two-wave composition's
+   (anchor.side_waves_plain, on the card); A timed with its waves alone
+   (wave 2 beside its plain version, the listed share printed); its
+   bound counts the anchors of verified reads and the windows of wave-2
+   reads (_side_bytes); then pseudoalign_batch, kernel A on unpacked
    codes (pseudoalign_codes), on the batch's mate-1 codes (width 100, Ns
    and codes above 4, ragged lengths, reads shorter than k) with the launch
    counts set to 0 just before and read just after (its own path, the
@@ -80,14 +85,15 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    and F slim): every field equal; kernel L (lookup_kmers) against the
    plain lookup_kmers in both layouts on A's windows, invalid ones
    included, and on windows 0 (q = mix64(0)): slot, hit and EC row
-   equal; A on codes held in both layouts; then A and A on codes (262,144
-   reads), D and I (524,288 reads, phases 3b/3d's shape; I also
-   single-end, with its wave-2 share), L (A's windows, with
+   equal; A on codes held in both layouts; A (262,144 reads, phase 3's
+   shape) held in both layouts with its wave-2 count (_hold_a); then A
+   and A on codes (262,144 reads), D and I (524,288 reads, phases 3b/3d's
+   shape; A and I with their wave-2 shares), L (A's windows, with
    torch.searchsorted beside the bucketed form) timed in both layouts, and
-   D, J and K at their held shapes; D and I (paired) again at 524,288 reads
-   on an L2_GENES-gene index whose tables fit in the 50 MB L2 (I held
-   there first); L's bounds count each table sector its probes read once
-   (_sector_ids);
+   D, J and K at their held shapes; A, D and I again at those shapes on
+   an L2_GENES-gene index whose tables fit in the 50 MB L2 (A in both
+   layouts and I held there first); L's bounds count each table sector
+   its probes read once (_sector_ids);
 4. golden bytes (phases 4-4e: every device index that their runs place is
    asserted padded (_padded_runs), so these are the padded path of A, D,
    I, J and K on the card against the goldens):
@@ -123,8 +129,8 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
 5. the main path at realistic size: `quant` of the 1M pairs on the card
    with every launch count set to 0 just before and read just after, the
    kernels A, B, I (both waves), E, F (and its slim layout) and G all
-   launched; checks
-   of its output; the same pairs again with every batch per read (equal EC counts and sets); kernel D's path:
+   launched, and every A call's wave 1 listed reads for its wave 2 (its
+   list lengths read after the run, _side_lists); checks of its output; the same pairs again with every batch per read (equal EC counts and sets); kernel D's path:
    the first 65,536 pairs, mate 1 cut to mixed lengths (96-100 bp), with
    batch 8192 and an FLD goal of 1000, so that the turbo batches take
    kernel D, on the card (counts set to 0 just before, D launched, I not)
@@ -183,9 +189,10 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    and the FLD equal to one device; `bus -x 10xv2` of the first 262,144
    of phase 5c's reads (output.bus and matrix.ec byte-equal to one
    device); `quant-tcc` of the first 1,024 of phase 5e's cells (est_counts
-   bitwise equal); `dryrun_multichip(4)` on the card; K18's step (A + B +
-   E on one shard of 16,384 pairs) held against its plain versions on
-   every shard and timed, the whole 4-shard step beside it;
+   bitwise equal); `dryrun_multichip(4)` on the card; K18's step (A's two
+   waves on both mates, B and E on one shard of 16,384 pairs: six
+   launches) held against its plain versions on every shard and timed,
+   the whole 4-shard step beside it;
 5h. the padded layout end to end: `quant` of phase 3g's 524,288 pairs on
    its padded index with the launch counts set to 0 just before and read
    just after (A, B, I, E, F and G launched, the turbo batches through
@@ -256,11 +263,13 @@ PADDED_HOLD = 65_536
 # phase 3g's long reads for kernel J (phase 3e's stress batch)
 PADDED_LONG = 16_384
 # the main path's kernels (phase 5); H runs under --bias, G also under -b N
-MAIN_PATH_KERNELS = ("pseudoalign_side", "read_keys", "em_step_batch",
+MAIN_PATH_KERNELS = ("pseudoalign_side", "pseudoalign_side_wave2",
+                     "read_keys", "em_step_batch",
                      "pseudoalign_anchor", "pseudoalign_anchor_wave2",
                      "key_histogram", "gather_exemplars", "gather_slim")
-# phase 5h's quant on the padded index: A, B, I (both waves), E, F and G
-PADDED_PATH_KERNELS = ("pseudoalign_side", "read_keys", "pseudoalign_anchor",
+# phase 5h's quant on the padded index: A and I (both waves), B, E, F and G
+PADDED_PATH_KERNELS = ("pseudoalign_side", "pseudoalign_side_wave2",
+                       "read_keys", "pseudoalign_anchor",
                        "pseudoalign_anchor_wave2", "key_histogram",
                        "gather_exemplars", "em_step_batch")
 # phase 3g: genes of an index whose tables fit in the card's 50 MB L2,
@@ -1726,6 +1735,124 @@ def _anchor_bytes(torch, pa, anchor, didx, codes, real, rl, k, na):
             int(fail.sum()))
 
 
+def _side_bytes(torch, pa, didx, codes, lens, fail, k):
+    """Kernel A's table bytes on its reads (codes [B, L], lens [B], fail:
+    the reads of its wave 2), each sector once: the verified reads' anchor
+    probes (n_anchors_for(len, k) at w_j = (wlast * j) / (n_anchors - 1))
+    and every hit anchor's payload (uid, pos, fw, block), each verified
+    read's two block_ec8 rows, and the wave-2 reads' window probes and
+    first-hit payloads.  Returns (bytes, probes: anchors plus wave-2
+    windows)."""
+    canon, _, valid = pa.rolling_canonical_kmers(codes, lens, k)
+    W = canon.shape[1]
+    ver = ~fail
+    wl = lens[ver].long() - k
+    na = torch.clamp((wl + k - 1) // k + 1, min=2)
+    j = torch.arange(int(na.max()) if na.numel() else 2,
+                     device=codes.device)[None, :]
+    m = j < na[:, None]
+    w = torch.clamp((wl[:, None] * j) // (na[:, None] - 1), 0, W - 1)
+    can_a = canon[ver].gather(1, w)[m]
+    val_a = valid[ver].gather(1, w)[m]
+    idx_a, hit_a, _ = pa.lookup_kmers(didx, can_a, val_a)
+    cf, vf = canon[fail], valid[fail]
+    idx_f, hit_f, _ = pa.lookup_kmers(didx, cf, vf)
+    ids = _sector_ids(
+        torch, pa, didx, torch.cat([can_a, cf.flatten()]),
+        torch.cat([val_a, vf.flatten()]), torch.cat([idx_a, idx_f.flatten()]),
+        torch.cat([hit_a, hit_f.flatten()]),
+        payload=torch.cat([idx_a[hit_a], _first_hits(torch, idx_f, hit_f)]))
+    rid = torch.arange(int(ver.sum()), device=codes.device)[:, None] \
+        .expand_as(w)[m]
+    blo = torch.full((int(ver.sum()),), 2**31 - 1, dtype=torch.int32,
+                     device=codes.device).scatter_reduce(
+        0, rid[hit_a], didx.kmer_block[idx_a[hit_a]], "amin")
+    r0 = blo.clamp(min=0) >> 3
+    ids["block_ec8"] = torch.unique(torch.cat([r0, r0 + 1]))
+    return 32 * _n_sectors(didx, ids), int(can_a.numel() + cf.numel())
+
+
+def _hold_a(torch, pa, anchor, kernels, didx, g_in, L, k, tag):
+    """Kernel A (both waves) against its plain version and the plain
+    two-wave composition (anchor.side_waves_plain), all on the card: every
+    field equal, and its wave-2 count equal to the composition's failing
+    reads.  Returns the composition's fail mask."""
+    R = min(16, L - k + 1)
+    g, _, nf = kernels.pseudoalign_side(didx, *g_in, k, L, R)
+    c = pa.pseudoalign_batch_packed_plain(didx, *g_in, k, L)
+    w, fail = anchor.side_waves_plain(didx, *g_in, k, L)
+    torch.cuda.synchronize()
+    _equal_sides(torch, pa, pa.SideResult(*g), c, f"kernel A {tag}")
+    _equal_sides(torch, pa, w, c, f"plain two-wave composition {tag}")
+    B = int(g_in[2].shape[0])
+    check(int(nf) == int(fail.sum()), f"kernel A {tag}: {int(nf)} of {B} "
+          f"reads in wave 2 ({int(nf) / max(B, 1):.4f}), as the plain "
+          "composition lists them")
+    return fail
+
+
+def _time_side_waves(torch, pa, kernels, didx, g_in, L, k, fail):
+    """Kernel A's two launches timed alone on one batch (g_in on the card,
+    fail: its wave-2 reads): wave 1, and wave 2 on the reads wave 1
+    listed, with wave 2's plain version (the dense core on those reads)
+    and bound (their window probes and first-hit payloads, each table
+    sector once, their packed rows and N masks, the list and the
+    outputs).  Returns wave 2's row fields and wave 1's ms."""
+    R = min(16, L - k + 1)
+    lists = kernels.pseudoalign_side(didx, *g_in, k, L, R, waves=1)
+    ms1 = cuda_ms(lambda: kernels.pseudoalign_side(didx, *g_in, k, L, R,
+                                                   waves=1), 10, torch)
+    ms2 = cuda_ms(lambda: kernels.pseudoalign_side(didx, *g_in, k, L, R,
+                                                   waves=2, lists=lists),
+                  10, torch)
+    n = int(lists[2])
+    sel = torch.nonzero(fail).squeeze(1)
+    sub = [t[sel].contiguous() for t in g_in]
+    plain = cuda_ms(lambda: pa.pseudoalign_batch_packed_plain(
+        didx, *sub, k, L), 3, torch)
+    codes = pa.unpack_codes(sub[0], sub[1], L)
+    table, n_win, _, _ = _window_bytes(torch, pa, didx, codes, sub[2], k)
+    io = n * (L // 4 + L // 8 + 4 + 4 + 4 * R + 27) + 8
+    bnd = bound(table + io, 250 * n_win, PEAK_INT_OPS)
+    B = int(g_in[2].shape[0])
+    log(f"kernel A's waves alone: wave 1 {ms1:.3f} ms on {B} reads, wave 2 "
+        f"{ms2:.3f} ms on {n} listed reads ({n / B:.4f}; plain on card "
+        f"{plain:.3f} ms, bound {bnd[0]:.4f} ms)")
+    return dict(ms=ms2, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                reads=n, wave1_ms=ms1, wave2_share=n / B)
+
+
+@contextlib.contextmanager
+def _side_lists(kernels):
+    """Records every kernel A call made in the block: (its reads, n_fail,
+    the length of its wave-2 list, left on the card until read)."""
+    got, real = [], kernels.pseudoalign_side
+
+    def spy(didx, packed, nmask, lens, *args, **kw):
+        r = real(didx, packed, nmask, lens, *args, **kw)
+        got.append((int(lens.shape[0]), r[2]))
+        return r
+
+    kernels.pseudoalign_side = spy
+    try:
+        yield got
+    finally:
+        kernels.pseudoalign_side = real
+
+
+def _check_side_lists(got, launches, tag):
+    """Every kernel A call of a run (_side_lists) that had reads launched
+    wave 1 and then wave 2, and its wave 1 listed some of its reads for
+    wave 2: the run's wave-2 launches are those calls."""
+    calls = [(b, int(nf)) for b, nf in got if b]
+    n = launches["pseudoalign_side"]
+    check(launches["pseudoalign_side_wave2"] == n == len(calls)
+          and all(0 < nf <= b for b, nf in calls),
+          f"{tag}: kernel A's {n} wave-2 launches each after a wave 1 that "
+          f"listed reads ({sum(nf for _, nf in calls)} of "
+          f"{sum(b for b, _ in calls)})")
+
+
 def _time_layouts(torch, fn, dp, db, reps):
     """fn(didx) timed on the padded and the bucketed index, in turns
     (padded, bucketed, bucketed, padded): the medians of each."""
@@ -1823,18 +1950,38 @@ def _index_set(torch, np, pa, fastx, build_index, generate_transcriptome,
 
 
 def _same_shape_times(torch, np, pa, kernels, fastx, dp, db, rbs, k, dev,
-                      rng, tag):
-    """D and I on the pairs of rbs (2x100 bp, sparse Ns): I held against its
-    plain version on dp, then D and I (paired and single-end) timed on dp
-    and db in turns (_time_layouts), with I's wave-2 share on dp.  The
-    batch shape of phases 3b and 3d (Bp = 262,144 pairs), so that the
-    index alone differs.  Returns the times."""
+                      rng, tag, pbA):
+    """A on pbA (phase 3's shape: mate 1 of rbs as ragged_batch makes it)
+    held in both layouts (_hold_a) and timed on dp and db in turns
+    (_time_layouts), with its wave-2 share; then D and I on the pairs of
+    rbs (2x100 bp, sparse Ns): I held against its plain version on dp,
+    then D and I (paired and single-end) timed on dp and db in turns, with
+    I's wave-2 share on dp.  The batch shapes of phases 3, 3b and 3d (B =
+    Bp = 262,144), so that the index alone differs.  Returns the times
+    (A's also its bound on dp)."""
+    from kallisto_tpu_torch.ops import anchor
+
+    gA = pa.upload_batch(pbA, dev)
+    LA, BA = pbA.Lp, pbA.n
+    RA = min(16, LA - k + 1)
+    fails = [_hold_a(torch, pa, anchor, kernels, d, gA, LA, k,
+                     f"{tag}, {type(d).__name__}, B={BA} Lp={LA}")
+             for d in (dp, db)]
+    out = {"a_reads": BA, "a_wave2_share": int(fails[0].sum()) / BA}
+    out["a_ms_1"], out["a_ms_2"] = _time_layouts(
+        torch, lambda d: kernels.pseudoalign_side(d, *gA, k, LA, RA), dp, db,
+        10)
+    codes = pa.unpack_codes(gA[0], gA[1], LA)
+    tab, n_probe = _side_bytes(torch, pa, dp, codes, gA[2], fails[0], k)
+    io = pbA.packed.nbytes + pbA.nmask.nbytes + 4 * BA + BA * (4 * RA + 27)
+    out["a_bound_ms_1"] = bound(io + tab, 250 * n_probe, PEAK_INT_OPS)[0]
+    del gA, codes, fails
     Bp = rbs[0].n
     packed, aux, _, L, rl = _turbo_inputs(
         torch, np, _sparse_pairs(np, fastx, rbs, Bp, k, rng), Bp, dev)
     _hold_i(torch, pa, kernels, dp, packed, aux, k, L, rl,
             f"{tag}, {2 * Bp} reads")
-    out = {"reads": 2 * Bp}
+    out["reads"] = 2 * Bp
     out["d_ms_1"], out["d_ms_2"] = _time_layouts(
         torch, lambda d: _launch_d(kernels, d, (packed, aux, None, L, rl), k),
         dp, db, 10)
@@ -1846,7 +1993,8 @@ def _same_shape_times(torch, np, pa, kernels, fastx, dp, db, rbs, k, dev,
         out[f"i_{form}_wave2_share"] = nf / (len(sides) * Bp)
     log(f"{tag} ({type(dp).__name__} {dp.nbytes()} B, then "
         f"{type(db).__name__} {db.nbytes()} B), {2 * Bp} reads: " + ", ".join(
-            f"{key} {v:.4f}" for key, v in out.items() if key != "reads"))
+            f"{key} {v:.4f}" for key, v in out.items()
+            if key not in ("reads", "a_reads")))
     return out
 
 
@@ -1905,18 +2053,11 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     n = min(PADDED_HOLD, rbs[0].n)
     out = {}
 
-    # -- A: phase 3's shape (ragged_batch); held on the first n reads,
-    # timed on all of them
+    # -- A's batch: phase 3's shape (ragged_batch), held and timed in both
+    # layouts by _same_shape_times below; its windows are L's queries
     pbA = ragged_batch(rbs[0].codes, rbs[0].lens, k, rng, fastx)
     gA = pa.upload_batch(pbA, dev)
     LA = pbA.Lp
-    RA = min(16, LA - k + 1)
-    hA = [t[:n] for t in gA]
-    g = pa.pseudoalign_batch_packed(dp, *hA, k=k, L=LA)
-    c = pa.pseudoalign_batch_packed_plain(dp, *hA, k=k, L=LA)
-    torch.cuda.synchronize()
-    _equal_sides(torch, pa, g, c, f"kernel A, padded index, B={n} Lp={LA}")
-    del hA, g, c
     # -- A on codes: the first n reads, held in both layouts, timed on all
     cn, ln = _code_batch(np, rbs[0].codes, rbs[0].lens, k, rng)
     codes_c, lens_c = _put(torch, np, cn, dev), _put(torch, np, ln, dev)
@@ -1932,22 +2073,11 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     del codes_c, lens_c
     codes = pa.unpack_codes(gA[0], gA[1], LA)
     canon, _, valid = pa.rolling_canonical_kmers(codes, gA[2], k)
-    tab_a = _window_bytes(torch, pa, dp, codes, gA[2], k)[0]
-    del codes
+    del codes, gA
 
     # -- L: A's windows, both layouts
     out["lookup_kmers"] = _hold_l(torch, pa, kernels, dp, db, canon, valid, n)
     del canon, valid
-    ms_ap, ms_ab = _time_layouts(torch, lambda d: kernels.pseudoalign_side(
-        d, *gA, k, LA, RA), dp, db, 10)
-    B = pbA.n
-    io_a = pbA.packed.nbytes + pbA.nmask.nbytes + 4 * B + B * (4 * RA + 27)
-    bnd_ap = bound(io_a + tab_a, 250 * B * (LA - k + 1), PEAK_INT_OPS)
-    out["pseudoalign_side"] = dict(ms_padded=ms_ap, ms_bucketed_5h=ms_ab,
-                                   bound_ms_padded=bnd_ap[0], reads_5h=B)
-    log(f"kernel A on {B} reads: padded {ms_ap:.3f} ms (bound "
-        f"{bnd_ap[0]:.4f} ms), bucketed {ms_ab:.3f} ms")
-    del gA
 
     # -- D and I: phase 3b's and 3d's paired turbo batch, n / 2 pairs
     n2 = n // 2
@@ -1967,7 +2097,15 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     # D and I at phases 3b/3d's batch shape, both layouts; then the same on
     # an index whose bucketed tables fit in the L2
     t = _same_shape_times(torch, np, pa, kernels, fastx, dp, db, rbs, k, dev,
-                          rng, f"{PADDED_GENES}-gene index")
+                          rng, f"{PADDED_GENES}-gene index", pbA)
+    out["pseudoalign_side"] = dict(
+        ms_padded=t["a_ms_1"], ms_bucketed_5h=t["a_ms_2"],
+        bound_ms_padded=t["a_bound_ms_1"], reads_5h=t["a_reads"],
+        wave2_share_5h=t["a_wave2_share"])
+    log(f"kernel A on {t['a_reads']} reads: padded {t['a_ms_1']:.3f} ms "
+        f"(bound {t['a_bound_ms_1']:.4f} ms), bucketed {t['a_ms_2']:.3f} ms, "
+        f"wave 2 {t['a_wave2_share']:.4f}")
+    del pbA
     for form in ("paired", "single"):
         out["pseudoalign_anchor_" + form] = dict(
             ms_padded=t[f"i_{form}_ms_1"], ms_bucketed_5h=t[f"i_{form}_ms_2"],
@@ -1984,7 +2122,8 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
           f"the 50 MB L2 ({type(dl).__name__}: {dl.nbytes()} bytes)")
     out["l2_index"] = _same_shape_times(
         torch, np, pa, kernels, fastx, dl, dlb, lrbs, k, dev, rng,
-        f"{L2_GENES}-gene index")
+        f"{L2_GENES}-gene index",
+        ragged_batch(lrbs[0].codes, lrbs[0].lens, k, rng, fastx))
     del dl, dlb, lrbs
 
     # -- J: phase 3e's stress batch, from this transcriptome
@@ -2544,18 +2683,20 @@ def phase_6b(torch, np, emq, bsq, kernels, problem, res, dev):
 
 def _mesh_side_bytes(torch, pa, didx, up, L, k, side):
     """Kernel A's byte bound terms on one shard's mate (phase 3's
-    formula): inputs and outputs once, per valid window one sector of
-    bucket_start and one of the keys, per hit one of kmer_ec, per read
-    with hits four payload sectors."""
+    formula): inputs and outputs once, and the table sectors its anchors,
+    wave-2 windows, payloads and block_ec8 rows read, each once
+    (_side_bytes on the plain two-wave composition's wave-2 reads).
+    Returns (bytes, probes)."""
+    from kallisto_tpu_torch.ops import anchor
+
     packed, nmask, lens = up
     B = int(lens.shape[0])
+    fail = anchor.side_waves_plain(didx, packed, nmask, lens, k, L)[1]
     codes = pa.unpack_codes(packed, nmask, L)
-    canon, _, valid = pa.rolling_canonical_kmers(codes, lens, k)
-    _, hit, _ = pa.lookup_kmers(didx, canon, valid)
+    table, n_probe = _side_bytes(torch, pa, didx, codes, lens, fail, k)
     R = int(side.rows.shape[1])
     return (packed.numel() + nmask.numel() + 4 * B + B * (4 * R + 4 * 6 + 3)
-            + 32 * (2 * int(valid.sum()) + int(hit.sum())
-                    + 4 * int(side.has_hits.sum())))
+            + table, n_probe)
 
 
 def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
@@ -2692,7 +2833,8 @@ def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
     mesh = MeshRunner(devices)
     mesh.replicate(index)
     spec0 = pa.KeySpec(k=k)
-    step_names = ("pseudoalign_side", "read_keys", "key_histogram")
+    step_names = ("pseudoalign_side", "pseudoalign_side_wave2", "read_keys",
+                  "key_histogram")
 
     def hold_k18(pb1, pb2):
         up1, sb = mesh.put_batch(pb1)
@@ -2713,8 +2855,9 @@ def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
         sync()
         per_batch = sum(kernels.LAUNCHES[nm] for nm in step_names)
         check(sb2 == sb == -(-pb1.n // n), f"shard shape {sb} pairs")
-        check(per_batch == 4 * n, f"K18 at {sb} pairs per shard: {per_batch} "
-              f"launches per batch (A on both mates, B and E, per shard)")
+        check(per_batch == 6 * n, f"K18 at {sb} pairs per shard: {per_batch} "
+              f"launches per batch (A's two waves on both mates, B and E, "
+              f"per shard)")
         for s in range(n):
             p1, p2, pck = plain_step(s)
             torch.cuda.synchronize(devices[s])
@@ -2733,11 +2876,12 @@ def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
             plain = cuda_ms(lambda: plain_step(0), 3, torch)
         R = int(r1s[0].rows.shape[1])
         n_uniq = int(cks[0][0, 0])
-        nbytes = (_mesh_side_bytes(torch, pa, d0, up1[0], L, k, r1s[0])
-                  + _mesh_side_bytes(torch, pa, d0, up2[0], L, k, r2s[0])
-                  + sb * (4 * 2 * R + 2 * (2 + 13) + 16 + 4)
+        (b1, p1n), (b2, p2n) = (
+            _mesh_side_bytes(torch, pa, d0, u[0], L, k, r[0])
+            for u, r in ((up1, r1s), (up2, r2s)))
+        nbytes = (b1 + b2 + sb * (4 * 2 * R + 2 * (2 + 13) + 16 + 4)
                   + 12 * sb + 8 * n_uniq + 40 * (sb + 2))
-        bnd = bound(nbytes, 0, PEAK_INT_OPS)
+        bnd = bound(nbytes, 250 * (p1n + p2n), PEAK_INT_OPS)
         log(f"K18: one shard's A + B + E {ms:.4f} ms at {sb} pairs (plain on "
             f"card {plain:.3f} ms, bound {bnd[0]:.4f} ms), {per_batch} "
             "launches per batch")
@@ -2796,6 +2940,7 @@ def main(argv=None):
     from kallisto_tpu_torch.common import Options
     from kallisto_tpu_torch.index import build_index
     from kallisto_tpu_torch.io import fastx
+    from kallisto_tpu_torch.ops import anchor
     from kallisto_tpu_torch.ops import kernels
     from kallisto_tpu_torch.ops import pseudoalign as pa
     from kallisto_tpu_torch.quant import bootstrap as bsq
@@ -2883,10 +3028,14 @@ def main(argv=None):
                 check(a.dtype == b.dtype and torch.equal(a, b),
                       f"kernel A {tag} Lp={pb.Lp}: {f} equal")
             side_gpu[tag], side_cpu[tag] = sg, sc
+            # its wave-2 list against the plain two-wave composition, and
             # this input's data-dependent work, for the bound
-            codes = pa.unpack_codes(c_in[0], c_in[1], pb.Lp)
-            stats_a[tag] = (g_in, *_window_bytes(torch, pa, didx_cpu, codes,
-                                                 c_in[2], k))
+            fail = _hold_a(torch, pa, anchor, kernels, didx, g_in, pb.Lp, k,
+                           f"{tag} Lp={pb.Lp}")
+            codes = pa.unpack_codes(g_in[0], g_in[1], pb.Lp)
+            stats_a[tag] = (g_in, fail, *_side_bytes(torch, pa, didx, codes,
+                                                     g_in[2], fail, k))
+            del codes
         # kernel B: paired on (m1, m2), single-end on r76
         for tag, s1, s2, c1, c2 in (
             ("paired", side_gpu["m1"], side_gpu["m2"], side_cpu["m1"],
@@ -2902,7 +3051,7 @@ def main(argv=None):
                       f"kernel B {tag}: fragment lengths equal")
 
         # timings at the main path's shape (mate 1, 2x100 bp batch)
-        g_in, table_bytes, n_win, n_valid, n_hit = stats_a["m1"]
+        g_in, fail_a, table_bytes, n_probe = stats_a["m1"]
         R = min(16, pb1.Lp - k + 1)
         ms_a = cuda_ms(lambda: kernels.pseudoalign_side(
             didx, *g_in, k, pb1.Lp, R), 10, torch)
@@ -2910,18 +3059,22 @@ def main(argv=None):
             didx, *g_in, k=k, L=pb1.Lp), 3, torch)
         in_bytes = pb1.packed.nbytes + pb1.nmask.nbytes + 4 * B
         out_bytes = B * (4 * R + 4 * 6 + 3)
-        # table_bytes: the sectors its probes and first-hit payloads read,
-        # each once (_window_bytes)
-        ops_a = 250 * n_win
+        # table_bytes: the sectors its anchors, wave-2 windows, payloads
+        # and block_ec8 rows read, each once (_side_bytes)
+        ops_a = 250 * n_probe
         bound_a = bound(in_bytes + out_bytes + table_bytes, ops_a, PEAK_INT_OPS)
+        k3a_w2 = _time_side_waves(torch, pa, kernels, didx, g_in, pb1.Lp, k,
+                                  fail_a)
         s1g, s2g = side_gpu["m1"], side_gpu["m2"]
         ms_b = cuda_ms(lambda: kernels.read_keys(s1g, s2g, k), 20, torch)
         plain_b = cuda_ms(lambda: pa.read_keys_plain(s1g, s2g, k), 5, torch)
         R2 = int(s2g.rows.shape[1])
         bytes_b = B * (4 * (R + R2) + 2 * (2 + 13) + 16 + 4)
         bound_b = bound(bytes_b, B * (R + R2 + 1) * 8, PEAK_INT_OPS)
-        log(f"kernel A: {ms_a:.3f} ms (plain on card {plain_a:.3f} ms), "
-            f"B={B} Lp={pb1.Lp} windows={n_win} valid={n_valid} hits={n_hit}")
+        log(f"kernel A: {ms_a:.3f} ms (plain on card {plain_a:.3f} ms, "
+            f"bound {bound_a[0]:.4f} ms), B={B} Lp={pb1.Lp}, "
+            f"{n_probe} probes, wave 2 {k3a_w2['reads']} reads "
+            f"({k3a_w2['wave2_share']:.4f})")
         log(f"kernel B: {ms_b:.3f} ms (plain on card {plain_b:.3f} ms)")
         k3codes = phase_3_codes(torch, np, pa, kernels, didx, rb1, k, dev, rng)
 
@@ -3049,11 +3202,12 @@ def main(argv=None):
             f"({time.perf_counter() - t_start:.0f} s)")
         torch.cuda.synchronize()
         kernels.reset_launches()
-        t0 = time.perf_counter()
-        res = run_quant(Options(files=[r1p, r2p], plaintext=True),
-                        index=index, device=dev)
-        torch.cuda.synchronize()
-        quant_s = time.perf_counter() - t0
+        with _side_lists(kernels) as a_lists:
+            t0 = time.perf_counter()
+            res = run_quant(Options(files=[r1p, r2p], plaintext=True),
+                            index=index, device=dev)
+            torch.cuda.synchronize()
+            quant_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         log(f"launches on the main path: {launches}")
         for name in MAIN_PATH_KERNELS:
@@ -3079,6 +3233,7 @@ def main(argv=None):
               f"main path: the turbo batches went through kernel I "
               f"({launches['pseudoalign_anchor']} launches, "
               f"{routes['wave2_reads']} reads in wave 2), none through D")
+        _check_side_lists(a_lists, launches, "main path")
         n_uniq_mean = res.timings["n_uniq_sum"] / max(routes["turbo"], 1)
         log(f"quant wall {quant_s:.2f} s = {n_pairs / quant_s:,.0f} pairs/s, "
             f"EM {res.em.n_rounds} rounds; routes {routes}, n_uniq max "
@@ -3291,7 +3446,16 @@ def main(argv=None):
                  launches=launches["pseudoalign_side"], max_abs_err=0.0,
                  ms=ms_a, plain_ms=plain_a, bound_ms=bound_a[0],
                  bound_by=bound_a[1], library_ms=None,
+                 wave1_ms=k3a_w2["wave1_ms"],
+                 wave2_share=k3a_w2["wave2_share"],
                  **k3g["pseudoalign_side"]),
+            # A's wave 2 alone on its list (phase 3's mate-1 batch)
+            dict(name="pseudoalign_side_wave2", route="cuda",
+                 source=csrc + "pseudoalign.cu",
+                 replaces="kallisto_tpu/ops/pseudoalign.py:504",
+                 launches=launches["pseudoalign_side_wave2"], max_abs_err=0.0,
+                 library_ms=None, **{key: v for key, v in k3a_w2.items()
+                                     if key != "wave1_ms"}),
             dict(name="read_keys", route="cuda",
                  source=csrc + "read_keys.cu",
                  replaces="kallisto_tpu/ops/pseudoalign.py:567",
@@ -3356,6 +3520,10 @@ def main(argv=None):
             library_ms=None, **k3codes, **k3g["pseudoalign_codes"]))
         l2 = k3g["l2_index"]
         for r in rows:
+            if r["name"] == "pseudoalign_side":
+                r.update(l2_index_ms_padded=l2["a_ms_1"],
+                         l2_index_ms_bucketed=l2["a_ms_2"],
+                         l2_index_wave2_share=l2["a_wave2_share"])
             if r["name"] == "pseudoalign_turbo":
                 r.update(l2_index_ms_padded=l2["d_ms_1"],
                          l2_index_ms_bucketed=l2["d_ms_2"])

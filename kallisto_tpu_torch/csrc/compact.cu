@@ -53,18 +53,27 @@
 // _gather_single_exemplars (:524): for read indices idx it writes the int32
 // key rows the host resolver reads -- rows1, rows2 (paired), flags with the
 // min_range veto bits, [f_block, f_strand] per mate with strand_key or the
-// position key, [f_upos, f_rpos] per mate with the position key.  One
-// thread per output element.  Bound: bytes, n * width * 4 written plus one
-// sector read per gathered field; a few thousand keys per batch make it a
-// launch-sized kernel.
-//
-// Its slim layout, gather_slim, replaces _gather_pair_slim (pipeline.py:466)
-// read through _make_pair_slim_fetcher (:484) on host wave 1's wave-2
-// slices: per key the first two rows of each mate and the flags has_hits1 +
-// 2 has_hits2 + 4 overflow1 + 8 overflow2, 20 B per key, which the resolver
-// reads to resolve single-row keys in bulk (quant/ecmap.py
-// process_compact_parts).  One thread per key; bound: bytes, 20 B written
-// and five gathered fields read per key.
+// position key, [f_upos, f_rpos] per mate with the position key.  An idx
+// outside [0, B) gets a zero row.  Its slim layout, gather_slim, replaces
+// _gather_pair_slim (pipeline.py:466) read through _make_pair_slim_fetcher
+// (:484) on the anchor route and host wave 1's wave-2 slices: per key the
+// first two rows of each mate and the flags has_hits1 + 2 has_hits2 + 4
+// overflow1 + 8 overflow2, 20 B per key, which the resolver reads to
+// resolve single-row keys in bulk (quant/ecmap.py process_compact_parts).
+// The slim layout keeps its one thread a key (gather_slim_kernel): staged
+// like F, it took 15-27 % longer on the card (PERF.md).
+// What bounds it on the H100: bytes -- per key its row words (64 B a mate
+// at R = 16, contiguous), a few 1-4 B fields of each mate, and the output
+// row (Wd * 4 B, 132 B for a pair without options).  The first design ran
+// one thread per output element (a 64-bit division, a branch chain and one
+// 4-byte load each: ~100 GB/s at 89,000 keys).  Now a group of G lanes
+// (the power of two >= the key's loads, 4-32) takes one key: its rows as
+// 16-byte loads (8 bytes or 4 where the stride or pointer forbids), and
+// the flags and each tail word one lane each; idx ascends in first-read
+// order, so consecutive keys read nearby rows.  A block's 256 / G
+// consecutive keys are staged in shared memory and written as one
+// contiguous span of 16-byte stores (out is [n, Wd] row-major).  Index
+// arithmetic is 32-bit (the wrapper's shapes fit).
 
 #include <cuda_runtime.h>
 
@@ -240,53 +249,111 @@ struct KeySide {
     int R;
 };
 
-__device__ __forceinline__ int kt_veto(const KeySide& s, long long r, int k,
+__device__ __forceinline__ int kt_veto(const KeySide& s, int r, int k,
                                        int min_range) {
     return min_range > 1 && s.has[r] && s.rng[r] + k < min_range;
 }
 
-__global__ void gather_exemplars_kernel(KeySide s1, KeySide s2, int paired,
-                                        const long long* __restrict__ idx,
-                                        long long n, long long Bsrc, int k,
-                                        int min_range, int tail_bs,
-                                        int tail_pos, int Wd,
-                                        int* __restrict__ out) {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n * Wd) return;
-    const long long i = t / Wd;
-    int c = (int)(t - i * Wd);
-    const long long r = idx[i];
-    if (r < 0 || r >= Bsrc) {
-        out[t] = 0;
-        return;
-    }
-    int v;
-    const int ns = paired ? 2 : 1;
-    if (c < s1.R) {
-        v = s1.rows[r * s1.R + c];
-    } else if (paired && c < s1.R + s2.R) {
-        v = s2.rows[r * s2.R + (c - s1.R)];
-    } else {
-        c -= s1.R + (paired ? s2.R : 0);
-        if (c == 0) {
-            v = (int)s1.has[r] + 4 * (int)s1.ovf[r] +
-                16 * kt_veto(s1, r, k, min_range);
-            if (paired)
-                v += 2 * (int)s2.has[r] + 8 * (int)s2.ovf[r] +
-                     32 * kt_veto(s2, r, k, min_range);
+// Kernel F (see the file header): per key, each mate's R row words (V
+// words a load), the flags word, then the tail words; G lanes a key, 256 /
+// G keys a block staged in shared memory, then written as one contiguous
+// span.  The stage starts g0 & 3 words in, so a stage word and its output
+// word agree mod 4 and the span's aligned body moves as int4.
+__global__ void __launch_bounds__(256) gather_exemplars_kernel(
+    KeySide s1, KeySide s2, int paired, const long long* __restrict__ idx,
+    int n, int Bsrc, int k, int min_range, int V, int G, int tail_bs,
+    int Wd, int* __restrict__ out) {
+    extern __shared__ int4 kf_stage4[];
+    int* stage = (int*)kf_stage4;
+    const int kpb = blockDim.x / G;
+    const int key0 = blockIdx.x * kpb;
+    const int nk = min(kpb, n - key0);
+    const int g0 = key0 * Wd;
+    const int sb = g0 & 3;
+    const int q = threadIdx.x / G, j = threadIdx.x % G;
+    if (q < nk) {
+        const long long r64 = idx[key0 + q];
+        int* o = stage + sb + q * Wd;
+        if (r64 < 0 || r64 >= Bsrc) {
+            for (int c = j; c < Wd; c += G) o[c] = 0;
         } else {
-            c -= 1;
-            if (tail_bs && c < 2 * ns) {
-                const KeySide& s = (c >> 1) ? s2 : s1;
-                v = (c & 1) ? (int)s.strand[r] : s.block[r];
-            } else {
-                if (tail_bs) c -= 2 * ns;
-                const KeySide& s = (c >> 1) ? s2 : s1;
-                v = (c & 1) ? s.rpos[r] : s.upos[r];
+            const int r = (int)r64;
+            const int ns = paired ? 2 : 1;
+            const int nu1 = s1.R / V, nu = nu1 + (paired ? s2.R / V : 0);
+            const int nrow = s1.R + (paired ? s2.R : 0);
+            const int items = nu + (Wd - nrow);
+            for (int it = j; it < items; it += G) {
+                // fields are picked one by one: a reference to either
+                // KeySide parameter would put both on the stack
+                if (it < nu) {
+                    const int m = it >= nu1;
+                    const int u = it - (m ? nu1 : 0);
+                    const int* src = (m ? s2.rows : s1.rows) +
+                                     r * (m ? s2.R : s1.R) + u * V;
+                    int* dst = o + (m ? s1.R : 0) + u * V;
+                    if (V == 4) {
+                        const int4 v = __ldg((const int4*)src);
+                        dst[0] = v.x;
+                        dst[1] = v.y;
+                        dst[2] = v.z;
+                        dst[3] = v.w;
+                    } else if (V == 2) {
+                        const int2 v = __ldg((const int2*)src);
+                        dst[0] = v.x;
+                        dst[1] = v.y;
+                    } else {
+                        dst[0] = __ldg(src);
+                    }
+                    continue;
+                }
+                int c = it - nu;
+                int v;
+                if (c == 0) {
+                    v = (int)s1.has[r] + 4 * (int)s1.ovf[r] +
+                        16 * kt_veto(s1, r, k, min_range);
+                    if (paired)
+                        v += 2 * (int)s2.has[r] + 8 * (int)s2.ovf[r] +
+                             32 * kt_veto(s2, r, k, min_range);
+                } else {
+                    c -= 1;
+                    if (tail_bs && c < 2 * ns) {
+                        const int m = c >> 1;
+                        v = (c & 1) ? (int)(m ? s2.strand : s1.strand)[r]
+                                    : (m ? s2.block : s1.block)[r];
+                    } else {
+                        if (tail_bs) c -= 2 * ns;
+                        const int m = c >> 1;
+                        v = (c & 1) ? (m ? s2.rpos : s1.rpos)[r]
+                                    : (m ? s2.upos : s1.upos)[r];
+                    }
+                }
+                o[nrow + (it - nu)] = v;
             }
         }
     }
-    out[t] = v;
+    __syncthreads();
+    // the block's span [g0, g1): its unaligned head and tail a word a
+    // thread, its body 16 bytes a thread
+    const int g1 = g0 + nk * Wd;
+    const int a0 = min((g0 + 3) & ~3, g1);
+    const int a1 = max(g1 & ~3, a0);
+    const int* st = stage + sb;  // st[g - g0] is output word g
+    for (int g = g0 + (int)threadIdx.x; g < a0; g += blockDim.x)
+        out[g] = st[g - g0];
+    for (int g = a1 + (int)threadIdx.x; g < g1; g += blockDim.x)
+        out[g] = st[g - g0];
+    int4* o4 = (int4*)(out + a0);
+    const int4* s4 = (const int4*)(st + (a0 - g0));
+    for (int t = threadIdx.x; t < (a1 - a0) >> 2; t += blockDim.x) o4[t] = s4[t];
+}
+
+// The widest load (4, 2 or 1 words) that a mate's rows allow: row stride
+// and base pointer aligned.
+static int kf_vec(const KeySide* s) {
+    const unsigned long long p = (unsigned long long)s->rows;
+    if (s->R % 4 == 0 && p % 16 == 0) return 4;
+    if (s->R % 2 == 0 && p % 8 == 0) return 2;
+    return 1;
 }
 
 extern "C" int gather_exemplars(const KeySide* s1, const KeySide* s2,
@@ -294,18 +361,34 @@ extern "C" int gather_exemplars(const KeySide* s1, const KeySide* s2,
                                 int k, int min_range, int tail_bs,
                                 int tail_pos, int Wd, void* out,
                                 void* stream) {
-    if (n <= 0) return 0;
     const int paired = s2 != 0;
     const int ns = paired ? 2 : 1;
-    const int want = s1->R + (paired ? s2->R : 0) + 1 +
-                     (tail_bs ? 2 * ns : 0) + (tail_pos ? 2 * ns : 0);
+    const int nrow = s1->R + (paired ? s2->R : 0);
+    const int want = nrow + 1 + (tail_bs ? 2 * ns : 0) + (tail_pos ? 2 * ns : 0);
     if (Wd != want || (tail_pos && !tail_bs)) return (int)cudaErrorInvalidValue;
+    if (n <= 0) return 0;
+    if (n * Wd >= (1LL << 31) || Bsrc * s1->R >= (1LL << 31) ||
+        (paired && Bsrc * s2->R >= (1LL << 31)) ||
+        ((unsigned long long)out & 15))
+        return (int)cudaErrorInvalidValue;
+    int V = kf_vec(s1);
+    if (paired) V = min(V, kf_vec(s2));
+    const int items = nrow / V + (Wd - nrow);
+    int G = 4;
+    while (G < items && G < 32) G <<= 1;
+    const int kpb = 256 / G;
+    const size_t smem = ((size_t)kpb * Wd + 4) * sizeof(int);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            gather_exemplars_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
     KeySide none = *s1;
-    const long long total = n * Wd;
-    gather_exemplars_kernel<<<(unsigned int)((total + 255) / 256), 256, 0,
+    gather_exemplars_kernel<<<(unsigned int)((n + kpb - 1) / kpb), 256, smem,
                               (cudaStream_t)stream>>>(
-        *s1, paired ? *s2 : none, paired, (const long long*)idx, n, Bsrc, k,
-        min_range, tail_bs, tail_pos, Wd, (int*)out);
+        *s1, paired ? *s2 : none, paired, (const long long*)idx, (int)n,
+        (int)Bsrc, k, min_range, V, G, tail_bs, Wd, (int*)out);
     return (int)cudaGetLastError();
 }
 

@@ -29,13 +29,14 @@
 // of ops/pseudoalign.py in both layouts.  No run loop launches it; it is
 // the yardstick of the probe (chip_smoke.py times it in both layouts).
 //
-// One per-read core, kt_core, serves kernels A, A on codes, D, I's wave 2
-// and K's failed mate; only the decode in front of it differs:
-//   A, pseudoalign_side -- the JAX device program
+// One per-read core, kt_core, serves kernels A's wave 2, A on codes, D,
+// I's wave 2 and K's failed mate; only the decode in front of it differs:
+//   A's wave 2 (pseudoalign_side_wave2_kernel) -- the JAX device program
 //     kallisto_tpu/ops/pseudoalign.py pseudoalign_batch_packed (:479):
 //     unpack_codes_device (:469), rolling_canonical_kmers (:385),
 //     lookup_kmers (:316-382) and _pseudoalign_core (:504-564), on packed
-//     codes with an N bitmask;
+//     codes with an N bitmask, for the reads that A's wave 1 (below)
+//     could not verify;
 //   A on codes, pseudoalign_codes -- pseudoalign_batch (:493), the same
 //     core on unpacked [B, L] uint8 codes (any L >= k; a code above 3 is
 //     an N), packed per read in the warp by three ballots per 32 columns;
@@ -104,6 +105,38 @@
 // is always looked up (with q = mix64(0) when it is invalid), and its
 // orientation comes from its bases with N read as 0.  Padding reads of
 // kernel D have length 0 and follow the same rule.
+//
+// Kernel A, pseudoalign_side (wave 1, pseudoalign_side_kernel, then wave
+// 2, pseudoalign_side_wave2_kernel, from one C call), is
+// pseudoalign_batch_packed as two launches on one stream, in the manner of
+// kernel I below, and gives every read the dense core's ten fields bit for
+// bit; its wave 1 shares kernel I's anchor check, block rows and failure
+// list (kt_anchor_check, kt_block_rows, kt_fail_append).  Wave 1: a group of g lanes per read (g the power of two >=
+// n_anchors_for(Lp, k), at most 32: eight 100 bp reads a warp).  Each
+// read uses its own length: wlast = len - k, n_anchors_for(len, k)
+// anchors at w_j = (wlast * j) / (n_anchors - 1), lanes past its count
+// idle.  Lane j builds anchor j's k-mers from the 8-9 packed bytes that
+// hold them and reads the window's k bits of the N bitmask (an N fails
+// the read), probes (kt_probe) and reads uid, pos, fw and block on a hit.
+// A read is verified when every anchor hits one unitig on one strand at
+// upos_0 + sgn * w_j, its block range [blo, bhi] lies in two 8-wide rows
+// of block_ec8 and, where R = min(max_rows, Lp - k + 1) < 16, holds at
+// most R candidates.  Consecutive anchors are at most k apart, so their
+// windows cover the read: it equals a stretch of that unitig, every
+// window hits it where the anchors say, and its distinct EC rows are the
+// block ECs of [blo, bhi] (never more than R, so overflow is 0); its first
+// hit is anchor 0 (f_rpos 0) and rng = wlast.  A verified read writes all
+// ten fields; every other read -- shorter than k or longer than Lp,
+// length 0, an N in the read, a miss or a disagreement, a range past two
+// rows -- goes to a list on the card (one warp-aggregated atomic a warp),
+// so the core's traps (window 0's f_strand of a hitless read) stay the
+// core's own.  Wave 2 (a grid sized by occupancy that reads the list's
+// count on the card, no host round trip) runs A's decode (kt_decode_nmask)
+// and the core on each listed read.  ops/anchor.py side_waves_plain is
+// the same split in plain PyTorch (the tests hold it equal to the dense
+// plain version).  What bounds it: as kernel I, n_anchors lookups and
+// two 32-byte block_ec8 rows a verified read, and the core's per-window
+// table reads for the wave-2 share.
 //
 // Kernel I, pseudoalign_anchor (wave 1) and pseudoalign_anchor_wave2,
 // replaces the two-wave anchor program, kallisto_tpu/ops/anchor.py
@@ -403,6 +436,110 @@ __device__ __forceinline__ int kt_group_all(int p, int g) {
     const int gbase = (threadIdx.x & 31) & ~(g - 1);
     const unsigned gm = g == 32 ? KT_FULL : ((1u << g) - 1u) << gbase;
     return (__ballot_sync(KT_FULL, p) & gm) == gm;
+}
+
+// ------------------------------------------- anchor waves (kernels A and I)
+
+// One read's anchors, checked by its group of g lanes (wave 1 of kernels A
+// and I).  The read has na anchors (0 for none) at w_j = (wlast * j) /
+// (na - 1), NA the most any read of the warp has; lane jl takes anchors
+// jl, jl + g, ...  fetch(j, w, hit, uid, upos, strand, blk) builds and
+// probes anchor j at window w, setting the payload on a hit (and strand
+// as its kernel wants it on a miss).  all_ok: every anchor hits one unitig
+// on one strand at upos_0 + sgn * w_j; [blo, bhi]: the anchors' blocks (a
+// miss counts block 0); uid0 ... blk0: anchor 0's payload.
+struct KtAnchors {
+    int all_ok, blo, bhi, uid0, upos0, str0, blk0;
+};
+
+template <typename Fetch>
+__device__ __forceinline__ KtAnchors kt_anchor_check(int NA, int na, int wlast,
+                                                     int g, int jl,
+                                                     Fetch fetch) {
+    KtAnchors r = {1, KT_INT32_MAX, -KT_INT32_MAX - 1, 0, 0, 0, 0};
+    for (int base = 0; base < NA; base += g) {
+        const int j = base + jl;
+        const int a = j < na;
+        int hit = 0, uid = -1, upos = 0, strand = 0, blk = 0, w = 0;
+        if (a) {
+            w = (int)(((long long)wlast * j) / (na - 1));
+            fetch(j, w, hit, uid, upos, strand, blk);
+            r.blo = min(r.blo, blk);
+            r.bhi = max(r.bhi, blk);
+        }
+        if (base == 0) {
+            r.uid0 = __shfl_sync(KT_FULL, uid, 0, g);
+            r.upos0 = __shfl_sync(KT_FULL, upos, 0, g);
+            r.str0 = __shfl_sync(KT_FULL, strand, 0, g);
+            r.blk0 = __shfl_sync(KT_FULL, blk, 0, g);
+        }
+        const int sgn = r.str0 ? 1 : -1;
+        const int lane_ok = !a || (hit && uid == r.uid0 && strand == r.str0 &&
+                                   upos == r.upos0 + sgn * w);
+        r.all_ok &= kt_group_all(lane_ok, g);
+    }
+    r.blo = kt_group_min(r.blo, g);
+    r.bhi = kt_group_max(r.bhi, g);
+    return r;
+}
+
+// A verified read's rows (ok; wave 1 of kernels A and I): the block ECs of
+// [blo, bhi], which lie in two 8-wide rows of block_ec8, spread over the
+// group (entry c in cv[c / g] of lane c mod g), then written in ascending
+// order by rounds of group minimum to rows[0, Rv), lane s mod g writing
+// slot s where `write`.  Returns how many; *last is the largest (-1 for
+// none), so cv's entries above it are the ones past Rv.
+__device__ __forceinline__ int kt_block_rows(const int* __restrict__ be8,
+                                             long long n_be8, int ok, int blo,
+                                             int bhi, int g, int jl, int Rv,
+                                             int write, int* rows, int (&cv)[8],
+                                             int* last) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+        const int c = jl + g * t;
+        cv[t] = KT_INT32_MAX;
+        if (ok && c < 16) {
+            const long long fid = (long long)(blo >> 3) * 8 + c;
+            if (fid <= bhi && fid >= blo && fid < n_be8) {
+                const int e = be8[fid];
+                if (e >= 0) cv[t] = e;
+            }
+        }
+    }
+    int prev = -1, nr = 0;
+    for (int s = 0; s < Rv; ++s) {
+        int mm = KT_INT32_MAX;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+            if (cv[t] > prev && cv[t] < mm) mm = cv[t];
+        mm = kt_group_min(mm, g);
+        if (mm != KT_INT32_MAX) {
+            if (write && jl == s % g) rows[s] = mm;
+            prev = mm;
+            ++nr;
+        }
+        if (__all_sync(KT_FULL, mm == KT_INT32_MAX)) break;
+    }
+    *last = prev;
+    return nr;
+}
+
+// The failing reads of a warp's groups (fail, voted by lane jl 0 of each)
+// appended to fail_list, counted in n_fail: one atomic per warp.
+__device__ __forceinline__ void kt_fail_append(int fail, int jl, long long read,
+                                               int* __restrict__ fail_list,
+                                               unsigned long long* n_fail) {
+    const int lane = threadIdx.x & 31;
+    const unsigned lead = __ballot_sync(KT_FULL, fail && jl == 0);
+    if (lead) {
+        const int leader = __ffs(lead) - 1;
+        unsigned long long at = 0;
+        if (lane == leader)
+            at = atomicAdd(n_fail, (unsigned long long)__popc(lead));
+        at = __shfl_sync(KT_FULL, at, leader);
+        if (fail && jl == 0)
+            fail_list[at + __popc(lead & ((1u << lane) - 1u))] = (int)read;
+    }
 }
 
 // The exception list's splitters in shared memory: s[i] = exc[min((i + 1)
@@ -786,17 +923,107 @@ __device__ void kt_decode_exc(const KtWarpMem& m, int Lc,
     __syncwarp();
 }
 
+// Kernel A, wave 1: a group of g lanes per read of the B packed reads
+// (see the file header); failing reads go to fail_list, counted in n_fail.
+// NA is the anchor count at the padded length Lp, the most a read has.
 __global__ void pseudoalign_side_kernel(
+    IndexView ix,
+    const int* __restrict__ be8,               // [n_be8] block_ec8, flat
+    long long n_be8,
+    const unsigned char* __restrict__ packed,  // [B, Lp/4]
+    const unsigned char* __restrict__ nmask,   // [B, Lp/8]
+    const int* __restrict__ lens,              // [B]
+    int B, int Lp, int k, int R, int NA, int g, SideOut o,
+    int* __restrict__ fail_list, unsigned long long* __restrict__ n_fail) {
+    const int lane = threadIdx.x & 31;
+    const int jl = lane & (g - 1);
+    const int rpw = 32 / g;
+    const int gw = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+    const int nw = (int)(((long long)gridDim.x * blockDim.x) >> 5);
+    const int LB = Lp >> 2, NB = Lp >> 3;
+    const unsigned long long kmask =
+        k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
+    const unsigned long long nmk = (1ULL << k) - 1ULL;
+    const int fsh = 64 - 2 * k;
+    const int Rv = R < 16 ? R : 16;
+
+    for (int rb = gw * rpw; rb < B; rb += nw * rpw) {
+        const int read = rb + lane / g;
+        const int act = read < B;
+        const int rd = act ? read : B - 1;  // writes nothing
+        const int len = lens[rd];
+        // a read of k to Lp bases has anchors; any other goes to wave 2
+        const int cand = act && len >= k && len <= Lp;
+        const int wlast = cand ? len - k : 0;
+        const int na = cand ? max(2, (wlast + k - 1) / k + 1) : 0;
+        const unsigned char* pkr = packed + (long long)rd * LB;
+        const unsigned char* nmr = nmask + (long long)rd * NB;
+
+        const KtAnchors an = kt_anchor_check(
+            NA, na, wlast, g, jl,
+            [&](int, int w, int& hit, int& uid, int& upos, int& strand,
+                int& blk) {
+                // an N in an anchor's window fails the read: the anchors'
+                // windows cover the read, so a verified read has none
+                if ((kt_row_bits(nmr, NB, w, k) & nmk) != 0) return;
+                const unsigned long long x = kt_row_bits(pkr, LB, 2 * w, 2 * k);
+                const unsigned long long f = kt_rev2(x) >> fsh;
+                const unsigned long long r = ~x & kmask;
+                const int isfw = f <= r;
+                long long idx;
+                int e;
+                hit = kt_probe(ix, kt_mix64(isfw ? f : r), &idx, &e);
+                if (hit) {
+                    strand = isfw == (int)(ix.fw[idx] != 0);
+                    uid = ix.uid[idx];
+                    upos = ix.pos[idx];
+                    blk = ix.block[idx];
+                }
+            });
+        // verified: the range within two 8-wide rows of block_ec8 and, where
+        // R < 16, no more candidates than R (then the read cannot overflow)
+        const int ok = cand && an.all_ok && an.blo >= 0 &&
+                       (an.bhi >> 3) <= (an.blo >> 3) + 1 &&
+                       (R >= 16 || an.bhi - an.blo < R);
+        int* rrow = o.rows + (long long)read * R;
+        int cv[8], last;
+        const int nr = kt_block_rows(be8, n_be8, ok, an.blo, an.bhi, g, jl, Rv,
+                                     ok, rrow, cv, &last);
+        if (ok) {
+            for (int s = nr + jl; s < R; s += g) rrow[s] = KT_INT32_MAX;
+            if (jl == 0) {
+                o.n_rows[read] = nr;
+                o.has_hits[read] = 1;
+                o.overflow[read] = 0;
+                o.f_uid[read] = an.uid0;
+                o.f_block[read] = an.blk0;
+                o.f_upos[read] = an.upos0;
+                o.f_rpos[read] = 0;
+                o.f_strand[read] = (unsigned char)an.str0;
+                o.rng[read] = wlast;
+            }
+        }
+        kt_fail_append(act && !ok, jl, read, fail_list, n_fail);
+    }
+}
+
+// Kernel A, wave 2: its decode and the core on every read of
+// fail_list[0, *n_fail), one warp a read.
+__global__ void pseudoalign_side_wave2_kernel(
     IndexView ix,
     const unsigned char* __restrict__ packed,  // [B, Lp/4]
     const unsigned char* __restrict__ nmask,   // [B, Lp/8]
     const int* __restrict__ lens,              // [B]
-    int B, int Lp, int k, int R, int warp_bytes, SideOut o) {
+    int Lp, int k, int R, int warp_bytes, SideOut o,
+    const int* __restrict__ fail_list,
+    const unsigned long long* __restrict__ n_fail) {
     const KtWarpMem m = kt_warp_mem(Lp, warp_bytes);
     const int wpb = blockDim.x >> 5;
     const int W = Lp - k + 1;
-    for (long long read = (long long)blockIdx.x * wpb + (threadIdx.x >> 5);
-         read < B; read += (long long)gridDim.x * wpb) {
+    const long long n = (long long)*n_fail;
+    for (long long i = (long long)blockIdx.x * wpb + (threadIdx.x >> 5); i < n;
+         i += (long long)gridDim.x * wpb) {
+        const long long read = fail_list[i];
         kt_decode_nmask(m, Lp, packed + read * (Lp >> 2),
                         nmask + read * (Lp >> 3));
         kt_core(ix, m.pk, m.nm, m.wrows, read, lens[read], W, k, R, R, o);
@@ -872,7 +1099,6 @@ __global__ void pseudoalign_anchor_kernel(
     const long long B = Bp * ns;
     const int long_enough = rlen >= k;
     const int wlast = rlen - k > 0 ? rlen - k : 0;
-    const int n_gaps = n_anchors - 1;
     const int LB = Lp >> 2;
     const unsigned long long kmask =
         k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
@@ -891,14 +1117,10 @@ __global__ void pseudoalign_anchor_kernel(
         const long long lo_key = rd * (long long)Lp;
         const long long ea = kt_exc_lower(sp, exc, n_exc, lo_key);
 
-        int all_ok = 1, blo = KT_INT32_MAX, bhi = -KT_INT32_MAX - 1;
-        int uid0 = 0, upos0 = 0, str0 = 0, blk0 = 0;
-        for (int base = 0; base < n_anchors; base += g) {
-            const int j = base + jl;
-            const int a = j < n_anchors;
-            int hit = 0, uid = -1, upos = 0, strand = 0, blk = 0, w = 0;
-            if (a) {
-                w = (int)(((long long)wlast * j) / n_gaps);
+        const KtAnchors an = kt_anchor_check(
+            n_anchors, n_anchors, wlast, g, jl,
+            [&](int j, int w, int& hit, int& uid, int& upos, int& strand,
+                int& blk) {
                 unsigned long long x = kt_row_bits(src, LB, 2 * w, 2 * k);
                 int bad = 0;
                 for (long long e = ea; e < n_exc; ++e) {
@@ -928,89 +1150,37 @@ __global__ void pseudoalign_anchor_kernel(
                         blk = ix.block[idx];
                     }
                 }
-                blo = min(blo, blk);
-                bhi = max(bhi, blk);
-            }
-            if (base == 0) {
-                uid0 = __shfl_sync(KT_FULL, uid, 0, g);
-                upos0 = __shfl_sync(KT_FULL, upos, 0, g);
-                str0 = __shfl_sync(KT_FULL, strand, 0, g);
-                blk0 = __shfl_sync(KT_FULL, blk, 0, g);
-            }
-            const int sgn = str0 ? 1 : -1;
-            const int lane_ok = !a || (hit && uid == uid0 && strand == str0 &&
-                                       upos == upos0 + sgn * w);
-            all_ok &= kt_group_all(lane_ok, g);
-        }
-        blo = kt_group_min(blo, g);
-        bhi = kt_group_max(bhi, g);
-        const int ok = all_ok && (bhi >> 3) <= (blo >> 3) + 1 && blo >= 0 &&
-                       real && long_enough;
-
-        // a verified read's rows: the block ECs of [blo, bhi] in two 8-wide
-        // rows of block_ec8, spread over the group (entry c at lane c mod
-        // g), by rounds of group minimum
-        int cv[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-            const int c = jl + g * t;
-            cv[t] = KT_INT32_MAX;
-            if (ok && c < 16) {
-                const long long fid = (long long)(blo >> 3) * 8 + c;
-                if (fid <= bhi && fid >= blo && fid < n_be8) {
-                    const int e = be8[fid];
-                    if (e >= 0) cv[t] = e;
-                }
-            }
-        }
-        int prev = -1, nr = 0;
-        for (int s = 0; s < Rv; ++s) {
-            int mm = KT_INT32_MAX;
-#pragma unroll
-            for (int t = 0; t < 8; ++t)
-                if (cv[t] > prev && cv[t] < mm) mm = cv[t];
-            mm = kt_group_min(mm, g);
-            if (mm != KT_INT32_MAX) {
-                if (act && jl == s % g) o.rows[read * R + s] = mm;
-                prev = mm;
-                ++nr;
-            }
-            if (__all_sync(KT_FULL, mm == KT_INT32_MAX)) break;
-        }
+            });
+        const int ok = an.all_ok && (an.bhi >> 3) <= (an.blo >> 3) + 1 &&
+                       an.blo >= 0 && real && long_enough;
+        int* rrow = o.rows + read * R;
+        int cv[8], last;
+        const int nr = kt_block_rows(be8, n_be8, ok, an.blo, an.bhi, g, jl, Rv,
+                                     act, rrow, cv, &last);
         int ovl = 0;
 #pragma unroll
         for (int t = 0; t < 8; ++t)
-            ovl |= cv[t] > prev && cv[t] != KT_INT32_MAX;
+            ovl |= cv[t] > last && cv[t] != KT_INT32_MAX;
         const int ov = !kt_group_all(!ovl, g);
 
         const int fail = act && !ok && real && long_enough;
         if (act && !fail) {
             // verified, or padding (and every read when rlen < k)
             for (int s = (ok ? nr : 0) + jl; s < R; s += g)
-                o.rows[read * R + s] = KT_INT32_MAX;
+                rrow[s] = KT_INT32_MAX;
             if (jl == 0) {
                 o.n_rows[read] = ok ? nr : 0;
                 o.has_hits[read] = (unsigned char)ok;
                 o.overflow[read] = (unsigned char)(ok && ov);
-                o.f_uid[read] = ok ? uid0 : -1;
-                o.f_block[read] = ok ? blk0 : -1;
-                o.f_upos[read] = ok ? upos0 : -1;
+                o.f_uid[read] = ok ? an.uid0 : -1;
+                o.f_block[read] = ok ? an.blk0 : -1;
+                o.f_upos[read] = ok ? an.upos0 : -1;
                 o.f_rpos[read] = ok ? 0 : -1;
-                o.f_strand[read] = (unsigned char)str0;
+                o.f_strand[read] = (unsigned char)an.str0;
                 o.rng[read] = ok ? wlast : -1;
             }
         }
-        // failing reads to the list: one atomic per warp
-        const unsigned lead = __ballot_sync(KT_FULL, fail && jl == 0);
-        if (lead) {
-            const int leader = __ffs(lead) - 1;
-            unsigned long long at = 0;
-            if (lane == leader)
-                at = atomicAdd(n_fail, (unsigned long long)__popc(lead));
-            at = __shfl_sync(KT_FULL, at, leader);
-            if (fail && jl == 0)
-                fail_list[at + __popc(lead & ((1u << lane) - 1u))] = (int)read;
-        }
+        kt_fail_append(fail, jl, read, fail_list, n_fail);
     }
 }
 
@@ -1502,32 +1672,64 @@ static int kt_launch_shape(K kernel, int Lc, int W, long long reads,
     return kt_grid(kernel, wpb * 32, smem, (reads + wpb - 1) / wpb, grid_out);
 }
 
+// Kernel A (file header), one call for its two launches on one stream:
+// waves & 1 zeroes n_fail and launches wave 1, which writes every verified
+// read in full and lists the others (fail_list, [B] ints); waves & 2
+// launches wave 2 on the listed reads, on a grid of as many warps as the
+// SMs hold at once (the list's length is read on the card, so nothing
+// waits on the host between them).  waves 1 or 2 alone time the waves
+// apart.  NA = n_anchors_for(Lp, k); g, the lanes of a read, is a power of
+// two in [2, 32] with g >= NA unless g is 32.  B = 0 launches nothing.
 extern "C" int pseudoalign_side(
-    const IndexView* index,
+    const IndexView* index, const void* block_ec8, long long n_be8,
     const void* packed, const void* nmask, const void* lens,
-    int B, int Lp, int k, int R,
+    int B, int Lp, int k, int R, int NA, int g, int waves,
     void* rows, void* n_rows, void* has_hits, void* overflow,
     void* f_uid, void* f_block, void* f_upos, void* f_rpos,
-    void* f_strand, void* rng, void* stream) {
-    if (B <= 0) return 0;
-    if (Lp < k || (Lp & 7) != 0 || R <= 0 || R > Lp - k + 1 || k > 32)
+    void* f_strand, void* rng, void* fail_list, void* n_fail, void* stream) {
+    if (Lp < k || (Lp & 7) != 0 || R <= 0 || R > Lp - k + 1 || k > 32 ||
+        B < 0 || waves < 1 || waves > 3)
+        return (int)cudaErrorInvalidValue;
+    if (B == 0) return 0;
+    if (NA < 2 || n_be8 < 16 || g < 2 || g > 32 || (g & (g - 1)) ||
+        (g < NA && g != 32) || !fail_list || !n_fail)
         return (int)cudaErrorInvalidValue;
     IndexView ix;
     int err = kt_index_view(&ix, index);
     if (err) return err;
-    int wpb, warp_bytes;
-    long long smem;
-    unsigned int grid;
-    err = kt_launch_shape(pseudoalign_side_kernel, Lp, Lp - k + 1, B, 0, &wpb,
-                          &warp_bytes, &smem, &grid);
-    if (err) return err;
-    pseudoalign_side_kernel<<<grid, wpb * 32, (size_t)smem,
-                              (cudaStream_t)stream>>>(
-        ix, (const unsigned char*)packed, (const unsigned char*)nmask,
-        (const int*)lens, B, Lp, k, R, warp_bytes,
-        kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
-                    f_rpos, f_strand, rng));
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    const SideOut o = kt_side_out(rows, n_rows, has_hits, overflow, f_uid,
+                                  f_block, f_upos, f_rpos, f_strand, rng);
+    if (waves & 1) {
+        const cudaError_t e = cudaMemsetAsync(n_fail, 0, 8, st);
+        if (e != cudaSuccess) return (int)e;
+        const int threads = KT_WPB * 32;
+        const long long warps = ((long long)B + 32 / g - 1) / (32 / g);
+        unsigned int grid;
+        err = kt_grid(pseudoalign_side_kernel, threads, 0,
+                      (warps + KT_WPB - 1) / KT_WPB, &grid);
+        if (err) return err;
+        pseudoalign_side_kernel<<<grid, threads, 0, st>>>(
+            ix, (const int*)block_ec8, n_be8, (const unsigned char*)packed,
+            (const unsigned char*)nmask, (const int*)lens, B, Lp, k, R, NA, g,
+            o, (int*)fail_list, (unsigned long long*)n_fail);
+        err = (int)cudaGetLastError();
+        if (err) return err;
+    }
+    if (waves & 2) {
+        int wpb, warp_bytes;
+        long long smem;
+        unsigned int grid;
+        err = kt_launch_shape(pseudoalign_side_wave2_kernel, Lp, Lp - k + 1, B,
+                              0, &wpb, &warp_bytes, &smem, &grid);
+        if (err) return err;
+        pseudoalign_side_wave2_kernel<<<grid, wpb * 32, (size_t)smem, st>>>(
+            ix, (const unsigned char*)packed, (const unsigned char*)nmask,
+            (const int*)lens, Lp, k, R, warp_bytes, o,
+            (const int*)fail_list, (const unsigned long long*)n_fail);
+        err = (int)cudaGetLastError();
+    }
+    return err;
 }
 
 // Kernel A on unpacked codes [B, L] uint8 (any L >= k).

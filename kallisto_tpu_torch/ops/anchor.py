@@ -51,6 +51,7 @@ from .pseudoalign import (
     compact_pair_keys,
     compact_single_keys,
     lookup_kmers,
+    unpack_codes,
 )
 from .turbo import _split, codes_and_lens_plain
 
@@ -138,25 +139,14 @@ def anchor_wave1_plain(didx: AnyDeviceIndex, codes: torch.Tensor, rlen: int,
     return Wave1(ok, ws, validA, hitA, uidA, uposA, strandA, blkA)
 
 
-def anchor_side_plain(didx: AnyDeviceIndex, codes: torch.Tensor, rlen: int,
-                      real: torch.Tensor, k: int, max_rows: int,
-                      n_anchors: int) -> Tuple[SideResult, torch.Tensor]:
-    """Plain version of kernel I on decoded codes [B2, Lc] (JAX
-    _anchor_side, every wave-2 read evaluated).  Returns (SideResult with
-    max_rows slots, n_fail [1] int64)."""
-    B2, Lc = codes.shape
-    dev = codes.device
-    R = max_rows
-    Rc = _check_row_width(Lc, k, R)
-    wlast = max(rlen - k, 0)
-    long_enough = rlen >= k
-    w1 = anchor_wave1_plain(didx, codes, rlen, real, k, n_anchors)
-    ok, uidA, uposA, strandA, blkA = w1.ok, w1.uid, w1.upos, w1.strand, w1.blk
-    blo = blkA.amin(dim=1)
-    bhi = blkA.amax(dim=1)
+def _verified_rows(didx: AnyDeviceIndex, blo: torch.Tensor,
+                   bhi: torch.Tensor, R: int):
+    """A verified read's rows: the distinct sorted block ECs over [blo,
+    bhi] from two 8-wide rows of block_ec8, R slots (min(R, 16) filled),
+    and whether more distinct ECs are left.  Returns (rows [B2, R],
+    overflow [B2])."""
+    B2, dev = blo.shape[0], blo.device
     r0 = blo >> 3
-
-    # verified rows: distinct sorted block ECs over [blo, bhi]
     nb8 = didx.block_ec8.shape[0]
     rc = torch.clamp(r0, 0, nb8 - 2).to(torch.int64)  # rows of ok reads
     cand = torch.cat([didx.block_ec8[rc], didx.block_ec8[rc + 1]], dim=1)
@@ -173,8 +163,26 @@ def anchor_side_plain(didx: AnyDeviceIndex, codes: torch.Tensor, rlen: int,
     while len(slots) < R:
         slots.append(torch.full((B2,), INT32_MAX, dtype=torch.int32,
                                 device=dev))
-    rows_v = torch.stack(slots, dim=1)
-    ovf_v = ((vr > prev[:, None]) & (vr != INT32_MAX)).any(dim=1)
+    ovf = ((vr > prev[:, None]) & (vr != INT32_MAX)).any(dim=1)
+    return torch.stack(slots, dim=1), ovf
+
+
+def anchor_side_plain(didx: AnyDeviceIndex, codes: torch.Tensor, rlen: int,
+                      real: torch.Tensor, k: int, max_rows: int,
+                      n_anchors: int) -> Tuple[SideResult, torch.Tensor]:
+    """Plain version of kernel I on decoded codes [B2, Lc] (JAX
+    _anchor_side, every wave-2 read evaluated).  Returns (SideResult with
+    max_rows slots, n_fail [1] int64)."""
+    B2, Lc = codes.shape
+    dev = codes.device
+    R = max_rows
+    Rc = _check_row_width(Lc, k, R)
+    wlast = max(rlen - k, 0)
+    long_enough = rlen >= k
+    w1 = anchor_wave1_plain(didx, codes, rlen, real, k, n_anchors)
+    ok, uidA, uposA, strandA, blkA = w1.ok, w1.uid, w1.upos, w1.strand, w1.blk
+    rows_v, ovf_v = _verified_rows(didx, blkA.amin(dim=1), blkA.amax(dim=1),
+                                   R)
 
     neg = torch.full((B2,), -1, dtype=torch.int32, device=dev)
     rows = torch.where(ok[:, None], rows_v, torch.full_like(rows_v, INT32_MAX))
@@ -202,6 +210,65 @@ def anchor_side_plain(didx: AnyDeviceIndex, codes: torch.Tensor, rlen: int,
             a[sel] = b
     n_fail = fail.sum().reshape(1).to(torch.int64)
     return out, n_fail
+
+
+def side_waves_plain(didx: AnyDeviceIndex, packed: torch.Tensor,
+                     nmask: torch.Tensor, lens: torch.Tensor, k: int, L: int,
+                     max_rows: int = 16) -> Tuple[SideResult, torch.Tensor]:
+    """Kernel A's two waves in plain PyTorch, on one mate's packed batch
+    (csrc/pseudoalign.cu pseudoalign_side_kernel, then
+    pseudoalign_side_wave2_kernel).
+    Wave 1: anchor_wave1_plain on the reads of each length from k to L, at
+    that length (n_anchors_for(len, k) anchors, wlast = len - k), the N
+    bitmask failing any anchor whose window holds an N; a verified read,
+    whose block range also holds at most R candidates where R =
+    min(max_rows, L - k + 1) < 16, takes the block ECs of its range and
+    its first hit from anchor 0, as anchor_side_plain writes it.  Wave 2:
+    every other read through _pseudoalign_core.  The result equals
+    pseudoalign_batch_packed_plain's in every field (the premise of kernel
+    A's design, which the tests hold).  Returns (SideResult, fail [B]
+    bool: the reads of wave 2)."""
+    codes = unpack_codes(packed, nmask, L)
+    B, dev = codes.shape[0], codes.device
+    R = min(max_rows, L - k + 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = SideResult(
+        rows=torch.full((B, R), INT32_MAX, **i32),
+        n_rows=torch.zeros(B, **i32),
+        has_hits=torch.zeros(B, dtype=torch.bool, device=dev),
+        overflow=torch.zeros(B, dtype=torch.bool, device=dev),
+        f_uid=torch.full((B,), -1, **i32), f_block=torch.full((B,), -1, **i32),
+        f_upos=torch.full((B,), -1, **i32), f_rpos=torch.full((B,), -1, **i32),
+        f_strand=torch.zeros(B, dtype=torch.bool, device=dev),
+        rng=torch.full((B,), -1, **i32))
+    ok = torch.zeros(B, dtype=torch.bool, device=dev)
+    lens64 = lens.to(torch.int64)
+    for ln in torch.unique(lens64[(lens64 >= k) & (lens64 <= L)]).tolist():
+        sel = torch.nonzero(lens64 == ln).squeeze(1)
+        real = torch.ones(sel.shape[0], dtype=torch.bool, device=dev)
+        w1 = anchor_wave1_plain(didx, codes[sel], ln, real, k,
+                                n_anchors_for(ln, k))
+        blo, bhi = w1.blk.amin(dim=1), w1.blk.amax(dim=1)
+        okg = w1.ok & ((bhi - blo < R) if R < 16 else True)
+        rows_v, _ = _verified_rows(didx, blo, bhi, R)
+        v = sel[okg]
+        ok[v] = True
+        out.rows[v] = rows_v[okg]
+        out.n_rows[v] = (rows_v[okg] != INT32_MAX).sum(dim=1).to(torch.int32)
+        out.has_hits[v] = True
+        out.f_uid[v] = w1.uid[okg, 0]
+        out.f_block[v] = w1.blk[okg, 0]
+        out.f_upos[v] = w1.upos[okg, 0]
+        out.f_rpos[v] = 0
+        out.f_strand[v] = w1.strand[okg, 0]
+        out.rng[v] = ln - k
+    fail = ~ok
+    sel = torch.nonzero(fail).squeeze(1)
+    if sel.numel():
+        core = _pseudoalign_core(didx, codes[sel], lens[sel], k, max_rows)
+        for a, b in zip(out, core):
+            a[sel] = b
+    return out, fail
 
 
 def _real_rows(aux: torch.Tensor, B: int, ns: int) -> torch.Tensor:

@@ -6,8 +6,8 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build
 happens at first use, into ``kallisto_tpu_torch/_kbuild/`` (gitignored),
 with one ``nvcc`` per source, all started together; a library is named by
 the hash of its source and flags, so an unchanged source is not rebuilt.
-Several kernels may share a source (A, A on codes, D, I's two waves, J, K
-and L; E and F).  Kernels A, D, I, J, K and L take the device index in
+Several kernels may share a source (A's two waves, A on codes, D, I's two
+waves, J, K and L; E and F).  Kernels A, D, I, J, K and L take the device index in
 either layout
 (ops/pseudoalign.py DeviceIndex or PaddedDeviceIndex) as one IndexView.
 
@@ -17,7 +17,9 @@ device made current and on that device's current stream (``_launch``: a
 shard on cuda:1 is never launched from cuda:0), raises
 when the C function returns a non-zero ``cudaError_t``, and adds one to
 ``LAUNCHES[name]`` -- the count that shows a run went through the kernel.
-Kernel G's loop replays rounds captured in a CUDA graph (EmGraph): each
+Kernel A's one C call launches its two waves, counted as
+``pseudoalign_side`` and ``pseudoalign_side_wave2``; A given no reads
+and F given no keys launch nothing and count nothing.  Kernel G's loop replays rounds captured in a CUDA graph (EmGraph): each
 replay adds the rounds it holds.
 There is no fallback: a CPU tensor never reaches these functions (the
 dispatching callers send it to the plain PyTorch version instead), and a
@@ -31,7 +33,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -47,6 +49,9 @@ LONG_SLIST = 512
 # (the register counts csrc/pseudoalign.cu's header comment cites)
 _PSEUDOALIGN = ("pseudoalign.cu", ("-Xptxas", "-v", f"-DKJ_SLIST={LONG_SLIST}"))
 
+# -Xptxas -v for kernels E and F too (F's registers, PERF.md)
+_COMPACT = ("compact.cu", ("-Xptxas", "-v"))
+
 # kernel name -> (source file, extra nvcc flags)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "pseudoalign_side": _PSEUDOALIGN,
@@ -58,9 +63,9 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "pseudoalign_long": _PSEUDOALIGN,
     "pseudoalign_halffail": _PSEUDOALIGN,
     "lookup_kmers": _PSEUDOALIGN,
-    "key_histogram": ("compact.cu", ()),
-    "gather_exemplars": ("compact.cu", ()),
-    "gather_slim": ("compact.cu", ()),
+    "key_histogram": _COMPACT,
+    "gather_exemplars": _COMPACT,
+    "gather_slim": _COMPACT,
     # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
     # to its plain version
     "em_step_batch": ("em.cu", ("--fmad=false",)),
@@ -74,7 +79,8 @@ _NVCC_FLAGS = (
 
 # kernel E with per-read slots counts apart from E without them
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in (*SOURCES, "key_histogram_slots")}
+    name: 0 for name in (*SOURCES, "pseudoalign_side_wave2",
+                         "key_histogram_slots")}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()  # quant-tcc's shards launch from threads
@@ -127,7 +133,8 @@ _LL = ctypes.c_longlong
 _SIDE = ctypes.POINTER(KeySide)
 _IX = ctypes.POINTER(IndexView)
 _ARGTYPES = {
-    "pseudoalign_side": [_IX] + [_P] * 3 + [_I] * 4 + [_P] * 10 + [_P],
+    "pseudoalign_side": [_IX, _P, _LL] + [_P] * 3 + [_I] * 7 + [_P] * 12
+    + [_P],
     "pseudoalign_codes": [_IX] + [_P] * 2 + [_I] * 4 + [_P] * 10 + [_P],
     "pseudoalign_turbo": [_IX] + [_P] * 3 + [_LL, _P, _LL] + [_I] * 5
     + [_P] * 10 + [_P],
@@ -258,20 +265,22 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, dev: torch.device, *args, count: str = "",
-            n: int = 1) -> None:
+def _launch(name: str, dev: torch.device, *args,
+            count: Union[str, Tuple[str, ...]] = "", n: int = 1) -> None:
     """Call kernel `name`'s C function with `args` and the current stream of
     `dev`, with `dev` made the current device: the libraries' CUDA runtime
     launches on the device current in the calling thread, so a kernel whose
     inputs lie on cuda:1 must not be launched from cuda:0.  Raises on a
     non-zero cudaError_t; counts n launches (a graph replay: the rounds it
-    holds) under `count` (default `name`)."""
+    holds) under `count` (default `name`; a tuple: one C call that
+    launches a kernel under each name)."""
     fn = _fn(name)
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
     with _count_lock:
-        LAUNCHES[count or name] += n
+        for c in (count or name,) if isinstance(count, str) else count:
+            LAUNCHES[c] += n
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
@@ -298,24 +307,56 @@ def _raise_on(err: int, name: str):
 
 
 def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
-                     lens: torch.Tensor, k: int, L: int, R: int):
-    """Kernel A on one mate's packed batch.  Returns the ten SideResult
-    fields as a tuple of CUDA tensors (rows, n_rows, has_hits, overflow,
-    f_uid, f_block, f_upos, f_rpos, f_strand, rng)."""
+                     lens: torch.Tensor, k: int, L: int, R: int,
+                     waves: int = 3, lists=None):
+    """Kernel A on one mate's packed batch: wave 1 writes every read that
+    its anchors verify in full and lists the others, wave 2 runs A's
+    decode and the per-read core on the listed reads; two launches on one
+    stream from one C call, the list's length read on the card.  Returns
+    (the ten SideResult fields as a tuple of CUDA tensors -- rows, n_rows,
+    has_hits, overflow, f_uid, f_block, f_upos, f_rpos, f_strand, rng --,
+    fail_list [max(B, 1)] int32, n_fail [1] int64: the reads of wave 2).
+    waves = 1 or 2 launches one wave alone (chip_smoke.py times them
+    apart); wave 2 alone continues `lists`, what a wave-1 call returned.
+    B = 0 launches nothing."""
+    from .anchor import n_anchors_for
+
     dev = didx.device
     B = int(lens.shape[0])
-    if L % 8 or L < k:
-        raise ValueError(f"padded length {L} must be a multiple of 8 and >= k")
+    if L % 8 or L < k or not 0 < R <= L - k + 1:
+        raise ValueError(f"bad shape: L={L} k={k} R={R} (L a multiple of 8)")
+    if B >= 2**31:
+        raise ValueError(f"{B} reads: kernel A takes fewer than 2^31")
+    if waves not in (1, 2, 3) or (waves == 2) != (lists is not None):
+        raise ValueError("waves 1 or 3, or 2 with the lists of wave 1")
     _check(packed, "packed", torch.uint8, (B, L // 4), dev)
     _check(nmask, "nmask", torch.uint8, (B, L // 8), dev)
     _check(lens, "lens", torch.int32, (B,), dev)
+    be8 = didx.block_ec8
+    _check(be8, "block_ec8", torch.int32, (be8.shape[0], 8), dev)
     ix = _index_args(didx)
-    out = _side_outputs(B, R, dev)
+    if lists is None:
+        out = _side_outputs(B, R, dev)
+        # one allocation: n_fail (8-byte aligned), then the list
+        buf = torch.empty(2 + max(B, 1), dtype=torch.int32, device=dev)
+        n_fail, fail_list = buf[:2].view(torch.int64), buf[2:]
+        if B == 0:
+            n_fail.zero_()
+    else:
+        out, fail_list, n_fail = lists
+        _check(fail_list, "fail_list", torch.int32, (max(B, 1),), dev)
+        _check(n_fail, "n_fail", torch.int64, (1,), dev)
+    if B == 0:
+        return out, fail_list, n_fail
+    na = n_anchors_for(L, k)
     _launch(
         "pseudoalign_side", dev,
-        ctypes.byref(ix), _ptr(packed), _ptr(nmask), _ptr(lens), B, L, k, R,
-        *[_ptr(t) for t in out])
-    return out
+        ctypes.byref(ix), _ptr(be8), int(be8.numel()), _ptr(packed),
+        _ptr(nmask), _ptr(lens), B, L, k, R, na, anchor_group_width(na),
+        waves, *[_ptr(t) for t in out], _ptr(fail_list), _ptr(n_fail),
+        count=(("pseudoalign_side",) if waves & 1 else ())
+        + (("pseudoalign_side_wave2",) if waves & 2 else ()))
+    return out, fail_list, n_fail
 
 
 def pseudoalign_codes(didx, codes: torch.Tensor, lens: torch.Tensor, k: int,
@@ -732,6 +773,8 @@ def gather_exemplars(idx: torch.Tensor, s1, s2, spec) -> torch.Tensor:
     W = (ks1.R + (ks2.R if ks2 is not None else 0) + 1
          + (2 * ns if tail_bs else 0) + (2 * ns if spec.pos_key else 0))
     out = torch.empty((n, W), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
     _launch(
         "gather_exemplars", dev,
         ctypes.byref(ks1), ctypes.byref(ks2) if ks2 is not None else None,

@@ -908,7 +908,7 @@ def pseudoalign_batch_packed(didx: AnyDeviceIndex, packed: torch.Tensor,
     R = min(max_rows, L - k + 1)
     if packed.is_cuda:
         return SideResult(*kernels.pseudoalign_side(
-            didx, packed, nmask, lens, k, L, R))
+            didx, packed, nmask, lens, k, L, R)[0])
     return pseudoalign_batch_packed_plain(didx, packed, nmask, lens, k, L, max_rows)
 
 

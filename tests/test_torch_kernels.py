@@ -3,7 +3,8 @@
 Each test runs a kernel on the card and the plain version on the CPU on
 the same seeded inputs (the bundled transcriptome's index and reads, plus
 random reads with Ns, ragged lengths and reads shorter than k) and
-requires equality, for kernels A, A on unpacked codes, D, I (both
+requires equality, for kernels A (both waves, its wave-2 count equal to
+the plain two-wave composition's), A on unpacked codes, D, I (both
 waves), J and K and for kernel L (the k-mer probe alone) in both device
 index layouts (padded and bucketed): every SideResult field and every
 key bit for kernels A, B, D and I, every table entry and exemplar row for kernels E and F,
@@ -11,7 +12,8 @@ every hexamer id for kernel H, bitwise alpha and equal rounds for
 kernel G (the main EM and the bootstraps), every LongResult field for
 kernel J, both mates' SideResult fields, the key table and the per-read
 slots for kernel K (after the port's host probe), every slot of kernel E
-and every slim row of kernel F; sharded runs (four shards, and kernel A
+and every slim row of kernel F (also on no key, one key, counts that fill
+no block, reads outside the batch and row widths 16, 15 and 10); sharded runs (four shards, and kernel A
 and a sharded quant on a second card, which needs two) equal one
 device.  They need a CUDA
 card and skip without one; this file imports no JAX, so it also runs where
@@ -662,6 +664,134 @@ def test_kernel_i_all_or_no_reads_in_wave_2(cuda, port_index, layout, L,
     for f in pa.SideResult._fields:
         a, b = getattr(g, f).cpu(), getattr(c, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def _side_batch(index, which):
+    """Kernel A's two-wave cases: _batches' kinds, 40 bp reads (R = 10 <
+    16), and reads from inside unitigs of 100 and 1,000 bp (all verified
+    in wave 1; 1,000 bp reads have 33 anchors, past a warp's 32 lanes),
+    the 100 bp ones also with a substitution at column 5 (all in wave
+    2)."""
+    if which == "rand40":
+        return _random_batch(index, 4000, 40, 4)
+    if which.startswith("unitig"):
+        L = 1000 if which == "unitig1000" else 100
+        return _unitig_reads(index, 700, L, 33, which.endswith("miss"))
+    return _batches(index)[which]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [
+    "bundled_1", "rand100", "rand76", "rand40", "rand_short", "unitig100",
+    "unitig100_miss", "unitig1000"])
+def test_kernel_a_waves_match_plain(cuda, port_index, layout, which):
+    """Kernel A's two launches on the card: every field equal to its plain
+    version (the dense core) on the CPU, and its wave-2 count equal to the
+    failing reads of the plain two-wave composition
+    (anchor.side_waves_plain); wave 1 and wave 2 launched once each by
+    one call, the same fields when the waves are launched apart, and no
+    launch on no reads."""
+    from kallisto_tpu_torch.ops import anchor
+
+    pb = _side_batch(port_index, which)
+    R = min(16, pb.Lp - K + 1)
+    dg = pa.device_index_from_host(port_index, cuda)
+    dc = pa.device_index_from_host(port_index, "cpu")
+    assert isinstance(dg, layout) and isinstance(dc, layout)
+    gin = pa.upload_batch(pb, cuda)
+    kernels.reset_launches()
+    g, _, nf = kernels.pseudoalign_side(dg, *gin, K, pb.Lp, R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pseudoalign_side"] == 1
+    assert kernels.LAUNCHES["pseudoalign_side_wave2"] == 1
+    apart = kernels.pseudoalign_side(
+        dg, *gin, K, pb.Lp, R, waves=2,
+        lists=kernels.pseudoalign_side(dg, *gin, K, pb.Lp, R, waves=1))
+    kernels.pseudoalign_side(dg, *(t[:0] for t in gin), K, pb.Lp, R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pseudoalign_side"] == 2
+    assert kernels.LAUNCHES["pseudoalign_side_wave2"] == 2
+    assert int(apart[2]) == int(nf)
+    for a, b in zip(apart[0], g):
+        assert torch.equal(a, b)
+    up = pa.upload_batch(pb, "cpu")
+    c = pa.pseudoalign_batch_packed_plain(dc, *up, K, pb.Lp)
+    w, fail = anchor.side_waves_plain(dc, *up, K, pb.Lp)
+    for f, a in zip(pa.SideResult._fields, g):
+        b = getattr(c, f)
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+        assert torch.equal(getattr(w, f), b), f
+    assert int(nf) == int(fail.sum())
+    if which.startswith("unitig"):
+        assert int(nf) == (pb.n if which.endswith("miss") else 0)
+    else:
+        assert 0 < int(nf) < pb.n or which == "rand_short"
+
+
+def _f_sides(index, form):
+    """Two mates' SideResult on the CPU for kernel F: kernel A's plain
+    version on 5,000 reads of 100 and of 76 bp (R = 16); for "r15" their
+    rows cut to 15 slots (odd: one word a load) and for "r10" reads of
+    40 bp (R = 10: two words a load)."""
+    d = pa.device_index_from_host(index, "cpu")
+    bs = _batches(index)
+    b1, b2 = bs["rand100"], bs["rand76"]
+    if form == "r10":
+        b1 = b2 = _random_batch(index, 5000, 40, 6)
+    s1, s2 = (pa.pseudoalign_batch_packed(d, *pa.upload_batch(b, "cpu"), k=K,
+                                          L=b.Lp) for b in (b1, b2))
+    if form == "r15":
+        s1, s2 = (s._replace(rows=s.rows[:, :15].contiguous())
+                  for s in (s1, s2))
+    return s1, s2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["paired", "single", "paired_all",
+                                  "single_all", "r15", "r10", "slim"])
+@pytest.mark.parametrize("n", [0, 1, 37, 1001])
+def test_kernel_f_edges_match_plain(cuda, port_index, form, n):
+    """Kernel F (and its slim layout) on n keys -- none, one, a count that
+    fills no whole block or warp -- with idx ascending and, past one key,
+    holding reads outside [0, B) (-1, B, B + 7), which get a zero row:
+    every other row equal to the plain version, options off and every
+    option on, paired and single-end, row widths 16, 15 and 10; launched
+    once where there are keys and not at all on none."""
+    s1, s2 = _f_sides(port_index, form)
+    B = int(s1.rows.shape[0])
+    rng = np.random.default_rng(n)
+    idx = np.sort(rng.integers(0, B, n))
+    bad = np.zeros(n, bool)
+    if n > 1:
+        pos = rng.choice(n, 3, replace=False)
+        idx[pos] = [-1, B, B + 7]
+        bad[pos] = True
+    allopt = form.endswith("_all")
+    spec = pa.KeySpec(k=K, min_range=50 if allopt else 0, strand_key=allopt,
+                      pos_fl=180 if allopt else -1)
+    if form.startswith("single"):
+        s2 = None
+    ti = torch.from_numpy(idx)
+    safe = torch.from_numpy(np.where(bad, 0, idx))
+    if form == "slim":
+        want = pa.gather_slim_plain(safe, s1, s2)
+    else:
+        want = pa.gather_exemplars_plain(safe, s1, s2, spec)
+    want[torch.from_numpy(bad)] = 0
+    g1 = pa.SideResult(*(t.to(cuda) for t in s1))
+    g2 = None if s2 is None else pa.SideResult(*(t.to(cuda) for t in s2))
+    before = kernels.LAUNCHES["gather_slim" if form == "slim"
+                              else "gather_exemplars"]
+    if form == "slim":
+        got = kernels.gather_slim(ti.to(cuda), g1, g2)
+    else:
+        got = kernels.gather_exemplars(ti.to(cuda), g1, g2, spec)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
+    after = kernels.LAUNCHES["gather_slim" if form == "slim"
+                             else "gather_exemplars"]
+    assert after - before == (n > 0)
 
 
 def _code_batch(index, L, seed, lens_cut):

@@ -26,7 +26,8 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    (~29k targets, ~24M distinct 31-mers), its index built by the port's
    numpy builder, and 1,000,000 simulated 2x100 bp pairs;
 3. kernels A (pseudoalign_side: wave 1, then wave 2, from one call) and B
-   (read_keys) on the card against their plain versions on the CPU, at
+   (read_keys, the per-read form) on the card against their plain
+   versions on the CPU, at
    the main path's batch shape (2x100 bp and 76 bp reads with random Ns,
    ragged lengths and reads shorter than k): every field must be equal,
    and A's wave-2 count equal to the plain two-wave composition's
@@ -39,18 +40,21 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    counts set to 0 just before and read just after (its own path, the
    JAX package's single-chip program), held against _pseudoalign_core on
    the card and timed;
-3b. kernels D (pseudoalign_turbo), E (key_histogram), F (gather_exemplars)
-   and B with the compact key layout against their plain versions on the
-   card: a paired turbo batch at the main path's Bp = 262,144 with sparse
-   Ns, a ragged-length batch, a single-end batch, a bitmask (N-dense)
-   batch, and keys with min_range 50, the strand tail and the position
-   rank; every field, key and table entry must be equal;
+3b. kernels D (pseudoalign_turbo), E (compact_keys: the compact key fused
+   into the key table) and F (gather_exemplars) against their plain
+   versions on the card: a paired turbo batch at the main path's Bp =
+   262,144 with sparse Ns, a ragged-length batch, a single-end batch, a
+   bitmask (N-dense) batch, and keys with min_range 50, the strand tail
+   and the position rank; every field, every read's key and every table
+   entry must be equal; E's device time (graph replays, graph_ms) beside
+   its time from the host, and E on the batch's own keys given as keys
+   and with 60 % of the reads moved onto one key (held, device times);
 3c. kernel H (bias_hexamers) against its plain version on the card, on the
    phase-3 pairs (mate 1 from kernel A, valid = mate 2's has_hits): equal;
 3d. kernel I (pseudoalign_anchor) against its plain version on the card,
    at the main path's shapes (262,144 pairs of 100 bp padded to 104, 4
    anchors, sparse Ns), paired and single-end: every field and n_fail
-   equal, and with kernels B and E the key table (n_fail in its meta row)
+   equal, and with kernel E the key table (n_fail in its meta row)
    equal; against kernel D on the same batch: rows, row counts, hits,
    overflow flags and the key table equal; both forms timed (I's two
    launches, wave 1 and wave 2 on the reads it listed, together, and the
@@ -71,7 +75,7 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    probe, the half-fail wave-2 slice at Bp = 262,144 and at the smallest
    bucket, 16,384, keys with the strand tail and the position rank; every
    field, table entry and slot equal, every slot naming its read's own
-   key; the both-failed slice through D, B and E with slots; timed, with
+   key; the both-failed slice through D and E with slots; timed, with
    torch.unique(h0, return_inverse=True) beside E's slots (stress slices:
    the kernels' rows are timed on phase 5f's own slices);
 3g. the padded layout: an 800-gene transcriptome (seed 42; ~1.9M k-mers,
@@ -176,23 +180,24 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    then hw1; K, E with slots, F slim, D, B, F and G launched), FLD, EC
    counts and sets equal to phase 5's, the wall and probe_s printed; K, E
    with slots and F slim held against their plain versions and timed on
-   the first hw1 batch's half-fail slice, D + B + E with slots on its
+   the first hw1 batch's half-fail slice, D + E with slots on its
    both-failed slice, K and D timed on every slice of the run (the card's
    busy time); then `--pseudobam` of the first 32,768 pairs with the
    switch on and off: BAM byte-equal;
 5g. several devices: N_SHARDS = 4 shards on the visible cards (with one
    card all four share cuda:0, and the phase says so): `quant` of the
    first 262,144 of phase 2's pairs in batches of 65,536 (per read,
-   sharded, while the FLD is learned, then `cmesh`: A, B and E per
-   shard), launch counts set to 0 just before and read just after (A, B,
-   E, F and G launched, I, D and K not), EC counts and sets, est_counts
+   sharded, while the FLD is learned, then `cmesh`: A and E per shard,
+   E computing the keys), launch counts set to 0 just before and read
+   just after (A, B, E, F and G launched, I, D and K not), EC counts and sets, est_counts
    and the FLD equal to one device; `bus -x 10xv2` of the first 262,144
    of phase 5c's reads (output.bus and matrix.ec byte-equal to one
    device); `quant-tcc` of the first 1,024 of phase 5e's cells (est_counts
    bitwise equal); `dryrun_multichip(4)` on the card; K18's step (A's two
-   waves on both mates, B and E on one shard of 16,384 pairs: six
-   launches) held against its plain versions on every shard and timed,
-   the whole 4-shard step beside it;
+   waves on both mates and E on one shard of 16,384 pairs: five
+   launches) held against its plain versions on every shard and timed
+   (device time from graph replays beside it), the whole 4-shard step
+   beside it;
 5h. the padded layout end to end: `quant` of phase 3g's 524,288 pairs on
    its padded index with the launch counts set to 0 just before and read
    just after (A, B, I, E, F and G launched, the turbo batches through
@@ -329,6 +334,34 @@ def cuda_ms(fn, reps, torch):
     return statistics.median(times)
 
 
+def graph_ms(fn, reps, torch):
+    """Device milliseconds of one fn() call: CUDA events around reps replays
+    of a CUDA graph that captured one call, so no host time lies between
+    the events (median of 5 such runs).  cuda_ms's figure, taken from the
+    host, includes the wrapper's host time.  Every replay reads the same
+    inputs, so what fits in the 50 MB L2 stays there: an L2-warm time, not
+    one of inputs read from HBM."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del g
+    return statistics.median(times)
+
+
 def bound(nbytes, nops, op_rate):
     tb = nbytes / PEAK_BYTES * 1e3
     to = nops / op_rate * 1e3
@@ -443,6 +476,39 @@ def _equal_tables(torch, a, b, what):
     (both versions write them in that order, so the whole tables match)."""
     check(torch.equal(a, b), f"{what}: key table equal "
           f"(n_uniq {int(a[0, 0])})")
+
+
+def _hold_e(torch, pa, kernels, s1, s2, spec, K, didx, tag,
+            with_slots=False):
+    """Kernel E (compact_keys: the compact key fused into the key table)
+    against key_hash_plain + key_histogram_plain on the same card tensors:
+    every read's h and flags, the table and, with slots, the slots equal.
+    Returns (ck, slots, h, flags)."""
+    ck, slots, h, fl = kernels.compact_keys(s1, s2, spec, K, with_slots,
+                                            didx, want_keys=True)
+    hp, flp = pa.key_hash_plain(s1, s2, spec, didx)
+    want = pa.key_histogram_plain(hp, flp, K, with_slots)
+    torch.cuda.synchronize()
+    check(torch.equal(h, hp) and torch.equal(fl, flp),
+          f"kernel E {tag}: every read's key and flags equal")
+    _equal_tables(torch, ck, want[0] if with_slots else want,
+                  f"kernel E {tag}")
+    if with_slots:
+        check(torch.equal(slots, want[1]),
+              f"kernel E {tag}: {slots.numel()} per-read slots equal")
+    return ck, slots, h, fl
+
+
+def _key_in_bytes(s1, s2, spec):
+    """The bytes of a read's compact key columns under spec, for all reads:
+    per mate its rows, has and overflow bytes, rng with min_range, the
+    first-hit block and strand with the tail, upos and rpos with the
+    position rank."""
+    per = 2 + (4 if spec.min_range > 1 else 0) + (
+        5 if spec.strand_key or spec.pos_key else 0) + (
+        8 if spec.pos_key else 0)
+    return sum(s.rows.numel() * 4 + s.rows.shape[0] * per
+               for s in (s1, s2) if s is not None)
 
 
 def _put(torch, np, a, dev):
@@ -632,30 +698,45 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
         f"reads={2 * Bp} Lc={Lc} windows={n_win} valid={n_valid} "
         f"hits={n_hit} with hits={n_has} N exceptions={int((aux[4:] < 2**62).sum())}")
 
-    # -- B (compact layout, options off as on the main path), E and F on it
+    # -- E (the compact key fused into the key table, options off as on
+    # the main path) and F on it
     r1, r2 = pa.SideResult(*(a[:Bp] for a in g)), pa.SideResult(*(a[Bp:] for a in g))
     spec0 = pa.KeySpec(k=k)
-    h, fl = pa.compact_key_hash(r1, r2, spec0, didx)
-    hp, flp = pa.key_hash_plain(r1, r2, spec0, didx)
-    torch.cuda.synchronize()
-    check(torch.equal(h, hp) and torch.equal(fl, flp),
-          "kernel B compact keys (options off): equal")
-    ms_b = cuda_ms(lambda: pa.compact_key_hash(r1, r2, spec0, didx), 20, torch)
     K = Bp + 1
-    ck = pa.key_histogram(h, fl, K)
-    ckp = pa.key_histogram_plain(h, fl, K)
-    torch.cuda.synchronize()
-    _equal_tables(torch, ck, ckp, f"kernel E paired Bp={Bp}")
+    ck, _, h, fl = _hold_e(torch, pa, kernels, r1, r2, spec0, K, didx,
+                           f"paired Bp={Bp}, options off")
     n_uniq = int(ck[0, 0])
-    ms_e = cuda_ms(lambda: kernels.key_histogram(h, fl, K), 20, torch)
-    plain_ms_e = cuda_ms(lambda: pa.key_histogram_plain(h, fl, K), 5, torch)
+    ms_e = cuda_ms(lambda: kernels.compact_keys(r1, r2, spec0, K), 20, torch)
+    dev_e = graph_ms(lambda: kernels.compact_keys(r1, r2, spec0, K), 20,
+                     torch)
+    plain_ms_e = cuda_ms(lambda: pa.key_histogram_plain(
+        *pa.key_hash_plain(r1, r2, spec0), K), 5, torch)
     h0 = h[:, 0].contiguous()
     lib_e = cuda_ms(lambda: torch.unique(h0, return_counts=True), 20, torch)
-    bytes_e = 12 * Bp + 8 * n_uniq + 40 * (K + 1)
+    # its bound: the compact key's inputs (both mates' rows, has and
+    # overflow bytes) read once, the table written once
+    bytes_e = _key_in_bytes(r1, r2, spec0) + 40 * (K + 1)
     out["key_histogram"] = (ms_e, plain_ms_e, bound(bytes_e, 0, PEAK_INT_OPS),
                             lib_e)
-    log(f"kernel E: {ms_e:.4f} ms (plain on card {plain_ms_e:.3f} ms, "
-        f"torch.unique {lib_e:.4f} ms), B={Bp} n_uniq={n_uniq} K={K}")
+    # hot keys: the batch's own keys given as keys, then the same keys with
+    # 60 % of the reads moved onto read 0's key (held, device times)
+    sel = torch.from_numpy(rng.random(Bp) < 0.6).to(dev)
+    hh, fh = h.clone(), fl.clone()
+    hh[sel] = h[0].clone()
+    fh[sel] = fl[0].clone()
+    hot = kernels.compact_keys(None, None, None, K, keys=(hh, fh))[0]
+    torch.cuda.synchronize()
+    _equal_tables(torch, hot, pa.key_histogram_plain(hh, fh, K),
+                  f"kernel E, 60 % of {Bp} reads on one key")
+    dev_keys = graph_ms(lambda: kernels.compact_keys(
+        None, None, None, K, keys=(h, fl)), 20, torch)
+    dev_hot = graph_ms(lambda: kernels.compact_keys(
+        None, None, None, K, keys=(hh, fh)), 20, torch)
+    del hh, fh, hot
+    log(f"kernel E: {ms_e:.4f} ms, device (L2-warm) {dev_e:.4f} ms (plain on card "
+        f"{plain_ms_e:.3f} ms, torch.unique {lib_e:.4f} ms), B={Bp} "
+        f"n_uniq={n_uniq} K={K}; keys given: device (L2-warm) {dev_keys:.4f} ms, with "
+        f"60 % of the reads on one key {dev_hot:.4f} ms")
     idx = ck[1 : n_uniq + 1, 3].contiguous()
     ex = pa.gather_exemplars(idx, r1, r2, spec0)
     exp = pa.gather_exemplars_plain(idx, r1, r2, spec0)
@@ -676,19 +757,24 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
     spec = pa.KeySpec(k=k, min_range=50, strand_key=True, pos_fl=180,
                       pos_depth=depth)
     for tag, a, b in (("paired", r1, r2), ("single", r1, None)):
-        hx, fx = pa.compact_key_hash(a, b, spec, didx)
-        hxp, fxp = pa.key_hash_plain(a, b, spec, didx)
-        torch.cuda.synchronize()
-        check(torch.equal(hx, hxp) and torch.equal(fx, fxp),
-              f"kernel B {tag}, min_range 50 + strand + position: keys equal")
+        _hold_e(torch, pa, kernels, a, b, spec, K, didx,
+                f"{tag}, min_range 50 + strand + position")
         exo = pa.gather_exemplars(idx, a, b, spec)
         check(torch.equal(exo, pa.gather_exemplars_plain(idx, a, b, spec)),
               f"kernel F {tag}, every option: exemplar rows equal")
-    ms_bx = cuda_ms(lambda: pa.compact_key_hash(r1, r2, spec, didx), 20, torch)
-    log(f"kernel B compact keys: {ms_b:.4f} ms options off, {ms_bx:.4f} ms "
-        f"with min_range + strand + position rank (paired, B={Bp})")
-    out["read_keys_compact"] = {"options_off_ms": ms_b, "all_options_ms": ms_bx}
-    del g, c, r1, r2, h, fl, ck, ckp, packed, aux, inputs
+    ms_ex = cuda_ms(lambda: kernels.compact_keys(r1, r2, spec, K, didx=didx),
+                    20, torch)
+    dev_ex = graph_ms(lambda: kernels.compact_keys(r1, r2, spec, K,
+                                                   didx=didx), 20, torch)
+    log(f"kernel E: {ms_e:.4f} ms options off, {ms_ex:.4f} ms (device, L2-warm, "
+        f"{dev_ex:.4f} ms) with min_range + strand + position rank (paired, "
+        f"B={Bp})")
+    out["compact_keys"] = {"options_off_ms": ms_e, "all_options_ms": ms_ex,
+                           "all_options_device_ms": dev_ex}
+    out["device"] = {"key_histogram": {
+        "device_ms": dev_e, "keys_given_device_ms": dev_keys,
+        "hot_key_device_ms": dev_hot, "hot_key_share": 0.6}}
+    del g, c, r1, r2, h, fl, ck, packed, aux, inputs
 
     # -- ragged lengths (varlen), single-end, and the bitmask (N-dense)
     # route, each on 65,536 reads (the bitmask route's slices hold up to
@@ -703,9 +789,7 @@ def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
                      _turbo_inputs(torch, np, bsx, n, dev), k, tag)[0]
         ra, rb_ = (pa.SideResult(*(a[:n] for a in gx)),
                    pa.SideResult(*(a[n:] for a in gx)) if len(bsx) == 2 else None)
-        hx, fx = pa.compact_key_hash(ra, rb_, spec, didx)
-        _equal_tables(torch, pa.key_histogram(hx, fx, n + 1),
-                      pa.key_histogram_plain(hx, fx, n + 1), f"kernel E {tag}")
+        _hold_e(torch, pa, kernels, ra, rb_, spec, n + 1, didx, tag)
     nb = _sparse_pairs(np, fastx, (rb1, rb2), n, k, rng, lens_r, 2e-3)
     args = [t for b in nb for t in pa.upload_batch(b, dev)]
     kw = dict(k=k, L=nb[0].Lp, max_keys=n + 1, min_range=50, strand_key=True,
@@ -770,7 +854,7 @@ def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
         B2 = len(sides) * Bp
         g, c, cf = _hold_i(torch, pa, kernels, didx, sides, aux, k, L, rl,
                            f"{tag} Bp={Bp}")
-        # I + B + E against the plain versions, n_fail in the meta row
+        # I + E against the plain versions, n_fail in the meta row
         split = (lambda r: (pa.SideResult(*(a[:Bp] for a in r)),
                             pa.SideResult(*(a[Bp:] for a in r)))) \
             if len(sides) == 2 else (lambda r: (r, None))
@@ -784,7 +868,7 @@ def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
         else:
             ack = anchor.pseudoalign_single_anchor(didx, sides[0], aux, **kw)[1]
         torch.cuda.synchronize()
-        _equal_tables(torch, ack, pck, f"kernels I + B + E {tag}")
+        _equal_tables(torch, ack, pck, f"kernels I + E {tag}")
         # against kernel D on the same batch
         d = turbo.turbo_sides(didx, sides, aux, None, k, L, R, rl)
         torch.cuda.synchronize()
@@ -792,11 +876,10 @@ def phase_3d(torch, np, pa, kernels, fastx, didx, rb1, rb2, k, dev):
             check(torch.equal(getattr(g, f), getattr(d, f)),
                   f"kernel I {tag}: {f} equal to kernel D's")
         d1, d2 = split(d)
-        hd, fld = pa.compact_key_hash(d1, d2, spec0, didx)
-        dck = pa.key_histogram(hd, fld, K)
+        dck = _hold_e(torch, pa, kernels, d1, d2, spec0, K, didx,
+                      f"on kernel D's {tag} sides")[0]
         a1, a2 = split(g)
-        ha, fla = pa.compact_key_hash(a1, a2, spec0, didx)
-        check(torch.equal(pa.key_histogram(ha, fla, K), dck),
+        check(torch.equal(kernels.compact_keys(a1, a2, spec0, K)[0], dck),
               f"kernel I {tag}: key table equal to kernel D's "
               f"(n_uniq {int(dck[0, 0])})")
 
@@ -1486,14 +1569,14 @@ def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
     torch.cuda.synchronize()
     _equal_sides(torch, pa, g1, c1, f"kernel K mate 1 {tag}")
     _equal_sides(torch, pa, g2, c2, f"kernel K mate 2 {tag}")
-    h, fl = pa.compact_key_hash(g1, g2, spec, didx)
-    ck, slots = pa.key_histogram(h, fl, Bp + 1, with_slots=True)
+    ck, slots, h, _ = _hold_e(torch, pa, kernels, g1, g2, spec, Bp + 1, didx,
+                              f"on kernel K's sides {tag}", with_slots=True)
     hp, flp = pa.key_hash_plain(c1, c2, spec, didx)
     ckp, slotsp = pa.key_histogram_plain(hp, flp, Bp + 1, with_slots=True)
     torch.cuda.synchronize()
-    _equal_tables(torch, ck, ckp, f"kernels K + B + E {tag}")
+    _equal_tables(torch, ck, ckp, f"kernels K + E {tag}")
     check(torch.equal(slots, slotsp),
-          f"kernel E {tag}: {Bp} per-read slots equal")
+          f"kernel E {tag}: {Bp} per-read slots equal to the plain versions'")
     check(torch.equal(ck[1:, :2][slots.long()], h),
           f"kernel E {tag}: every read's slot names its own key")
     n_uniq = int(ck[0, 0])
@@ -1517,13 +1600,16 @@ def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
     io = (pkf.numel() + 8 * Bp + 4 * Bp + 8 * aux.numel()
           + 2 * Bp * (4 * Rr + 4 * 6 + 3))
     bnd_k = bound(io + table, 250 * n_win, PEAK_INT_OPS)
-    ms_e = cuda_ms(lambda: kernels.key_histogram(h, fl, Bp + 1, True), 20,
-                   torch)
-    plain_e = cuda_ms(lambda: pa.key_histogram_plain(h, fl, Bp + 1, True), 5,
-                      torch)
+    ms_e = cuda_ms(lambda: kernels.compact_keys(g1, g2, spec, Bp + 1, True,
+                                                didx), 20, torch)
+    dev_e = graph_ms(lambda: kernels.compact_keys(g1, g2, spec, Bp + 1, True,
+                                                  didx), 20, torch)
+    plain_e = cuda_ms(lambda: pa.key_histogram_plain(
+        *pa.key_hash_plain(g1, g2, spec, didx), Bp + 1, True), 5, torch)
     h0 = h[:, 0].contiguous()
     lib_e = cuda_ms(lambda: torch.unique(h0, return_inverse=True), 20, torch)
-    bnd_e = bound(12 * Bp + 8 * n_uniq + 40 * (Bp + 2) + 4 * Bp, 0,
+    # the compact key's inputs read once, the table and the slots written
+    bnd_e = bound(_key_in_bytes(g1, g2, spec) + 40 * (Bp + 2) + 4 * Bp, 0,
                   PEAK_INT_OPS)
     ms_f = cuda_ms(lambda: kernels.gather_slim(idx, g1, g2), 20, torch)
     plain_f = cuda_ms(lambda: pa.gather_slim_plain(idx, g1, g2), 5, torch)
@@ -1531,13 +1617,15 @@ def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
     log(f"{tag} ({n_real} half-fail pairs, Bp={Bp}): kernel K {ms_k:.4f} ms "
         f"(plain on card {plain_k:.3f} ms, bound {bnd_k[0]:.4f} ms "
         f"{bnd_k[1]}, {n_win} failed-mate windows, {n_valid} valid, "
-        f"{n_hit} hits); kernel E with slots {ms_e:.4f} ms (plain "
+        f"{n_hit} hits); kernel E with slots {ms_e:.4f} ms, device (L2-warm) "
+        f"{dev_e:.4f} ms (plain "
         f"{plain_e:.3f} ms, torch.unique with inverse {lib_e:.4f} ms, "
         f"bound {bnd_e[0]:.5f} ms, n_uniq {n_uniq}); kernel F slim "
         f"{ms_f:.4f} ms (plain {plain_f:.4f} ms, bound {bnd_f[0]:.6f} "
         f"ms, {n_uniq} rows)")
     return {"pseudoalign_halffail": (ms_k, plain_k, bnd_k, None),
             "key_histogram_slots": (ms_e, plain_e, bnd_e, lib_e),
+            "key_histogram_slots_device_ms": dev_e,
             "gather_slim": (ms_f, plain_f, bnd_f, None)}
 
 
@@ -1623,7 +1711,7 @@ def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
         key = "" if Bp == qp._W2MAX else "_16k"
         out.update({name + key: v for name, v in held.items()})
 
-    # the both-failed slice: kernel D, B and E with slots on both mates
+    # the both-failed slice: kernel D and E with slots on both mates
     sub = hk.fail_idx[both[: qp._W2MAX]].astype(np.int64)
     Bp = qp._bucket_size(sub.shape[0], lo=qp._W2MIN)
     exc = qp._rows_exceptions([(b.nmask[sub], b.lens[sub]) for b in bs], Bp, L)
@@ -1638,8 +1726,8 @@ def phase_3f(torch, np, pa, kernels, fastx, index, didx, r1p, r2p, k, dev,
     ckp, slotsp = pa.key_histogram_plain(hp, flp, Bp + 1, with_slots=True)
     torch.cuda.synchronize()
     check(torch.equal(ck, ckp) and torch.equal(slots, slotsp),
-          f"both-failed slice ({sub.shape[0]} pairs, Bp={Bp}): kernel D + B "
-          "+ E key table and slots equal to the plain E on D's sides")
+          f"both-failed slice ({sub.shape[0]} pairs, Bp={Bp}): kernel D + E "
+          "key table and slots equal to the plain E on D's sides")
     summary = {"probe_pairs": n_pairs, "probe_s_3f": probe_s,
                "probe_threads": probe.n_threads,
                "half_fail": int(half.shape[0]), "both_failed":
@@ -2453,7 +2541,7 @@ def phase_5f(torch, np, pa, kernels, Options, run_quant, index, r1p, r2p,
               == launches["pseudoalign_turbo"],
               f"{len(calls)} wave-2 slices captured, one per K or D launch")
         # K, E with slots and F slim held and timed on the first hw1
-        # batch's half-fail slice, D + B + E with slots on its both-failed
+        # batch's half-fail slice, D + E with slots on its both-failed
         # slice; then K and D timed on every slice of the run
         first = next(i for i, c in enumerate(calls)
                      if c[0] == "K" and c[1] == "hw1")
@@ -2509,7 +2597,7 @@ def phase_5f(torch, np, pa, kernels, Options, run_quant, index, r1p, r2p,
 
 
 def _hold_d_slots(torch, pa, kernels, a, kw, tag):
-    """Kernel D, B and E with per-read slots on a both-failed slice as
+    """Kernel D and E with per-read slots on a both-failed slice as
     turbo.pseudoalign_pair_turbo receives it: D's sides, the key table and
     the slots equal to the plain versions on the card."""
     from kallisto_tpu_torch.ops import turbo
@@ -2532,7 +2620,7 @@ def _hold_d_slots(torch, pa, kernels, a, kw, tag):
     _equal_sides(torch, pa, g1, c1, f"kernel D mate 1 {tag}")
     _equal_sides(torch, pa, g2, c2, f"kernel D mate 2 {tag}")
     check(torch.equal(ck, ckp) and torch.equal(slots, slotsp),
-          f"both-failed slice {tag} (Bp={Bp}): kernel D + B + E key table "
+          f"both-failed slice {tag} (Bp={Bp}): kernel D + E key table "
           "and slots equal to the plain versions")
 
 
@@ -2826,14 +2914,14 @@ def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
           f"dryrun_multichip({n}, {dev}): equal counts, EC order and "
           f"est_counts, routes {routes}")
 
-    # -- K18: A + B + E per shard, held against the plain versions on every
+    # -- K18: A + E per shard, held against the plain versions on every
     # shard and one shard timed, at two batches: MESH_BATCH (the shape of
     # the sharded quant above) and MESH_PAIRS in one batch (the CLI's
     # default --batch-size over four shards); the whole step beside it
     mesh = MeshRunner(devices)
     mesh.replicate(index)
     spec0 = pa.KeySpec(k=k)
-    step_names = ("pseudoalign_side", "pseudoalign_side_wave2", "read_keys",
+    step_names = ("pseudoalign_side", "pseudoalign_side_wave2",
                   "key_histogram")
 
     def hold_k18(pb1, pb2):
@@ -2855,9 +2943,10 @@ def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
         sync()
         per_batch = sum(kernels.LAUNCHES[nm] for nm in step_names)
         check(sb2 == sb == -(-pb1.n // n), f"shard shape {sb} pairs")
-        check(per_batch == 6 * n, f"K18 at {sb} pairs per shard: {per_batch} "
-              f"launches per batch (A's two waves on both mates, B and E, "
-              f"per shard)")
+        check(per_batch == 5 * n and kernels.LAUNCHES["read_keys"] == 0,
+              f"K18 at {sb} pairs per shard: {per_batch} launches per batch "
+              f"(A's two waves on both mates and E with the keys fused, per "
+              f"shard)")
         for s in range(n):
             p1, p2, pck = plain_step(s)
             torch.cuda.synchronize(devices[s])
@@ -2873,22 +2962,24 @@ def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
         with torch.cuda.device(devices[0]):
             ms = cuda_ms(lambda: pa.pseudoalign_pair_compact_packed(
                 d0, *up1[0], *up2[0], **kw), 10, torch)
+            dev_ms = graph_ms(lambda: pa.pseudoalign_pair_compact_packed(
+                d0, *up1[0], *up2[0], **kw), 10, torch)
             plain = cuda_ms(lambda: plain_step(0), 3, torch)
         R = int(r1s[0].rows.shape[1])
-        n_uniq = int(cks[0][0, 0])
         (b1, p1n), (b2, p2n) = (
             _mesh_side_bytes(torch, pa, d0, u[0], L, k, r[0])
             for u, r in ((up1, r1s), (up2, r2s)))
-        nbytes = (b1 + b2 + sb * (4 * 2 * R + 2 * (2 + 13) + 16 + 4)
-                  + 12 * sb + 8 * n_uniq + 40 * (sb + 2))
+        # A's bytes on both mates, then E's: the compact key's columns (the
+        # SideResults A wrote) read once and the table written once
+        nbytes = b1 + b2 + sb * (4 * 2 * R + 4) + 40 * (sb + 2)
         bnd = bound(nbytes, 250 * (p1n + p2n), PEAK_INT_OPS)
-        log(f"K18: one shard's A + B + E {ms:.4f} ms at {sb} pairs (plain on "
-            f"card {plain:.3f} ms, bound {bnd[0]:.4f} ms), {per_batch} "
-            "launches per batch")
-        return ms, plain, bnd, per_batch, sb
+        log(f"K18: one shard's A + E {ms:.4f} ms at {sb} pairs, device (L2-warm) "
+            f"{dev_ms:.4f} ms (plain on card {plain:.3f} ms, bound "
+            f"{bnd[0]:.4f} ms), {per_batch} launches per batch")
+        return ms, plain, bnd, per_batch, sb, dev_ms
 
     pb1, pb2 = next(packed_paired_batches(q1, q2, MESH_BATCH, k))
-    ms, plain, bnd, per_batch, sb = hold_k18(pb1, pb2)
+    ms, plain, bnd, per_batch, sb, dev_ms = hold_k18(pb1, pb2)
     walls = []
     for _ in range(5):
         sync()
@@ -2901,8 +2992,9 @@ def phase_5g(torch, np, pa, kernels, Options, run_quant, run_bus,
         f"{step_ms:.3f} ms (median of 5 host walls: "
         f"{', '.join(f'{w:.3f}' for w in walls)})")
     db1, db2 = next(packed_paired_batches(q1, q2, MESH_PAIRS, k))
-    ms_d, plain_d, bnd_d, per_batch_d, sb_d = hold_k18(db1, db2)
+    ms_d, plain_d, bnd_d, per_batch_d, sb_d, dev_ms_d = hold_k18(db1, db2)
     row = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+               device_ms=dev_ms, device_ms_default_batch=dev_ms_d,
                launches=launches["key_histogram"], step_ms=step_ms,
                shard_pairs=sb, shards=n, cards=n_cards,
                kernel_launches_per_batch=per_batch,
@@ -3071,11 +3163,13 @@ def main(argv=None):
         R2 = int(s2g.rows.shape[1])
         bytes_b = B * (4 * (R + R2) + 2 * (2 + 13) + 16 + 4)
         bound_b = bound(bytes_b, B * (R + R2 + 1) * 8, PEAK_INT_OPS)
+        dev_b = graph_ms(lambda: kernels.read_keys(s1g, s2g, k), 20, torch)
         log(f"kernel A: {ms_a:.3f} ms (plain on card {plain_a:.3f} ms, "
             f"bound {bound_a[0]:.4f} ms), B={B} Lp={pb1.Lp}, "
             f"{n_probe} probes, wave 2 {k3a_w2['reads']} reads "
             f"({k3a_w2['wave2_share']:.4f})")
-        log(f"kernel B: {ms_b:.3f} ms (plain on card {plain_b:.3f} ms)")
+        log(f"kernel B: {ms_b:.4f} ms, device (L2-warm) {dev_b:.4f} ms (plain on card "
+            f"{plain_b:.3f} ms, bound {bound_b[0]:.4f} ms)")
         k3codes = phase_3_codes(torch, np, pa, kernels, didx, rb1, k, dev, rng)
 
         # ------------------------------------------------- 3c. kernel H
@@ -3233,6 +3327,12 @@ def main(argv=None):
               f"main path: the turbo batches went through kernel I "
               f"({launches['pseudoalign_anchor']} launches, "
               f"{routes['wave2_reads']} reads in wave 2), none through D")
+        check(launches["key_histogram"] == routes["turbo"]
+              and launches["read_keys"] == routes["full"],
+              f"main path: one C call for the key step of each turbo batch "
+              f"(kernel E with the keys fused, {launches['key_histogram']} "
+              f"launches), kernel B only on the per-read batches "
+              f"({launches['read_keys']})")
         _check_side_lists(a_lists, launches, "main path")
         n_uniq_mean = res.timings["n_uniq_sum"] / max(routes["turbo"], 1)
         log(f"quant wall {quant_s:.2f} s = {n_pairs / quant_s:,.0f} pairs/s, "
@@ -3461,7 +3561,7 @@ def main(argv=None):
                  replaces="kallisto_tpu/ops/pseudoalign.py:567",
                  launches=launches["read_keys"], max_abs_err=0.0,
                  ms=ms_b, plain_ms=plain_b, bound_ms=bound_b[0],
-                 bound_by=bound_b[1], library_ms=None),
+                 bound_by=bound_b[1], library_ms=None, device_ms=dev_b),
             dict(name="em_step_batch", route="cuda", source=csrc + "em.cu",
                  replaces="kallisto_tpu/quant/em.py:112",
                  launches=launches["em_step_batch"], max_abs_err=err_1,
@@ -3477,7 +3577,7 @@ def main(argv=None):
                  "kallisto_tpu/ops/turbo.py:131",
                  launches_d["pseudoalign_turbo"]),
                 ("key_histogram", "compact.cu",
-                 "kallisto_tpu/ops/pseudoalign.py:733",
+                 "kallisto_tpu/ops/pseudoalign.py:689",
                  launches["key_histogram"]),
                 ("gather_exemplars", "compact.cu",
                  "kallisto_tpu/quant/pipeline.py:495",
@@ -3488,7 +3588,7 @@ def main(argv=None):
                 launches=n, max_abs_err=0.0, ms=ms,
                 plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
                 library_ms=lib, main_path_launches=launches[name],
-                **k3g.get(name, {})))
+                **k3b["device"].get(name, {}), **k3g.get(name, {})))
         # kernel I has two rows: paired (quant, launches of phase 5) and
         # single-end (bus, launches of phase 5c)
         for form, replaces, n in (
@@ -3588,7 +3688,12 @@ def main(argv=None):
                 ("pseudoalign_halffail", "pseudoalign_halffail",
                  "kallisto_tpu/ops/turbo.py:244", {}),
                 ("key_histogram", "key_histogram_slots",
-                 "kallisto_tpu/ops/pseudoalign.py:774", {"form": "slots"}),
+                 "kallisto_tpu/ops/pseudoalign.py:774", {
+                     "form": "slots",
+                     "device_ms": k5f["key_histogram_slots_device_ms"],
+                     "stress_device_ms": k3f["key_histogram_slots_device_ms"],
+                     "device_ms_16k":
+                     k3f["key_histogram_slots_device_ms_16k"]}),
                 ("gather_slim", "gather_slim",
                  "kallisto_tpu/quant/pipeline.py:466",
                  {"main_path_launches": launches["gather_slim"]})):
@@ -3613,7 +3718,7 @@ def main(argv=None):
             replaces="kallisto_tpu/ops/pseudoalign.py:325",
             launches=launches["lookup_kmers"], max_abs_err=0.0,
             library_ms=None, **k3g["lookup_kmers"]))
-        # K18: one shard's A + B + E at 5g's shard shape; launches: the
+        # K18: one shard's A + E at 5g's shard shape; launches: the
         # shard steps of 5g's sharded quant (one E each)
         rows.append(dict(
             name="mesh_pair_compact", route="cuda",
@@ -3645,7 +3750,7 @@ def main(argv=None):
             "n_uniq_mean": n_uniq_mean, "per_read_quant_s": full_s,
             "per_read_pairs_per_s": n_pairs / full_s,
             "per_read_phases_s": rfull.timings,
-            "read_keys_compact_ms": k3b["read_keys_compact"],
+            "compact_keys_ms": k3b["compact_keys"],
             "n_pairs": n_pairs, "n_genes": n_genes, "em_rounds": res.em.n_rounds,
             "em_s": res.timings["em_s"], "em_round_wall_ms": round_wall_ms,
             "em_wall_s": em_wall_s, "em_host_reads": emg.host_reads,

@@ -1,52 +1,80 @@
 // Kernels E and F of the compact steady state (E also with per-read
 // slots, F also in its slim layout).
 //
-// Kernel E, key_histogram, replaces kallisto_tpu/ops/pseudoalign.py
-// _compact_keys (:733) and _ck_flat (:789): B read keys -> the flat
-// [K+1, 5] int64 table whose row 0 is [n_uniq, n_fail = 0, 0, 0, 0] and
-// whose rows 1..min(n_uniq, K) are [h0, h1, occ, first_idx, flags] of each
-// distinct key.  As in JAX the dedup rides on h[:, 0] alone (two keys equal
-// in h0 merge; h0 already hashes every key column), a key's payload is
-// idx * 128 + flags and a key keeps its minimum payload, which gives its
+// Kernel E, compact_keys, is the steady state's whole key step in one C
+// call: JAX's compact_pair_keys / compact_single_keys (kallisto_tpu/ops/
+// pseudoalign.py :689, :716), i.e. _hash_columns_128 (:567) of each read's
+// compact key, _compact_keys (:733) and _ck_flat (:789), and with slots
+// _compact_read_slots (:774).  From one or two mates' SideResults and the
+// key options (min_range veto bits, strand tail, position rank) it writes
+// the flat [K+1, 5] int64 table whose row 0 is [n_uniq, n_fail = 0, 0, 0,
+// 0] and whose rows 1..min(n_uniq, K) are [h0, h1, occ, first_idx, flags]
+// of each distinct key.  As in JAX the dedup rides on h0 alone (two keys
+// equal in h0 merge; h0 already hashes every key column), a key's payload
+// is idx * 128 + flags and a key keeps its minimum payload, which gives its
 // first read and that read's flags; both hash words come from that read.
-// n_uniq is exact even past K.
+// n_uniq is exact even past K.  Its launches count as kernel E's,
+// ops/kernels.py LAUNCHES["key_histogram"] ("key_histogram_slots" with
+// slots): kernel B's compact form no longer runs apart.
 //
-// It is not a copy of the TPU's sort network.  Design:
-//   1. insert: an open-addressing table of S >= 2B slots (a power of two)
-//      with linear probing.  Each read claims its h0's slot with a 64-bit
-//      atomicCAS on the key word (the all-ones word marks an empty slot; a
-//      read whose h0 is all ones goes to the extra slot S), then atomicAdds
-//      the slot's count and atomicMins its payload.
-//   2. count: a read is its key's first read when the slot's payload >> 7
-//      is its own index; each block of 1024 reads counts its first reads.
-//   3. scan: one block turns the block counts into exclusive offsets and
+// It is not a copy of the TPU's sort network.  One allocation holds the
+// table, the workspace and the outputs; one memset clears the workspace's
+// table and look-back state, where all-zero means empty (a key word of 0
+// is a free slot, a read whose h0 is 0 goes to the extra slot S; payloads
+// are stored complemented and merged with atomicMax).  Then:
+//   1. ke_insert, a block of KE_TILE reads: each thread hashes its read's
+//      key with kernel B's key function (csrc/keys.cuh: 16-byte row
+//      loads, the rank in the same thread), writes h to the workspace,
+//      and inserts h0 into the block's own open-addressing table in
+//      shared memory (count, minimum payload).  Then one thread per
+//      distinct key of the block makes one insert into the global table
+//      (S >= 2B slots, a power of two, linear probing): the claim, the add
+//      of the block's count, the max of its complemented payload; each
+//      read takes its global slot through its block entry.  So global
+//      atomics follow the distinct keys of each block, not the reads: a
+//      hot key (the no-hit key, padding reads, an abundant fragment)
+//      costs one global update per block.  The block also zeroes its
+//      share of the output table (grid-stride), so the table needs no
+//      memset.
+//   2. ke_rows: tiles of KE_TILE reads taken in order from a counter in
+//      the workspace (never from blockIdx, so the look-back always waits
+//      on tiles that run).  A read is its key's first read when the
+//      slot's payload >> 7 is its own index (read after pass 1 ended); a
+//      tile ranks its first reads with a block scan and gets its offset
+//      by a decoupled look-back over the earlier tiles' published counts
+//      (one 64-bit word a tile: 2 status bits and the count); the key of
+//      global rank r goes to row 1 + r when r < K, and the last tile
 //      writes n_uniq into the meta row.
-//   4. write: each block ranks its first reads by a block-wide prefix sum;
-//      the key with global rank r goes to row 1 + r when r < K.
-//   5. slots (when asked): each read's row, the rank its key got in pass 4
-//      (capped at K - 1 as in JAX), through a per-slot rank that pass 4
+//   3. ke_slots (with slots only): each read's row, its key's rank
+//      (capped at K - 1 as in JAX), through the per-slot rank pass 2
 //      writes for every first read.
-// So occupied rows come out in ascending first_idx (read order), which is
-// deterministic.  JAX orders them by ascending signed h0; the host
-// (quant/ecmap.py process_compact_parts) stable-sorts by first_idx anyway, so
-// the outputs are identical.  Rows past min(n_uniq, K) are zero.
+// So a call makes 1 memset and 2 launches (3 with slots).
+// Occupied rows come out in ascending first_idx (read order), which is
+// deterministic although the table's slots depend on the order of
+// inserts.  JAX orders them by ascending signed h0; the host
+// (quant/ecmap.py process_compact_parts) stable-sorts by first_idx anyway,
+// so the outputs are identical.  Rows past min(n_uniq, K) are zero.
 //
-// With slots, E also replaces _compact_read_slots (:774), reached through
-// compact_pair_keys(..., with_slots=True) (:691-713) on the wave-2 slices
-// of host wave 1: per read the row of its key in THIS table.  JAX's slot is
-// the key's rank in ascending signed h0, because its rows are in that
-// order; here rows are in first-read order, so the slot is the row E gave
-// the key, not JAX's rank -- the two name the same key.  Bound: bytes, 4 B
-// per read read (its table slot) and written (its row), one random sector
-// of the per-slot rank.
+// With slots (the wave-2 slices of host wave 1) each read gets the row of
+// its key in THIS table.  JAX's slot is the key's rank in ascending signed
+// h0, because its rows are in that order; here rows are in first-read
+// order, so the slot is the row E gave the key, not JAX's rank -- the two
+// name the same key.
 //
-// What bounds E on the H100: bytes.  Per read it reads 12 B of input (h0 and
-// flags; h1 only for first reads) and touches about three random 32 B
-// sectors of the table (key, count, payload) in pass 1 and two in passes
-// 2 and 4; it writes 40 B per distinct key.  The table for a 262,144-read
-// batch is 12 MB, inside the 50 MB L2, so the random sectors mostly stay on
-// chip.  Atomics on one hot key (the no-hit key of padding reads) serialise
-// in the L2; at realistic size they are a small share of a batch.
+// Given h [B, 2] and flags [B] instead of SideResults (h_in), pass 1 takes
+// those keys as they are: the tests hold the table on keys no read could
+// be made to hash to (h0 = 0, h0 = -1, one key on most reads).
+//
+// What bounds E on the H100: bytes.  Per read it reads its key columns
+// (64 B of rows a mate at R = 16, 2-3 flag bytes, the tail fields with
+// options) and writes 16 B of h and 4 of slot; per distinct key of a block
+// it touches about three random 32 B sectors of the global table, per read
+// one in pass 2; it writes 40 B per distinct key.  The table for a
+// 262,144-read batch is 10 MB, inside the 50 MB L2.  A hot key costs
+// nothing extra: on chip_smoke.py phase 3b's batch (262,144 pairs, 89,250
+// keys; NVIDIA H100 80GB HBM3, 700 W) E took 0.038 ms of device time on
+// the batch's keys given as keys and 0.026 ms with 60 % of the reads moved
+// onto one key -- fewer distinct keys, fewer global inserts.
 //
 // Kernel F, gather_exemplars, replaces the exemplar gathers of the compact
 // path, kallisto_tpu/quant/pipeline.py _gather_pair_exemplars (:495) and
@@ -75,50 +103,19 @@
 // contiguous span of 16-byte stores (out is [n, Wd] row-major).  Index
 // arithmetic is 32-bit (the wrapper's shapes fit).
 
-#include <cuda_runtime.h>
+#include "keys.cuh"
 
-#define KT_EMPTY 0xFFFFFFFFFFFFFFFFULL
-#define KT_SCAN_THREADS 1024
 #define KT_FULL 0xffffffffu
 
 // ------------------------------------------------------------- kernel E
 
-__global__ void kt_insert(const long long* __restrict__ h,
-                          const int* __restrict__ flags, long long B,
-                          unsigned long long* keys, unsigned int* occ,
-                          unsigned long long* pay, long long S,
-                          int* __restrict__ read_slot) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    const unsigned long long h0 = (unsigned long long)h[2 * i];
-    long long s = S;
-    if (h0 != KT_EMPTY) {
-        s = (long long)(h0 & (unsigned long long)(S - 1));
-        while (true) {
-            const unsigned long long prev = atomicCAS(&keys[s], KT_EMPTY, h0);
-            if (prev == KT_EMPTY || prev == h0) break;
-            s = (s + 1) & (S - 1);
-        }
-    }
-    atomicAdd(&occ[s], 1u);
-    atomicMin(&pay[s], (unsigned long long)i * 128ULL +
-                           (unsigned long long)(unsigned int)flags[i]);
-    read_slot[i] = (int)s;
-}
-
-__device__ __forceinline__ int kt_is_first(const unsigned long long* pay,
-                                           const int* read_slot,
-                                           long long i, long long B) {
-    return i < B && (long long)(pay[read_slot[i]] >> 7) == i;
-}
-
-__global__ void kt_count_first(const unsigned long long* __restrict__ pay,
-                               const int* __restrict__ read_slot, long long B,
-                               int* __restrict__ block_count) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const int c = __syncthreads_count(kt_is_first(pay, read_slot, i, B));
-    if (threadIdx.x == 0) block_count[blockIdx.x] = c;
-}
+#define KE_TILE 512  // reads of a block, in passes 1 and 2
+// a block's own table: 2 x its reads, so a block (at most KE_TILE
+// distinct keys) never fills it
+#define KE_LSLOTS (2 * KE_TILE)
+#define KE_AGG (1ULL << 62)  // look-back word: the tile's own count
+#define KE_PRE (2ULL << 62)  // look-back word: the inclusive prefix
+#define KE_VAL ((1ULL << 62) - 1)
 
 // Exclusive prefix sum of v over the block; *total gets the block's sum.
 // blockDim.x must be a multiple of 32, at most 1024.
@@ -149,110 +146,274 @@ __device__ int kt_block_scan(int v, int* total) {
     return off + x - v;
 }
 
-__global__ void kt_scan_counts(int* block_count, long long nb,
-                               long long* __restrict__ ck) {
-    long long carry = 0;
-    for (long long base = 0; base < nb; base += blockDim.x) {
-        const long long j = base + threadIdx.x;
-        const int v = j < nb ? block_count[j] : 0;
-        int total;
-        const int ex = kt_block_scan(v, &total);
-        if (j < nb) block_count[j] = (int)(carry + ex);
-        carry += total;
+// Pass 1 (see the file header): key, block table, one global insert per
+// distinct key of the block; zeroes the output table's words (ck2 pairs,
+// then the odd last word ck_tail).
+__global__ void __launch_bounds__(KE_TILE) ke_insert(
+    KeySide s1, KeySide s2, int paired, KeyOpts o, int V1, int V2,
+    const ulonglong2* __restrict__ h_in, const int* __restrict__ flags_in,
+    int B, long long S, unsigned long long* keys, unsigned int* cnt,
+    unsigned long long* npay, int* __restrict__ read_slot,
+    ulonglong2* __restrict__ h_ws, int* __restrict__ flags_out,
+    ulonglong2* __restrict__ ck2, long long ck_pairs,
+    long long* __restrict__ ck_tail) {
+    __shared__ unsigned long long lkey[KE_LSLOTS + 1];
+    __shared__ unsigned long long lpay[KE_LSLOTS + 1];
+    __shared__ unsigned int lcnt[KE_LSLOTS + 1];
+    __shared__ int lslot[KE_LSLOTS + 1];
+    const int tid = threadIdx.x;
+    for (int j = tid; j <= KE_LSLOTS; j += KE_TILE) {
+        lkey[j] = 0;
+        lpay[j] = 0;
+        lcnt[j] = 0;
     }
-    if (threadIdx.x == 0) ck[0] = carry;  // meta row: n_uniq
+    for (long long q = (long long)blockIdx.x * KE_TILE + tid; q < ck_pairs;
+         q += (long long)gridDim.x * KE_TILE)
+        ck2[q] = make_ulonglong2(0ULL, 0ULL);
+    if (ck_tail && blockIdx.x == 0 && tid == 0) *ck_tail = 0;
+    __syncthreads();
+    const int i = blockIdx.x * KE_TILE + tid;
+    int ls = KE_LSLOTS;
+    if (i < B) {
+        unsigned long long h0, h1;
+        int flags;
+        if (h_in) {
+            const ulonglong2 v = h_in[i];
+            h0 = v.x;
+            h1 = v.y;
+            flags = flags_in[i];
+        } else {
+            KeyHash h;
+            flags = kt_compact_key(h, s1, s2, paired, o, i, V1, V2);
+            h0 = h.w0();
+            h1 = h.w1();
+        }
+        h_ws[i] = make_ulonglong2(h0, h1);
+        if (flags_out) flags_out[i] = flags;
+        if (h0 != 0) {
+            ls = (int)(h0 & (KE_LSLOTS - 1));
+            while (true) {
+                const unsigned long long prev = atomicCAS(&lkey[ls], 0ULL, h0);
+                if (prev == 0 || prev == h0) break;
+                ls = (ls + 1) & (KE_LSLOTS - 1);
+            }
+        }
+        atomicAdd(&lcnt[ls], 1u);
+        atomicMax(&lpay[ls], ~((unsigned long long)i * 128ULL +
+                               (unsigned long long)(unsigned int)flags));
+    }
+    __syncthreads();
+    for (int j = tid; j <= KE_LSLOTS; j += KE_TILE) {
+        const unsigned int c = lcnt[j];
+        if (c == 0) continue;
+        long long s = S;
+        if (j < KE_LSLOTS) {
+            const unsigned long long key = lkey[j];
+            s = (long long)(key & (unsigned long long)(S - 1));
+            while (true) {
+                const unsigned long long prev = atomicCAS(&keys[s], 0ULL, key);
+                if (prev == 0 || prev == key) break;
+                s = (s + 1) & (S - 1);
+            }
+        }
+        atomicAdd(&cnt[s], c);
+        atomicMax(&npay[s], lpay[j]);
+        lslot[j] = (int)s;
+    }
+    __syncthreads();
+    if (i < B) read_slot[i] = lslot[ls];
 }
 
-__global__ void kt_write_rows(const long long* __restrict__ h,
-                              const unsigned int* __restrict__ occ,
-                              const unsigned long long* __restrict__ pay,
-                              const int* __restrict__ read_slot, long long B,
-                              const int* __restrict__ block_offset,
-                              long long K, long long* __restrict__ ck,
-                              int* __restrict__ slot_rank) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const int first = kt_is_first(pay, read_slot, i, B);
+// The decoupled look-back of tile t (warp 0 of its block): publishes the
+// tile's count, sums the earlier tiles' words 32 at a time back to the
+// nearest inclusive prefix, publishes its own inclusive prefix; returns
+// the exclusive one.  Earlier tiles took their ids from the counter
+// before t, so they run and publish without waiting on t.
+__device__ long long ke_look_back(unsigned long long* tstate, int t,
+                                  int total) {
+    const int lane = threadIdx.x & 31;
+    volatile unsigned long long* st = tstate;
+    if (t == 0) {
+        if (lane == 0) st[0] = KE_PRE | (unsigned long long)total;
+        return 0;
+    }
+    if (lane == 0) st[t] = KE_AGG | (unsigned long long)total;
+    long long excl = 0;
+    int end = t;  // this window: tiles [end - 32, end)
+    while (true) {
+        const int j = end - 32 + lane;
+        unsigned long long v;
+        do {
+            v = j >= 0 ? st[j] : KE_PRE;
+        } while (__any_sync(KT_FULL, (v >> 62) == 0));
+        const unsigned int pre = __ballot_sync(KT_FULL, (v >> 62) == 2);
+        const int from = pre ? 31 - __clz(pre) : 0;
+        long long x = lane >= from ? (long long)(v & KE_VAL) : 0;
+        for (int d = 16; d; d >>= 1) x += __shfl_xor_sync(KT_FULL, x, d);
+        excl += x;
+        if (pre) break;
+        end -= 32;
+    }
+    if (lane == 0) st[t] = KE_PRE | (unsigned long long)(excl + total);
+    return excl;
+}
+
+// Pass 2: first reads, their global rank and their rows.
+__global__ void __launch_bounds__(KE_TILE) ke_rows(
+    const ulonglong2* __restrict__ h_ws, const unsigned int* __restrict__ cnt,
+    const unsigned long long* __restrict__ npay,
+    const int* __restrict__ read_slot, int B, int nt, long long K,
+    unsigned long long* tstate, unsigned int* tile_ctr,
+    long long* __restrict__ ck, int* __restrict__ slot_rank) {
+    __shared__ int s_tile;
+    __shared__ long long s_excl;
+    if (threadIdx.x == 0) s_tile = (int)atomicAdd(tile_ctr, 1u);
+    __syncthreads();
+    const int t = s_tile;
+    const int i = t * KE_TILE + threadIdx.x;
+    int s = 0, first = 0;
+    unsigned long long pay = 0;
+    if (i < B) {
+        s = read_slot[i];
+        pay = ~npay[s];
+        first = (long long)(pay >> 7) == (long long)i;
+    }
     int total;
-    const long long r =
-        (long long)block_offset[blockIdx.x] + kt_block_scan(first, &total);
-    if (first && slot_rank) slot_rank[read_slot[i]] = (int)r;
-    if (first && r < K) {
-        const int s = read_slot[i];
-        long long* row = ck + 5 * (1 + r);
-        row[0] = h[2 * i];
-        row[1] = h[2 * i + 1];
-        row[2] = (long long)occ[s];
-        row[3] = i;
-        row[4] = (long long)(pay[s] & 127ULL);
+    const int ex = kt_block_scan(first, &total);
+    if (threadIdx.x < 32) {
+        const long long excl = ke_look_back(tstate, t, total);
+        if (threadIdx.x == 0) s_excl = excl;
     }
+    __syncthreads();
+    const long long excl = s_excl;
+    if (first) {
+        const long long r = excl + ex;
+        if (slot_rank) slot_rank[s] = (int)r;
+        if (r < K) {
+            const ulonglong2 hh = h_ws[i];
+            long long* row = ck + 5 * (1 + r);
+            row[0] = (long long)hh.x;
+            row[1] = (long long)hh.y;
+            row[2] = (long long)cnt[s];
+            row[3] = i;
+            row[4] = (long long)(pay & 127ULL);
+        }
+    }
+    if (t == nt - 1 && threadIdx.x == 0) ck[0] = excl + total;  // n_uniq
 }
 
-__global__ void kt_read_slots(const int* __restrict__ read_slot,
-                              const int* __restrict__ slot_rank, long long B,
-                              long long K, int* __restrict__ slots) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// Pass 3 (with slots): each read's row, capped at K - 1.
+__global__ void ke_slots(const int* __restrict__ read_slot,
+                         const int* __restrict__ slot_rank, int B,
+                         long long K, int* __restrict__ slots) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= B) return;
     const long long r = slot_rank[read_slot[i]];
     slots[i] = (int)(r < K - 1 ? r : K - 1);
 }
 
-// slot_rank ([S + 1] int32 workspace) and slots ([B] int32) are both null,
-// or both set for the per-read rows.
-extern "C" int key_histogram(const void* h, const void* flags, long long B,
-                             long long K, void* keys, void* occ, void* pay,
-                             long long S, void* read_slot, void* block_count,
-                             void* ck, void* slot_rank, void* slots,
-                             void* stream) {
+// Word offsets (8 bytes a word) of one call's allocation, which
+// compact_keys_layout hands to ops/kernels.py.  The table ck comes first;
+// [keys, h) is the workspace the memset clears.
+struct KeLayout {
+    long long keys, npay, ts, ctr, cnt, h, rslot, srank, slots, flags, end;
+};
+
+static KeLayout ke_layout(long long B, long long K, long long S,
+                          int with_slots, int want_flags) {
+    KeLayout l;
+    const long long nt = (B + KE_TILE - 1) / KE_TILE;
+    l.keys = 5 * (K + 1);
+    l.npay = l.keys + S + 1;
+    l.ts = l.npay + S + 1;
+    l.ctr = l.ts + nt;
+    l.cnt = l.ctr + 1;
+    l.h = l.cnt + (S + 2) / 2;
+    l.h += l.h & 1;  // 16-byte aligned
+    l.rslot = l.h + 2 * B;
+    l.srank = l.rslot + (B + 1) / 2;
+    l.slots = l.srank + (with_slots ? (S + 2) / 2 : 0);
+    l.flags = l.slots + (with_slots ? (B + 1) / 2 : 0);
+    l.end = l.flags + (want_flags ? (B + 1) / 2 : 0);
+    return l;
+}
+
+static long long ke_slots_of(long long B) {
+    long long S = 2;
+    while (S < 2 * B) S <<= 1;
+    return S;
+}
+
+// The allocation compact_keys takes for B reads and K rows: out = {h,
+// slots, flags, total} in 8-byte words (h, slots and flags as offsets).
+extern "C" int compact_keys_layout(long long B, long long K, int with_slots,
+                                   int want_flags, long long* out) {
+    if (K < 1 || B < 0 || B >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+    const KeLayout l = ke_layout(B, K, ke_slots_of(B), with_slots, want_flags);
+    out[0] = l.h;
+    out[1] = l.slots;
+    out[2] = l.flags;
+    out[3] = l.end;
+    return 0;
+}
+
+// Kernel E (see the file header).  ws: ws_words 8-byte words laid out by
+// ke_layout (16-byte aligned): the table ck [K+1, 5] int64, the
+// workspace, h [B, 2], the slots [B] int32 with with_slots and the flags
+// [B] int32 with want_flags.  The keys come from s1 (and s2 when paired)
+// under the options o, or, with h_in set, from h_in [B, 2] and flags_in [B].
+extern "C" int compact_keys(const KeySide* s1, const KeySide* s2,
+                            const KeyOpts* o, const void* h_in,
+                            const void* flags_in, long long B, long long K,
+                            int with_slots, int want_flags, void* ws,
+                            long long ws_words, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (K < 1 || S < 2 || (S & (S - 1)) != 0 || (B > 0 && S < 2 * B) ||
-        (slot_rank == 0) != (slots == 0))
+    if (K < 1 || B < 0 || B >= (1LL << 30) || ((unsigned long long)ws & 15) ||
+        ((unsigned long long)h_in & 15) || (h_in != 0) != (flags_in != 0))
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaMemsetAsync(ck, 0, (size_t)(K + 1) * 5 * 8, st);
+    if (h_in == 0 && (s1 == 0 || o == 0 || s1->R <= 0 ||
+                      (s2 != 0 && s2->R <= 0) ||
+                      (o->pf_ptr != 0 &&
+                       (o->pf_base == 0 || o->pos_depth < 0))))
+        return (int)cudaErrorInvalidValue;
+    const long long S = ke_slots_of(B);
+    const KeLayout l = ke_layout(B, K, S, with_slots, want_flags);
+    if (ws_words != l.end) return (int)cudaErrorInvalidValue;
+    long long* w = (long long*)ws;
+    if (B == 0)
+        return (int)cudaMemsetAsync(w, 0, (size_t)(5 * (K + 1)) * 8, st);
+    cudaError_t e = cudaMemsetAsync(w + l.keys, 0, (size_t)(l.h - l.keys) * 8,
+                                    st);
     if (e != cudaSuccess) return (int)e;
-    if (B <= 0) return 0;
-    if ((e = cudaMemsetAsync(keys, 0xFF, (size_t)(S + 1) * 8, st)) ||
-        (e = cudaMemsetAsync(occ, 0, (size_t)(S + 1) * 4, st)) ||
-        (e = cudaMemsetAsync(pay, 0xFF, (size_t)(S + 1) * 8, st)))
-        return (int)e;
-    const int T = KT_SCAN_THREADS;
-    const long long nb = (B + T - 1) / T;
-    kt_insert<<<(unsigned int)((B + 255) / 256), 256, 0, st>>>(
-        (const long long*)h, (const int*)flags, B, (unsigned long long*)keys,
-        (unsigned int*)occ, (unsigned long long*)pay, S, (int*)read_slot);
-    kt_count_first<<<(unsigned int)nb, T, 0, st>>>(
-        (const unsigned long long*)pay, (const int*)read_slot, B,
-        (int*)block_count);
-    kt_scan_counts<<<1, T, 0, st>>>((int*)block_count, nb, (long long*)ck);
-    kt_write_rows<<<(unsigned int)nb, T, 0, st>>>(
-        (const long long*)h, (const unsigned int*)occ,
-        (const unsigned long long*)pay, (const int*)read_slot, B,
-        (const int*)block_count, K, (long long*)ck, (int*)slot_rank);
-    if (slots)
-        kt_read_slots<<<(unsigned int)((B + 255) / 256), 256, 0, st>>>(
-            (const int*)read_slot, (const int*)slot_rank, B, K, (int*)slots);
+    const int paired = s2 != 0;
+    KeySide none = {};
+    KeyOpts no = {};
+    const int V1 = h_in ? 1 : kt_vec(s1);
+    const int V2 = (h_in == 0 && paired) ? kt_vec(s2) : 1;
+    const long long ck_words = 5 * (K + 1);
+    const int nt = (int)((B + KE_TILE - 1) / KE_TILE);
+    ke_insert<<<(unsigned int)nt, KE_TILE, 0, st>>>(
+        h_in ? none : *s1, (h_in == 0 && paired) ? *s2 : none, paired,
+        h_in ? no : *o, V1, V2, (const ulonglong2*)h_in,
+        (const int*)flags_in, (int)B, S, (unsigned long long*)(w + l.keys),
+        (unsigned int*)(w + l.cnt), (unsigned long long*)(w + l.npay),
+        (int*)(w + l.rslot), (ulonglong2*)(w + l.h),
+        want_flags ? (int*)(w + l.flags) : 0, (ulonglong2*)w, ck_words / 2,
+        (ck_words & 1) ? w + ck_words - 1 : 0);
+    ke_rows<<<(unsigned int)nt, KE_TILE, 0, st>>>(
+        (const ulonglong2*)(w + l.h), (const unsigned int*)(w + l.cnt),
+        (const unsigned long long*)(w + l.npay), (const int*)(w + l.rslot),
+        (int)B, nt, K, (unsigned long long*)(w + l.ts),
+        (unsigned int*)(w + l.ctr), w,
+        with_slots ? (int*)(w + l.srank) : 0);
+    if (with_slots)
+        ke_slots<<<(unsigned int)((B + 255) / 256), 256, 0, st>>>(
+            (const int*)(w + l.rslot), (const int*)(w + l.srank), (int)B, K,
+            (int*)(w + l.slots));
     return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- kernel F
-
-// One mate's SideResult fields (layout shared with ops/kernels.py KeySide
-// and csrc/read_keys.cu).
-struct KeySide {
-    const int* rows;               // [B, R]
-    const unsigned char* has;      // [B] bool
-    const unsigned char* ovf;      // [B] bool
-    const int* upos;
-    const int* rpos;
-    const int* block;
-    const unsigned char* strand;   // [B] bool
-    const int* rng;
-    int R;
-};
-
-__device__ __forceinline__ int kt_veto(const KeySide& s, int r, int k,
-                                       int min_range) {
-    return min_range > 1 && s.has[r] && s.rng[r] + k < min_range;
-}
 
 // Kernel F (see the file header): per key, each mate's R row words (V
 // words a load), the flags word, then the tail words; G lanes a key, 256 /
@@ -347,15 +508,6 @@ __global__ void __launch_bounds__(256) gather_exemplars_kernel(
     for (int t = threadIdx.x; t < (a1 - a0) >> 2; t += blockDim.x) o4[t] = s4[t];
 }
 
-// The widest load (4, 2 or 1 words) that a mate's rows allow: row stride
-// and base pointer aligned.
-static int kf_vec(const KeySide* s) {
-    const unsigned long long p = (unsigned long long)s->rows;
-    if (s->R % 4 == 0 && p % 16 == 0) return 4;
-    if (s->R % 2 == 0 && p % 8 == 0) return 2;
-    return 1;
-}
-
 extern "C" int gather_exemplars(const KeySide* s1, const KeySide* s2,
                                 const void* idx, long long n, long long Bsrc,
                                 int k, int min_range, int tail_bs,
@@ -371,8 +523,8 @@ extern "C" int gather_exemplars(const KeySide* s1, const KeySide* s2,
         (paired && Bsrc * s2->R >= (1LL << 31)) ||
         ((unsigned long long)out & 15))
         return (int)cudaErrorInvalidValue;
-    int V = kf_vec(s1);
-    if (paired) V = min(V, kf_vec(s2));
+    int V = kt_vec(s1);
+    if (paired) V = min(V, kt_vec(s2));
     const int items = nrow / V + (Wd - nrow);
     int G = 4;
     while (G < items && G < 32) G <<= 1;

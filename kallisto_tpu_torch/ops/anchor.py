@@ -34,8 +34,8 @@ same (`row_width_ok` says which lengths have an anchor route).
 
 On the card wave 1 and wave 2 are kernel I's two launches
 (csrc/pseudoalign.cu pseudoalign_anchor, then pseudoalign_anchor_wave2 on
-the reads wave 1 listed), followed by kernel B's compact keys and kernel
-E's table; on the CPU each is its plain PyTorch version.
+the reads wave 1 listed), followed by kernel E (the compact keys and the
+table in one C call); on the CPU each is its plain PyTorch version.
 """
 
 from typing import NamedTuple, Tuple
@@ -302,8 +302,8 @@ def pseudoalign_pair_anchor(
     max_keys: int = 32768, n_anchors: int = 2, min_range: int = 0, strand_key: bool = False,
     rl: int = 0, pos_fl: int = -1, pos_depth: int = 0,
 ):
-    """Uniform-length pair batch through the anchor kernel, then kernel B's
-    compact keys and kernel E's table.  Returns (r1, r2, ck [max_keys+1,
+    """Uniform-length pair batch through the anchor kernel, then kernel E's
+    compact keys and table.  Returns (r1, r2, ck [max_keys+1,
     5]) with n_fail in ck[0, 1]."""
     B = p1.shape[0]
     side, n_fail = anchor_sides(didx, (p1, p2), aux, k, L, max_rows,

@@ -5,9 +5,10 @@ Each source in ``kallisto_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build
 happens at first use, into ``kallisto_tpu_torch/_kbuild/`` (gitignored),
 with one ``nvcc`` per source, all started together; a library is named by
-the hash of its source and flags, so an unchanged source is not rebuilt.
-Several kernels may share a source (A's two waves, A on codes, D, I's two
-waves, J, K and L; E and F).  Kernels A, D, I, J, K and L take the device index in
+the hash of its source, the headers of ``csrc/`` and its flags, so an
+unchanged source is not rebuilt.  Several kernels may share a source (A's
+two waves, A on codes, D, I's two waves, J, K and L; E and F) or a header
+(B and E share the read key, ``csrc/keys.cuh``).  Kernels A, D, I, J, K and L take the device index in
 either layout
 (ops/pseudoalign.py DeviceIndex or PaddedDeviceIndex) as one IndexView.
 
@@ -18,8 +19,10 @@ shard on cuda:1 is never launched from cuda:0), raises
 when the C function returns a non-zero ``cudaError_t``, and adds one to
 ``LAUNCHES[name]`` -- the count that shows a run went through the kernel.
 Kernel A's one C call launches its two waves, counted as
-``pseudoalign_side`` and ``pseudoalign_side_wave2``; A given no reads
-and F given no keys launch nothing and count nothing.  Kernel G's loop replays rounds captured in a CUDA graph (EmGraph): each
+``pseudoalign_side`` and ``pseudoalign_side_wave2``; kernel E's C function
+``compact_keys`` (the compact key fused into the key table) counts as
+``key_histogram``, or ``key_histogram_slots`` with per-read slots; A, B
+and E given no reads and F given no keys launch nothing and count nothing.  Kernel G's loop replays rounds captured in a CUDA graph (EmGraph): each
 replay adds the rounds it holds.
 There is no fallback: a CPU tensor never reaches these functions (the
 dispatching callers send it to the plain PyTorch version instead), and a
@@ -27,6 +30,7 @@ failed build raises.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -49,21 +53,21 @@ LONG_SLIST = 512
 # (the register counts csrc/pseudoalign.cu's header comment cites)
 _PSEUDOALIGN = ("pseudoalign.cu", ("-Xptxas", "-v", f"-DKJ_SLIST={LONG_SLIST}"))
 
-# -Xptxas -v for kernels E and F too (F's registers, PERF.md)
+# -Xptxas -v for kernels E and F too (their registers, PERF.md)
 _COMPACT = ("compact.cu", ("-Xptxas", "-v"))
 
 # kernel name -> (source file, extra nvcc flags)
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "pseudoalign_side": _PSEUDOALIGN,
     "pseudoalign_codes": _PSEUDOALIGN,
-    "read_keys": ("read_keys.cu", ()),
+    "read_keys": ("read_keys.cu", ("-Xptxas", "-v")),
     "pseudoalign_turbo": _PSEUDOALIGN,
     "pseudoalign_anchor": _PSEUDOALIGN,
     "pseudoalign_anchor_wave2": _PSEUDOALIGN,
     "pseudoalign_long": _PSEUDOALIGN,
     "pseudoalign_halffail": _PSEUDOALIGN,
     "lookup_kmers": _PSEUDOALIGN,
-    "key_histogram": _COMPACT,
+    "compact_keys": _COMPACT,
     "gather_exemplars": _COMPACT,
     "gather_slim": _COMPACT,
     # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
@@ -77,9 +81,11 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# kernel E with per-read slots counts apart from E without them
+# kernel E (the C function compact_keys) counts as key_histogram, with
+# per-read slots apart as key_histogram_slots
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in (*SOURCES, "pseudoalign_side_wave2",
+    name: 0 for name in (*(n for n in SOURCES if n != "compact_keys"),
+                         "pseudoalign_side_wave2", "key_histogram",
                          "key_histogram_slots")}
 
 _lock = threading.Lock()
@@ -88,8 +94,7 @@ _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 class KeySide(ctypes.Structure):
-    """One mate's SideResult pointers (struct KeySide in csrc/read_keys.cu
-    and csrc/compact.cu)."""
+    """One mate's SideResult pointers (struct KeySide in csrc/keys.cuh)."""
 
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "rows", "has", "ovf", "upos", "rpos", "block", "strand", "rng")] + [
@@ -119,7 +124,7 @@ class EmArgs(ctypes.Structure):
 
 
 class KeyOpts(ctypes.Structure):
-    """Key options (struct KeyOpts in csrc/read_keys.cu)."""
+    """Kernel E's key options (struct KeyOpts in csrc/keys.cuh)."""
 
     _fields_ = [("pf_ptr", ctypes.c_void_p), ("pf_base", ctypes.c_void_p),
                 ("NP", ctypes.c_longlong)] + [
@@ -144,11 +149,12 @@ _ARGTYPES = {
     + [_P] * 12 + [_P],
     "pseudoalign_long": [_IX] + [_P] * 3 + [_LL] + [_I] * 5 + [_P, _P, _LL]
     + [_P] * 8 + [_P],
-    "read_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _LL, _P, _P, _P, _P],
+    "read_keys": [_SIDE, _SIDE, _LL, _I, _P, _P, _P],
     "pseudoalign_halffail": [_IX, _P, _LL] + [_P] * 4 + [_LL, _LL] + [_I] * 4
     + [_P] * 20 + [_P],
     "lookup_kmers": [_IX, _P, _P, _LL, _P, _P, _P, _P],
-    "key_histogram": [_P, _P, _LL, _LL, _P, _P, _P, _LL] + [_P] * 6,
+    "compact_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _P, _P, _LL, _LL,
+                     _I, _I, _P, _LL, _P],
     "gather_slim": [_SIDE, _SIDE, _P, _LL, _LL, _P, _P],
     "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
     "em_step_batch": [_P, _P],
@@ -165,6 +171,8 @@ _AUX: Dict[Tuple[str, str], Tuple[list, object]] = {
     ("em_step_batch", "em_graph_destroy"): ([_P], ctypes.c_int),
     ("pseudoalign_long", "pseudoalign_long_grid"): (
         [ctypes.POINTER(_I)], ctypes.c_int),
+    ("compact_keys", "compact_keys_layout"): (
+        [_LL, _LL, _I, _I, ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int),
 }
 
 
@@ -191,8 +199,12 @@ def _lib_path(unit: Tuple[str, Tuple[str, ...]]) -> Tuple[str, list]:
     src_path = os.path.join(CSRC, src)
     flags = list(_NVCC_FLAGS) + list(extra)
     h = hashlib.sha256()
-    with open(src_path, "rb") as f:
-        h.update(f.read())
+    # the source and every header of csrc/ (csrc/keys.cuh is shared)
+    for path in [src_path] + sorted(
+            os.path.join(CSRC, f) for f in os.listdir(CSRC)
+            if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags).encode())
     stem = os.path.splitext(src)[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
@@ -273,10 +285,17 @@ def _launch(name: str, dev: torch.device, *args,
     inputs lie on cuda:1 must not be launched from cuda:0.  Raises on a
     non-zero cudaError_t; counts n launches (a graph replay: the rounds it
     holds) under `count` (default `name`; a tuple: one C call that
-    launches a kernel under each name)."""
+    launches a kernel under each name).  When `dev` is already current the
+    raw stream is read without the device switch (fewer host
+    microseconds)."""
     fn = _fn(name)
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    C = torch._C
+    idx = dev.index
+    if idx is not None and C._cuda_getDevice() == idx:
+        err = fn(*args, C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
     with _count_lock:
         for c in (count or name,) if isinstance(count, str) else count:
@@ -284,6 +303,17 @@ def _launch(name: str, dev: torch.device, *args,
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
+    """Raise unless t is a contiguous CUDA tensor of dtype (and shape, on
+    device, where given).  The first test passes a good tensor with four
+    reads; a tensor that fails it gets the refusal that names its fault."""
+    try:
+        if (t.dtype is dtype and t.is_cuda
+                and (device is None or t.get_device() == device.index)
+                and (shape is None or t.shape == shape)
+                and t.is_contiguous()):
+            return
+    except AttributeError:
+        pass
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor")
     if not t.is_cuda:
@@ -667,92 +697,127 @@ def lookup_kmers(didx, canon: torch.Tensor, valid: torch.Tensor):
 
 # ---------------------------------------------------------------- kernel B
 
+# a mate's SideResult fields in struct KeySide's order: (name, dtype)
+_KEY_FIELDS = (("rows", torch.int32), ("has_hits", torch.bool),
+               ("overflow", torch.bool), ("f_upos", torch.int32),
+               ("f_rpos", torch.int32), ("f_block", torch.int32),
+               ("f_strand", torch.bool), ("rng", torch.int32))
+
 
 def _key_side(s, name: str, dev, B: int, with_fields: bool) -> KeySide:
     """Checked KeySide of one mate; the first-hit fields and rng are
     passed only when the kernel reads them."""
-    R = int(s.rows.shape[1]) if s.rows.dim() == 2 else -1
-    _check(s.rows, "rows" + name, torch.int32, (B, R), dev)
-    for nm in ("has_hits", "overflow"):
-        _check(getattr(s, nm), nm + name, torch.bool, (B,), dev)
-    ks = KeySide(rows=_ptr(s.rows), has=_ptr(s.has_hits),
-                 ovf=_ptr(s.overflow), R=R)
-    if with_fields:
-        for nm in ("f_upos", "f_rpos", "f_block", "rng"):
-            _check(getattr(s, nm), nm + name, torch.int32, (B,), dev)
-        _check(s.f_strand, "f_strand" + name, torch.bool, (B,), dev)
-        ks.upos, ks.rpos, ks.block = _ptr(s.f_upos), _ptr(s.f_rpos), _ptr(s.f_block)
-        ks.strand, ks.rng = _ptr(s.f_strand), _ptr(s.rng)
-    return ks
+    rows = s.rows
+    shape = (B, int(rows.shape[1]) if rows.dim() == 2 else -1)
+    ptrs = []
+    for nm, dtype in _KEY_FIELDS if with_fields else _KEY_FIELDS[:3]:
+        t = getattr(s, nm)
+        _check(t, nm + name, dtype, shape, dev)
+        ptrs.append(t.data_ptr())
+        shape = (B,)
+    return KeySide(*ptrs, *(None,) * (8 - len(ptrs)), rows.shape[1])
 
 
-def read_keys(s1, s2, k: int, min_range: int = 0, strand_key: bool = False,
-              pos=None, want_tl: bool = True):
-    """Kernel B.  Returns (h [B, 2] int64, tl [B] int32 or None, flags [B]
-    int32).  tl is the mapPair fragment length (paired and want_tl only).
-    With every option off the key is the per-read one; min_range > 1 adds
-    the veto bits, strand_key the first-hit (block, strand) tail, and pos =
-    (pf_ptr, pf_base, fl, depth) the tail and the position rank."""
+def read_keys(s1, s2, k: int):
+    """Kernel B, the per-read form: (h [B, 2] int64, tl [B] int32 or None).
+    h is the key with every option off; tl the mapPair fragment length
+    (paired only).  Both in one allocation.  B = 0 launches nothing."""
     dev = s1.rows.device
     B = int(s1.rows.shape[0])
     paired = s2 is not None
-    fields = paired or min_range > 1 or strand_key or pos is not None
-    ks1 = _key_side(s1, "1", dev, B, fields)
-    ks2 = _key_side(s2, "2", dev, B, fields) if paired else None
-    opts = KeyOpts(k=k, min_range=min_range, strand_key=int(bool(strand_key)),
-                   pos_fl=-1, pos_depth=0)
-    if pos is not None:
-        pf_ptr, pf_base, fl, depth = pos
-        _check(pf_ptr, "pf_ptr", torch.int32, None, dev)
-        _check(pf_base, "pf_base", torch.int32, None, dev)
-        opts.pf_ptr, opts.pf_base = _ptr(pf_ptr), _ptr(pf_base)
-        opts.NP = int(pf_base.shape[0]) // 2
-        opts.pos_fl, opts.pos_depth = int(fl), int(depth)
-    h = torch.empty((B, 2), dtype=torch.int64, device=dev)
-    flags = torch.empty(B, dtype=torch.int32, device=dev)
-    tl = (torch.empty(B, dtype=torch.int32, device=dev)
-          if paired and want_tl else None)
-    _launch(
-        "read_keys", dev,
-        ctypes.byref(ks1), ctypes.byref(ks2) if paired else None,
-        ctypes.byref(opts), B, _ptr(h), _ptr(tl), _ptr(flags))
-    return h, tl, flags
+    ks1 = _key_side(s1, "1", dev, B, paired)
+    ks2 = _key_side(s2, "2", dev, B, True) if paired else None
+    buf = torch.empty(2 * B + ((B + 1) // 2 if paired else 0),
+                      dtype=torch.int64, device=dev)
+    h = buf.as_strided((B, 2), (2, 1))
+    tl = buf.view(torch.int32).as_strided((B,), (1,), 4 * B) \
+        if paired else None
+    if B:
+        _launch("read_keys", dev, ctypes.byref(ks1),
+                ctypes.byref(ks2) if paired else None, B, k, _ptr(h),
+                _ptr(tl))
+    return h, tl
 
 
 # ---------------------------------------------------------------- kernel E
 
+@functools.lru_cache(maxsize=64)
+def _ck_layout(B: int, K: int, with_slots: bool, want_keys: bool):
+    """Kernel E's one allocation, in 8-byte words, from its C library
+    (csrc/compact.cu ke_layout): (h offset, slots offset, flags offset,
+    total)."""
+    out = (ctypes.c_longlong * 4)()
+    _raise_on(_aux_fn("compact_keys", "compact_keys_layout")(
+        B, K, int(with_slots), int(want_keys), out), "compact_keys_layout")
+    return tuple(out)
 
-def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int,
-                  with_slots: bool = False):
-    """Kernel E: the flat [K+1, 5] int64 key table of B read keys (see
-    ops/pseudoalign.py key_histogram_plain for the layout); with_slots also
-    each read's row in it ([B] int32), as (ck, slots)."""
-    dev = h.device
-    B = int(h.shape[0])
-    _check(h, "h", torch.int64, (B, 2), dev)
-    _check(flags, "flags", torch.int32, (B,), dev)
+
+def compact_keys(s1, s2, spec, K: int, with_slots: bool = False, didx=None,
+                 keys=None, want_keys: bool = False):
+    """Kernel E: the steady state's key step in one C call -- each read's
+    compact key (kernel B's key function under spec, a KeySpec; didx
+    carries the position tables when spec.pos_key) fused into the flat
+    [K+1, 5] int64 key table (ops/pseudoalign.py key_histogram_plain for
+    the layout); with_slots also each read's row in it ([B] int32).
+    keys = (h [B, 2] int64, flags [B] int32) gives the keys instead of
+    s1 and s2 (the tests' crafted keys).  Returns (ck, slots or None, h,
+    flags): views of one allocation; with want_keys h [B, 2] and flags [B]
+    are the keys the table was built from, else None.  Counted as
+    key_histogram (key_histogram_slots with slots); B = 0 launches
+    nothing."""
     if K < 1:
         raise ValueError("K must be >= 1")
-    S = 2
-    while S < 2 * B:
-        S <<= 1
-    keys = torch.empty(S + 1, dtype=torch.int64, device=dev)
-    occ = torch.empty(S + 1, dtype=torch.int32, device=dev)
-    pay = torch.empty(S + 1, dtype=torch.int64, device=dev)
-    slot = torch.empty(max(B, 1), dtype=torch.int32, device=dev)
-    counts = torch.empty(max((B + 1023) // 1024, 1), dtype=torch.int32,
-                         device=dev)
-    ck = torch.empty((K + 1, 5), dtype=torch.int64, device=dev)
-    rank = slots = None
-    if with_slots:
-        rank = torch.empty(S + 1, dtype=torch.int32, device=dev)
-        slots = torch.empty(B, dtype=torch.int32, device=dev)
+    ks1 = ks2 = opts = None
+    hin = fin = None
+    if keys is not None:
+        hin, fin = keys
+        dev = hin.device
+        B = int(hin.shape[0])
+        _check(hin, "h", torch.int64, (B, 2), dev)
+        _check(fin, "flags", torch.int32, (B,), dev)
+    else:
+        dev = s1.rows.device
+        B = int(s1.rows.shape[0])
+        fields = (s2 is not None or spec.min_range > 1 or spec.strand_key
+                  or spec.pos_key)
+        ks1 = _key_side(s1, "1", dev, B, fields)
+        ks2 = _key_side(s2, "2", dev, B, True) if s2 is not None else None
+        opts = KeyOpts(None, None, 0, spec.k, spec.min_range,
+                       int(bool(spec.strand_key)), -1, 0)
+        if spec.pos_key:
+            if didx is None or didx.pf_ptr is None:
+                raise ValueError(
+                    "the position key column needs didx with pos tables")
+            _check(didx.pf_ptr, "pf_ptr", torch.int32, None, dev)
+            _check(didx.pf_base, "pf_base", torch.int32, None, dev)
+            opts.pf_ptr, opts.pf_base = _ptr(didx.pf_ptr), _ptr(didx.pf_base)
+            opts.NP = int(didx.pf_base.shape[0]) // 2
+            opts.pos_fl, opts.pos_depth = int(spec.pos_fl), int(spec.pos_depth)
+    if B >= 2**30:
+        raise ValueError(f"{B} reads: kernel E takes fewer than 2^30")
+    o_h, o_sl, o_fl, n = _ck_layout(B, K, with_slots, want_keys)
+    ws = torch.empty(n, dtype=torch.int64, device=dev)
+    ck = ws.as_strided((K + 1, 5), (5, 1))
+    slots = h = flags = None
+    if with_slots or want_keys:
+        w32 = ws.view(torch.int32)
+        if with_slots:
+            slots = w32.as_strided((B,), (1,), 2 * o_sl)
+        if want_keys:
+            h = ws.as_strided((B, 2), (2, 1), o_h)
+            flags = w32.as_strided((B,), (1,), 2 * o_fl)
+    if B == 0:
+        ck.zero_()
+        return ck, slots, h, flags
     _launch(
-        "key_histogram", dev,
-        _ptr(h), _ptr(flags), B, K, _ptr(keys), _ptr(occ), _ptr(pay), S,
-        _ptr(slot), _ptr(counts), _ptr(ck), _ptr(rank), _ptr(slots),
-        count="key_histogram_slots" if with_slots else "")
-    return (ck, slots) if with_slots else ck
+        "compact_keys", dev,
+        ctypes.byref(ks1) if ks1 is not None else None,
+        ctypes.byref(ks2) if ks2 is not None else None,
+        ctypes.byref(opts) if opts is not None else None,
+        _ptr(hin), _ptr(fin), B, K, int(with_slots), int(want_keys),
+        _ptr(ws), n,
+        count="key_histogram_slots" if with_slots else "key_histogram")
+    return ck, slots, h, flags
 
 
 # ---------------------------------------------------------------- kernel F

@@ -947,36 +947,8 @@ def pseudoalign_long_packed(didx: AnyDeviceIndex, packed: torch.Tensor,
 def read_keys(s1: SideResult, s2: Optional[SideResult], k: int):
     """(128-bit read keys [B, 2] int64, fragment lengths [B] int32 or None)."""
     if s1.rows.is_cuda:
-        h, tl, _ = kernels.read_keys(s1, s2, k)
-        return h, tl
+        return kernels.read_keys(s1, s2, k)
     return read_keys_plain(s1, s2, k)
-
-
-def compact_key_hash(s1: SideResult, s2: Optional[SideResult], spec: KeySpec,
-                     didx: Optional[AnyDeviceIndex] = None):
-    """The steady-state key of each read (kernel B with the compact key
-    layout): (h [B, 2] int64, flags [B] int32).  didx carries the
-    position-filter tables when spec.pos_key."""
-    if spec.pos_key and (didx is None or didx.pf_ptr is None):
-        raise ValueError("the position key column needs didx with pos tables")
-    if s1.rows.is_cuda:
-        pos = None
-        if spec.pos_key:
-            pos = (didx.pf_ptr, didx.pf_base, spec.pos_fl, spec.pos_depth)
-        h, _, flags = kernels.read_keys(
-            s1, s2, spec.k, min_range=spec.min_range,
-            strand_key=spec.strand_key, pos=pos, want_tl=False)
-        return h, flags
-    return key_hash_plain(s1, s2, spec, didx)
-
-
-def key_histogram(h: torch.Tensor, flags: torch.Tensor, K: int,
-                  with_slots: bool = False):
-    """Per-batch key table [K+1, 5] int64, with with_slots also each read's
-    row in it (see key_histogram_plain)."""
-    if h.is_cuda:
-        return kernels.key_histogram(h, flags, K, with_slots)
-    return key_histogram_plain(h, flags, K, with_slots)
 
 
 def gather_exemplars(idx: torch.Tensor, s1: SideResult,
@@ -1010,6 +982,13 @@ def pair_fragment_lengths(s1: SideResult, s2: SideResult, k: int) -> torch.Tenso
     return read_keys(s1, s2, k)[1]
 
 
+def _need_pos_tables(spec: KeySpec, didx: Optional[AnyDeviceIndex]):
+    """The compact key's CPU branch refuses what kernels.compact_keys
+    refuses on the card: the position column without pos tables."""
+    if spec.pos_key and (didx is None or didx.pf_ptr is None):
+        raise ValueError("the position key column needs didx with pos tables")
+
+
 def compact_pair_keys(s1: SideResult, s2: SideResult, max_keys: int = 16384,
                       k: int = 0, min_range: int = 0, strand_key: bool = False,
                       didx: Optional[AnyDeviceIndex] = None,
@@ -1021,8 +1000,13 @@ def compact_pair_keys(s1: SideResult, s2: SideResult, max_keys: int = 16384,
     become per-key operations on the host.  with_slots also returns each
     read's row in the table, as (ck, slots)."""
     spec = KeySpec(k, min_range, strand_key, pos_fl, pos_depth)
-    h, flags = compact_key_hash(s1, s2, spec, didx)
-    return key_histogram(h, flags, max_keys, with_slots)
+    if s1.rows.is_cuda:
+        ck, slots, _, _ = kernels.compact_keys(s1, s2, spec, max_keys,
+                                               with_slots, didx)
+        return (ck, slots) if with_slots else ck
+    _need_pos_tables(spec, didx)
+    h, flags = key_hash_plain(s1, s2, spec, didx)
+    return key_histogram_plain(h, flags, max_keys, with_slots)
 
 
 def compact_single_keys(s1: SideResult, max_keys: int = 16384, k: int = 0,
@@ -1031,8 +1015,11 @@ def compact_single_keys(s1: SideResult, max_keys: int = 16384, k: int = 0,
                         pos_fl: int = -1,
                         pos_depth: int = 0) -> torch.Tensor:
     spec = KeySpec(k, min_range, strand_key, pos_fl, pos_depth)
-    h, flags = compact_key_hash(s1, None, spec, didx)
-    return key_histogram(h, flags, max_keys)
+    if s1.rows.is_cuda:
+        return kernels.compact_keys(s1, None, spec, max_keys, didx=didx)[0]
+    _need_pos_tables(spec, didx)
+    h, flags = key_hash_plain(s1, None, spec, didx)
+    return key_histogram_plain(h, flags, max_keys)
 
 
 def pseudoalign_pair_compact_packed(didx: AnyDeviceIndex, p1, n1, l1, p2,

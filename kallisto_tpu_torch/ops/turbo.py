@@ -8,12 +8,13 @@ one in its upload:
   bucketed size; padding reads get length 0, give the no-hit key and are
   never counted) and the sparse in-read N positions, ascending.
 - **both mates in one launch**, and the batch reduced on the card to its
-  key table (ops/pseudoalign.py key_histogram), so the host fetches one
+  key table (ops/pseudoalign.py compact_pair_keys), so the host fetches one
   small table instead of per-read arrays.
 
 On the card the decode and the pseudoalignment are kernel D
-(csrc/pseudoalign.cu pseudoalign_turbo), the keys kernel B and the table
-kernel E; on the CPU each is its plain PyTorch version.
+(csrc/pseudoalign.cu pseudoalign_turbo), the keys and the table kernel E
+(csrc/compact.cu compact_keys); on the CPU each is its plain PyTorch
+version.
 
 The half-fail wave 2 of host wave 1 (ops/hostprobe.py) is kernel K
 (csrc/pseudoalign.cu pseudoalign_halffail): pairs of which one mate failed
@@ -128,8 +129,8 @@ def pair_turbo_core(didx, p1, p2, aux, lens, k: int, L: int, max_rows: int,
                     max_keys: int, min_range: int = 0, strand_key: bool = False,
                     rl: int = 0, pos_fl: int = -1, pos_depth: int = 0,
                     with_slots: bool = False):
-    """Both mates through kernel D in one launch, then kernel B's compact
-    keys and kernel E's table.  Returns (r1, r2, ck [max_keys+1, 5]), with
+    """Both mates through kernel D in one launch, then kernel E's compact
+    keys and table.  Returns (r1, r2, ck [max_keys+1, 5]), with
     with_slots also each read's row in ck ([Bp] int32)."""
     r1, r2 = _split(turbo_sides(didx, (p1, p2), aux, lens, k, L, max_rows, rl),
                     p1.shape[0])
@@ -223,7 +224,7 @@ def pseudoalign_pair_halffail(didx, pkf, vsum, sidev, aux, k: int, L: int,
                               pos_depth: int = 0, with_slots: bool = False):
     """Wave 2 of the pairs of which exactly one mate failed host wave 1
     (JAX pseudoalign_pair_halffail, turbo.py:244): kernel K (or its plain
-    version), then kernel B's compact keys and kernel E's table.  pkf [Bp,
+    version), then kernel E's compact keys and table.  pkf [Bp,
     L/4] uint8, vsum [Bp, 2] int32, sidev [Bp] int32.  Returns (r1, r2, ck)
     and with with_slots the per-read rows."""
     if pkf.is_cuda:

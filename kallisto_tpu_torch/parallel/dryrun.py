@@ -7,7 +7,7 @@ Builds a tiny synthetic transcriptome (8 targets of 300 bp, two sharing
 half their sequence) and 16 * n pairs sampled from it, then runs
 `run_quant` on one device and over an n-shard mesh, twice: with the
 fragment-length distribution learned (every batch per read: kernel A
-sharded) and with `-l 180 -s 20` (every batch `cmesh`: kernels A, B and E
+sharded) and with `-l 180 -s 20` (every batch `cmesh`: kernels A and E
 per shard).  Asserts equal processed counts, EC counts, EC order and
 bitwise est_counts.
 """

@@ -12,7 +12,7 @@ list of torch devices, one per shard:
   `lens = 0` reads (no k-mer window: the no-hit key, never counted) and
   split contiguously -- shard s holds reads [s*B/n, (s+1)*B/n), so read
   order is preserved across shards;
-- each shard runs kernels A, B and E (K17: ops/pseudoalign.py
+- each shard runs kernels A and E (K17: ops/pseudoalign.py
   pseudoalign_pair/single_compact_packed) on its own device, every shard
   launched before any is fetched; the key tables come back in mesh order,
   and the host walks them in that order (quant/pipeline.py's `cmesh`
@@ -123,7 +123,7 @@ class MeshRunner:
                      strand_key: bool = False, pos_fl: int = -1,
                      pos_depth: int = 0):
         """The sharded pair step (JAX MeshRunner.pair_compact): kernels A
-        on both mates, B with the compact key layout and E per shard, on
+        on both mates and E (the compact keys and the table) per shard, on
         the shard's device.  Each key table holds one more row than its
         shard has reads, so it cannot overflow.  Returns (r1s, r2s, cks,
         shard_B): the SideResults and [shard_B + 1, 5] key tables in mesh

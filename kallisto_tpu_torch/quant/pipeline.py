@@ -12,15 +12,15 @@ Port of kallisto_tpu/quant/pipeline.py with two routes per batch:
   overflows takes it again.
 - **compact steady state** (JAX :858-924, :1183-1276 and the single-end
   twins :1345-1535): a padded "turbo" batch goes through kernel D (both
-  mates in one launch), kernel B with the compact key layout (min_range
-  veto bits, first-hit block/strand and the FLD position rank ride in the
-  key) and kernel E, which reduces it to a key table on the card; the
-  host fetches the occupied rows, resolves each first-seen DISTINCT KEY
-  once from exemplar rows that kernel F gathers (pairs without filters
-  first fetch F's slim rows, and single-row keys resolve from those in
-  bulk), and applies the filters per key.  Batches with more Ns than the
-  aux vector holds go through kernels A, B and E on bitmask slices
-  instead ("compact").
+  mates in one launch) and kernel E, which computes each read's compact
+  key (min_range veto bits, first-hit block/strand and the FLD position
+  rank ride in the key) and reduces the batch to a key table on the card
+  in one C call; the host fetches the occupied rows, resolves each
+  first-seen DISTINCT KEY once from exemplar rows that kernel F gathers
+  (pairs without filters first fetch F's slim rows, and single-row keys
+  resolve from those in bulk), and applies the filters per key.  Batches
+  with more Ns than the aux vector holds go through kernels A and E on
+  bitmask slices instead ("compact").
 
 `timings` counts processed batches by route (`full`, `turbo` -- through
 the anchor kernel or kernel D --, `compact`, `cmesh` -- sharded over
@@ -68,7 +68,7 @@ that match one unitig stretch with a few lookups and reduces them to a
 host key histogram; only the failing reads go to the card, pairs with one
 failed mate through kernel K (the failed mate's codes plus the other's
 8-byte summary), pairs with both failed through kernel D, each slice then
-through kernel B and kernel E with per-read slots.  The resolver merges
+through kernel E with per-read slots.  The resolver merges
 host and card keys by first read (EcResolver.process_compact_parts, with
 kernel F's slim rows for single-row keys), so EC numbering and the outputs
 are those of the other routes.  Routes: `hw1pb` (pairs that need per-read
@@ -93,7 +93,7 @@ Several devices (`-t N` with N cards, or Options.n_devices; JAX
 :1500-1520): a mesh of n shards (parallel/mesh.py) replicates the index
 once per distinct card and splits each batch contiguously.  Host wave 1
 is off and the first paired batch is not split; a steady-state batch
-takes `cmesh` -- kernels A, B and E per shard on the shard's device (K18),
+takes `cmesh` -- kernels A and E per shard on the shard's device (K18),
 resolved through one process_compact_parts part per shard table, the
 shard's first reads offset by s * shard_B and its exemplar and slim rows
 gathered on its device --, and a batch whose shard rows overflowed goes
@@ -718,7 +718,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
 
     def dispatch_cmesh(b1: PackedBatch, b2: Optional[PackedBatch]):
         """Enqueue one batch on the mesh (K18, JAX :858-865, :1350-1355):
-        kernels A, B and E on every shard, each on its device."""
+        kernels A and E on every shard, each on its device."""
         if b2 is None:
             r1s, cks, sb = mesh.single_compact(b1, k, **key_kw)
             return ("cmesh", b1, None, r1s, [None] * len(r1s), cks, sb)
@@ -827,7 +827,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
 
     def dispatch_wave2_single(fail_idx, b1, rl):
         """Single-end wave 2 (JAX :1408-1430): the failing reads through
-        kernel D, B and E in slices.  Returns [(r1, None, ck, sub)] or
+        kernel D and E in slices.  Returns [(r1, None, ck, sub)] or
         None."""
         devs = []
         for lo in range(0, fail_idx.shape[0], _W2MAX):

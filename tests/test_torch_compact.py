@@ -1,7 +1,7 @@
 """The port's compact-key pieces against the JAX package's, on the CPU: the
-position-filter tables and rank (K12), the extended read keys (kernel B's
-compact layout), the key table (kernel E, K6) and the exemplar rows
-(kernel F, K7).
+position-filter tables and rank (K12), the extended read keys (the compact
+key kernel E computes in its first pass), the key table (kernel E, K6)
+and the exemplar rows (kernel F, K7).
 
 SideResults come from the JAX per-read program on the bundled index in
 its bucketed layout (where every field, f_strand of hitless reads
@@ -132,7 +132,7 @@ def test_compact_keys_match_jax(env, paired, opts):
     spec = tpa.KeySpec(k=K, **kw)
     cols = _jax_key_columns(jdidx, j1, j2 if paired else None, spec)
     want_h = np.asarray(jpa._hash_columns_128(cols))
-    h, flags = tpa.compact_key_hash(t1, t2 if paired else None, spec, tdidx)
+    h, flags = tpa.key_hash_plain(t1, t2 if paired else None, spec, tdidx)
     np.testing.assert_array_equal(want_h, h.numpy())
     np.testing.assert_array_equal(np.asarray(cols[t1.rows.shape[1] * (
         2 if paired else 1)]), flags.numpy())
@@ -172,7 +172,7 @@ def test_key_histogram_matches_jax_compact_keys(K_):
     h = pool[rng.integers(0, 600, B)]
     flags = rng.integers(0, 64, 600).astype(np.int32)[
         np.searchsorted(np.unique(pool[:, 0]), h[:, 0])]
-    ck = tpa.key_histogram(torch.from_numpy(h), torch.from_numpy(flags), K_)
+    ck = tpa.key_histogram_plain(torch.from_numpy(h), torch.from_numpy(flags), K_)
     j = jpa._compact_keys(jnp.asarray(h), jnp.asarray(flags), 5000)
     jck = np.asarray(jpa._ck_flat(j))
     n = int(jck[0, 0])
@@ -183,6 +183,93 @@ def test_key_histogram_matches_jax_compact_keys(K_):
     m = min(n, K_)
     np.testing.assert_array_equal(got[:m], jr[:m])
     assert not got[m:].any()
+
+
+def _take(j, t, sel):
+    """The reads sel of a JAX and a port SideResult."""
+    return (type(j)(*(jnp.asarray(np.asarray(a)[sel]) for a in j)),
+            tpa.SideResult(*(a[torch.from_numpy(sel)] for a in t)))
+
+
+@pytest.mark.parametrize("K_", [7, 2048])
+@pytest.mark.parametrize("opts", [0, 3])
+@pytest.mark.parametrize("paired", [True, False])
+def test_compact_keys_hot_key_match_jax(env, paired, opts, K_):
+    """compact_pair_keys / compact_single_keys on a batch where read 0's
+    key covers 60 % of the reads (the hot key kernel E merges per block
+    before its global insert) and the hitless reads share one more: the
+    meta row equal to JAX's, the rows JAX's in first-read order, the first
+    K of them when K cuts."""
+    index, jdidx, tdidx, j1, j2, t1, t2 = env
+    rng = np.random.default_rng(11)
+    n = int(t1.rows.shape[0])
+    sel = np.where(rng.random(n) < 0.6, 0, np.arange(n))
+    j1, t1 = _take(j1, t1, sel)
+    j2, t2 = _take(j2, t2, sel)
+    assert bool(t1.has_hits[0]) and not bool(t1.has_hits.all())
+    kw = dict(SPECS[opts])
+    if "pos_fl" in kw:
+        kw["pos_depth"] = tpa.pf_probe_depth(index)
+    spec = tpa.KeySpec(k=K, **kw)
+    cols = _jax_key_columns(jdidx, j1, j2 if paired else None, spec)
+    jkw = dict(k=K, min_range=spec.min_range, strand_key=spec.strand_key,
+               pos_col=cols[-1] if spec.pos_key else None)
+    if paired:
+        jck = jpa.compact_pair_keys(j1, j2, n + 1, **jkw)
+        tck, slots = tpa.compact_pair_keys(t1, t2, K_, didx=tdidx,
+                                           with_slots=True, **dict(kw, k=K))
+    else:
+        jck = jpa.compact_single_keys(j1, n + 1, **jkw)
+        tck = tpa.compact_single_keys(t1, K_, didx=tdidx, **dict(kw, k=K))
+    jck = np.asarray(jpa._ck_flat(jck))
+    nu = int(jck[0, 0])
+    assert int(tck[0, 0]) == nu and nu < 0.5 * n
+    jr = jck[1:][jck[1:, 2] > 0]
+    jr = jr[np.argsort(jr[:, 3])]
+    m = min(nu, K_)
+    np.testing.assert_array_equal(tck[1 : m + 1].numpy(), jr[:m])
+    assert not tck[m + 1 :].numpy().any()
+    assert int(jr[0, 2]) > 0.55 * n  # read 0's key
+    if paired:
+        assert int(slots.max()) <= K_ - 1
+        assert torch.equal(slots[torch.from_numpy(sel == 0)],
+                           torch.zeros(int((sel == 0).sum()),
+                                       dtype=torch.int32))
+
+
+@pytest.mark.parametrize("K_", [1, 100, 5000])
+def test_key_histogram_edge_words_match_jax(K_):
+    """Keys whose h0 is 0 (an empty slot's word in kernel E's table) or all
+    ones, beside one key on 55 % of the reads: the port's table (with its
+    slots) against JAX's _compact_keys, rows in first-read order."""
+    rng = np.random.default_rng(K_ + 3)
+    B = 4000
+    pool = rng.integers(-2**63, 2**63 - 1, (600, 2), dtype=np.int64)
+    pool[2, 0] = -1
+    pool[3, 0] = 0
+    pick = rng.integers(0, 600, B)
+    pick[rng.random(B) < 0.55] = 9
+    pick[:2] = [3, 2]
+    h = pool[pick]
+    flags = rng.integers(0, 64, 600).astype(np.int32)[pick]
+    ck, slots = tpa.key_histogram_plain(torch.from_numpy(h),
+                                  torch.from_numpy(flags), K_,
+                                  with_slots=True)
+    jck = np.asarray(jpa._ck_flat(jpa._compact_keys(
+        jnp.asarray(h), jnp.asarray(flags), 5000)))
+    n = int(jck[0, 0])
+    assert int(ck[0, 0]) == n == np.unique(h[:, 0]).shape[0]
+    jr = jck[1:][jck[1:, 2] > 0]
+    jr = jr[np.argsort(jr[:, 3])]
+    m = min(n, K_)
+    np.testing.assert_array_equal(ck[1 : m + 1].numpy(), jr[:m])
+    assert not ck[m + 1 :].numpy().any()
+    if K_ > 1:
+        assert jr[0, 0] == 0 and jr[1, 0] == -1  # reads 0 and 1
+    # each read's slot names its own key's row (capped at K - 1)
+    rank = {int(r[0]): i for i, r in enumerate(jr)}
+    want = np.minimum([rank[int(x)] for x in h[:, 0]], K_ - 1)
+    np.testing.assert_array_equal(slots.numpy(), want)
 
 
 @pytest.mark.parametrize("paired", [True, False])

@@ -7,12 +7,14 @@ requires equality, for kernels A (both waves, its wave-2 count equal to
 the plain two-wave composition's), A on unpacked codes, D, I (both
 waves), J and K and for kernel L (the k-mer probe alone) in both device
 index layouts (padded and bucketed): every SideResult field and every
-key bit for kernels A, B, D and I, every table entry and exemplar row for kernels E and F,
-every hexamer id for kernel H, bitwise alpha and equal rounds for
+key bit for kernels A, B, D and I, every read's key and flags, every
+table entry and every slot for kernel E (compact_keys: the compact key
+fused into the table, on SideResults in both layouts, on a hot key, on B
+= 0, 1 and 777, and on given keys with h0 = 0 and h0 = -1), every
+exemplar row for kernel F, every hexamer id for kernel H, bitwise alpha and equal rounds for
 kernel G (the main EM and the bootstraps), every LongResult field for
 kernel J, both mates' SideResult fields, the key table and the per-read
-slots for kernel K (after the port's host probe), every slot of kernel E
-and every slim row of kernel F (also on no key, one key, counts that fill
+slots for kernel K (after the port's host probe) and every slim row of kernel F (also on no key, one key, counts that fill
 no block, reads outside the batch and row widths 16, 15 and 10); sharded runs (four shards, and kernel A
 and a sharded quant on a second card, which needs two) equal one
 device.  They need a CUDA
@@ -163,6 +165,55 @@ def test_kernel_b_matches_plain(cuda, port_index, paired):
         assert tg is None and tc is None
 
 
+def _with_rows(s, rows):
+    return s._replace(rows=rows)
+
+
+def _offset_rows(rows, words):
+    """A contiguous copy of rows whose first word lies `words` int32 into
+    its allocation (so 16-byte loads are not allowed at words = 1 or 2)."""
+    B, R = rows.shape
+    buf = torch.zeros(B * R + words, dtype=rows.dtype, device=rows.device)
+    out = buf[words:].view(B, R)
+    out.copy_(rows)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["r16", "r15", "r10", "off4", "off8"])
+def test_kernel_b_row_layouts_match_plain(cuda, port_index, rows):
+    """Kernel B's per-read form on R = 16 (16-byte loads), R = 15 and 10
+    (not a multiple of 4), and on R = 16 row views 4 and 8 bytes past a
+    16-byte boundary: keys and fragment lengths equal to the plain
+    version; B = 1 too, and B = 0 launches nothing."""
+    bs = _batches(port_index)
+    dg = pa.device_index_from_host(port_index, cuda)
+    g1, g2 = _sides(dg, bs["bundled_1"], cuda), _sides(dg, bs["bundled_2"], cuda)
+    if rows in ("r15", "r10"):
+        R = int(rows[1:])
+        g1 = _with_rows(g1, g1.rows[:, :R].contiguous())
+        g2 = _with_rows(g2, g2.rows[:, :R].contiguous())
+    elif rows.startswith("off"):
+        w = int(rows[3:]) // 4
+        g1 = _with_rows(g1, _offset_rows(g1.rows, w))
+        g2 = _with_rows(g2, _offset_rows(g2.rows, w))
+        assert g1.rows.data_ptr() % 16 == 4 * w
+    for b1, b2 in ((g1, g2), (g1, None)):
+        h, tl = kernels.read_keys(b1, b2, K)
+        hp, tlp = pa.read_keys_plain(b1, b2, K)
+        torch.cuda.synchronize()
+        assert torch.equal(h, hp)
+        assert (tl is None and tlp is None) or torch.equal(tl, tlp)
+        one = pa.SideResult(*(t[:1] for t in b1))
+        assert torch.equal(kernels.read_keys(one, None, K)[0],
+                           pa.read_keys_plain(one, None, K)[0])
+    before = kernels.LAUNCHES["read_keys"]
+    h0, tl0 = kernels.read_keys(pa.SideResult(*(t[:0] for t in g1)),
+                                pa.SideResult(*(t[:0] for t in g2)), K)
+    assert h0.shape == (0, 2) and tl0.shape == (0,)
+    assert kernels.LAUNCHES["read_keys"] == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_priors", [False, True])
 def test_kernel_c_em_bitwise(cuda, use_priors):
@@ -195,6 +246,22 @@ def test_wrappers_refuse_cpu_tensors_and_count_launches(cuda, port_index):
     s = _sides(dg, pb, cuda)
     pa.read_keys(s, None, K)
     assert kernels.LAUNCHES["pseudoalign_side"] == 1
+    assert kernels.LAUNCHES["read_keys"] == 1
+    # kernel E refuses what B's checks refuse, and counts one launch
+    spec = pa.KeySpec(k=K)
+    sc = pa.SideResult(*(t.cpu() for t in s))
+    bad = {"cpu": sc, "dtype": s._replace(rng=s.rng.long()),
+           "shape": s._replace(has_hits=s.has_hits[:-1]),
+           "contiguity": s._replace(rows=s.rows.t().contiguous().t())}
+    for name, b in bad.items():
+        with pytest.raises((ValueError, TypeError)):
+            kernels.compact_keys(s, b, spec, 100)
+    with pytest.raises(ValueError):
+        kernels.read_keys(sc, None, K)
+    with pytest.raises(ValueError):
+        kernels.compact_keys(sc, None, spec, 100)
+    kernels.compact_keys(s, s, spec, 100)
+    assert kernels.LAUNCHES["key_histogram"] == 1
     assert kernels.LAUNCHES["read_keys"] == 1
 
 
@@ -245,6 +312,9 @@ def test_kernel_d_matches_plain(cuda, port_index, layout, single, varlen):
 @pytest.mark.cuda
 @pytest.mark.parametrize("paired", [True, False])
 def test_kernel_b_compact_layout_matches_plain(cuda, port_index, paired):
+    """The compact key (min_range 50, strand tail, position rank) that
+    kernel E computes in its first pass: every read's h and flags equal to
+    the plain key of the CPU's SideResults."""
     depth = pa.pf_probe_depth(port_index)
     spec = pa.KeySpec(k=K, min_range=50, strand_key=True, pos_fl=180,
                       pos_depth=depth)
@@ -255,27 +325,158 @@ def test_kernel_b_compact_layout_matches_plain(cuda, port_index, paired):
         s1 = _sides(d, bs["rand100"], dev)
         s2 = _sides(d, _random_batch(port_index, 5000, 100, 9), dev) \
             if paired else None
-        res[str(dev)] = pa.compact_key_hash(s1, s2, spec, d)
+        if dev == cuda:
+            _, _, h, fl = kernels.compact_keys(s1, s2, spec, 5001, didx=d,
+                                               want_keys=True)
+            res[str(dev)] = (h, fl)
+        else:
+            res[str(dev)] = pa.key_hash_plain(s1, s2, spec, d)
     (hg, fg), (hc, fc) = res[str(cuda)], res["cpu"]
     assert torch.equal(hg.cpu(), hc) and torch.equal(fg.cpu(), fc)
     assert bool((fc & 16).any())
 
 
+_CARD_SIDES = {}
+
+
+def _card_sides(index, cuda, layout):
+    """Card SideResults of 40,000 pairs (79 tiles of kernel E, past one
+    look-back window of 32) and the card index with its position tables,
+    once per layout."""
+    key = layout.__name__
+    if key not in _CARD_SIDES:
+        d = pa.device_index_from_host(index, cuda, with_pos_tables=True)
+        assert isinstance(d, layout)
+        s1 = _sides(d, _random_batch(index, 40000, 100, 21), cuda)
+        s2 = _sides(d, _random_batch(index, 40000, 100, 22), cuda)
+        _CARD_SIDES[key] = (d, s1, s2)
+    return _CARD_SIDES[key]
+
+
+_KEY_SPECS = {
+    "off": dict(),
+    "mr50": dict(min_range=50),
+    "strand_pos": dict(min_range=50, strand_key=True, pos_fl=180),
+}
+
+
+def _hold_compact_keys(s1, s2, spec, K_, d, with_slots):
+    """compact_keys against key_hash_plain + key_histogram_plain on the
+    same card tensors: every read's h and flags, the table and the slots
+    bitwise; one launch counted under E's name."""
+    name = "key_histogram_slots" if with_slots else "key_histogram"
+    before = kernels.LAUNCHES[name]
+    ck, slots, h, fl = kernels.compact_keys(s1, s2, spec, K_, with_slots, d,
+                                            want_keys=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    hp, flp = pa.key_hash_plain(s1, s2, spec, d)
+    assert torch.equal(h, hp) and torch.equal(fl, flp)
+    want = pa.key_histogram_plain(hp, flp, K_, with_slots)
+    if with_slots:
+        assert torch.equal(ck, want[0]) and torch.equal(slots, want[1])
+        assert int(slots.max()) <= K_ - 1
+    else:
+        assert torch.equal(ck, want)
+    return ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_", ["1", "100", "B+1"])
+@pytest.mark.parametrize("opts", list(_KEY_SPECS))
+@pytest.mark.parametrize("paired", [True, False])
+def test_compact_keys_matches_plain(cuda, port_index, layout, paired, opts,
+                                    K_):
+    """Kernel E (compact key, table, slots) on 40,000 pairs, paired and
+    single-end, options off, min_range 50, and min_range + strand tail +
+    position rank, K = 1, 100 and B + 1, in both index layouts."""
+    d, s1, s2 = _card_sides(port_index, cuda, layout)
+    kw = dict(_KEY_SPECS[opts])
+    if "pos_fl" in kw:
+        kw["pos_depth"] = pa.pf_probe_depth(port_index)
+    spec = pa.KeySpec(k=K, **kw)
+    B = int(s1.rows.shape[0])
+    Kn = B + 1 if K_ == "B+1" else int(K_)
+    for with_slots in (False, True):
+        ck = _hold_compact_keys(s1, s2 if paired else None, spec, Kn, d,
+                                with_slots)
+    assert int(ck[0, 0]) > (1000 if paired else 50)
+    # the dispatchers on the card return what they return on the CPU
+    if paired:
+        got = pa.compact_pair_keys(s1, s2, Kn, didx=d, with_slots=True, **dict(
+            kw, k=K))
+        assert torch.equal(got[0], ck) and got[1].shape == (B,)
+    else:
+        got = pa.compact_single_keys(s1, Kn, didx=d, **dict(kw, k=K))
+        assert torch.equal(got, ck)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot", "b1", "b777", "b0"])
+def test_compact_keys_edge_batches(cuda, port_index, layout, case):
+    """Kernel E on a batch where one read's key covers 60 % of the reads
+    (copies of read 0, hits and all), on B = 1, on B = 777 (not a multiple
+    of the 512-read tile) and on B = 0 (nothing launched, meta row 0)."""
+    d, s1, s2 = _card_sides(port_index, cuda, layout)
+    spec = pa.KeySpec(k=K, min_range=50, strand_key=True, pos_fl=180,
+                      pos_depth=pa.pf_probe_depth(port_index))
+    B = int(s1.rows.shape[0])
+    if case == "hot":
+        rng = np.random.default_rng(5)
+        sel = torch.from_numpy(np.where(rng.random(B) < 0.6, 0,
+                                        np.arange(B))).to(cuda)
+        s1 = pa.SideResult(*(t[sel].contiguous() for t in s1))
+        s2 = pa.SideResult(*(t[sel].contiguous() for t in s2))
+    elif case != "hot":
+        n = {"b1": 1, "b777": 777, "b0": 0}[case]
+        s1 = pa.SideResult(*(t[:n] for t in s1))
+        s2 = pa.SideResult(*(t[:n] for t in s2))
+    if case == "b0":
+        before = dict(kernels.LAUNCHES)
+        ck, slots, h, _ = kernels.compact_keys(s1, s2, spec, 10, True, d,
+                                               want_keys=True)
+        assert kernels.LAUNCHES == before
+        assert not ck.cpu().any() and slots.shape == (0,) and h.shape == (0, 2)
+        return
+    for paired in (True, False):
+        for K_ in (1, 100, int(s1.rows.shape[0]) + 1):
+            for with_slots in (False, True):
+                ck = _hold_compact_keys(s1, s2 if paired else None, spec, K_,
+                                        d, with_slots)
+                if case == "hot" and K_ > 1:
+                    assert int(ck[1, 2]) > 0.6 * B - 500
+
+
+def _crafted_keys(seed, B=20000):
+    """Random keys from a pool of 3,000 with the words no read could be
+    made to hash to: h0 = -1 (all ones), h0 = 0 (an empty slot's word) and
+    one h0 on 55 % of the reads."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(-2**63, 2**63 - 1, (3000, 2), dtype=np.int64)
+    pool[1, 0] = pool[0, 0]
+    pool[2, 0] = -1  # all ones
+    pool[3, 0] = 0
+    pick = rng.integers(0, 3000, B)
+    pick[rng.random(B) < 0.55] = 7
+    h = pool[pick]
+    flags = (np.abs(h[:, 0]) % 64).astype(np.int32)
+    return torch.from_numpy(h), torch.from_numpy(flags)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K_", [1, 100, 6000])
 def test_kernel_e_matches_plain(cuda, K_):
-    rng = np.random.default_rng(K_)
-    pool = rng.integers(-2**63, 2**63 - 1, (3000, 2), dtype=np.int64)
-    pool[1, 0] = pool[0, 0]
-    pool[2, 0] = -1  # the all-ones word: the table's empty marker
-    h = pool[rng.integers(0, 3000, 20000)]
-    flags = (np.abs(h[:, 0]) % 64).astype(np.int32)
-    th, tf = torch.from_numpy(h), torch.from_numpy(flags)
+    th, tf = _crafted_keys(K_)
     before = kernels.LAUNCHES["key_histogram"]
-    g = pa.key_histogram(th.to(cuda), tf.to(cuda), K_)
+    g, _, gh, _ = kernels.compact_keys(None, None, None, K_,
+                                       keys=(th.to(cuda), tf.to(cuda)),
+                                       want_keys=True)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["key_histogram"] == before + 1
-    assert torch.equal(g.cpu(), pa.key_histogram_plain(th, tf, K_))
+    assert torch.equal(gh.cpu(), th)
+    want = pa.key_histogram_plain(th, tf, K_)
+    assert torch.equal(g.cpu(), want)
+    assert int(want[0, 0]) == int(np.unique(th[:, 0].numpy()).shape[0])
 
 
 @pytest.mark.cuda
@@ -312,9 +513,12 @@ def test_compact_route_on_the_card_is_golden(cuda, port_index, tmp_path,
         fld_mean=180, fld_sd=20, output_dir=out, batch_size=4096),
         index=port_index, device=cuda)
     assert res.timings["turbo"] > 0 and res.timings["full"] == 0
-    for name in ("pseudoalign_anchor", "read_keys", "key_histogram",
-                 "gather_exemplars", "em_step_batch"):
+    # every batch turbo: the keys come from kernel E's first pass, kernel
+    # B (the per-read form) is not launched
+    for name in ("pseudoalign_anchor", "key_histogram", "gather_exemplars",
+                 "em_step_batch"):
         assert kernels.LAUNCHES[name] > 0, name
+    assert kernels.LAUNCHES["read_keys"] == 0
     with open(os.path.join(out, "abundance.tsv")) as f, open(os.path.join(
             DATA, "..", "golden", "quant_single", "abundance.tsv")) as g:
         assert f.read() == g.read()
@@ -1089,14 +1293,10 @@ def test_kernel_k_matches_plain(cuda, port_index, layout, L, max_rows,
 @pytest.mark.cuda
 @pytest.mark.parametrize("K_", [1, 100, 6000])
 def test_kernel_e_slots_match_plain(cuda, K_):
-    rng = np.random.default_rng(K_ + 7)
-    pool = rng.integers(-2**63, 2**63 - 1, (3000, 2), dtype=np.int64)
-    pool[2, 0] = -1
-    h = pool[rng.integers(0, 3000, 20000)]
-    flags = (np.abs(h[:, 0]) % 64).astype(np.int32)
-    th, tf = torch.from_numpy(h), torch.from_numpy(flags)
+    th, tf = _crafted_keys(K_ + 7)
     before = dict(kernels.LAUNCHES)
-    g, gs = pa.key_histogram(th.to(cuda), tf.to(cuda), K_, with_slots=True)
+    g, gs, _, _ = kernels.compact_keys(None, None, None, K_, True,
+                                       keys=(th.to(cuda), tf.to(cuda)))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["key_histogram_slots"] == \
         before["key_histogram_slots"] + 1
@@ -1155,12 +1355,13 @@ def test_host_wave1_on_the_card_matches_the_cpu(cuda, port_index, tmp_path,
             for f in files]
         if dev == cuda:
             names = ["key_histogram" if case == "single"
-                     else "key_histogram_slots", "read_keys"]
+                     else "key_histogram_slots"]
             if case != "single":
                 names.append("pseudoalign_halffail")
             if case == "pseudobam":
-                # no filter: the resolver reads new pair keys' slim rows
-                names.append("gather_slim")
+                # no filter: the resolver reads new pair keys' slim rows;
+                # kernel B's fragment lengths while the FLD is learned
+                names += ["gather_slim", "read_keys"]
             for name in names:
                 assert kernels.LAUNCHES[name] > 0, name
     assert outs[str(cuda)] == outs["cpu"]

@@ -38,8 +38,14 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    codes (pseudoalign_codes), on the batch's mate-1 codes (width 100, Ns
    and codes above 4, ragged lengths, reads shorter than k) with the launch
    counts set to 0 just before and read just after (its own path, the
-   JAX package's single-chip program), held against _pseudoalign_core on
-   the card and timed;
+   JAX package's single-chip program; both waves launched), held against
+   _pseudoalign_core and the plain two-wave model on the card
+   (anchor.codes_waves_plain: every field, the wave-2 reads and the
+   windows its covered-interval core probed, the kernel's `probes`
+   count), and timed: both waves, each alone, and the device time from
+   graph replays; its wave-2 share, the share of wave 2's windows skipped,
+   and two bounds, the dense work's (every window, the earlier rows'
+   formula) and the design's (_skip_bytes: the windows it probes);
 3b. kernels D (pseudoalign_turbo), E (compact_keys: the compact key fused
    into the key table) and F (gather_exemplars) against their plain
    versions on the card: a paired turbo batch at the main path's Bp =
@@ -75,7 +81,10 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    probe, the half-fail wave-2 slice at Bp = 262,144 and at the smallest
    bucket, 16,384, keys with the strand tail and the position rank; every
    field, table entry and slot equal, every slot naming its read's own
-   key; the both-failed slice through D and E with slots; timed, with
+   key, K's probed failed-mate windows equal to anchor.skip_core_plain's
+   mask (K's device time, skipped share and both bounds beside its time,
+   as phase 3 gives A on codes'); the both-failed slice through D and E
+   with slots; timed, with
    torch.unique(h0, return_inverse=True) beside E's slots (stress slices:
    the kernels' rows are timed on phase 5f's own slices);
 3g. the padded layout: an 800-gene transcriptome (seed 42; ~1.9M k-mers,
@@ -620,22 +629,110 @@ def _code_batch(np, codes, lens_full, k, rng):
     return np.ascontiguousarray(codes), lens
 
 
-def _hold_codes(torch, pa, didx, codes, lens, k, tag):
-    """Kernel A on codes against _pseudoalign_core, both on the card: every
-    field equal."""
+def _hold_codes(torch, pa, anchor, kernels, didx, codes, lens, k, tag):
+    """Kernel A on codes against _pseudoalign_core and the plain two-wave
+    model (anchor.codes_waves_plain), all on the card: every field equal,
+    its wave-2 count the model's failing reads and the windows its wave 2
+    probed (kernels.pseudoalign_codes' probes) the model's mask.  Returns
+    the model's (fail, probed)."""
     g = pa.pseudoalign_batch(didx, codes, lens, k)
     c = pa._pseudoalign_core(didx, codes, lens, k, 16)
+    w, fail, probed = anchor.codes_waves_plain(didx, codes, lens, k)
+    n_pr = torch.zeros(1, dtype=torch.int64, device=codes.device)
+    _, _, nf = kernels.pseudoalign_codes(didx, codes, lens, k,
+                                         int(c.rows.shape[1]), probes=n_pr)
     torch.cuda.synchronize()
     _equal_sides(torch, pa, g, c, f"kernel A on codes {tag}")
+    _equal_sides(torch, pa, w, c, f"plain two-wave model on codes {tag}")
+    B = int(lens.shape[0])
+    check(int(nf) == int(fail.sum()) and int(n_pr) == int(probed.sum()),
+          f"kernel A on codes {tag}: {int(nf)} of {B} reads in wave 2, "
+          f"{int(n_pr)} windows probed there, as the plain model has them")
+    return fail, probed
 
 
-def phase_3_codes(torch, np, pa, kernels, didx, rb1, k, dev, rng):
+def _anchor_mask(torch, lens, W, k):
+    """[B, W]: each read's anchor windows as the covered-interval core
+    places them (n_anchors_for(le, k) at w_j = (wlast * j) // (na - 1),
+    le = min(len, W + k - 1), wlast = le - k; window 0 alone for a read
+    shorter than k)."""
+    le = lens.long().clamp(max=W + k - 1)
+    wl = le - k
+    na = torch.where(wl >= 0, ((wl + k - 1) // k + 1).clamp(min=2),
+                     torch.ones_like(wl))
+    j = torch.arange(int(na.max()) if na.numel() else 1,
+                     device=lens.device)[None, :]
+    w = (wl.clamp(min=0)[:, None] * j) // (na[:, None] - 1).clamp(min=1)
+    m = torch.zeros((lens.shape[0], W), dtype=torch.bool, device=lens.device)
+    return m.scatter_(1, torch.where(j < na[:, None], w, 0), True)
+
+
+def _between_blocks(torch, didx, idx, hit, probed):
+    """The blocks whose block_ec8 entries the covered intervals of reads
+    read (idx, hit: every window's slot and hit; probed: the windows
+    looked up): the blocks of the windows that hit without a probe (a
+    covered interval's inner windows) other than the blocks of the probed
+    windows nearest them on either side (the interval's anchors)."""
+    B, W = hit.shape
+    pos = torch.arange(W, device=hit.device)[None, :].expand(B, W)
+    left = torch.where(probed, pos, -1).cummax(dim=1).values.clamp(min=0)
+    right = torch.where(probed, pos, W).flip(1).cummin(dim=1).values.flip(1)
+    blk = didx.kmer_block[idx]
+    inner = hit & ~probed
+    b = blk[inner]
+    bl = blk.gather(1, left)[inner]
+    br = blk.gather(1, right.clamp(max=W - 1))[inner]
+    return b[(b != bl) & (b != br)]
+
+
+def _skip_bytes(torch, pa, didx, codes, lens, k, probed, ver=None):
+    """The design's table bytes on reads (codes [B, L], lens [B]) through
+    the covered-interval core, which looked up the windows `probed` [B,
+    W] (anchor.skip_core_plain's mask) -- or, for the reads `ver` that A's
+    wave 1 verified, their anchors alone --, each sector once: those
+    windows' probes, the payload of every anchor that hits and of each
+    read's first hit, the block_ec8 entries of the blocks strictly between
+    a covered interval's anchors' blocks, and a verified read's blocks'
+    entries.  Returns (bytes, probes)."""
+    canon, _, valid = pa.rolling_canonical_kmers(codes, lens, k)
+    idx, hit, _ = pa.lookup_kmers(didx, canon, valid)
+    anc = _anchor_mask(torch, lens, canon.shape[1], k)
+    fail = torch.ones(lens.shape[0], dtype=torch.bool, device=lens.device)
+    if ver is not None:
+        probed = torch.where(ver[:, None], anc & valid, probed)
+        fail = ~ver
+    ids = _sector_ids(
+        torch, pa, didx, canon[probed], valid[probed], idx[probed],
+        hit[probed],
+        payload=torch.cat([idx[anc & hit], _first_hits(torch, idx, hit)]))
+    blocks = [_between_blocks(torch, didx, idx[fail], hit[fail],
+                              probed[fail])]
+    if ver is not None:
+        blocks.append(didx.kmer_block[idx[ver][hit[ver]]])
+    ids["block_ec8"] = torch.unique(torch.cat(blocks) >> 3)
+    return 32 * _n_sectors(didx, ids), int(probed.sum())
+
+
+def _dense_probes(torch, pa, codes, lens, k):
+    """The windows the dense core probes on reads: the valid ones, and
+    window 0 of each read."""
+    _, _, valid = pa.rolling_canonical_kmers(codes, lens, k)
+    return int(valid.sum() + (~valid[:, 0]).sum())
+
+
+def phase_3_codes(torch, np, pa, anchor, kernels, didx, rb1, k, dev, rng):
     """pseudoalign_batch -- kernel A on unpacked codes, the entry point the
     JAX package's single-chip program calls -- on the main path's batch of
     mate-1 reads (width 100, not a multiple of 8): the path run with the
-    launch counts set to 0 just before and read just after, then held
-    against _pseudoalign_core on the card and timed.  Returns its row
-    fields."""
+    launch counts set to 0 just before and read just after (both waves
+    launched), then held against _pseudoalign_core and the plain two-wave
+    model on the card (_hold_codes) and timed: both waves, each alone (wave
+    2 on the reads wave 1 listed), and the device time of both from graph
+    replays (L2-warm); its wave-2 share and the share of wave 2's windows
+    that the covered-interval core skipped (the kernel's count against the
+    dense core's probes); two bounds, the dense work (every window's probe,
+    the formula of the earlier rows) and the design's (_skip_bytes).
+    Returns its row fields."""
     cn, ln = _code_batch(np, rb1.codes, rb1.lens, k, rng)
     codes, lens = _put(torch, np, cn, dev), _put(torch, np, ln, dev)
     B, L = codes.shape
@@ -645,24 +742,67 @@ def phase_3_codes(torch, np, pa, kernels, didx, rb1, k, dev, rng):
     pa.pseudoalign_batch(didx, codes, lens, k)
     torch.cuda.synchronize()
     n = kernels.LAUNCHES["pseudoalign_codes"]
-    check(n > 0, f"pseudoalign_batch launched pseudoalign_codes ({n} times)")
-    _hold_codes(torch, pa, didx, codes, lens, k, f"B={B} L={L}")
+    n2 = kernels.LAUNCHES["pseudoalign_codes_wave2"]
+    check(n > 0 and n2 == n, f"pseudoalign_batch launched pseudoalign_codes "
+          f"({n} times) and its wave 2 ({n2})")
+    fail, probed = _hold_codes(torch, pa, anchor, kernels, didx, codes, lens,
+                               k, f"B={B} L={L}")
     R = min(16, L - k + 1)
     ms = cuda_ms(lambda: kernels.pseudoalign_codes(didx, codes, lens, k, R),
                  10, torch)
+    dev_ms = graph_ms(lambda: kernels.pseudoalign_codes(didx, codes, lens, k,
+                                                        R), 10, torch)
+    lists = kernels.pseudoalign_codes(didx, codes, lens, k, R, waves=1)
+    ms1 = cuda_ms(lambda: kernels.pseudoalign_codes(didx, codes, lens, k, R,
+                                                    waves=1), 10, torch)
+    ms2 = cuda_ms(lambda: kernels.pseudoalign_codes(
+        didx, codes, lens, k, R, waves=2, lists=lists), 10, torch)
     plain = cuda_ms(lambda: pa._pseudoalign_core(didx, codes, lens, k, 16), 3,
                     torch)
     # codes and lengths in, SideResults out, the table sectors its probes
-    # and first-hit payloads read, each once
+    # and first-hit payloads read, each once: every window (the dense
+    # work), or the design's probes
     table, n_win, n_valid, n_hit = _window_bytes(torch, pa, didx, codes, lens,
                                                  k)
-    bnd = bound(B * L + 4 * B + B * (4 * R + 27) + table, 250 * n_win,
+    io = B * L + 4 * B + B * (4 * R + 27)
+    dense = bound(io + table, 250 * n_win, PEAK_INT_OPS)
+    tab_s, n_probe = _skip_bytes(torch, pa, didx, codes, lens, k, probed,
+                                 ver=~fail)
+    bnd = bound(io + tab_s + 4 * int(fail.sum()) + 8, 250 * n_probe,
                 PEAK_INT_OPS)
-    log(f"kernel A on codes: {ms:.3f} ms (plain on card {plain:.3f} ms, "
-        f"bound {bnd[0]:.4f} ms), B={B} L={L} windows={n_win} "
-        f"valid={n_valid} hits={n_hit}; its path launched it {n} times")
-    return dict(launches=n, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                bound_by=bnd[1], reads=B, width=L)
+    n_w2 = int(probed.sum())
+    nf = int(fail.sum())
+    share = nf / B
+    # wave 2 alone: its reads' probes, list entries, codes and outputs
+    sub = (codes[fail].contiguous(), lens[fail].contiguous())
+    d_w2 = _dense_probes(torch, pa, *sub, k)
+    plain2 = cuda_ms(lambda: pa._pseudoalign_core(didx, *sub, k, 16), 3,
+                     torch)
+    io2 = nf * (L + 4 + 4 + 4 * R + 27) + 8
+    tab2, _ = _skip_bytes(torch, pa, didx, *sub, k, probed[fail])
+    bnd2 = bound(io2 + tab2, 250 * n_w2, PEAK_INT_OPS)
+    dense2 = bound(io2 + _window_bytes(torch, pa, didx, *sub, k)[0],
+                   250 * int(sub[0].shape[0]) * (L - k + 1), PEAK_INT_OPS)
+    del sub
+    log(f"kernel A on codes: {ms:.3f} ms, device (L2-warm) {dev_ms:.3f} ms "
+        f"(wave 1 alone {ms1:.3f} ms, wave 2 alone {ms2:.3f} ms on "
+        f"{nf} reads, {share:.4f}, plain {plain2:.3f} ms, bound "
+        f"{bnd2[0]:.4f} ms, dense-work bound {dense2[0]:.4f} ms; plain on card {plain:.3f} "
+        f"ms, bound {bnd[0]:.4f} ms over {n_probe} probes, dense-work bound "
+        f"{dense[0]:.4f} ms), B={B} L={L} windows={n_win} valid={n_valid} "
+        f"hits={n_hit}; wave 2 probed {n_w2} of the dense core's {d_w2} "
+        f"windows ({1 - n_w2 / max(d_w2, 1):.4f} skipped); its path "
+        f"launched it {n} times")
+    skipped = 1 - n_w2 / max(d_w2, 1)
+    return (dict(launches=n, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                 bound_by=bnd[1], dense_bound_ms=dense[0], device_ms=dev_ms,
+                 wave1_ms=ms1, wave2_ms=ms2, wave2_share=share,
+                 wave2_probes=n_w2, wave2_dense_probes=d_w2,
+                 skipped_share=skipped, reads=B, width=L),
+            dict(launches=n2, ms=ms2, plain_ms=plain2, bound_ms=bnd2[0],
+                 bound_by=bnd2[1], dense_bound_ms=dense2[0], reads=nf,
+                 wave2_share=share, probes=n_w2, dense_probes=d_w2,
+                 skipped_share=skipped))
 
 
 def phase_3b(torch, np, pa, kernels, fastx, index, didx, rb1, rb2, k, dev):
@@ -1553,7 +1693,7 @@ def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
     aux; kw: its keywords): every field, table entry and slot equal, every
     slot naming its read's own key.  Returns {name: (ms, plain_ms,
     (bound_ms, bound_by), library_ms)}."""
-    from kallisto_tpu_torch.ops import turbo
+    from kallisto_tpu_torch.ops import anchor, turbo
 
     pkf, vsum, sidev, aux = args
     k, L, R, rl = kw["k"], kw["L"], kw["max_rows"], kw["rl"]
@@ -1584,22 +1724,39 @@ def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
     sg = pa.gather_slim(idx, g1, g2)
     check(torch.equal(sg, pa.gather_slim_plain(idx, g1, g2)),
           f"kernel F slim {tag}: {n_uniq} rows equal")
+    # the windows the covered-interval core probed: the kernel's count
+    # against the plain model's mask (anchor.skip_core_plain)
+    codes, lens_v = turbo.codes_and_lens_plain((pkf,), aux, None, L, rl)
+    _, probed = anchor.skip_core_plain(didx, codes, lens_v, k, R)
+    n_pr = torch.zeros(1, dtype=torch.int64, device=pkf.device)
+    kernels.pseudoalign_halffail(didx, pkf, vsum, sidev, aux, k, L, rl, Rr,
+                                 probes=n_pr)
+    torch.cuda.synchronize()
+    n_probe = int(probed.sum())
+    d_probe = _dense_probes(torch, pa, codes, lens_v, k)
+    check(int(n_pr) == n_probe,
+          f"kernel K {tag}: {n_probe} failed-mate windows probed of the "
+          f"dense core's {d_probe}, as the plain model has them")
     ms_k = cuda_ms(lambda: kernels.pseudoalign_halffail(
+        didx, pkf, vsum, sidev, aux, k, L, rl, Rr), 10, torch)
+    dev_k = graph_ms(lambda: kernels.pseudoalign_halffail(
         didx, pkf, vsum, sidev, aux, k, L, rl, Rr), 10, torch)
     plain_k = cuda_ms(lambda: turbo.halffail_core(
         didx, pkf, vsum, sidev, aux, k, L, R, rl), 3, torch)
-    # the failed mates' table reads as kernel D's, per real pair two
-    # block_ec8 rows and its summary; codes, aux in, both mates out
-    codes, lens_v = turbo.codes_and_lens_plain((pkf,), aux, None, L, rl)
+    # the failed mates' table reads: every window's (the dense work, the
+    # formula of the earlier rows) or the design's probes; per real pair
+    # two block_ec8 rows and its summary; codes, aux in, both mates out
     table, n_win, n_valid, n_hit = _window_bytes(torch, pa, didx, codes,
                                                  lens_v, k)
-    del codes, lens_v
+    tab_s, _ = _skip_bytes(torch, pa, didx, codes, lens_v, k, probed)
+    del codes, lens_v, probed
     # the verified mates' two block_ec8 rows (32 B each), each row once
     r0 = vsum[sidev != 0, 0].clamp(min=0) >> 3
-    table += 32 * int(torch.unique(torch.cat([r0, r0 + 1])).numel())
+    rows8 = 32 * int(torch.unique(torch.cat([r0, r0 + 1])).numel())
     io = (pkf.numel() + 8 * Bp + 4 * Bp + 8 * aux.numel()
           + 2 * Bp * (4 * Rr + 4 * 6 + 3))
-    bnd_k = bound(io + table, 250 * n_win, PEAK_INT_OPS)
+    bnd_k = bound(io + tab_s + rows8, 250 * n_probe, PEAK_INT_OPS)
+    dense_k = bound(io + table + rows8, 250 * n_win, PEAK_INT_OPS)
     ms_e = cuda_ms(lambda: kernels.compact_keys(g1, g2, spec, Bp + 1, True,
                                                 didx), 20, torch)
     dev_e = graph_ms(lambda: kernels.compact_keys(g1, g2, spec, Bp + 1, True,
@@ -1614,16 +1771,23 @@ def _hold_k(torch, np, pa, kernels, didx, args, kw, tag):
     ms_f = cuda_ms(lambda: kernels.gather_slim(idx, g1, g2), 20, torch)
     plain_f = cuda_ms(lambda: pa.gather_slim_plain(idx, g1, g2), 5, torch)
     bnd_f = bound(n_uniq * (8 + 20 + 2 * 8 + 4), 0, PEAK_INT_OPS)
-    log(f"{tag} ({n_real} half-fail pairs, Bp={Bp}): kernel K {ms_k:.4f} ms "
-        f"(plain on card {plain_k:.3f} ms, bound {bnd_k[0]:.4f} ms "
-        f"{bnd_k[1]}, {n_win} failed-mate windows, {n_valid} valid, "
-        f"{n_hit} hits); kernel E with slots {ms_e:.4f} ms, device (L2-warm) "
+    log(f"{tag} ({n_real} half-fail pairs, Bp={Bp}): kernel K {ms_k:.4f} ms, "
+        f"device (L2-warm) {dev_k:.4f} ms (plain on card {plain_k:.3f} ms, "
+        f"bound {bnd_k[0]:.4f} ms {bnd_k[1]} over {n_probe} probes, "
+        f"dense-work bound {dense_k[0]:.4f} ms, {n_win} failed-mate windows, "
+        f"{n_valid} valid, {n_hit} hits, {n_probe} of the dense core's "
+        f"{d_probe} probed: {1 - n_probe / max(d_probe, 1):.4f} skipped); "
+        f"kernel E with slots {ms_e:.4f} ms, device (L2-warm) "
         f"{dev_e:.4f} ms (plain "
         f"{plain_e:.3f} ms, torch.unique with inverse {lib_e:.4f} ms, "
         f"bound {bnd_e[0]:.5f} ms, n_uniq {n_uniq}); kernel F slim "
         f"{ms_f:.4f} ms (plain {plain_f:.4f} ms, bound {bnd_f[0]:.6f} "
         f"ms, {n_uniq} rows)")
     return {"pseudoalign_halffail": (ms_k, plain_k, bnd_k, None),
+            "pseudoalign_halffail_design": dict(
+                device_ms=dev_k, dense_bound_ms=dense_k[0], probes=n_probe,
+                dense_probes=d_probe,
+                skipped_share=1 - n_probe / max(d_probe, 1)),
             "key_histogram_slots": (ms_e, plain_e, bnd_e, lib_e),
             "key_histogram_slots_device_ms": dev_e,
             "gather_slim": (ms_f, plain_f, bnd_f, None)}
@@ -2099,6 +2263,7 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     (the batch's pairs, and mate 1 alone) and L (A's windows) timed in
     both layouts, and D, J and K at their held shapes.  Returns the set-up
     for phase 5h and {name: row fields}."""
+    from kallisto_tpu_torch.ops import anchor
     from kallisto_tpu_torch.quant import pipeline as qp
 
     rng = np.random.default_rng(4242)
@@ -2150,7 +2315,7 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     cn, ln = _code_batch(np, rbs[0].codes, rbs[0].lens, k, rng)
     codes_c, lens_c = _put(torch, np, cn, dev), _put(torch, np, ln, dev)
     for tag, d in (("padded", dp), ("bucketed", db)):
-        _hold_codes(torch, pa, d, codes_c[:n], lens_c[:n], k,
+        _hold_codes(torch, pa, anchor, kernels, d, codes_c[:n], lens_c[:n], k,
                     f"{tag} index, B={n} L={cn.shape[1]}")
     ms_cp, ms_cb = _time_layouts(torch, lambda d: kernels.pseudoalign_codes(
         d, codes_c, lens_c, k, min(16, cn.shape[1] - k + 1)), dp, db, 10)
@@ -3170,7 +3335,8 @@ def main(argv=None):
             f"({k3a_w2['wave2_share']:.4f})")
         log(f"kernel B: {ms_b:.4f} ms, device (L2-warm) {dev_b:.4f} ms (plain on card "
             f"{plain_b:.3f} ms, bound {bound_b[0]:.4f} ms)")
-        k3codes = phase_3_codes(torch, np, pa, kernels, didx, rb1, k, dev, rng)
+        k3codes, k3codes_w2 = phase_3_codes(torch, np, pa, anchor, kernels,
+                                            didx, rb1, k, dev, rng)
 
         # ------------------------------------------------- 3c. kernel H
         log(f"== phase 3c: kernel H against its plain version "
@@ -3618,6 +3784,12 @@ def main(argv=None):
             source=csrc + "pseudoalign.cu",
             replaces="kallisto_tpu/ops/pseudoalign.py:493", max_abs_err=0.0,
             library_ms=None, **k3codes, **k3g["pseudoalign_codes"]))
+        # A on codes' wave 2 alone on its list (phase 3's batch)
+        rows.append(dict(
+            name="pseudoalign_codes_wave2", route="cuda",
+            source=csrc + "pseudoalign.cu",
+            replaces="kallisto_tpu/ops/pseudoalign.py:504", max_abs_err=0.0,
+            library_ms=None, **k3codes_w2))
         l2 = k3g["l2_index"]
         for r in rows:
             if r["name"] == "pseudoalign_side":
@@ -3686,7 +3858,12 @@ def main(argv=None):
         # layout, which phase 5's anchor route launches too
         for name, key, replaces, extra in (
                 ("pseudoalign_halffail", "pseudoalign_halffail",
-                 "kallisto_tpu/ops/turbo.py:244", {}),
+                 "kallisto_tpu/ops/turbo.py:244", {
+                     **k5f["pseudoalign_halffail_design"],
+                     **{"stress_" + key: v for key, v in
+                        k3f["pseudoalign_halffail_design"].items()},
+                     **{key + "_16k": v for key, v in
+                        k3f["pseudoalign_halffail_design_16k"].items()}}),
                 ("key_histogram", "key_histogram_slots",
                  "kallisto_tpu/ops/pseudoalign.py:774", {
                      "form": "slots",

@@ -29,8 +29,9 @@
 // of ops/pseudoalign.py in both layouts.  No run loop launches it; it is
 // the yardstick of the probe (chip_smoke.py times it in both layouts).
 //
-// One per-read core, kt_core, serves kernels A's wave 2, A on codes, D,
-// I's wave 2 and K's failed mate; only the decode in front of it differs:
+// One per-read core, kt_core, serves kernels A's wave 2, D and I's wave
+// 2, and its covered-interval form (below) A on codes' wave 2 and K's
+// failed mate; only the decode in front of them differs:
 //   A's wave 2 (pseudoalign_side_wave2_kernel) -- the JAX device program
 //     kallisto_tpu/ops/pseudoalign.py pseudoalign_batch_packed (:479):
 //     unpack_codes_device (:469), rolling_canonical_kmers (:385),
@@ -39,7 +40,9 @@
 //     could not verify;
 //   A on codes, pseudoalign_codes -- pseudoalign_batch (:493), the same
 //     core on unpacked [B, L] uint8 codes (any L >= k; a code above 3 is
-//     an N), packed per read in the warp by three ballots per 32 columns;
+//     an N), packed per read in the warp by three ballots per 32 columns,
+//     for the reads that its wave 1 (A's wave 1 on codes, below) could
+//     not verify;
 //   D, pseudoalign_turbo -- the decode and core of the turbo steady state,
 //     kallisto_tpu/ops/turbo.py pair_turbo_core (:104) and
 //     single_turbo_core (:254) as reached through
@@ -100,6 +103,43 @@
 // byte-aligned Lp adds (rl < Lp), which removes their probes, and reads
 // 25 bytes per 100 bp read instead of 25 + 13.
 //
+// The covered-interval core (A on codes' wave 2, K's failed mate) gives
+// kt_core's fields bit for bit from fewer probes.  A read of le = min(len,
+// W + k - 1) >= k columns has na = n_anchors_for(le, k) anchors at w_j =
+// (wlast * j) / (na - 1), wlast = le - k, at most k apart (a shorter read:
+// window 0 alone).  The anchors are probed in one round, with uid, pos,
+// block and strand read on a hit; then the lane of anchor j decides
+// interval [w_j, w_j+1] with anchor j + 1's lane over a shuffle.  It is
+// covered when both anchors hit one unitig on one strand with upos_j+1 =
+// upos_j + sgn * (w_j+1 - w_j) and their block range lies in two 8-wide
+// rows of block_ec8: the two k-mers then overlap or abut on that unitig,
+// so read[w_j, w_j+1 + k) is that stretch, every window between them hits
+// it (valid, one k-mer each), and its EC rows are the block ECs of the
+// blocks between the anchors' (blocks are unitig-major, consecutive and
+// position-ascending), which the lane writes into the skipped windows'
+// slots (at most w_j+1 - w_j - 1 of them) from block_ec8, INT32_MAX into
+// the rest.  An open interval -- a miss, an N or a disagreement at either
+// end, a range past two rows -- marks its windows KT_NEED; rounds of a
+// ballot and a prefix over the slots hand its valid windows to the whole
+// warp, 64 a round (kt_probe_n, two a lane), so a read left with at most
+// 64 pays one probe round where kt_core pays W / 64 rounded up.  The first
+// and last hits are probed windows (window 0 is anchor 0, and a covered
+// interval's ends are hits), so the first/last hits, window 0's slot and
+// the distinct-row rounds after them (kt_core_out) are kt_core's.  Two
+// forms: kt_core_skip, one read a warp (A on codes' wave 2), and, for K,
+// kt_skip_anchors on the G = 32 / g reads of a warp at once (g lanes a
+// read, as wave 1's groups; each read's first/last anchor hits and window
+// 0's slot kept in its slot's KtSkipMeta) followed by kt_skip_finish read
+// by read -- the anchor round of one read keeps only its na requests in
+// flight, so K runs it for eight 100 bp reads together (9-11 % less device
+// time than one read a warp on an H100, probe_ab.py; A on codes was
+// fastest one read a warp).  ops/anchor.py skip_core_plain is the same in
+// plain PyTorch, its mask of probed windows the count the card tests hold
+// the kernels' probes (an optional counter) against.  What bounds it: the
+// anchors' probes and payload reads, then the open intervals' probes and
+// the covered intervals' block_ec8 sectors; the measured times follow the
+// DRAM requests more than the probes skipped (PERF.md).
+//
 // Trap kept on purpose: a read without hits still reports f_strand from
 // window 0's lookup slot (JAX argmax of an all-false row is 0), so window 0
 // is always looked up (with q = mix64(0) when it is invalid), and its
@@ -107,7 +147,12 @@
 // kernel D have length 0 and follow the same rule.
 //
 // Kernel A, pseudoalign_side (wave 1, pseudoalign_side_kernel, then wave
-// 2, pseudoalign_side_wave2_kernel, from one C call), is
+// 2, pseudoalign_side_wave2_kernel, from one C call), and A on codes,
+// pseudoalign_codes (pseudoalign_codes_kernel, then
+// pseudoalign_codes_wave2_kernel: its wave 1 builds an anchor's k-mer
+// from the aligned 4-byte words that hold its k codes, a code above 3
+// failing the read, and its wave 2 runs kt_core_skip), share wave 1's
+// body (kt_verify_reads).  Kernel A is
 // pseudoalign_batch_packed as two launches on one stream, in the manner of
 // kernel I below, and gives every read the dense core's ten fields bit for
 // bit; its wave 1 shares kernel I's anchor check, block rows and failure
@@ -191,8 +236,10 @@
 // for its Ns and n_real, uniform length), with the other mate's 8-byte
 // summary (blo; upos0<<5 | span<<1 | strand) and sidev (1: mate 1 failed,
 // anything else: mate 2).  Per pair, one warp:
-//   the failed mate -- kernel D's decode and core, R = min(max_rows, W)
-//     rows (the core's clamp);
+//   the failed mate -- kernel D's decode (kt_decode_exc_group: the
+//     warp's G failed mates together) and the covered-interval core
+//     (kt_skip_anchors for the G reads, then kt_skip_finish for each),
+//     R = min(max_rows, W) rows (the core's clamp);
 //   the verified mate -- rebuilt as kernel I rebuilds a verified read: the
 //     sorted distinct block ECs of [blo, blo + span], 16 lanes loading the
 //     two block_ec8 rows of r0 = max(blo, 0) >> 3 and up to min(R, 16)
@@ -202,8 +249,11 @@
 //     width R as the failed mate (JAX turbo.py:215-221); first hit block
 //     blo (forward) or blo + span (reverse), upos0, f_rpos 0, f_uid 0, rng
 //     len - k.  A padding pair (row >= n_real) stays no-hit on both mates.
-// What bounds it: the failed mate's table reads, as kernel D's; the
-// verified mate costs one 64-byte read of block_ec8 and 8 bytes of summary
+// What bounds it: the failed mate's table reads, the covered-interval
+// core's (its mates failed the host probe, so a whole-read check cannot
+// help them; one error or one unitig boundary leaves covered intervals
+// between its agreeing anchors); the verified mate costs one 64-byte
+// read of block_ec8 and 8 bytes of summary
 // instead of W lookups.  Only the failed mate uploads, so the batch moves
 // Lp/4 + 12 bytes per pair instead of Lp/2.
 //
@@ -713,6 +763,69 @@ __device__ __forceinline__ unsigned kt_probe_n(const IndexView& ix,
     return hit;
 }
 
+// The end of a read in the per-read cores (kt_core, kt_core_skip,
+// kt_skip_finish): every window's slot of wrows holds its EC row
+// (INT32_MAX: none); each lane
+// brings its first hit (window lfirst, slot lidx, orientation lfw; lfirst
+// INT32_MAX for none) and last hit llast, and lane 0 window 0's slot idx0
+// and orientation fw0.  Writes the read's SideResult (R row slots at row
+// stride RS) and returns its first row slot (the same in every lane).
+__device__ __forceinline__ int kt_core_out(const IndexView& ix,
+                                           const int* wrows, long long read,
+                                           int W, int R, int RS,
+                                           const SideOut& o, int lfirst,
+                                           int llast, long long lidx, int lfw,
+                                           long long idx0, int fw0) {
+    const int lane = threadIdx.x & 31;
+    // window 0 stands in for the first hit of a read without hits
+    const int first = __reduce_min_sync(KT_FULL, lfirst);
+    const int last = __reduce_max_sync(KT_FULL, llast);
+    const int has = first != KT_INT32_MAX;
+    // the lane that holds the first hit (in kt_core, lane first & 31)
+    const int src =
+        has ? __ffs(__ballot_sync(KT_FULL, lfirst == first)) - 1 : 0;
+    const long long fidx = __shfl_sync(KT_FULL, has ? lidx : idx0, src);
+    const int ffw = __shfl_sync(KT_FULL, has ? lfw : fw0, src);
+
+    // the R smallest distinct non-empty rows, then one more round for
+    // `overflow`: a distinct row beyond the R-th (core :534-536)
+    int prev = -1, nr = 0, ov = 0, row0 = KT_INT32_MAX;
+    for (int s = 0; s <= R; ++s) {
+        int m = KT_INT32_MAX;
+        for (int w = lane; w < W; w += 32) {
+            const int v = wrows[w];
+            if (v > prev && v < m) m = v;
+        }
+        m = __reduce_min_sync(KT_FULL, m);
+        if (m == KT_INT32_MAX) break;
+        if (s == R) {
+            ov = 1;
+            break;
+        }
+        if (lane == (s & 31)) o.rows[read * RS + s] = m;
+        if (s == 0) row0 = m;
+        prev = m;
+        ++nr;
+    }
+    for (int s = nr + lane; s < R; s += 32) o.rows[read * RS + s] = KT_INT32_MAX;
+    if (lane == 0) {
+        o.n_rows[read] = nr;
+        o.has_hits[read] = (unsigned char)has;
+        o.overflow[read] = (unsigned char)ov;
+        o.f_strand[read] = (unsigned char)(ffw == (int)(ix.fw[fidx] != 0));
+        o.f_rpos[read] = has ? first : -1;
+        o.rng[read] = has ? last - first : -1;
+    } else if (lane == 1) {
+        o.f_uid[read] = has ? ix.uid[fidx] : -1;
+    } else if (lane == 2) {
+        o.f_block[read] = has ? ix.block[fidx] : -1;
+    } else if (lane == 3) {
+        o.f_upos[read] = has ? ix.pos[fidx] : -1;
+    }
+    __syncwarp();  // the next read's decode rewrites the warp's words
+    return row0;
+}
+
 // One read, one warp (see the file header).  pk holds the read's 2-bit
 // codes (base j at bits 2j, 2j + 1 of the little-endian words, N bases
 // 0), nm its N mask (bit j), each with a spare word; wrows is W ints of
@@ -775,51 +888,458 @@ __device__ int kt_core(const IndexView& ix, const unsigned long long* pk,
             }
         }
     }
-    // window 0 stands in for the first hit of a read without hits
-    const int first = __reduce_min_sync(KT_FULL, lfirst);
-    const int last = __reduce_max_sync(KT_FULL, llast);
-    const int has = first != KT_INT32_MAX;
-    const int src = has ? (first & 31) : 0;
-    const long long fidx = __shfl_sync(KT_FULL, has ? lidx : idx0, src);
-    const int ffw = __shfl_sync(KT_FULL, has ? lfw : fw0, src);
+    return kt_core_out(ix, wrows, read, W, R, RS, o, lfirst, llast, lidx, lfw,
+                       idx0, fw0);
+}
 
-    // the R smallest distinct non-empty rows, then one more round for
-    // `overflow`: a distinct row beyond the R-th (core :534-536)
-    int prev = -1, nr = 0, ov = 0, row0 = KT_INT32_MAX;
-    for (int s = 0; s <= R; ++s) {
-        int m = KT_INT32_MAX;
-        for (int w = lane; w < W; w += 32) {
-            const int v = wrows[w];
-            if (v > prev && v < m) m = v;
+// Position of the n-th set bit (from 0) of m; n < popc(m).
+__device__ __forceinline__ int kt_select(unsigned m, int n) {
+    int p = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+        const int c = __popc(m & ((1u << s) - 1u));
+        if (n >= c) {
+            n -= c;
+            m >>= s;
+            p += s;
         }
-        m = __reduce_min_sync(KT_FULL, m);
-        if (m == KT_INT32_MAX) break;
-        if (s == R) {
-            ov = 1;
-            break;
+    }
+    return p;
+}
+
+#define KT_NEED (-2)  // a window's slot while it waits for its probe
+
+// What the anchor phase of the covered-interval core leaves a read: its
+// first anchor hit (window first_w, INT32_MAX for none; slot first_idx,
+// orientation first_fw), its last anchor hit and window 0's slot and
+// orientation.
+struct KtSkipMeta {
+    long long first_idx, idx0;
+    int first_w, first_fw, last, fw0;
+};
+
+// The covered-interval core's shared memory: a warp holds G reads of Lc
+// code columns, read r in slot r of the warp's share: its 2-bit codes (pk,
+// kt_pkw words), N mask (nm, kt_nmw words), row scratch (wrows, W ints)
+// and KtSkipMeta.
+__host__ __device__ static inline int kt_slot_bytes(int Lc, int W) {
+    return 8 * (kt_pkw(Lc) + kt_nmw(Lc)) + ((4 * W + 7) & ~7) +
+           (int)sizeof(KtSkipMeta);
+}
+
+struct KtSlots {
+    unsigned char* base;
+    int bytes, PKW, NMW;
+    __device__ unsigned long long* pk(int r) const {
+        return (unsigned long long*)(base + (long long)r * bytes);
+    }
+    __device__ unsigned long long* nm(int r) const { return pk(r) + PKW; }
+    __device__ int* wrows(int r) const { return (int*)(nm(r) + NMW); }
+    __device__ KtSkipMeta* meta(int r) const {
+        return (KtSkipMeta*)(base + (long long)(r + 1) * bytes) - 1;
+    }
+};
+
+__device__ __forceinline__ KtSlots kt_slots(int Lc, int W, int G) {
+    extern __shared__ unsigned long long kt_smem[];
+    KtSlots sl;
+    sl.bytes = kt_slot_bytes(Lc, W);
+    sl.base = (unsigned char*)kt_smem +
+              (long long)(threadIdx.x >> 5) * G * sl.bytes;
+    sl.PKW = kt_pkw(Lc);
+    sl.NMW = kt_nmw(Lc);
+    return sl;
+}
+
+// One pass of a read's anchors in the covered-interval core (see the
+// file header), by the g lanes of its group: lane jl takes anchor j (< na:
+// w_j = (wlast * j) / (na - 1), window 0 alone when na is 1), probes it
+// (window 0 also when invalid) and on a hit reads its uid, pos, block and
+// strand; with the next lane's anchor over a shuffle of width g it decides
+// interval [w_j, w_j+1] (jl < g - 1): a covered interval writes the block
+// ECs of the blocks strictly between its anchors' blocks (be8, block_ec8
+// flat) into its skipped windows' slots and INT32_MAX into the rest, an
+// open one marks its windows KT_NEED.  The lane's first and last hits,
+// window 0's slot and its probe count (an anchor that two passes share,
+// or window 0 twice, counts once) are updated.
+__device__ __forceinline__ void kt_skip_pass(
+    const IndexView& ix, const int* __restrict__ be8, long long n_be8,
+    const unsigned long long* pk, const unsigned long long* nm, int* wrows,
+    int j, int jl, int g, int na, int wlast, int k, int& lfirst, int& llast,
+    long long& lidx, int& lfw, long long& idx0, int& fw0, int& nprobe) {
+    const unsigned long long kmask =
+        k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
+    const unsigned long long nmk = (1ULL << k) - 1ULL;
+    const int fsh = 64 - 2 * k;
+    int w = 0, hit = 0, uid = -1, upos = 0, str = 0, blk = 0;
+    if (j < na) {
+        w = na > 1 ? (int)(((long long)wlast * j) / (na - 1)) : 0;
+        const unsigned long long x = kt_bits(pk, 2 * w);
+        const unsigned long long f = kt_rev2(x) >> fsh;
+        const unsigned long long rc = ~x & kmask;
+        const int valid = wlast >= 0 && (kt_bits(nm, w) & nmk) == 0;
+        const int isfw = f <= rc;
+        long long idx = 0;
+        int ec = -1;
+        if (valid || w == 0) {
+            hit = kt_probe(ix, kt_mix64(valid ? (isfw ? f : rc) : 0ULL), &idx,
+                           &ec) && valid;
+            if ((jl < g - 1 || j == na - 1) &&
+                (j == 0 || w > (int)(((long long)wlast * (j - 1)) / (na - 1))))
+                ++nprobe;
         }
-        if (lane == (s & 31)) o.rows[read * RS + s] = m;
-        if (s == 0) row0 = m;
-        prev = m;
-        ++nr;
+        if (hit) {
+            uid = ix.uid[idx];
+            upos = ix.pos[idx];
+            blk = ix.block[idx];
+            str = isfw == (int)(ix.fw[idx] != 0);
+            if (w < lfirst) {
+                lfirst = w;
+                lidx = idx;
+                lfw = isfw;
+            }
+            llast = max(llast, w);
+        }
+        if (w == 0) {
+            idx0 = idx;
+            fw0 = isfw;
+        }
+        wrows[w] = (hit && ec >= 0) ? ec : KT_INT32_MAX;
     }
-    for (int s = nr + lane; s < R; s += 32) o.rows[read * RS + s] = KT_INT32_MAX;
-    if (lane == 0) {
-        o.n_rows[read] = nr;
-        o.has_hits[read] = (unsigned char)has;
-        o.overflow[read] = (unsigned char)ov;
-        o.f_strand[read] = (unsigned char)(ffw == (int)(ix.fw[fidx] != 0));
-        o.f_rpos[read] = has ? first : -1;
-        o.rng[read] = has ? last - first : -1;
-    } else if (lane == 1) {
-        o.f_uid[read] = has ? ix.uid[fidx] : -1;
-    } else if (lane == 2) {
-        o.f_block[read] = has ? ix.block[fidx] : -1;
-    } else if (lane == 3) {
-        o.f_upos[read] = has ? ix.pos[fidx] : -1;
+    const int w2 = __shfl_down_sync(KT_FULL, w, 1, g);
+    const int hit2 = __shfl_down_sync(KT_FULL, hit, 1, g);
+    const int uid2 = __shfl_down_sync(KT_FULL, uid, 1, g);
+    const int upos2 = __shfl_down_sync(KT_FULL, upos, 1, g);
+    const int str2 = __shfl_down_sync(KT_FULL, str, 1, g);
+    const int blk2 = __shfl_down_sync(KT_FULL, blk, 1, g);
+    if (jl < g - 1 && j + 1 < na) {
+        const int blo = min(blk, blk2), bhi = max(blk, blk2);
+        const int cov = hit && hit2 && uid == uid2 && str == str2 &&
+                        upos2 == upos + (str ? w2 - w : w - w2) && blo >= 0 &&
+                        (bhi >> 3) <= (blo >> 3) + 1;
+        int t = w + 1;
+        if (cov) {
+            // at most w2 - w - 1 blocks lie strictly between
+            for (int b = blo + 1; b < bhi && t < w2; ++b, ++t) {
+                const int e = b < n_be8 ? __ldg(be8 + b) : -1;
+                wrows[t] = e >= 0 ? e : KT_INT32_MAX;
+            }
+        }
+        for (; t < w2; ++t) wrows[t] = cov ? KT_INT32_MAX : KT_NEED;
     }
-    __syncwarp();  // the next read's decode rewrites the warp's words
-    return row0;
+}
+
+// After a read's anchor passes, by the whole warp: rounds of compaction (a
+// ballot and a prefix per 32 windows) hand the read's valid KT_NEED
+// windows to the lanes, 32 * KT_PER a round, each probed by kt_probe_n;
+// the other KT_NEED windows become INT32_MAX.  Updates the lane's first
+// and last hits and probe count.
+__device__ __forceinline__ void kt_skip_rest(
+    const IndexView& ix, const unsigned long long* pk,
+    const unsigned long long* nm, int* wrows, int W, int k, int& lfirst,
+    int& llast, long long& lidx, int& lfw, int& nprobe) {
+    const int lane = threadIdx.x & 31;
+    const unsigned long long kmask =
+        k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
+    const unsigned long long nmk = (1ULL << k) - 1ULL;
+    const int fsh = 64 - 2 * k;
+    for (;;) {
+        int wq[KT_PER];
+#pragma unroll
+        for (int j = 0; j < KT_PER; ++j) wq[j] = -1;
+        int off = 0, c = 0;
+        for (; 32 * c < W && off < 32 * KT_PER; ++c) {
+            const int w = 32 * c + lane;
+            int need = 0;
+            if (w < W && wrows[w] == KT_NEED) {
+                need = (kt_bits(nm, w) & nmk) == 0;
+                if (!need) wrows[w] = KT_INT32_MAX;
+            }
+            const unsigned m = __ballot_sync(KT_FULL, need);
+#pragma unroll
+            for (int j = 0; j < KT_PER; ++j) {
+                const int t = 32 * j + lane - off;
+                if (t >= 0 && t < __popc(m)) wq[j] = 32 * c + kt_select(m, t);
+            }
+            off += __popc(m);
+        }
+        if (off == 0) break;
+        unsigned long long q[KT_PER];
+        unsigned act = 0, fwm = 0;
+#pragma unroll
+        for (int j = 0; j < KT_PER; ++j) {
+            q[j] = 0;
+            if (wq[j] >= 0) {
+                const unsigned long long x = kt_bits(pk, 2 * wq[j]);
+                const unsigned long long f = kt_rev2(x) >> fsh;
+                const unsigned long long rc = ~x & kmask;
+                const int isfw = f <= rc;
+                fwm |= (unsigned)isfw << j;
+                act |= 1u << j;
+                q[j] = kt_mix64(isfw ? f : rc);
+            }
+        }
+        long long idx[KT_PER];
+        int ec[KT_PER];
+        const unsigned hm = kt_probe_n<KT_PER>(ix, q, act, idx, ec);
+#pragma unroll
+        for (int j = 0; j < KT_PER; ++j) {
+            const int w = wq[j];
+            if (w >= 0) {
+                const int hit = (hm >> j) & 1;
+                wrows[w] = (hit && ec[j] >= 0) ? ec[j] : KT_INT32_MAX;
+                ++nprobe;
+                if (hit) {
+                    if (w < lfirst) {
+                        lfirst = w;
+                        lidx = idx[j];
+                        lfw = (fwm >> j) & 1;
+                    }
+                    llast = max(llast, w);
+                }
+            }
+        }
+        __syncwarp();
+        if (32 * c >= W && off <= 32 * KT_PER) break;
+    }
+    __syncwarp();
+}
+
+// The covered-interval core on one read, one warp (A on codes' wave 2;
+// see the file header): kt_core's result, bit for bit, from the anchors
+// and the windows of the intervals that no pair of agreeing anchors
+// covers.  Its steps are those of kt_skip_pass (31 intervals a pass: lane
+// l's anchor and lane l + 1's bound interval base + l) and kt_skip_rest,
+// written out in one function: built from those helpers it took 96
+// registers instead of 76 and A on codes 1.09 ms of device time instead of
+// 0.89 on an H100 (probe_ab.py).  n_probed (may be null) gains the windows
+// probed.
+__device__ int kt_core_skip(const IndexView& ix, const int* __restrict__ be8,
+                            long long n_be8, const unsigned long long* pk,
+                            const unsigned long long* nm, int* wrows,
+                            long long read, int len, int W, int k, int R,
+                            int RS, const SideOut& o,
+                            unsigned long long* n_probed) {
+    const int lane = threadIdx.x & 31;
+    const unsigned long long kmask =
+        k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
+    const unsigned long long nmk = (1ULL << k) - 1ULL;
+    const int fsh = 64 - 2 * k;
+    const int Lc = W + k - 1;
+    const int wlast = (len < Lc ? len : Lc) - k;  // < 0: no valid window
+    const int na = wlast < 0 ? 1 : max(2, (wlast + k - 1) / k + 1);
+    int lfirst = KT_INT32_MAX, llast = -1, lfw = 0, fw0 = 0, nprobe = 0;
+    long long lidx = 0, idx0 = 0;
+
+    // windows past the read's last: invalid, no row
+    for (int w = (wlast > 0 ? wlast : 0) + 1 + lane; w < W; w += 32)
+        wrows[w] = KT_INT32_MAX;
+
+    for (int base = 0; base == 0 || base < na - 1; base += 31) {
+        const int j = base + lane;
+        int w = 0, hit = 0, uid = -1, upos = 0, str = 0, blk = 0;
+        if (j < na) {
+            w = na > 1 ? (int)(((long long)wlast * j) / (na - 1)) : 0;
+            const unsigned long long x = kt_bits(pk, 2 * w);
+            const unsigned long long f = kt_rev2(x) >> fsh;
+            const unsigned long long r = ~x & kmask;
+            const int valid = wlast >= 0 && (kt_bits(nm, w) & nmk) == 0;
+            const int isfw = f <= r;
+            long long idx = 0;
+            int ec = -1;
+            if (valid || w == 0) {
+                hit = kt_probe(ix, kt_mix64(valid ? (isfw ? f : r) : 0ULL),
+                               &idx, &ec) && valid;
+                // an anchor that two passes share, or window 0 twice
+                // (wlast = 0), counts once
+                if ((lane < 31 || j == na - 1) &&
+                    (j == 0 ||
+                     w > (int)(((long long)wlast * (j - 1)) / (na - 1))))
+                    ++nprobe;
+            }
+            if (hit) {
+                uid = ix.uid[idx];
+                upos = ix.pos[idx];
+                blk = ix.block[idx];
+                str = isfw == (int)(ix.fw[idx] != 0);
+                if (w < lfirst) {
+                    lfirst = w;
+                    lidx = idx;
+                    lfw = isfw;
+                }
+                llast = max(llast, w);
+            }
+            if (w == 0) {
+                idx0 = idx;
+                fw0 = isfw;
+            }
+            wrows[w] = (hit && ec >= 0) ? ec : KT_INT32_MAX;
+        }
+        // interval [w, w2] with the next lane's anchor
+        const int w2 = __shfl_down_sync(KT_FULL, w, 1);
+        const int hit2 = __shfl_down_sync(KT_FULL, hit, 1);
+        const int uid2 = __shfl_down_sync(KT_FULL, uid, 1);
+        const int upos2 = __shfl_down_sync(KT_FULL, upos, 1);
+        const int str2 = __shfl_down_sync(KT_FULL, str, 1);
+        const int blk2 = __shfl_down_sync(KT_FULL, blk, 1);
+        if (lane < 31 && j + 1 < na) {
+            const int blo = min(blk, blk2), bhi = max(blk, blk2);
+            const int cov = hit && hit2 && uid == uid2 && str == str2 &&
+                            upos2 == upos + (str ? w2 - w : w - w2) &&
+                            blo >= 0 && (bhi >> 3) <= (blo >> 3) + 1;
+            int t = w + 1;
+            if (cov) {
+                // at most w2 - w - 1 blocks lie strictly between
+                for (int b = blo + 1; b < bhi && t < w2; ++b, ++t) {
+                    const int e = b < n_be8 ? __ldg(be8 + b) : -1;
+                    wrows[t] = e >= 0 ? e : KT_INT32_MAX;
+                }
+            }
+            for (; t < w2; ++t) wrows[t] = cov ? KT_INT32_MAX : KT_NEED;
+        }
+    }
+    __syncwarp();
+
+    // the open intervals' valid windows, compacted onto the lanes
+    for (;;) {
+        int wq[KT_PER];
+#pragma unroll
+        for (int j = 0; j < KT_PER; ++j) wq[j] = -1;
+        int off = 0, c = 0;
+        for (; 32 * c < W && off < 32 * KT_PER; ++c) {
+            const int w = 32 * c + lane;
+            int need = 0;
+            if (w < W && wrows[w] == KT_NEED) {
+                need = (kt_bits(nm, w) & nmk) == 0;
+                if (!need) wrows[w] = KT_INT32_MAX;
+            }
+            const unsigned m = __ballot_sync(KT_FULL, need);
+#pragma unroll
+            for (int j = 0; j < KT_PER; ++j) {
+                const int t = 32 * j + lane - off;
+                if (t >= 0 && t < __popc(m)) wq[j] = 32 * c + kt_select(m, t);
+            }
+            off += __popc(m);
+        }
+        if (off == 0) break;
+        unsigned long long q[KT_PER];
+        unsigned act = 0, fwm = 0;
+#pragma unroll
+        for (int j = 0; j < KT_PER; ++j) {
+            q[j] = 0;
+            if (wq[j] >= 0) {
+                const unsigned long long x = kt_bits(pk, 2 * wq[j]);
+                const unsigned long long f = kt_rev2(x) >> fsh;
+                const unsigned long long r = ~x & kmask;
+                const int isfw = f <= r;
+                fwm |= (unsigned)isfw << j;
+                act |= 1u << j;
+                q[j] = kt_mix64(isfw ? f : r);
+            }
+        }
+        long long idx[KT_PER];
+        int ec[KT_PER];
+        const unsigned hm = kt_probe_n<KT_PER>(ix, q, act, idx, ec);
+#pragma unroll
+        for (int j = 0; j < KT_PER; ++j) {
+            const int w = wq[j];
+            if (w >= 0) {
+                const int hit = (hm >> j) & 1;
+                wrows[w] = (hit && ec[j] >= 0) ? ec[j] : KT_INT32_MAX;
+                ++nprobe;
+                if (hit) {
+                    if (w < lfirst) {
+                        lfirst = w;
+                        lidx = idx[j];
+                        lfw = (fwm >> j) & 1;
+                    }
+                    llast = max(llast, w);
+                }
+            }
+        }
+        __syncwarp();
+        if (32 * c >= W && off <= 32 * KT_PER) break;
+    }
+    __syncwarp();
+    if (n_probed) {
+        const int n = __reduce_add_sync(KT_FULL, nprobe);
+        if (lane == 0) atomicAdd(n_probed, (unsigned long long)n);
+    }
+    return kt_core_out(ix, wrows, read, W, R, RS, o, lfirst, llast, lidx, lfw,
+                       idx0, fw0);
+}
+
+// The covered-interval core's anchor passes for the nr <= G = 32 / g reads
+// of a warp (kernel K's failed mates), decoded in slots 0 .. nr - 1: g
+// lanes a read (lane r * g + jl takes read r, of length len), NA the most
+// anchors a read of the batch has (more than 32: one read, passes of 31
+// intervals).  Leaves each read's first and last anchor hits and window
+// 0's slot in its KtSkipMeta; nprobe counts the lane's probes.
+__device__ void kt_skip_anchors(const IndexView& ix,
+                                const int* __restrict__ be8, long long n_be8,
+                                const KtSlots& sl, int nr, int len, int W,
+                                int k, int NA, int g, int& nprobe) {
+    const int lane = threadIdx.x & 31;
+    const int r = lane / g, jl = lane & (g - 1);
+    const int act = r < nr;
+    const int Lc = W + k - 1;
+    const int wlast = act ? (len < Lc ? len : Lc) - k : -1;
+    const int na = !act ? 0 : wlast < 0 ? 1 : max(2, (wlast + k - 1) / k + 1);
+    const int ra = act ? r : 0;
+    int* wrows = sl.wrows(ra);
+    int lfirst = KT_INT32_MAX, llast = -1, lfw = 0, fw0 = 0;
+    long long lidx = 0, idx0 = 0;
+    if (act)
+        for (int w = (wlast > 0 ? wlast : 0) + 1 + jl; w < W; w += g)
+            wrows[w] = KT_INT32_MAX;
+    for (int base = 0; base == 0 || base < NA - 1; base += g - 1)
+        kt_skip_pass(ix, be8, n_be8, sl.pk(ra), sl.nm(ra), wrows, base + jl,
+                     jl, g, na, wlast, k, lfirst, llast, lidx, lfw, idx0, fw0,
+                     nprobe);
+    // the read's first anchor hit from its lowest lane that holds it
+    const int first = kt_group_min(lfirst, g);
+    const int last = kt_group_max(llast, g);
+    const unsigned gm = g == 32 ? KT_FULL : ((1u << g) - 1u) << (lane & ~(g - 1));
+    const unsigned own = __ballot_sync(KT_FULL, lfirst == first) & gm;
+    KtSkipMeta* mt = sl.meta(ra);
+    if (act && lane == __ffs(own) - 1) {
+        mt->first_w = first;
+        mt->first_idx = lidx;
+        mt->first_fw = lfw;
+        mt->last = last;
+    }
+    if (act && jl == 0) {
+        mt->idx0 = idx0;
+        mt->fw0 = fw0;
+    }
+    __syncwarp();
+}
+
+// The rest of the covered-interval core for read `read` in slot r after
+// kt_skip_anchors, by the whole warp: kt_skip_rest from the read's
+// KtSkipMeta, then kt_core_out.  Returns the read's first row slot.
+__device__ int kt_skip_finish(const IndexView& ix, const KtSlots& sl, int r,
+                              long long read, int W, int k, int R, int RS,
+                              const SideOut& o, int& nprobe) {
+    const int lane = threadIdx.x & 31;
+    const KtSkipMeta mt = *sl.meta(r);
+    int lfirst = lane == 0 ? mt.first_w : KT_INT32_MAX;
+    int llast = lane == 0 ? mt.last : -1;
+    long long lidx = mt.first_idx;
+    int lfw = mt.first_fw;
+    kt_skip_rest(ix, sl.pk(r), sl.nm(r), sl.wrows(r), W, k, lfirst, llast,
+                 lidx, lfw, nprobe);
+    return kt_core_out(ix, sl.wrows(r), read, W, R, RS, o, lfirst, llast, lidx,
+                       lfw, mt.idx0, mt.fw0);
+}
+
+// The warp's nprobe into *n_probed (may be null); every lane calls it.
+__device__ __forceinline__ void kt_count_probes(unsigned long long* n_probed,
+                                                int nprobe) {
+    if (n_probed) {
+        const int n = __reduce_add_sync(KT_FULL, nprobe);
+        if ((threadIdx.x & 31) == 0) atomicAdd(n_probed, (unsigned long long)n);
+    }
 }
 
 // The warp's share of the block's dynamic shared memory for reads of Lc
@@ -923,27 +1443,76 @@ __device__ void kt_decode_exc(const KtWarpMem& m, int Lc,
     __syncwarp();
 }
 
-// Kernel A, wave 1: a group of g lanes per read of the B packed reads
-// (see the file header); failing reads go to fail_list, counted in n_fail.
-// NA is the anchor count at the padded length Lp, the most a read has.
-__global__ void pseudoalign_side_kernel(
-    IndexView ix,
-    const int* __restrict__ be8,               // [n_be8] block_ec8, flat
-    long long n_be8,
-    const unsigned char* __restrict__ packed,  // [B, Lp/4]
-    const unsigned char* __restrict__ nmask,   // [B, Lp/8]
-    const int* __restrict__ lens,              // [B]
-    int B, int Lp, int k, int R, int NA, int g, SideOut o,
-    int* __restrict__ fail_list, unsigned long long* __restrict__ n_fail) {
+// Kernel D's decode for the nr reads read0 .. read0 + nr - 1 of a warp
+// (kernel K's failed mates, rows of `packed` at the reads' own indexes)
+// into slots 0 .. nr - 1: the rows' first Lc columns, eight byte loads in
+// flight a lane; then lane r finds read r's first exception
+// (kt_exc_lower) and the g lanes of read r clear and mark its N positions
+// (columns >= Lc are dropped).
+__device__ void kt_decode_exc_group(const KtSlots& sl, int Lc,
+                                    const unsigned char* __restrict__ packed,
+                                    const KtSplit& sp,
+                                    const long long* __restrict__ exc,
+                                    long long n_exc, long long read0, int nr,
+                                    int Lp, int g) {
+    const int lane = threadIdx.x & 31;
+    const int nb = (Lc + 3) >> 2, per = 8 * sl.PKW, n = nr * per;
+    const int LB = Lp >> 2;
+    for (int t0 = 0; t0 < n; t0 += 256) {
+        unsigned int v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int t = t0 + 32 * i + lane;
+            const int r = t / per, c = t - r * per;
+            v[i] = (t < n && c < nb) ? __ldg(packed + (read0 + r) * LB + c) : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int t = t0 + 32 * i + lane;
+            const int r = t / per;
+            if (t < n) ((unsigned char*)sl.pk(r))[t - r * per] = (unsigned char)v[i];
+        }
+    }
+    for (int t = lane; t < nr * sl.NMW; t += 32) sl.nm(t / sl.NMW)[t % sl.NMW] = 0;
+    long long a = 0;
+    if (lane < nr) a = kt_exc_lower(sp, exc, n_exc, (read0 + lane) * (long long)Lp);
+    const int r = lane / g, jl = lane & (g - 1);
+    a = __shfl_sync(KT_FULL, a, r);
+    __syncwarp();
+    if (r < nr) {
+        const long long lo_key = (read0 + r) * (long long)Lp;
+        for (long long e = a + jl; e < n_exc; e += g) {
+            const long long col = exc[e] - lo_key;
+            if (col >= Lp) break;
+            if (col < Lc) {
+                atomicAnd((unsigned int*)sl.pk(r) + (col >> 4),
+                          ~(3u << (2 * (col & 15))));
+                atomicOr((unsigned int*)sl.nm(r) + (col >> 5), 1u << (col & 31));
+            }
+        }
+    }
+    __syncwarp();
+}
+
+// Wave 1 of kernel A and of A on codes: a group of g lanes per read of the
+// B reads (see the file header); failing reads go to fail_list, counted
+// in n_fail.  NA is the anchor count at the batch's width L, the most a
+// read has.  kmer(rd, w, x) builds the k-mer of read rd's window w into x
+// and returns non-zero when the window holds an N (which fails the read:
+// the anchors' windows cover the read, so a verified read has none).
+template <typename Kmer>
+__device__ __forceinline__ void kt_verify_reads(
+    const IndexView& ix, const int* __restrict__ be8, long long n_be8,
+    const int* __restrict__ lens, int B, int L, int k, int R, int NA, int g,
+    const SideOut& o, int* __restrict__ fail_list,
+    unsigned long long* __restrict__ n_fail, Kmer kmer) {
     const int lane = threadIdx.x & 31;
     const int jl = lane & (g - 1);
     const int rpw = 32 / g;
     const int gw = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
     const int nw = (int)(((long long)gridDim.x * blockDim.x) >> 5);
-    const int LB = Lp >> 2, NB = Lp >> 3;
     const unsigned long long kmask =
         k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1ULL);
-    const unsigned long long nmk = (1ULL << k) - 1ULL;
     const int fsh = 64 - 2 * k;
     const int Rv = R < 16 ? R : 16;
 
@@ -952,21 +1521,17 @@ __global__ void pseudoalign_side_kernel(
         const int act = read < B;
         const int rd = act ? read : B - 1;  // writes nothing
         const int len = lens[rd];
-        // a read of k to Lp bases has anchors; any other goes to wave 2
-        const int cand = act && len >= k && len <= Lp;
+        // a read of k to L bases has anchors; any other goes to wave 2
+        const int cand = act && len >= k && len <= L;
         const int wlast = cand ? len - k : 0;
         const int na = cand ? max(2, (wlast + k - 1) / k + 1) : 0;
-        const unsigned char* pkr = packed + (long long)rd * LB;
-        const unsigned char* nmr = nmask + (long long)rd * NB;
 
         const KtAnchors an = kt_anchor_check(
             NA, na, wlast, g, jl,
             [&](int, int w, int& hit, int& uid, int& upos, int& strand,
                 int& blk) {
-                // an N in an anchor's window fails the read: the anchors'
-                // windows cover the read, so a verified read has none
-                if ((kt_row_bits(nmr, NB, w, k) & nmk) != 0) return;
-                const unsigned long long x = kt_row_bits(pkr, LB, 2 * w, 2 * k);
+                unsigned long long x;
+                if (kmer(rd, w, x)) return;
                 const unsigned long long f = kt_rev2(x) >> fsh;
                 const unsigned long long r = ~x & kmask;
                 const int isfw = f <= r;
@@ -1007,6 +1572,30 @@ __global__ void pseudoalign_side_kernel(
     }
 }
 
+// Kernel A, wave 1, on the B packed reads: k-mers from the 8-9 packed
+// bytes that hold them, N windows from the row's N bitmask.
+__global__ void pseudoalign_side_kernel(
+    IndexView ix,
+    const int* __restrict__ be8,               // [n_be8] block_ec8, flat
+    long long n_be8,
+    const unsigned char* __restrict__ packed,  // [B, Lp/4]
+    const unsigned char* __restrict__ nmask,   // [B, Lp/8]
+    const int* __restrict__ lens,              // [B]
+    int B, int Lp, int k, int R, int NA, int g, SideOut o,
+    int* __restrict__ fail_list, unsigned long long* __restrict__ n_fail) {
+    const int LB = Lp >> 2, NB = Lp >> 3;
+    const unsigned long long nmk = (1ULL << k) - 1ULL;
+    kt_verify_reads(ix, be8, n_be8, lens, B, Lp, k, R, NA, g, o, fail_list,
+                    n_fail, [&](int rd, int w, unsigned long long& x) {
+                        if ((kt_row_bits(nmask + (long long)rd * NB, NB, w,
+                                         k) & nmk) != 0)
+                            return 1;
+                        x = kt_row_bits(packed + (long long)rd * LB, LB,
+                                        2 * w, 2 * k);
+                        return 0;
+                    });
+}
+
 // Kernel A, wave 2: its decode and the core on every read of
 // fail_list[0, *n_fail), one warp a read.
 __global__ void pseudoalign_side_wave2_kernel(
@@ -1030,19 +1619,76 @@ __global__ void pseudoalign_side_wave2_kernel(
     }
 }
 
-// Kernel A on unpacked codes (pseudoalign_batch).
+// The k codes at columns [w, w + k) of a row of unpacked codes in device
+// memory as 2-bit groups (column w + i at bits 2i, 2i + 1, as kt_bits
+// gives them) into *x; returns non-zero when one of them is above 3 (an
+// N).  Reads the aligned 4-byte words that hold them (at most 9).
+__device__ __forceinline__ int kt_codes_kmer(const unsigned char* __restrict__ p,
+                                             int k, unsigned long long* x) {
+    const int s = (int)((unsigned long long)p & 3);
+    const unsigned int* a = (const unsigned int*)(p - s);
+    const int nw = (s + k + 3) >> 2;
+    unsigned long long lo = 0, nb = 0;
+    unsigned int hi = 0;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        if (i < nw) {
+            const unsigned int v = __ldg(a + i);
+            // the 2-bit codes of the 4 bytes, low byte first
+            const unsigned int t = v & 0x03030303u;
+            const unsigned int c8 = (t | (t >> 6) | (t >> 12) | (t >> 18)) & 0xffu;
+            // one bit a byte above 3
+            const unsigned int f = __vcmpgtu4(v, 0x03030303u) & 0x01010101u;
+            nb |= (unsigned long long)((f | (f >> 7) | (f >> 14) | (f >> 21)) & 0xfu)
+                  << (4 * i);
+            if (i < 8)
+                lo |= (unsigned long long)c8 << (8 * i);
+            else
+                hi = c8;
+        }
+    }
+    *x = s ? (lo >> (2 * s)) | ((unsigned long long)hi << (64 - 2 * s)) : lo;
+    return ((nb >> s) & ((1ULL << k) - 1ULL)) != 0;
+}
+
+// Kernel A on codes, wave 1, on the B rows of [B, L] unpacked codes.
 __global__ void pseudoalign_codes_kernel(
     IndexView ix,
+    const int* __restrict__ be8,               // [n_be8] block_ec8, flat
+    long long n_be8,
     const unsigned char* __restrict__ codes,   // [B, L]
     const int* __restrict__ lens,              // [B]
-    int B, int L, int k, int R, int warp_bytes, SideOut o) {
+    int B, int L, int k, int R, int NA, int g, SideOut o,
+    int* __restrict__ fail_list, unsigned long long* __restrict__ n_fail) {
+    kt_verify_reads(ix, be8, n_be8, lens, B, L, k, R, NA, g, o, fail_list,
+                    n_fail, [&](int rd, int w, unsigned long long& x) {
+                        return kt_codes_kmer(codes + (long long)rd * L + w, k,
+                                             &x);
+                    });
+}
+
+// Kernel A on codes, wave 2: its decode and the covered-interval core on
+// every read of fail_list[0, *n_fail), one warp a read.
+__global__ void pseudoalign_codes_wave2_kernel(
+    IndexView ix,
+    const int* __restrict__ be8,               // [n_be8] block_ec8, flat
+    long long n_be8,
+    const unsigned char* __restrict__ codes,   // [B, L]
+    const int* __restrict__ lens,              // [B]
+    int L, int k, int R, int warp_bytes, SideOut o,
+    const int* __restrict__ fail_list,
+    const unsigned long long* __restrict__ n_fail,
+    unsigned long long* __restrict__ n_probed) {
     const KtWarpMem m = kt_warp_mem(L, warp_bytes);
     const int wpb = blockDim.x >> 5;
     const int W = L - k + 1;
-    for (long long read = (long long)blockIdx.x * wpb + (threadIdx.x >> 5);
-         read < B; read += (long long)gridDim.x * wpb) {
+    const long long n = (long long)*n_fail;
+    for (long long i = (long long)blockIdx.x * wpb + (threadIdx.x >> 5); i < n;
+         i += (long long)gridDim.x * wpb) {
+        const long long read = fail_list[i];
         kt_decode_codes(m, L, codes + read * L);
-        kt_core(ix, m.pk, m.nm, m.wrows, read, lens[read], W, k, R, R, o);
+        kt_core_skip(ix, be8, n_be8, m.pk, m.nm, m.wrows, read, lens[read], W,
+                     k, R, R, o, n_probed);
     }
 }
 
@@ -1217,11 +1863,14 @@ __global__ void pseudoalign_anchor_wave2_kernel(
 
 // ------------------------------------------------------------- kernel K
 
-// Kernel K: one warp per pair of the Bp half-fail pairs (file header).
-// Its registers are capped for three resident blocks of KT_WPB warps an
-// SM: uncapped, the core, the splitters and the verified mate took 92,
-// which left room for two.
-__global__ void __launch_bounds__(KT_WPB * 32, 3) pseudoalign_halffail_kernel(
+// Kernel K: G = 32 / g pairs of the Bp half-fail pairs a warp (file
+// header; g = anchor_group_width(n_anchors_for(Lc, k))): their failed
+// mates decoded together (kt_decode_exc_group), the covered-interval
+// core's anchor passes for all of them, then pair by pair its finish and
+// the verified mate.  Two resident blocks of KT_WPB warps an SM (116
+// registers, no spill): capped for three it spilled and ran slower on an
+// H100 (probe_ab.py).
+__global__ void __launch_bounds__(KT_WPB * 32, 2) pseudoalign_halffail_kernel(
     IndexView ix,
     const int* __restrict__ be8,               // [n_be8] block_ec8, flat
     long long n_be8,
@@ -1229,70 +1878,78 @@ __global__ void __launch_bounds__(KT_WPB * 32, 3) pseudoalign_halffail_kernel(
     const int* __restrict__ vsum,              // [Bp, 2] verified summaries
     const int* __restrict__ sidev,             // [Bp] 1 = mate 1 failed
     const long long* __restrict__ aux,         // [4 + n_exc]
-    long long n_exc, long long Bp, int Lp, int Lc, int k, int R,
-    int warp_bytes, SideOut o1, SideOut o2) {
-    const KtWarpMem mem = kt_warp_mem(Lc, warp_bytes);
+    long long n_exc, long long Bp, int Lp, int Lc, int k, int R, int NA,
+    int g, SideOut o1, SideOut o2, unsigned long long* __restrict__ n_probed) {
     const int lane = threadIdx.x & 31;
     const int wpb = blockDim.x >> 5;
-    const int W = Lc - k + 1;
+    const int W = Lc - k + 1, G = 32 / g;
+    const KtSlots sl = kt_slots(Lc, W, G);
     const int rlen = (int)aux[0];
     const long long n_real = aux[1];
     const long long* exc = aux + 4;
     const int Rv = R < 16 ? R : 16;
     __shared__ long long s_split[KT_SPLIT];
     const KtSplit sp = kt_split_init(s_split, exc, n_exc);
+    int nprobe = 0;
 
-    for (long long read = (long long)blockIdx.x * wpb + (threadIdx.x >> 5);
-         read < Bp; read += (long long)gridDim.x * wpb) {
-        const int m1 = sidev[read] == 1;
-        const SideOut of = m1 ? o1 : o2;
-        const SideOut ov = m1 ? o2 : o1;
-        const int len = read < n_real ? rlen : 0;
+    for (long long p0 = ((long long)blockIdx.x * wpb + (threadIdx.x >> 5)) * G;
+         p0 < Bp; p0 += (long long)gridDim.x * wpb * G) {
+        const int nr = (int)(Bp - p0 < G ? Bp - p0 : G);
+        // the failed mates: kernel D's decode, the covered-interval core
+        kt_decode_exc_group(sl, Lc, pkf, sp, exc, n_exc, p0, nr, Lp, g);
+        kt_skip_anchors(ix, be8, n_be8, sl, nr,
+                        p0 + lane / g < n_real ? rlen : 0, W, k, NA, g,
+                        nprobe);
+        for (int r = 0; r < nr; ++r) {
+            const long long read = p0 + r;
+            const int m1 = sidev[read] == 1;
+            const SideOut of = m1 ? o1 : o2;
+            const SideOut ov = m1 ? o2 : o1;
+            const int len = read < n_real ? rlen : 0;
+            kt_skip_finish(ix, sl, r, read, W, k, R, R, of, nprobe);
 
-        // the failed mate: kernel D's decode and core
-        kt_decode_exc(mem, Lc, pkf, sp, exc, n_exc, read, read, Lp);
-        kt_core(ix, mem.pk, mem.nm, mem.wrows, read, len, W, k, R, R, of);
-
-        // the verified mate from its summary
-        const int blo = vsum[2 * read];
-        const int meta = vsum[2 * read + 1];
-        const int real = len > 0;
-        const int strand = meta & 1;
-        const int bhi = blo + ((meta >> 1) & 15);
-        const int upos0 = meta >> 5;
-        const int r0 = (blo > 0 ? blo : 0) >> 3;
-        int v = KT_INT32_MAX;
-        if (lane < 16 && real) {
-            const long long fid = (long long)r0 * 8 + lane;
-            if (fid >= blo && fid <= bhi && fid < n_be8) {
-                const int c = be8[fid];
-                if (c >= 0) v = c;
+            // the verified mate from its summary
+            const int blo = vsum[2 * read];
+            const int meta = vsum[2 * read + 1];
+            const int real = len > 0;
+            const int strand = meta & 1;
+            const int bhi = blo + ((meta >> 1) & 15);
+            const int upos0 = meta >> 5;
+            const int r0 = (blo > 0 ? blo : 0) >> 3;
+            int v = KT_INT32_MAX;
+            if (lane < 16 && real) {
+                const long long fid = (long long)r0 * 8 + lane;
+                if (fid >= blo && fid <= bhi && fid < n_be8) {
+                    const int c = be8[fid];
+                    if (c >= 0) v = c;
+                }
             }
+            int prev = -1, nv = 0;
+            for (int s = 0; s < Rv; ++s) {
+                const int m = __reduce_min_sync(KT_FULL,
+                                                v > prev ? v : KT_INT32_MAX);
+                if (m == KT_INT32_MAX) break;
+                if (lane == 0) ov.rows[read * R + s] = m;
+                prev = m;
+                ++nv;
+            }
+            for (int s = nv + lane; s < R; s += 32)
+                ov.rows[read * R + s] = KT_INT32_MAX;
+            if (lane == 0) {
+                ov.n_rows[read] = nv;
+                ov.has_hits[read] = (unsigned char)real;
+                ov.overflow[read] = 0;
+                ov.f_uid[read] = real ? 0 : -1;
+                ov.f_block[read] = real ? (strand ? blo : bhi) : -1;
+                ov.f_upos[read] = real ? upos0 : -1;
+                ov.f_rpos[read] = real ? 0 : -1;
+                ov.f_strand[read] = (unsigned char)strand;
+                ov.rng[read] = real ? len - k : -1;
+            }
+            __syncwarp();
         }
-        int prev = -1, nr = 0;
-        for (int s = 0; s < Rv; ++s) {
-            const int m = __reduce_min_sync(KT_FULL,
-                                            v > prev ? v : KT_INT32_MAX);
-            if (m == KT_INT32_MAX) break;
-            if (lane == 0) ov.rows[read * R + s] = m;
-            prev = m;
-            ++nr;
-        }
-        for (int s = nr + lane; s < R; s += 32)
-            ov.rows[read * R + s] = KT_INT32_MAX;
-        if (lane == 0) {
-            ov.n_rows[read] = nr;
-            ov.has_hits[read] = (unsigned char)real;
-            ov.overflow[read] = 0;
-            ov.f_uid[read] = real ? 0 : -1;
-            ov.f_block[read] = real ? (strand ? blo : bhi) : -1;
-            ov.f_upos[read] = real ? upos0 : -1;
-            ov.f_rpos[read] = real ? 0 : -1;
-            ov.f_strand[read] = (unsigned char)strand;
-            ov.rng[read] = real ? len - k : -1;
-        }
-        __syncwarp();
     }
+    kt_count_probes(n_probed, nprobe);
 }
 
 // ------------------------------------------------------------- kernel J
@@ -1645,16 +2302,20 @@ static int kt_grid(K kernel, int threads, long long smem, long long blocks,
     return 0;
 }
 
+// The per-warp shared bytes of kt_core for reads of Lc code columns: pk,
+// nm and the row scratch (kt_warp_mem).
+static int kt_core_bytes(int Lc, int W) {
+    return 8 * (kt_pkw(Lc) + kt_nmw(Lc)) + ((4 * W + 15) & ~15);
+}
+
 // Warps per block (KT_WPB, halved while the block's shared memory does
-// not fit beside the kernel's static_bytes), the per-warp shared bytes for
-// Lc code columns and the grid for `reads` reads (a warp each); returns
+// not fit beside the kernel's static_bytes) for warp_bytes of shared
+// memory a warp, and the grid for `reads` reads (rpw a warp); returns
 // non-zero when one warp's share does not fit.
 template <typename K>
-static int kt_launch_shape(K kernel, int Lc, int W, long long reads,
-                           int static_bytes, int* wpb_out,
-                           int* warp_bytes_out, long long* smem_out,
+static int kt_launch_shape(K kernel, int warp_bytes, int rpw, long long reads,
+                           int static_bytes, int* wpb_out, long long* smem_out,
                            unsigned int* grid_out) {
-    const int warp_bytes = 8 * (kt_pkw(Lc) + kt_nmw(Lc)) + ((4 * W + 15) & ~15);
     const int max_smem = 227 * 1024 - static_bytes;
     int wpb = KT_WPB;
     while (wpb > 1 && (long long)wpb * warp_bytes > max_smem) wpb >>= 1;
@@ -1667,9 +2328,10 @@ static int kt_launch_shape(K kernel, int Lc, int W, long long reads,
         if (e != cudaSuccess) return (int)e;
     }
     *wpb_out = wpb;
-    *warp_bytes_out = warp_bytes;
     *smem_out = smem;
-    return kt_grid(kernel, wpb * 32, smem, (reads + wpb - 1) / wpb, grid_out);
+    const long long per_block = (long long)wpb * rpw;
+    return kt_grid(kernel, wpb * 32, smem, (reads + per_block - 1) / per_block,
+                   grid_out);
 }
 
 // Kernel A (file header), one call for its two launches on one stream:
@@ -1717,11 +2379,12 @@ extern "C" int pseudoalign_side(
         if (err) return err;
     }
     if (waves & 2) {
-        int wpb, warp_bytes;
+        const int warp_bytes = kt_core_bytes(Lp, Lp - k + 1);
+        int wpb;
         long long smem;
         unsigned int grid;
-        err = kt_launch_shape(pseudoalign_side_wave2_kernel, Lp, Lp - k + 1, B,
-                              0, &wpb, &warp_bytes, &smem, &grid);
+        err = kt_launch_shape(pseudoalign_side_wave2_kernel, warp_bytes, 1, B,
+                              0, &wpb, &smem, &grid);
         if (err) return err;
         pseudoalign_side_wave2_kernel<<<grid, wpb * 32, (size_t)smem, st>>>(
             ix, (const unsigned char*)packed, (const unsigned char*)nmask,
@@ -1732,32 +2395,63 @@ extern "C" int pseudoalign_side(
     return err;
 }
 
-// Kernel A on unpacked codes [B, L] uint8 (any L >= k).
+// Kernel A on unpacked codes [B, L] uint8 (any L >= k), in the manner of
+// pseudoalign_side: waves & 1 zeroes n_fail and launches wave 1, waves & 2
+// launches wave 2 (the covered-interval core) on the listed reads, on a
+// grid of as many warps as the SMs hold at once.  n_probed (may be null)
+// gains the windows that wave 2 probed.  B = 0 launches nothing.
 extern "C" int pseudoalign_codes(
-    const IndexView* index, const void* codes, const void* lens,
-    int B, int L, int k, int R,
+    const IndexView* index, const void* block_ec8, long long n_be8,
+    const void* codes, const void* lens, int B, int L, int k, int R, int NA,
+    int g, int waves,
     void* rows, void* n_rows, void* has_hits, void* overflow,
     void* f_uid, void* f_block, void* f_upos, void* f_rpos,
-    void* f_strand, void* rng, void* stream) {
-    if (B <= 0) return 0;
-    if (L < k || R <= 0 || R > L - k + 1 || k > 32)
+    void* f_strand, void* rng, void* fail_list, void* n_fail, void* n_probed,
+    void* stream) {
+    if (L < k || R <= 0 || R > L - k + 1 || k > 32 || B < 0 || waves < 1 ||
+        waves > 3)
+        return (int)cudaErrorInvalidValue;
+    if (B == 0) return 0;
+    if (NA < 2 || n_be8 < 16 || g < 2 || g > 32 || (g & (g - 1)) ||
+        (g < NA && g != 32) || !fail_list || !n_fail)
         return (int)cudaErrorInvalidValue;
     IndexView ix;
     int err = kt_index_view(&ix, index);
     if (err) return err;
-    int wpb, warp_bytes;
-    long long smem;
-    unsigned int grid;
-    err = kt_launch_shape(pseudoalign_codes_kernel, L, L - k + 1, B, 0, &wpb,
-                          &warp_bytes, &smem, &grid);
-    if (err) return err;
-    pseudoalign_codes_kernel<<<grid, wpb * 32, (size_t)smem,
-                               (cudaStream_t)stream>>>(
-        ix, (const unsigned char*)codes, (const int*)lens, B, L, k, R,
-        warp_bytes,
-        kt_side_out(rows, n_rows, has_hits, overflow, f_uid, f_block, f_upos,
-                    f_rpos, f_strand, rng));
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    const SideOut o = kt_side_out(rows, n_rows, has_hits, overflow, f_uid,
+                                  f_block, f_upos, f_rpos, f_strand, rng);
+    if (waves & 1) {
+        const cudaError_t e = cudaMemsetAsync(n_fail, 0, 8, st);
+        if (e != cudaSuccess) return (int)e;
+        const int threads = KT_WPB * 32;
+        const long long warps = ((long long)B + 32 / g - 1) / (32 / g);
+        unsigned int grid;
+        err = kt_grid(pseudoalign_codes_kernel, threads, 0,
+                      (warps + KT_WPB - 1) / KT_WPB, &grid);
+        if (err) return err;
+        pseudoalign_codes_kernel<<<grid, threads, 0, st>>>(
+            ix, (const int*)block_ec8, n_be8, (const unsigned char*)codes,
+            (const int*)lens, B, L, k, R, NA, g, o, (int*)fail_list,
+            (unsigned long long*)n_fail);
+        err = (int)cudaGetLastError();
+        if (err) return err;
+    }
+    if (waves & 2) {
+        const int warp_bytes = kt_core_bytes(L, L - k + 1);
+        int wpb;
+        long long smem;
+        unsigned int grid;
+        err = kt_launch_shape(pseudoalign_codes_wave2_kernel, warp_bytes, 1, B,
+                              0, &wpb, &smem, &grid);
+        if (err) return err;
+        pseudoalign_codes_wave2_kernel<<<grid, wpb * 32, (size_t)smem, st>>>(
+            ix, (const int*)block_ec8, n_be8, (const unsigned char*)codes,
+            (const int*)lens, L, k, R, warp_bytes, o, (const int*)fail_list,
+            (const unsigned long long*)n_fail, (unsigned long long*)n_probed);
+        err = (int)cudaGetLastError();
+    }
+    return err;
 }
 
 extern "C" int pseudoalign_turbo(
@@ -1775,11 +2469,12 @@ extern "C" int pseudoalign_turbo(
     IndexView ix;
     int err = kt_index_view(&ix, index);
     if (err) return err;
-    int wpb, warp_bytes;
+    const int warp_bytes = kt_core_bytes(Lc, Lc - k + 1);
+    int wpb;
     long long smem;
     unsigned int grid;
-    err = kt_launch_shape(pseudoalign_turbo_kernel, Lc, Lc - k + 1, Bp * ns,
-                          8 * KT_SPLIT, &wpb, &warp_bytes, &smem, &grid);
+    err = kt_launch_shape(pseudoalign_turbo_kernel, warp_bytes, 1, Bp * ns,
+                          8 * KT_SPLIT, &wpb, &smem, &grid);
     if (err) return err;
     pseudoalign_turbo_kernel<<<grid, wpb * 32, (size_t)smem,
                                (cudaStream_t)stream>>>(
@@ -1863,12 +2558,12 @@ extern "C" int pseudoalign_anchor_wave2(
     IndexView ix;
     err = kt_index_view(&ix, index);
     if (err) return err;
-    int wpb, warp_bytes;
+    const int warp_bytes = kt_core_bytes(Lc, Lc - k + 1);
+    int wpb;
     long long smem;
     unsigned int grid;
-    err = kt_launch_shape(pseudoalign_anchor_wave2_kernel, Lc, Lc - k + 1,
-                          Bp * ns, 8 * KT_SPLIT, &wpb, &warp_bytes, &smem,
-                          &grid);
+    err = kt_launch_shape(pseudoalign_anchor_wave2_kernel, warp_bytes, 1,
+                          Bp * ns, 8 * KT_SPLIT, &wpb, &smem, &grid);
     if (err) return err;
     pseudoalign_anchor_wave2_kernel<<<grid, wpb * 32, (size_t)smem,
                                       (cudaStream_t)stream>>>(
@@ -1891,31 +2586,38 @@ extern "C" int pseudoalign_halffail(
     void* f_strand1, void* rng1,
     void* rows2, void* n_rows2, void* has_hits2, void* overflow2,
     void* f_uid2, void* f_block2, void* f_upos2, void* f_rpos2,
-    void* f_strand2, void* rng2, void* stream) {
+    void* f_strand2, void* rng2, void* n_probed, void* stream) {
     if (Bp <= 0) return 0;
     const int Lc = (rl > 0 && rl < Lp) ? rl : Lp;
     const int W = Lc - k + 1;
     if (n_exc < 0 || Lc < k || (Lp & 3) != 0 || R <= 0 || R > W || k > 32 ||
         n_be8 < 16)
         return (int)cudaErrorInvalidValue;
+    // the failed mates' anchors (n_anchors_for(Lc, k)) and their lanes
+    const int NA = Lc > k ? (Lc - 1) / k + 1 : 2;
+    int g = 2;
+    while (g < NA && g < 32) g <<= 1;
     IndexView ix;
     int err = kt_index_view(&ix, index);
     if (err) return err;
-    int wpb, warp_bytes;
+    int wpb;
     long long smem;
     unsigned int grid;
-    err = kt_launch_shape(pseudoalign_halffail_kernel, Lc, W, Bp, 8 * KT_SPLIT,
-                          &wpb, &warp_bytes, &smem, &grid);
+    const int G = 32 / g;
+    err = kt_launch_shape(pseudoalign_halffail_kernel,
+                          G * kt_slot_bytes(Lc, W), G, Bp, 8 * KT_SPLIT, &wpb,
+                          &smem, &grid);
     if (err) return err;
     pseudoalign_halffail_kernel<<<grid, wpb * 32, (size_t)smem,
                                   (cudaStream_t)stream>>>(
         ix, (const int*)block_ec8, n_be8, (const unsigned char*)pkf,
         (const int*)vsum, (const int*)sidev, (const long long*)aux, n_exc, Bp,
-        Lp, Lc, k, R, warp_bytes,
+        Lp, Lc, k, R, NA, g,
         kt_side_out(rows1, n_rows1, has_hits1, overflow1, f_uid1, f_block1,
                     f_upos1, f_rpos1, f_strand1, rng1),
         kt_side_out(rows2, n_rows2, has_hits2, overflow2, f_uid2, f_block2,
-                    f_upos2, f_rpos2, f_strand2, rng2));
+                    f_upos2, f_rpos2, f_strand2, rng2),
+        (unsigned long long*)n_probed);
     return (int)cudaGetLastError();
 }
 

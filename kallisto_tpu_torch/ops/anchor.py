@@ -36,6 +36,13 @@ On the card wave 1 and wave 2 are kernel I's two launches
 (csrc/pseudoalign.cu pseudoalign_anchor, then pseudoalign_anchor_wave2 on
 the reads wave 1 listed), followed by kernel E (the compact keys and the
 table in one C call); on the CPU each is its plain PyTorch version.
+
+The same anchors serve inside a read: skip_core_plain models the
+covered-interval core (csrc/pseudoalign.cu: kt_core_skip in A on codes'
+wave 2, kt_skip_anchors and kt_skip_finish in kernel K), which looks up
+only the windows that no pair of adjacent agreeing anchors covers;
+codes_waves_plain is A on codes' two waves on top of it, side_waves_plain
+kernel A's on the dense core.
 """
 
 from typing import NamedTuple, Tuple
@@ -51,6 +58,7 @@ from .pseudoalign import (
     compact_pair_keys,
     compact_single_keys,
     lookup_kmers,
+    rolling_canonical_kmers,
     unpack_codes,
 )
 from .turbo import _split, codes_and_lens_plain
@@ -212,24 +220,19 @@ def anchor_side_plain(didx: AnyDeviceIndex, codes: torch.Tensor, rlen: int,
     return out, n_fail
 
 
-def side_waves_plain(didx: AnyDeviceIndex, packed: torch.Tensor,
-                     nmask: torch.Tensor, lens: torch.Tensor, k: int, L: int,
-                     max_rows: int = 16) -> Tuple[SideResult, torch.Tensor]:
-    """Kernel A's two waves in plain PyTorch, on one mate's packed batch
-    (csrc/pseudoalign.cu pseudoalign_side_kernel, then
-    pseudoalign_side_wave2_kernel).
-    Wave 1: anchor_wave1_plain on the reads of each length from k to L, at
-    that length (n_anchors_for(len, k) anchors, wlast = len - k), the N
-    bitmask failing any anchor whose window holds an N; a verified read,
-    whose block range also holds at most R candidates where R =
-    min(max_rows, L - k + 1) < 16, takes the block ECs of its range and
-    its first hit from anchor 0, as anchor_side_plain writes it.  Wave 2:
-    every other read through _pseudoalign_core.  The result equals
-    pseudoalign_batch_packed_plain's in every field (the premise of kernel
-    A's design, which the tests hold).  Returns (SideResult, fail [B]
-    bool: the reads of wave 2)."""
-    codes = unpack_codes(packed, nmask, L)
-    B, dev = codes.shape[0], codes.device
+def _wave1_plain(didx: AnyDeviceIndex, codes: torch.Tensor,
+                 lens: torch.Tensor, k: int, max_rows: int):
+    """Wave 1 of kernel A (packed rows or unpacked codes) on codes [B, L]:
+    anchor_wave1_plain on the reads of each length from k to L, at that
+    length (n_anchors_for(len, k) anchors, wlast = len - k), a code above
+    3 failing any anchor whose window holds it; a verified read, whose
+    block range also holds at most R candidates where R = min(max_rows,
+    L - k + 1) < 16, takes the block ECs of its range and its first hit
+    from anchor 0, as anchor_side_plain writes it.  Returns (SideResult
+    with the verified reads filled, the rest as reads without hits;
+    verified [B] bool)."""
+    B, L = codes.shape
+    dev = codes.device
     R = min(max_rows, L - k + 1)
     i32 = dict(dtype=torch.int32, device=dev)
     out = SideResult(
@@ -262,6 +265,22 @@ def side_waves_plain(didx: AnyDeviceIndex, packed: torch.Tensor,
         out.f_rpos[v] = 0
         out.f_strand[v] = w1.strand[okg, 0]
         out.rng[v] = ln - k
+    return out, ok
+
+
+def side_waves_plain(didx: AnyDeviceIndex, packed: torch.Tensor,
+                     nmask: torch.Tensor, lens: torch.Tensor, k: int, L: int,
+                     max_rows: int = 16) -> Tuple[SideResult, torch.Tensor]:
+    """Kernel A's two waves in plain PyTorch, on one mate's packed batch
+    (csrc/pseudoalign.cu pseudoalign_side_kernel, then
+    pseudoalign_side_wave2_kernel).
+    Wave 1: _wave1_plain on the unpacked codes (the N bitmask makes code
+    4).  Wave 2: every other read through _pseudoalign_core.  The result
+    equals pseudoalign_batch_packed_plain's in every field (the premise
+    of kernel A's design, which the tests hold).  Returns (SideResult,
+    fail [B] bool: the reads of wave 2)."""
+    codes = unpack_codes(packed, nmask, L)
+    out, ok = _wave1_plain(didx, codes, lens, k, max_rows)
     fail = ~ok
     sel = torch.nonzero(fail).squeeze(1)
     if sel.numel():
@@ -269,6 +288,146 @@ def side_waves_plain(didx: AnyDeviceIndex, packed: torch.Tensor,
         for a, b in zip(out, core):
             a[sel] = b
     return out, fail
+
+
+def skip_core_plain(didx: AnyDeviceIndex, codes: torch.Tensor,
+                    lens: torch.Tensor, k: int,
+                    max_rows: int = 16) -> Tuple[SideResult, torch.Tensor]:
+    """The covered-interval core in plain PyTorch (csrc/pseudoalign.cu
+    kt_core_skip, A on codes' wave 2, and kt_skip_anchors +
+    kt_skip_finish, kernel K's failed mates), on codes [B, L] (a code
+    above 3 is an N) and lens [B].
+
+    A read of le = min(len, L) >= k columns has na = n_anchors_for(le, k)
+    anchors at w_j = (wlast * j) // (na - 1), wlast = le - k, at most k
+    apart; one shorter than k has one, window 0.  Every anchor is looked
+    up (window 0 also when invalid: its slot gives f_strand of a read
+    without hits).  Interval [w_j, w_j+1] is covered when both anchors
+    hit one unitig on one strand at positions w_j+1 - w_j apart and the
+    block range of the two lies within two 8-wide rows of block_ec8: then
+    read[w_j, w_j+1 + k) is that stretch of the unitig, every window
+    between them hits it, and their EC rows are the block ECs of the
+    blocks strictly between the two anchors' (the anchors give their own).
+    Every other interval is open, and its valid windows are looked up.
+    So a read's first and last hits are looked-up windows, and its
+    distinct rows come from the looked-up hits and the covered intervals'
+    block ECs.  Returns (SideResult with R = min(max_rows, L - k + 1)
+    slots, equal in every field to _pseudoalign_core's; probed [B, W]
+    bool: the windows looked up)."""
+    B, L = codes.shape
+    dev = codes.device
+    canon, is_fw, valid = rolling_canonical_kmers(codes, lens, k)
+    W = canon.shape[1]
+    R = min(max_rows, W)
+    pos = torch.arange(W, device=dev)
+    le = torch.clamp(lens.to(torch.int64), max=L)
+    wl = le - k
+    na = torch.where(wl >= 0, torch.clamp((wl + k - 1) // k + 1, min=2),
+                     torch.ones_like(wl))
+    NA = int(na.max()) if B else 1
+    j = torch.arange(NA, device=dev)[None, :]
+    am = j < na[:, None]
+    ws = torch.where(am, (wl.clamp(min=0)[:, None] * j)
+                     // (na[:, None] - 1).clamp(min=1), W)
+    wsc = ws.clamp(max=W - 1)
+
+    # the anchors' lookups and payloads
+    val_a = valid.gather(1, wsc) & am
+    idx_a, hit_a, _ = lookup_kmers(didx, canon.gather(1, wsc), val_a)
+    zero = torch.zeros_like(idx_a, dtype=torch.int32)
+    uid = torch.where(hit_a, didx.kmer_uid[idx_a], zero - 1)
+    upos = torch.where(hit_a, didx.kmer_pos[idx_a], zero)
+    blk = torch.where(hit_a, didx.kmer_block[idx_a], zero)
+    strand = is_fw.gather(1, wsc) == didx.kmer_fw[idx_a]
+
+    # covered intervals [w_j, w_j+1], j < na - 1 (a False column pads the
+    # last anchor's)
+    sgn = torch.where(strand[:, :-1], 1, -1)
+    blo = torch.minimum(blk[:, :-1], blk[:, 1:])
+    bhi = torch.maximum(blk[:, :-1], blk[:, 1:])
+    cov = (am[:, 1:] & hit_a[:, :-1] & hit_a[:, 1:]
+           & (uid[:, :-1] == uid[:, 1:]) & (strand[:, :-1] == strand[:, 1:])
+           & (upos[:, 1:] == upos[:, :-1] + sgn * (ws[:, 1:] - ws[:, :-1]))
+           & (blo >= 0) & ((bhi >> 3) <= (blo >> 3) + 1))
+    cov = torch.cat([cov, torch.zeros((B, 1), dtype=torch.bool, device=dev)],
+                    dim=1)
+
+    # the windows looked up: the anchors and the valid windows strictly
+    # inside an open interval, and window 0 always
+    wpos = pos[None, :].expand(B, W).contiguous()
+    iv = torch.searchsorted(ws.contiguous(), wpos, right=True) - 1
+    iv = iv.clamp(min=0)
+    anchor_w = (ws.gather(1, iv) == wpos) & (wpos <= wl[:, None])
+    inside = (wpos <= wl[:, None]) & ~anchor_w
+    open_in = inside & ~cov.gather(1, iv)
+    probed = ((anchor_w | open_in) & valid) | (wpos == 0)
+
+    idx, hit, ec = lookup_kmers(didx, canon, valid & probed)
+    big = torch.full_like(ec, INT32_MAX)
+    vals = [torch.where(hit & (ec >= 0), ec, big)]
+    # a covered interval's blocks strictly between its anchors' blocks
+    if NA > 1:
+        nb8 = didx.block_ec8.shape[0]
+        r0 = (blo >> 3).to(torch.int64)
+        cand = torch.cat([didx.block_ec8[r0.clamp(0, nb8 - 1)],
+                          didx.block_ec8[(r0 + 1).clamp(0, nb8 - 1)]],
+                         dim=2)
+        fid = (r0 * 8)[:, :, None] + torch.arange(16, device=dev)
+        inr = (cov[:, :-1, None] & (fid > blo[:, :, None])
+               & (fid < bhi[:, :, None]) & (cand >= 0))
+        vals.append(torch.where(inr, cand, torch.full_like(cand, INT32_MAX))
+                    .reshape(B, -1))
+    rows = torch.cat(vals, dim=1)
+
+    prev = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    slots = []
+    for _ in range(R):
+        cur = torch.where(rows > prev[:, None], rows,
+                          torch.full_like(rows, INT32_MAX)).amin(dim=1)
+        slots.append(cur)
+        prev = torch.where(cur != INT32_MAX, cur, prev)
+    uniq = torch.stack(slots, dim=1)
+    has_hits = hit.any(dim=1)
+    first = torch.argmax(hit.to(torch.int8), dim=1)
+    kidx = idx.gather(1, first[:, None])[:, 0]
+    neg = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    last = torch.where(hit, pos[None, :], -1).amax(dim=1)
+    return SideResult(
+        rows=uniq.contiguous(),
+        n_rows=(uniq != INT32_MAX).sum(dim=1).to(torch.int32),
+        has_hits=has_hits,
+        overflow=((rows > prev[:, None]) & (rows != INT32_MAX)).any(dim=1),
+        f_uid=torch.where(has_hits, didx.kmer_uid[kidx], neg),
+        f_block=torch.where(has_hits, didx.kmer_block[kidx], neg),
+        f_upos=torch.where(has_hits, didx.kmer_pos[kidx], neg),
+        f_rpos=torch.where(has_hits, first.to(torch.int32), neg),
+        f_strand=is_fw.gather(1, first[:, None])[:, 0]
+        == didx.kmer_fw[kidx],
+        rng=torch.where(has_hits, (last - first).to(torch.int32), neg),
+    ), probed
+
+
+def codes_waves_plain(didx: AnyDeviceIndex, codes: torch.Tensor,
+                      lens: torch.Tensor, k: int, max_rows: int = 16):
+    """Kernel A on codes' two waves in plain PyTorch (csrc/pseudoalign.cu
+    pseudoalign_codes_kernel, then pseudoalign_codes_wave2_kernel), on
+    codes [B, L] uint8 (a code above 3 is an N) and lens [B].  Wave 1:
+    _wave1_plain.  Wave 2: every other read through skip_core_plain.  The
+    result equals _pseudoalign_core's in every field.  Returns
+    (SideResult, fail [B] bool: the reads of wave 2, probed [B, W] bool:
+    the windows wave 2 looked up)."""
+    out, ok = _wave1_plain(didx, codes, lens, k, max_rows)
+    fail = ~ok
+    W = codes.shape[1] - k + 1
+    probed = torch.zeros((codes.shape[0], W), dtype=torch.bool,
+                         device=codes.device)
+    sel = torch.nonzero(fail).squeeze(1)
+    if sel.numel():
+        core, probed[sel] = skip_core_plain(didx, codes[sel], lens[sel], k,
+                                            max_rows)
+        for a, b in zip(out, core):
+            a[sel] = b
+    return out, fail, probed
 
 
 def _real_rows(aux: torch.Tensor, B: int, ns: int) -> torch.Tensor:

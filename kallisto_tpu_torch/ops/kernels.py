@@ -19,10 +19,13 @@ shard on cuda:1 is never launched from cuda:0), raises
 when the C function returns a non-zero ``cudaError_t``, and adds one to
 ``LAUNCHES[name]`` -- the count that shows a run went through the kernel.
 Kernel A's one C call launches its two waves, counted as
-``pseudoalign_side`` and ``pseudoalign_side_wave2``; kernel E's C function
+``pseudoalign_side`` and ``pseudoalign_side_wave2``, and A on codes' as
+``pseudoalign_codes`` and ``pseudoalign_codes_wave2``; kernel E's C function
 ``compact_keys`` (the compact key fused into the key table) counts as
-``key_histogram``, or ``key_histogram_slots`` with per-read slots; A, B
-and E given no reads and F given no keys launch nothing and count nothing.  Kernel G's loop replays rounds captured in a CUDA graph (EmGraph): each
+``key_histogram``, or ``key_histogram_slots`` with per-read slots; A, A
+on codes, B and E given no reads and F given no keys launch nothing and
+count nothing.  A on codes and K take an optional counter of the windows
+their covered-interval core probed (``probes``).  Kernel G's loop replays rounds captured in a CUDA graph (EmGraph): each
 replay adds the rounds it holds.
 There is no fallback: a CPU tensor never reaches these functions (the
 dispatching callers send it to the plain PyTorch version instead), and a
@@ -85,7 +88,8 @@ _NVCC_FLAGS = (
 # per-read slots apart as key_histogram_slots
 LAUNCHES: Dict[str, int] = {
     name: 0 for name in (*(n for n in SOURCES if n != "compact_keys"),
-                         "pseudoalign_side_wave2", "key_histogram",
+                         "pseudoalign_side_wave2", "pseudoalign_codes_wave2",
+                         "key_histogram",
                          "key_histogram_slots")}
 
 _lock = threading.Lock()
@@ -140,7 +144,8 @@ _IX = ctypes.POINTER(IndexView)
 _ARGTYPES = {
     "pseudoalign_side": [_IX, _P, _LL] + [_P] * 3 + [_I] * 7 + [_P] * 12
     + [_P],
-    "pseudoalign_codes": [_IX] + [_P] * 2 + [_I] * 4 + [_P] * 10 + [_P],
+    "pseudoalign_codes": [_IX, _P, _LL] + [_P] * 2 + [_I] * 7 + [_P] * 13
+    + [_P],
     "pseudoalign_turbo": [_IX] + [_P] * 3 + [_LL, _P, _LL] + [_I] * 5
     + [_P] * 10 + [_P],
     "pseudoalign_anchor": [_IX, _P, _LL] + [_P] * 3 + [_LL, _LL] + [_I] * 7
@@ -151,7 +156,7 @@ _ARGTYPES = {
     + [_P] * 8 + [_P],
     "read_keys": [_SIDE, _SIDE, _LL, _I, _P, _P, _P],
     "pseudoalign_halffail": [_IX, _P, _LL] + [_P] * 4 + [_LL, _LL] + [_I] * 4
-    + [_P] * 20 + [_P],
+    + [_P] * 21 + [_P],
     "lookup_kmers": [_IX, _P, _P, _LL, _P, _P, _P, _P],
     "compact_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _P, _P, _LL, _LL,
                      _I, _I, _P, _LL, _P],
@@ -365,17 +370,7 @@ def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
     be8 = didx.block_ec8
     _check(be8, "block_ec8", torch.int32, (be8.shape[0], 8), dev)
     ix = _index_args(didx)
-    if lists is None:
-        out = _side_outputs(B, R, dev)
-        # one allocation: n_fail (8-byte aligned), then the list
-        buf = torch.empty(2 + max(B, 1), dtype=torch.int32, device=dev)
-        n_fail, fail_list = buf[:2].view(torch.int64), buf[2:]
-        if B == 0:
-            n_fail.zero_()
-    else:
-        out, fail_list, n_fail = lists
-        _check(fail_list, "fail_list", torch.int32, (max(B, 1),), dev)
-        _check(n_fail, "n_fail", torch.int64, (1,), dev)
+    out, fail_list, n_fail = _lists(B, R, dev, lists)
     if B == 0:
         return out, fail_list, n_fail
     na = n_anchors_for(L, k)
@@ -389,23 +384,74 @@ def pseudoalign_side(didx, packed: torch.Tensor, nmask: torch.Tensor,
     return out, fail_list, n_fail
 
 
+def _lists(B: int, R: int, dev, lists):
+    """Kernel A's or A on codes' outputs and wave-2 list: new (the fields
+    of B reads with R row slots, then one allocation for n_fail, 8-byte
+    aligned, and the list of max(B, 1) ints), or wave 1's `lists` checked
+    for wave 2 alone."""
+    if lists is None:
+        buf = torch.empty(2 + max(B, 1), dtype=torch.int32, device=dev)
+        n_fail, fail_list = buf[:2].view(torch.int64), buf[2:]
+        if B == 0:
+            n_fail.zero_()
+        return _side_outputs(B, R, dev), fail_list, n_fail
+    out, fail_list, n_fail = lists
+    _check(fail_list, "fail_list", torch.int32, (max(B, 1),), dev)
+    _check(n_fail, "n_fail", torch.int64, (1,), dev)
+    return out, fail_list, n_fail
+
+
+def _probes(probes: Optional[torch.Tensor], dev):
+    """The optional count of probed windows: a [1] int64 tensor on dev."""
+    if probes is not None:
+        _check(probes, "probes", torch.int64, (1,), dev)
+    return _ptr(probes)
+
+
 def pseudoalign_codes(didx, codes: torch.Tensor, lens: torch.Tensor, k: int,
-                      R: int):
+                      R: int, waves: int = 3, lists=None,
+                      probes: Optional[torch.Tensor] = None):
     """Kernel A on unpacked codes [B, L] uint8 (any L >= k; a code above 3
-    is an N) with lens [B] int32.  Returns the ten SideResult fields."""
+    is an N) with lens [B] int32, in two launches on one stream from one C
+    call as pseudoalign_side: wave 1 writes every read that its anchors
+    verify in full and lists the others, wave 2 runs the decode and the
+    covered-interval core on the listed reads (the list's length read on
+    the card).  Returns (the ten SideResult fields, fail_list [max(B, 1)]
+    int32, n_fail [1] int64).  waves = 1 or 2 launches one wave alone
+    (wave 2 continues `lists`, what a wave-1 call returned); probes, a [1]
+    int64 tensor on the card, gains the windows wave 2 probed (counting
+    costs an atomic a read, so only measurements ask).  B = 0 launches
+    nothing."""
+    from .anchor import n_anchors_for
+
     dev = didx.device
     if codes.dim() != 2:
         raise ValueError("codes must be [B, L]")
     B, L = int(codes.shape[0]), int(codes.shape[1])
     if L < k or not 0 < R <= L - k + 1:
         raise ValueError(f"bad shape: L={L} k={k} R={R}")
+    if B >= 2**31:
+        raise ValueError(f"{B} reads: kernel A takes fewer than 2^31")
+    if waves not in (1, 2, 3) or (waves == 2) != (lists is not None):
+        raise ValueError("waves 1 or 3, or 2 with the lists of wave 1")
     _check(codes, "codes", torch.uint8, (B, L), dev)
     _check(lens, "lens", torch.int32, (B,), dev)
+    be8 = didx.block_ec8
+    _check(be8, "block_ec8", torch.int32, (be8.shape[0], 8), dev)
     ix = _index_args(didx)
-    out = _side_outputs(B, R, dev)
-    _launch("pseudoalign_codes", dev, ctypes.byref(ix), _ptr(codes),
-            _ptr(lens), B, L, k, R, *[_ptr(t) for t in out])
-    return out
+    pr = _probes(probes, dev)
+    out, fail_list, n_fail = _lists(B, R, dev, lists)
+    if B == 0:
+        return out, fail_list, n_fail
+    na = n_anchors_for(L, k)
+    _launch(
+        "pseudoalign_codes", dev,
+        ctypes.byref(ix), _ptr(be8), int(be8.numel()), _ptr(codes),
+        _ptr(lens), B, L, k, R, na, anchor_group_width(na), waves,
+        *[_ptr(t) for t in out], _ptr(fail_list), _ptr(n_fail), pr,
+        count=(("pseudoalign_codes",) if waves & 1 else ())
+        + (("pseudoalign_codes_wave2",) if waves & 2 else ()))
+    return out, fail_list, n_fail
 
 
 def _index_args(didx) -> IndexView:
@@ -578,12 +624,16 @@ def pseudoalign_anchor(didx, sides, aux: torch.Tensor, k: int, L: int,
 
 def pseudoalign_halffail(didx, pkf: torch.Tensor, vsum: torch.Tensor,
                          sidev: torch.Tensor, aux: torch.Tensor, k: int,
-                         L: int, rl: int, R: int):
+                         L: int, rl: int, R: int,
+                         probes: Optional[torch.Tensor] = None):
     """Kernel K on the pairs of which one mate failed host wave 1: pkf
     [Bp, L/4] uint8 the failed mates' packed codes, vsum [Bp, 2] int32 the
     verified mates' summaries, sidev [Bp] int32 (1: mate 1 failed), aux
     [4 + n] int64.  R is both mates' row width, min(max_rows, Lc - k + 1).
-    Returns mate 1's and mate 2's ten SideResult fields."""
+    probes, a [1] int64 tensor on the card, gains the failed mates'
+    windows that the covered-interval core probed (a warp reduction and an
+    atomic a warp, so only measurements ask).  Returns mate 1's and mate
+    2's ten SideResult fields."""
     dev = didx.device
     Bp = int(pkf.shape[0])
     Lc = rl if 0 < rl < L else L
@@ -598,13 +648,14 @@ def pseudoalign_halffail(didx, pkf: torch.Tensor, vsum: torch.Tensor,
     be8 = didx.block_ec8
     _check(be8, "block_ec8", torch.int32, (be8.shape[0], 8), dev)
     ix = _index_args(didx)
+    pr = _probes(probes, dev)
     out1 = _side_outputs(Bp, R, dev)
     out2 = _side_outputs(Bp, R, dev)
     _launch(
         "pseudoalign_halffail", dev,
         ctypes.byref(ix), _ptr(be8), int(be8.numel()), _ptr(pkf), _ptr(vsum), _ptr(sidev),
         _ptr(aux), int(aux.shape[0]) - 4, Bp, L, rl, k, R,
-        *[_ptr(t) for t in out1], *[_ptr(t) for t in out2])
+        *[_ptr(t) for t in out1], *[_ptr(t) for t in out2], pr)
     return out1, out2
 
 

@@ -918,14 +918,16 @@ def pseudoalign_batch(didx: AnyDeviceIndex, codes: torch.Tensor,
     """[B, L] uint8 base codes (0-3; a code above 3 is an N and makes its
     windows invalid) with lens [B] int32 -> SideResult (JAX
     pseudoalign_batch, ops/pseudoalign.py:493): kernel A on unpacked codes
-    for tensors on the card, _pseudoalign_core on the CPU.  Any L >= k; R
-    = min(max_rows, L - k + 1)."""
+    for tensors on the card (two waves: the anchors verify whole reads,
+    the covered-interval core takes the rest; anchor.codes_waves_plain is
+    the same split in plain PyTorch), _pseudoalign_core on the CPU.  Any
+    L >= k; R = min(max_rows, L - k + 1)."""
     L = int(codes.shape[1])
     if L < k:
         raise ValueError(f"reads of {L} columns have no {k}-mer window")
     if codes.is_cuda:
         return SideResult(*kernels.pseudoalign_codes(
-            didx, codes, lens, k, min(max_rows, L - k + 1)))
+            didx, codes, lens, k, min(max_rows, L - k + 1))[0])
     return _pseudoalign_core(didx, codes, lens, k, max_rows)
 
 

@@ -19,7 +19,10 @@ version.
 The half-fail wave 2 of host wave 1 (ops/hostprobe.py) is kernel K
 (csrc/pseudoalign.cu pseudoalign_halffail): pairs of which one mate failed
 the host probe send only that mate's codes, with the other mate's 8-byte
-summary; halffail_core is its plain version.  The wave-2 slices also ask
+summary; halffail_core is its plain version.  K runs the failed mate
+through the covered-interval core (anchors first, then only the windows
+that no pair of agreeing anchors covers; ops/anchor.py skip_core_plain is
+its plain model).  The wave-2 slices also ask
 kernel E for each read's row in the table (with_slots).  Semantics are the
 reference's --no-jump evaluation of every k-mer (reference:
 src/KmerIndex.cpp:1698-1940).

@@ -1020,13 +1020,19 @@ def _code_batch(index, L, seed, lens_cut):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,lens_cut", [(100, False), (93, True), (45, True),
-                                        (230, True)])
+                                        (230, True), (1000, False)])
 def test_kernel_a_on_codes_matches_plain(cuda, port_index, layout, L,
                                          lens_cut):
     """pseudoalign_batch on unpacked codes (Ns and codes above 4, widths
-    not a multiple of 8, lengths below the width and below k, 200 windows:
-    two passes of the core) on the card: every field equal to
-    _pseudoalign_core on the CPU."""
+    not a multiple of 8, lengths below the width and below k, 200 windows,
+    33 anchors at 1,000 columns: past a warp's lanes) on the card: every
+    field equal to _pseudoalign_core on the CPU, wave 1 and wave 2
+    launched once each; the wave-2 reads and the windows wave 2 probed
+    equal to the plain two-wave model's (anchor.codes_waves_plain); wave 1
+    alone equal to the model on the reads it verifies, wave 2 alone then
+    completing every field; no launch on no reads."""
+    from kallisto_tpu_torch.ops import anchor
+
     codes, lens = _code_batch(port_index, L, L, lens_cut)
     out = {}
     for dev in (cuda, "cpu"):
@@ -1037,11 +1043,39 @@ def test_kernel_a_on_codes_matches_plain(cuda, port_index, layout, L,
             d, torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev),
             K)
         assert kernels.LAUNCHES["pseudoalign_codes"] == (dev == cuda)
+        assert kernels.LAUNCHES["pseudoalign_codes_wave2"] == (dev == cuda)
     g, c = out[str(cuda)], out["cpu"]
     assert bool(c.has_hits.any())
     for f in pa.SideResult._fields:
         a, b = getattr(g, f).cpu(), getattr(c, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f
+
+    dc = pa.device_index_from_host(port_index, "cpu")
+    w, fail, probed = anchor.codes_waves_plain(
+        dc, torch.from_numpy(codes), torch.from_numpy(lens), K)
+    for f in pa.SideResult._fields:
+        assert torch.equal(getattr(w, f), getattr(c, f)), f
+    dg = pa.device_index_from_host(port_index, cuda)
+    gc, gl = torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda)
+    R = min(16, L - K + 1)
+    n_pr = torch.zeros(1, dtype=torch.int64, device=cuda)
+    kernels.reset_launches()
+    lists = kernels.pseudoalign_codes(dg, gc, gl, K, R, waves=1)
+    torch.cuda.synchronize()
+    assert int(lists[2]) == int(fail.sum())
+    assert int(fail.sum()) > 0
+    ver = ~fail
+    for f, a in zip(pa.SideResult._fields, lists[0]):
+        assert torch.equal(a.cpu()[ver], getattr(w, f)[ver]), f
+    apart = kernels.pseudoalign_codes(dg, gc, gl, K, R, waves=2, lists=lists,
+                                      probes=n_pr)
+    kernels.pseudoalign_codes(dg, gc[:0], gl[:0], K, R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pseudoalign_codes"] == 1
+    assert kernels.LAUNCHES["pseudoalign_codes_wave2"] == 1
+    assert int(n_pr) == int(probed.sum())
+    for f, a in zip(pa.SideResult._fields, apart[0]):
+        assert torch.equal(a.cpu(), getattr(c, f)), f
 
 
 @pytest.mark.cuda
@@ -1288,6 +1322,64 @@ def test_kernel_k_matches_plain(cuda, port_index, layout, L, max_rows,
             a, b = getattr(g, f).cpu(), getattr(c, f)
             assert a.dtype == b.dtype and torch.equal(a, b), f
     assert torch.equal(gck.cpu(), cck) and torch.equal(gsl.cpu(), csl)
+    # the failed mates' windows that the covered-interval core probed: the
+    # plain model's mask (anchor.skip_core_plain), fewer than the windows
+    from kallisto_tpu_torch.ops import anchor
+
+    t = [torch.from_numpy(a) for a in args[:4]]
+    codes, lens_v = turbo.codes_and_lens_plain((t[0],), t[3], None, args[4],
+                                               L)
+    dc = pa.device_index_from_host(port_index, "cpu")
+    _, probed = anchor.skip_core_plain(dc, codes, lens_v, K, max_rows)
+    dg = pa.device_index_from_host(port_index, cuda)
+    n_pr = torch.zeros(1, dtype=torch.int64, device=cuda)
+    kernels.pseudoalign_halffail(dg, *(a.to(cuda) for a in t), K, args[4], L,
+                                 min(max_rows, L - K + 1), probes=n_pr)
+    torch.cuda.synchronize()
+    assert int(n_pr) == int(probed.sum()) < probed.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1000, 200, 31])
+def test_kernel_k_read_lengths_match_plain(cuda, port_index, layout, L):
+    """Kernel K past the host probe's read lengths: 1,000 bp failed mates
+    (33 anchors: one read a warp, passes of 31 intervals), 200 bp (eight
+    anchors, four reads a warp) and reads of k bases (one window), with
+    random verified-mate summaries, sidev and padding pairs: both mates
+    equal to the plain halffail_core, and the probed windows to the plain
+    model's mask."""
+    from kallisto_tpu_torch.ops import anchor, turbo
+    from kallisto_tpu_torch.quant import pipeline as qp
+
+    b1 = _uniform_pairs(port_index, 700, L, 21)[0]
+    n, Bp = b1.n, b1.n + 45
+    rng = np.random.default_rng(L)
+    nb = port_index.block_ec.shape[0]
+    vsum = np.stack([rng.integers(0, max(nb - 16, 1), n),
+                     (rng.integers(0, 5000, n) << 5)
+                     | (rng.integers(0, 9, n) << 1) | rng.integers(0, 2, n)],
+                    axis=1).astype(np.int32)
+    sidev = rng.integers(1, 3, n).astype(np.int32)
+    exc = qp._rows_exceptions([(b1.nmask, b1.lens)], Bp, b1.Lp)
+    args = (qp._pad_rows(b1.packed, Bp), qp._pad_rows(vsum, Bp),
+            qp._pad_rows(sidev, Bp), turbo.make_aux(n, L, exc))
+    R = min(16, L - K + 1)
+    dg = pa.device_index_from_host(port_index, cuda)
+    dc = pa.device_index_from_host(port_index, "cpu")
+    assert isinstance(dg, layout)
+    t = [torch.from_numpy(a) for a in args]
+    n_pr = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = kernels.pseudoalign_halffail(dg, *(a.to(cuda) for a in t), K, b1.Lp,
+                                       L, R, probes=n_pr)
+    want = turbo.halffail_core(dc, *t, K, b1.Lp, 16, L)
+    torch.cuda.synchronize()
+    for g, c in zip(got, want):
+        for f, a in zip(pa.SideResult._fields, g):
+            b = getattr(c, f)
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+    codes, lens_v = turbo.codes_and_lens_plain((t[0],), t[3], None, b1.Lp, L)
+    assert int(n_pr) == int(anchor.skip_core_plain(dc, codes, lens_v, K,
+                                                   16)[1].sum())
 
 
 @pytest.mark.cuda

@@ -45,7 +45,11 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    count), and timed: both waves, each alone, and the device time from
    graph replays; its wave-2 share, the share of wave 2's windows skipped,
    and two bounds, the dense work's (every window, the earlier rows'
-   formula) and the design's (_skip_bytes: the windows it probes);
+   formula) and the design's (_skip_bytes: the windows it probes); then
+   kernel L (lookup_kmers, the probe alone) on this bucketed index (its
+   packed (key, EC row) entries) and the batch's mate-1 windows: held
+   against the plain lookup_kmers, timed from the host and as device
+   time (_l_phase2);
 3b. kernels D (pseudoalign_turbo), E (compact_keys: the compact key fused
    into the key table) and F (gather_exemplars) against their plain
    versions on the card: a paired turbo batch at the main path's Bp =
@@ -55,8 +59,12 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    entry must be equal; E's device time (graph replays, graph_ms) beside
    its time from the host, and E on the batch's own keys given as keys
    and with 60 % of the reads moved onto one key (held, device times);
-3c. kernel H (bias_hexamers) against its plain version on the card, on the
-   phase-3 pairs (mate 1 from kernel A, valid = mate 2's has_hits): equal;
+3c. kernel H, the epilogue of kernel B's launch (read_keys with bias=),
+   on the phase-3 pairs (valid = mate 2's has_hits) and the 76 bp
+   single-end reads (all valid): keys and fragment lengths equal to B
+   alone and to the plain version, hexamer ids equal to
+   bias_hexamers_plain; B alone and B + H timed in turns, from the host
+   and as device time;
 3d. kernel I (pseudoalign_anchor) against its plain version on the card,
    at the main path's shapes (262,144 pairs of 100 bp padded to 104, 4
    anchors, sparse Ns), paired and single-end: every field and n_fail
@@ -96,13 +104,16 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    65,536 reads (16,384 long reads) built and held by the same helpers
    as phases 3, 3b, 3d, 3e and 3f (K after the host probe, with E's slots
    and F slim): every field equal; kernel L (lookup_kmers) against the
-   plain lookup_kmers in both layouts on A's windows, invalid ones
-   included, and on windows 0 (q = mix64(0)): slot, hit and EC row
-   equal; A on codes held in both layouts; A (262,144 reads, phase 3's
+   plain lookup_kmers in both layouts (bucketed through its packed
+   entries) on A's windows, invalid ones included, and on windows
+   0 (q = mix64(0)): slot, hit and EC row equal; A on codes held in
+   both layouts; A (262,144 reads, phase 3's
    shape) held in both layouts with its wave-2 count (_hold_a); then A
    and A on codes (262,144 reads), D and I (524,288 reads, phases 3b/3d's
-   shape; A and I with their wave-2 shares), L (A's windows, with
-   torch.searchsorted beside the bucketed form) timed in both layouts, and
+   shape; A and I with their wave-2 shares), L (A's windows: padded
+   and bucketed in turns, device times, each layout's three-take gather,
+   torch.searchsorted beside the bucketed form) timed in both layouts,
+   and
    D, J and K at their held shapes; A, D and I again at those shapes on
    an L2_GENES-gene index whose tables fit in the 50 MB L2 (A in both
    layouts and I held there first); L's bounds count each table sector
@@ -2115,30 +2126,104 @@ def _time_layouts(torch, fn, dp, db, reps):
     return statistics.median((a, a2)), statistics.median((b, b2))
 
 
+def _turns(torch, fns, reps):
+    """Each fn timed by cuda_ms in turns (fns in order, then reversed):
+    the median of each fn's two times."""
+    first = [cuda_ms(f, reps, torch) for f in fns]
+    second = [cuda_ms(f, reps, torch) for f in reversed(fns)][::-1]
+    return [statistics.median(x) for x in zip(first, second)]
+
+
+def _three_take_gather(torch, pa, didx, canon, valid, idx, hit):
+    """A yardstick beside kernel L on one layout, timed and never used:
+    one torch.take per table of the table elements that L's probes read
+    (idx, hit: the plain lookup_kmers' slots and hits) -- padded: each
+    query's key at its slot and each hit's EC word in the same bucket row;
+    bucketed: each query's bucket_start entry, the key at its slot and
+    each hit's kmer_ec entry (the search's earlier steps are not taken,
+    as _sector_ids counts) --, in query order, none depending on another.
+    It is no floor: its passes write 8-byte outputs of their own, and L
+    can run below it.  The indices are made before the timing.  Returns
+    (ms, device ms)."""
+    if isinstance(didx, pa.PaddedDeviceIndex):
+        S = didx.S
+        flat = didx.bucket_rows.view(-1)
+        base = (idx // S) * (2 * S) + idx % S
+        takes = [(flat, base), (flat, (base + S)[hit])]
+    else:
+        q = pa.mix64(torch.where(valid, canon, torch.zeros_like(canon)))
+        b = (q >> (64 - didx.p)) & ((1 << didx.p) - 1)
+        takes = [(didx.bucket_start, b), (didx.kmer_hkeys, idx),
+                 (didx.kmer_ec, idx[hit])]
+
+    def fn():
+        return [torch.take(t, i) for t, i in takes]
+
+    return cuda_ms(fn, 10, torch), graph_ms(fn, 10, torch)
+
+
+def _hold_l_once(torch, pa, kernels, d, canon, valid, tag):
+    """Kernel L on one index (a bucketed one through its packed entries)
+    against the plain lookup_kmers.  Returns the plain version's (idx,
+    hit, EC row)."""
+    want = pa.lookup_kmers(d, canon, valid)
+    got = kernels.lookup_kmers(d, canon, valid)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("idx", "hit", "ec"), got, want):
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              f"kernel L {tag}: {name} equal on {canon.numel()} windows "
+              f"({int(want[1].sum())} hits)")
+    return want
+
+
+def _l_phase2(torch, pa, kernels, didx, canon, valid):
+    """Kernel L on phase 2's bucketed index (1.1 GB: its random sectors
+    come from HBM) and phase 3's A windows: held, timed from the host and
+    as device time.  Returns L's row fields for this index."""
+    idx, hit, _ = _hold_l_once(torch, pa, kernels, didx, canon, valid,
+                               "phase 2 bucketed")
+
+    def fn():
+        return kernels.lookup_kmers(didx, canon, valid)
+
+    ms, dev_ms = cuda_ms(fn, 10, torch), graph_ms(fn, 10, torch)
+    nq = canon.numel()
+    sec = _n_sectors(didx, _sector_ids(torch, pa, didx, canon, valid, idx,
+                                       hit))
+    bnd = bound(22 * nq + 32 * sec, 40 * nq, PEAK_INT_OPS)
+    ent_bytes = kernels.packed_entries(didx).numel() * 8
+    log(f"kernel L on phase 2's index ({didx.nbytes()} B bucketed), {nq} "
+        f"windows ({int(valid.sum())} valid, {int(hit.sum())} hits): "
+        f"{ms:.4f} ms (device {dev_ms:.4f}), bound {bnd[0]:.4f} ms ({sec} "
+        f"sectors); packed entries {ent_bytes} B")
+    return dict(ms_phase2_bucketed=ms, device_ms_phase2_bucketed=dev_ms,
+                bound_ms_phase2_bucketed=bnd[0], queries_phase2=nq,
+                packed_bytes_phase2=ent_bytes)
+
+
 def _hold_l(torch, pa, kernels, dp, db, canon, valid, n):
-    """Kernel L against the plain lookup_kmers in both layouts, on the
-    first n of the windows (canon, valid), invalid ones included, and on
-    64 invalid windows 0 (q = mix64(0)): slot, hit and EC row equal.  Then
-    all the windows timed in both layouts, with the plain version, and
-    torch.searchsorted beside the bucketed form.  Returns L's row
-    fields."""
+    """Kernel L against the plain lookup_kmers in both layouts (the
+    bucketed one through its packed entries), on the first n of the
+    windows (canon, valid), invalid ones included, and on 64 invalid
+    windows 0 (q = mix64(0)): slot, hit and EC row equal.  Then all the
+    windows timed in both layouts in turns, with device times (graph_ms),
+    the plain version, each layout's three-take gather
+    (_three_take_gather) and torch.searchsorted beside the bucketed form.
+    Returns L's row fields."""
     hc, hv = canon[:n].contiguous(), valid[:n].contiguous()
     check(int((~hv).sum()) > 0, f"{int((~hv).sum())} invalid windows held")
     z = torch.zeros(64, dtype=torch.int64, device=canon.device)
     zf = torch.zeros(64, dtype=torch.bool, device=canon.device)
     for tag, d in (("padded", dp), ("bucketed", db)):
         for what, q, v in (("windows", hc, hv), ("invalid windows 0", z, zf)):
-            gl = kernels.lookup_kmers(d, q, v)
-            cl = pa.lookup_kmers(d, q, v)
-            torch.cuda.synchronize()
-            for name, x, y in zip(("idx", "hit", "ec"), gl, cl):
-                check(x.dtype == y.dtype and torch.equal(x, y),
-                      f"kernel L {tag}: {name} equal on {q.numel()} {what} "
-                      f"({int(cl[1].sum())} hits)")
-        check(not bool(gl[1].any()), f"kernel L {tag}: window 0 never hits")
+            want = _hold_l_once(torch, pa, kernels, d, q, v,
+                                f"{tag} ({what})")
+        check(not bool(want[1].any()), f"kernel L {tag}: window 0 never hits")
     nq = canon.numel()
-    ms_p, ms_b = _time_layouts(
-        torch, lambda d: kernels.lookup_kmers(d, canon, valid), dp, db, 20)
+    fns = [lambda: kernels.lookup_kmers(dp, canon, valid),
+           lambda: kernels.lookup_kmers(db, canon, valid)]
+    ms_p, ms_b = _turns(torch, fns, 20)
+    dev_p, dev_b = (graph_ms(f, 10, torch) for f in fns)
     plain_p, plain_b = _time_layouts(
         torch, lambda d: pa.lookup_kmers(d, canon, valid), dp, db, 3)
     # torch.searchsorted on the sign-flipped sorted keys finds the
@@ -2150,26 +2235,38 @@ def _hold_l(torch, pa, kernels, dp, db, canon, valid, n):
     del qs
     # canon + valid in, slot + hit + EC row out (22 B a window); the table
     # sectors the probes must read, each once (_sector_ids)
-    bnd, sec = {}, {}
+    bnd, sec, take3 = {}, {}, {}
     for tag, d in (("padded", dp), ("bucketed", db)):
         idx, hit, _ = pa.lookup_kmers(d, canon, valid)
         sec[tag] = _n_sectors(d, _sector_ids(torch, pa, d, canon, valid,
                                              idx, hit))
         bnd[tag] = bound(22 * nq + 32 * sec[tag], 40 * nq, PEAK_INT_OPS)
+        take3[tag] = _three_take_gather(torch, pa, d, canon, valid, idx, hit)
     n_hit = int(hit.sum())
+    ent_bytes = kernels.packed_entries(db).numel() * 8
     log(f"kernel L on {nq} windows ({int(valid.sum())} valid, {n_hit} "
-        f"hits): padded {ms_p:.4f} ms (bound {bnd['padded'][0]:.4f} ms, "
-        f"{sec['padded']} distinct sectors, plain {plain_p:.3f} ms), "
-        f"bucketed {ms_b:.4f} ms (bound {bnd['bucketed'][0]:.4f} ms, "
-        f"{sec['bucketed']} distinct sectors, plain {plain_b:.3f} ms, "
-        f"torch.searchsorted {lib_b:.4f} ms)")
+        f"hits): padded {ms_p:.4f} ms (device {dev_p:.4f}, bound "
+        f"{bnd['padded'][0]:.4f} ms, {sec['padded']} distinct sectors, "
+        f"three-take gather {take3['padded'][0]:.4f} / device "
+        f"{take3['padded'][1]:.4f}, plain {plain_p:.3f} ms), bucketed "
+        f"{ms_b:.4f} ms (device {dev_b:.4f}; bound "
+        f"{bnd['bucketed'][0]:.4f} ms, {sec['bucketed']} distinct sectors, "
+        f"three-take gather {take3['bucketed'][0]:.4f} / device "
+        f"{take3['bucketed'][1]:.4f}, plain {plain_b:.3f} ms, "
+        f"torch.searchsorted {lib_b:.4f} ms); packed entries {ent_bytes} B")
     return dict(
         ms=ms_p, plain_ms=plain_p, bound_ms=bnd["padded"][0],
         bound_by=bnd["padded"][1], ms_padded=ms_p, ms_bucketed=ms_b,
+        device_ms_padded=dev_p, device_ms_bucketed=dev_b,
+        three_take_ms_padded=take3["padded"][0],
+        three_take_device_ms_padded=take3["padded"][1],
+        three_take_ms_bucketed=take3["bucketed"][0],
+        three_take_device_ms_bucketed=take3["bucketed"][1],
         bound_ms_padded=bnd["padded"][0], bound_ms_bucketed=bnd["bucketed"][0],
         plain_ms_bucketed=plain_b, searchsorted_ms_bucketed=lib_b,
         queries=nq, valid=int(valid.sum()), hits=n_hit,
-        sectors_padded=sec["padded"], sectors_bucketed=sec["bucketed"])
+        sectors_padded=sec["padded"], sectors_bucketed=sec["bucketed"],
+        packed_bytes=ent_bytes)
 
 
 def _index_set(torch, np, pa, fastx, build_index, generate_transcriptome,
@@ -3299,9 +3396,9 @@ def main(argv=None):
              side_cpu["m2"]),
             ("single", side_gpu["r76"], None, side_cpu["r76"], None),
         ):
-            hg, tg = pa.read_keys(s1, s2, k)
+            hg, tg, _ = pa.read_keys(s1, s2, k)
             torch.cuda.synchronize()
-            hc, tc = pa.read_keys(c1, c2, k)
+            hc, tc, _ = pa.read_keys(c1, c2, k)
             check(torch.equal(hg.cpu(), hc), f"kernel B {tag}: keys equal")
             if s2 is not None:
                 check(torch.equal(tg.cpu(), tc),
@@ -3338,29 +3435,71 @@ def main(argv=None):
         k3codes, k3codes_w2 = phase_3_codes(torch, np, pa, anchor, kernels,
                                             didx, rb1, k, dev, rng)
 
+        # L, the probe alone, on this index (bucketed, 1.1 GB) and phase 3's
+        # A windows (mate 1's batch), through its packed entries: held
+        # and timed
+        codes = pa.unpack_codes(g_in[0], g_in[1], pb1.Lp)
+        canon, _, lvalid = pa.rolling_canonical_kmers(codes, g_in[2], k)
+        del codes
+        k3l = _l_phase2(torch, pa, kernels, didx, canon, lvalid)
+        del canon, lvalid
+
         # ------------------------------------------------- 3c. kernel H
-        log(f"== phase 3c: kernel H against its plain version "
-            f"({time.perf_counter() - t_start:.0f} s)")
+        log(f"== phase 3c: kernel H, B's epilogue, against its plain "
+            f"version ({time.perf_counter() - t_start:.0f} s)")
         bt = pa.bias_tables_from_host(index, dev)
+        for tag, s1, s2 in (("paired", s1g, s2g),
+                            ("single", side_gpu["r76"], None)):
+            got = kernels.read_keys(s1, s2, k, bias=bt)
+            alone = kernels.read_keys(s1, s2, k)
+            hp, tp = pa.read_keys_plain(s1, s2, k)
+            hv = s2.has_hits if s2 is not None else torch.ones_like(
+                s1.has_hits)
+            xp = pa.bias_hexamers_plain(bt, s1, hv, k)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], alone[0]) and torch.equal(got[0], hp)
+                  and (s2 is None or (torch.equal(got[1], alone[1])
+                                      and torch.equal(got[1], tp))),
+                  f"kernel B + H {tag}: keys and fragment lengths equal to B "
+                  "alone and to the plain version")
+            check(torch.equal(got[2], xp),
+                  f"kernel B + H {tag}: {xp.shape[0]} hexamer ids equal "
+                  f"({int((xp >= 0).sum())} reads with one)")
         valid = s2g.has_hits
-        hx = pa.bias_hexamers(bt, s1g, valid, k)
-        hxp = pa.bias_hexamers_plain(bt, s1g, valid, k)
-        torch.cuda.synchronize()
-        n_hx = int((hxp >= 0).sum())
-        check(torch.equal(hx, hxp),
-              f"kernel H: {B} hexamer ids equal ({n_hx} reads with one)")
-        ms_h = cuda_ms(lambda: kernels.bias_hexamers(bt, s1g, valid, k), 20,
-                       torch)
+        check(torch.equal(pa.bias_hexamers(bt, s1g, valid, k),
+                          pa.bias_hexamers_plain(bt, s1g, valid, k)),
+              "bias_hexamers (the fused launch) equal to the plain version")
+        # B alone and B + H in turns (B, B + H, B + H, B), from the host
+        # and as device time
+        t_b, t_bh = [], []
+        for fn_list in ((t_b, None), (t_bh, bt), (t_bh, bt), (t_b, None)):
+            lst, bb = fn_list
+            lst.append((cuda_ms(lambda: kernels.read_keys(
+                s1g, s2g, k, bias=bb), 20, torch), graph_ms(
+                lambda: kernels.read_keys(s1g, s2g, k, bias=bb), 20, torch)))
+        ms_b3c = statistics.median(x[0] for x in t_b)
+        dev_b3c = statistics.median(x[1] for x in t_b)
+        ms_bh = statistics.median(x[0] for x in t_bh)
+        dev_bh = statistics.median(x[1] for x in t_bh)
         plain_h = cuda_ms(lambda: pa.bias_hexamers_plain(bt, s1g, valid, k),
                           5, torch)
-        # per read four int32 and three bool fields in, one int32 out; per
-        # read with a hit and a valid mate one sector each of block_start,
-        # block_end, unitig_seq_off and unitig_seq
+        # H taken alone: per read four int32 and three bool fields in, one
+        # int32 out; per read with a hit and a valid mate one sector each
+        # of block_start, block_end, unitig_seq_off and unitig_seq.  B + H
+        # in one launch: B's bytes (which already hold mate 1's block,
+        # upos, rpos, strand and has_hits and mate 2's has_hits, H's
+        # valid), mate 1's f_uid and hx out, and the same four sectors a
+        # read whose two mates hit; B's operations
         n_ok = int((s1g.has_hits & valid).sum())
         bound_h = bound(B * (4 * 4 + 3 + 4) + 32 * 4 * n_ok, 0, PEAK_INT_OPS)
-        log(f"kernel H: {ms_h:.4f} ms (plain on card {plain_h:.3f} ms), "
-            f"B={B}, {n_ok} reads with hits on both mates")
-        del side_gpu, side_cpu, stats_a, g_in, didx_cpu, hx, hxp, valid, bt
+        bound_bh = bound(bytes_b + B * (4 + 4) + 32 * 4 * n_ok,
+                         B * (R + R2 + 1) * 8, PEAK_INT_OPS)
+        log(f"kernel B + H (one launch): {ms_bh:.4f} ms, device (L2-warm) "
+            f"{dev_bh:.4f} ms; B alone {ms_b3c:.4f} ms, device {dev_b3c:.4f}"
+            f" ms (plain H on card {plain_h:.3f} ms); bound B + H "
+            f"{bound_bh[0]:.4f} ms (H alone {bound_h[0]:.4f}), B={B}, "
+            f"{n_ok} reads with hits on both mates")
+        del side_gpu, side_cpu, stats_a, g_in, didx_cpu, valid, bt
 
         # ---------------------------- 3b. kernels D, E, F and B extended
         log("== phase 3b: kernels D, E, F and B (compact keys) against "
@@ -3823,11 +3962,18 @@ def main(argv=None):
                  bound_by=bound_g[1], library_ms=None, replicates=100,
                  em_wall_s=bs_summary["bs100_em_s"],
                  host_reads=reads_g, rounds=bs_summary["bs100_rounds"]),
-            dict(name="bias_hexamers", route="cuda", source=csrc + "bias.cu",
+            # H: B's epilogue (the fused launch: B + H, timed with B
+            # alone beside it in phase 3c; bound: the fused work's, and
+            # H's taken alone apart as h_bound_ms)
+            dict(name="bias_hexamers", route="cuda",
+                 source=csrc + "read_keys.cu",
                  replaces="kallisto_tpu/ops/pseudoalign.py:1172",
                  launches=launches_b["bias_hexamers"], max_abs_err=0.0,
-                 ms=ms_h, plain_ms=plain_h, bound_ms=bound_h[0],
-                 bound_by=bound_h[1], library_ms=None),
+                 ms=ms_bh, plain_ms=plain_b + plain_h, bound_ms=bound_bh[0],
+                 bound_by=bound_bh[1], library_ms=None,
+                 fused_into="read_keys", device_ms=dev_bh,
+                 b_alone_ms=ms_b3c, b_alone_device_ms=dev_b3c,
+                 h_bound_ms=bound_h[0], h_plain_ms=plain_h),
             # J: launches of phase 5d's quant --long, held and timed on its
             # first batch; the stress batch of phase 3e beside it
             dict(name="pseudoalign_long", route="cuda",
@@ -3889,12 +4035,13 @@ def main(argv=None):
                 bound_ms_16k=bnd16[0], library_ms_16k=lib16,
                 **k3g.get(name, {}), **extra))
         # L, K2's probe alone (phase 3g: A's windows on the padded index
-        # and on the same index bucketed); no run loop launches it
+        # and on the same index bucketed; phase 3: phase 2's bucketed
+        # index); no run loop launches it
         rows.append(dict(
             name="lookup_kmers", route="cuda", source=csrc + "pseudoalign.cu",
             replaces="kallisto_tpu/ops/pseudoalign.py:325",
             launches=launches["lookup_kmers"], max_abs_err=0.0,
-            library_ms=None, **k3g["lookup_kmers"]))
+            library_ms=None, **k3g["lookup_kmers"], **k3l))
         # K18: one shard's A + E at 5g's shard shape; launches: the
         # shard steps of 5g's sharded quant (one E each)
         rows.append(dict(

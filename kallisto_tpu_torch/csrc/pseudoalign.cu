@@ -25,9 +25,13 @@
 //
 // Kernel L, lookup_kmers, is K2 taken alone: a grid-stride kernel over
 // [n] canonical k-mers and their valid mask that returns (slot int64, hit
-// bool, EC row int32) through kt_probe, equal to the plain lookup_kmers
-// of ops/pseudoalign.py in both layouts.  No run loop launches it; it is
-// the yardstick of the probe (chip_smoke.py times it in both layouts).
+// bool, EC row int32), four queries a lane, equal to the plain
+// lookup_kmers of ops/pseudoalign.py in both layouts: the wrapper probes
+// a padded index through kt_probe_n (C function lookup_kmers) and a
+// bucketed one through its packed (key, EC row) entries (kt_probe_ent,
+// lookup_kmers_packed).  No run loop launches it; it is the yardstick of
+// the probe (chip_smoke.py times it in both layouts; probe_ab.py also
+// calls lookup_kmers on a bucketed index, the form without entries).
 //
 // One per-read core, kt_core, serves kernels A's wave 2, D and I's wave
 // 2, and its covered-interval form (below) A on codes' wave 2 and K's
@@ -2678,41 +2682,206 @@ extern "C" int pseudoalign_long(
 
 // ------------------------------------------------------------- kernel L
 
-// Kernel L: one thread per query of n canonical k-mers, grid-stride;
-// invalid queries are probed with canon 0 and never hit (lookup_kmers).
-__global__ void lookup_kmers_kernel(IndexView ix,
-                                    const long long* __restrict__ canon,
-                                    const unsigned char* __restrict__ valid,
-                                    long long n, long long* __restrict__ idx,
-                                    unsigned char* __restrict__ hit,
-                                    int* __restrict__ ec) {
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < n; i += (long long)gridDim.x * blockDim.x) {
-        const int v = valid[i] != 0;
-        const unsigned long long q =
-            kt_mix64(v ? (unsigned long long)canon[i] : 0ULL);
-        long long s;
-        int e;
-        const int h = kt_probe(ix, q, &s, &e) && v;
-        idx[i] = s;
-        hit[i] = (unsigned char)h;
-        ec[i] = h ? e : -1;
+#define KL_NQ 4      // queries of a lane, probed together (kt_probe_n)
+
+// The probes of NQ bucketed queries over packed (mixed key, EC row)
+// entries ent [N] (16 bytes each, slot order): kt_probe_n's bucketed
+// search step for step, each key read as its whole entry, so that a hit
+// finds its EC row in the key's own 16 bytes and reads no kmer_ec sector.
+template <int NQ>
+__device__ __forceinline__ unsigned kt_probe_ent(const IndexView& ix,
+                                                 const ulonglong2* __restrict__ ent,
+                                                 const unsigned long long* q,
+                                                 unsigned act, long long* idx,
+                                                 int* ec) {
+    const int sh = 64 - ix.p;
+    const int nm1 = (int)(ix.N - 1);
+    int lo[NQ], n[NQ], e[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+        lo[j] = 0;
+        n[j] = 0;
+        e[j] = -1;
+        if ((act >> j) & 1) {
+            const long long b = (long long)(q[j] >> sh);
+            lo[j] = ix.bucket_start[b];
+            n[j] = ix.bucket_start[b + 1] - lo[j];
+        }
+    }
+    unsigned live = 0, eq = 0;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+        if (((act >> j) & 1) && n[j] > 0) live |= 1u << j;
+    for (int s = 0; s < KT_DEPTH; ++s) {
+        unsigned more = 0;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+            if (((act >> j) & 1) && n[j] > 0) more |= 1u << j;
+        if (!more) break;
+        int m[NQ];
+        ulonglong2 v[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+            m[j] = min(lo[j] + (n[j] >> 1), nm1);
+            v[j] = ((more >> j) & 1) ? ent[m[j]] : make_ulonglong2(0, 0);
+        }
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+            if ((more >> j) & 1) {
+                const int half = n[j] >> 1;
+                if (v[j].x < q[j]) {
+                    lo[j] = m[j] + 1;
+                    n[j] = n[j] - half - 1;
+                } else {
+                    n[j] = half;
+                    if (v[j].x == q[j]) {
+                        eq |= 1u << j;
+                        e[j] = (int)(unsigned int)v[j].y;
+                    }
+                }
+            }
+        }
+    }
+    const unsigned rest = live & ~eq;
+    ulonglong2 v[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+        idx[j] = min(lo[j], nm1);
+        v[j] = ((rest >> j) & 1) ? ent[idx[j]] : make_ulonglong2(0, 0);
+    }
+    unsigned hit = eq;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+        if (((rest >> j) & 1) && v[j].x == q[j]) {
+            e[j] = (int)(unsigned int)v[j].y;
+            hit |= 1u << j;
+        }
+        ec[j] = e[j];
+    }
+    return hit;
+}
+
+// Kernel L: KL_NQ consecutive queries a lane, grid-stride over the
+// groups; invalid queries are probed with canon 0 and never hit
+// (lookup_kmers).  The lane's queries go through one kt_probe_n (or, with
+// ent, kt_probe_ent), so each dependent step of their probes is issued
+// for all of them together.  VEC: canon as two 16-byte loads, valid as
+// one 4-byte word, the slots and EC rows as 16-byte stores and the hits
+// as one 4-byte store (every pointer aligned, a whole group); else one
+// element at a time.  The query and result streams use streaming loads
+// and stores (ld/st.global.cs), which mark their lines first to be
+// evicted, so that the stream does not push the table out of the L2.
+template <int VEC, int ENT>
+__global__ void __launch_bounds__(256) lookup_kmers_kernel(
+    IndexView ix, const ulonglong2* __restrict__ ent,
+    const long long* __restrict__ canon,
+    const unsigned char* __restrict__ valid, long long n,
+    long long* __restrict__ idx, unsigned char* __restrict__ hit,
+    int* __restrict__ ec) {
+    const long long ng = (n + KL_NQ - 1) / KL_NQ;
+    for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         g < ng; g += (long long)gridDim.x * blockDim.x) {
+        const long long i0 = g * KL_NQ;
+        const int m = n - i0 < KL_NQ ? (int)(n - i0) : KL_NQ;
+        const int whole = VEC && m == KL_NQ;
+        unsigned long long q[KL_NQ];
+        unsigned v = 0;
+        if (whole) {
+            const longlong2* c2 = (const longlong2*)(canon + i0);
+            const longlong2 a = __ldcs(c2), b = __ldcs(c2 + 1);
+            q[0] = a.x;
+            q[1] = a.y;
+            q[2] = b.x;
+            q[3] = b.y;
+            const unsigned w = __ldcs((const unsigned int*)(valid + i0));
+#pragma unroll
+            for (int j = 0; j < KL_NQ; ++j)
+                v |= (((w >> (8 * j)) & 0xFF) != 0) << j;
+        } else {
+#pragma unroll
+            for (int j = 0; j < KL_NQ; ++j) {
+                q[j] = 0;
+                if (j < m) {
+                    q[j] = (unsigned long long)__ldcs(canon + i0 + j);
+                    v |= (__ldcs(valid + i0 + j) != 0) << j;
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < KL_NQ; ++j)
+            q[j] = kt_mix64(((v >> j) & 1) ? q[j] : 0ULL);
+        const unsigned act = (1u << m) - 1;
+        long long s[KL_NQ];
+        int e[KL_NQ];
+        unsigned h;
+        if (ENT)
+            h = kt_probe_ent<KL_NQ>(ix, ent, q, act, s, e) & v;
+        else
+            h = kt_probe_n<KL_NQ>(ix, q, act, s, e) & v;
+#pragma unroll
+        for (int j = 0; j < KL_NQ; ++j)
+            if (!((h >> j) & 1)) e[j] = -1;
+        if (whole) {
+            longlong2* s2 = (longlong2*)(idx + i0);
+            __stcs(s2, make_longlong2(s[0], s[1]));
+            __stcs(s2 + 1, make_longlong2(s[2], s[3]));
+            __stcs((unsigned int*)(hit + i0),
+                   (h & 1) | ((h >> 1) & 1) << 8 | ((h >> 2) & 1) << 16 |
+                       ((h >> 3) & 1) << 24);
+            __stcs((int4*)(ec + i0), make_int4(e[0], e[1], e[2], e[3]));
+        } else {
+#pragma unroll
+            for (int j = 0; j < KL_NQ; ++j) {
+                if (j < m) {
+                    __stcs(idx + i0 + j, s[j]);
+                    __stcs((char*)(hit + i0 + j), (char)((h >> j) & 1));
+                    __stcs(ec + i0 + j, e[j]);
+                }
+            }
+        }
     }
 }
 
-// Kernel L: (idx int64, hit bool, ec int32) of n queries.
-extern "C" int lookup_kmers(const IndexView* index, const void* canon,
-                            const void* valid, long long n, void* idx,
-                            void* hit, void* ec, void* stream) {
+static int kl_launch(const IndexView* index, const void* ent,
+                     const void* canon, const void* valid, long long n,
+                     void* idx, void* hit, void* ec, void* stream) {
     if (n <= 0) return 0;
     IndexView ix;
     int err = kt_index_view(&ix, index);
     if (err) return err;
-    long long blocks = (n + 255) / 256;
+    // the bucketed search keeps slots in 32 bits, as A's core does
+    if ((!ix.S && ix.N >= (1LL << 31)) ||
+        (ent != 0 && (ix.S || ((unsigned long long)ent & 15))))
+        return (int)cudaErrorInvalidValue;
+    const int vec = !(((unsigned long long)canon | (unsigned long long)idx |
+                       (unsigned long long)ec) & 15) &&
+                    !(((unsigned long long)valid |
+                       (unsigned long long)hit) & 3);
+    long long blocks = ((n + KL_NQ - 1) / KL_NQ + 255) / 256;
     if (blocks > 132 * 32) blocks = 132 * 32;
-    lookup_kmers_kernel<<<(unsigned int)blocks, 256, 0,
-                          (cudaStream_t)stream>>>(
-        ix, (const long long*)canon, (const unsigned char*)valid, n,
-        (long long*)idx, (unsigned char*)hit, (int*)ec);
+    auto kern = ent ? (vec ? lookup_kmers_kernel<1, 1> : lookup_kmers_kernel<0, 1>)
+                    : (vec ? lookup_kmers_kernel<1, 0> : lookup_kmers_kernel<0, 0>);
+    kern<<<(unsigned int)blocks, 256, 0, (cudaStream_t)stream>>>(
+        ix, (const ulonglong2*)ent, (const long long*)canon,
+        (const unsigned char*)valid, n, (long long*)idx, (unsigned char*)hit,
+        (int*)ec);
     return (int)cudaGetLastError();
+}
+
+// Kernel L: (idx int64, hit bool, ec int32) of n queries through the
+// index's own tables (any layout).
+extern "C" int lookup_kmers(const IndexView* index, const void* canon,
+                            const void* valid, long long n, void* idx,
+                            void* hit, void* ec, void* stream) {
+    return kl_launch(index, 0, canon, valid, n, idx, hit, ec, stream);
+}
+
+// Kernel L over packed entries ent [N, 2] int64 (mixed key, EC row) of a
+// bucketed index (16-byte aligned): the same results.
+extern "C" int lookup_kmers_packed(const IndexView* index, const void* ent,
+                                   const void* canon, const void* valid,
+                                   long long n, void* idx, void* hit,
+                                   void* ec, void* stream) {
+    if (ent == 0) return (int)cudaErrorInvalidValue;
+    return kl_launch(index, ent, canon, valid, n, idx, hit, ec, stream);
 }

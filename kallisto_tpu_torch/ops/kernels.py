@@ -22,7 +22,10 @@ Kernel A's one C call launches its two waves, counted as
 ``pseudoalign_side`` and ``pseudoalign_side_wave2``, and A on codes' as
 ``pseudoalign_codes`` and ``pseudoalign_codes_wave2``; kernel E's C function
 ``compact_keys`` (the compact key fused into the key table) counts as
-``key_histogram``, or ``key_histogram_slots`` with per-read slots; A, A
+``key_histogram``, or ``key_histogram_slots`` with per-read slots;
+kernel H runs as the epilogue of kernel B's launch (``read_keys`` with
+``bias=``), counted as ``read_keys`` and ``bias_hexamers``; kernel L
+on a bucketed index's packed entries counts as ``lookup_kmers``; A, A
 on codes, B and E given no reads and F given no keys launch nothing and
 count nothing.  A on codes and K take an optional counter of the windows
 their covered-interval core probed (``probes``).  Kernel G's loop replays rounds captured in a CUDA graph (EmGraph): each
@@ -40,6 +43,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -70,13 +74,13 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "pseudoalign_long": _PSEUDOALIGN,
     "pseudoalign_halffail": _PSEUDOALIGN,
     "lookup_kmers": _PSEUDOALIGN,
+    "lookup_kmers_packed": _PSEUDOALIGN,
     "compact_keys": _COMPACT,
     "gather_exemplars": _COMPACT,
     "gather_slim": _COMPACT,
     # --fmad=false: no a*b + c contraction, so the f64 EM is bitwise equal
     # to its plain version
     "em_step_batch": ("em.cu", ("--fmad=false",)),
-    "bias_hexamers": ("bias.cu", ()),
 }
 
 _NVCC_FLAGS = (
@@ -85,12 +89,14 @@ _NVCC_FLAGS = (
 )
 
 # kernel E (the C function compact_keys) counts as key_histogram, with
-# per-read slots apart as key_histogram_slots
+# per-read slots apart as key_histogram_slots; kernel H, B's epilogue, as
+# bias_hexamers beside read_keys; kernel L on packed entries as lookup_kmers
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in (*(n for n in SOURCES if n != "compact_keys"),
+    name: 0 for name in (*(n for n in SOURCES if n not in (
+                             "compact_keys", "lookup_kmers_packed")),
                          "pseudoalign_side_wave2", "pseudoalign_codes_wave2",
                          "key_histogram",
-                         "key_histogram_slots")}
+                         "key_histogram_slots", "bias_hexamers")}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()  # quant-tcc's shards launch from threads
@@ -127,6 +133,14 @@ class EmArgs(ctypes.Structure):
             "Bb", "T", "E", "batched_eff", "min_rounds")]
 
 
+class BiasView(ctypes.Structure):
+    """Kernel H's tables (struct BiasView in csrc/read_keys.cu)."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "block_start", "block_end", "useq_off", "useq")] + [
+        ("S", ctypes.c_longlong)]
+
+
 class KeyOpts(ctypes.Structure):
     """Kernel E's key options (struct KeyOpts in csrc/keys.cuh)."""
 
@@ -154,16 +168,17 @@ _ARGTYPES = {
     + [_P] * 12 + [_P],
     "pseudoalign_long": [_IX] + [_P] * 3 + [_LL] + [_I] * 5 + [_P, _P, _LL]
     + [_P] * 8 + [_P],
-    "read_keys": [_SIDE, _SIDE, _LL, _I, _P, _P, _P],
+    "read_keys": [_SIDE, _SIDE, _LL, _I, _P, _P, ctypes.POINTER(BiasView),
+                  _P, _P, _P],
     "pseudoalign_halffail": [_IX, _P, _LL] + [_P] * 4 + [_LL, _LL] + [_I] * 4
     + [_P] * 21 + [_P],
     "lookup_kmers": [_IX, _P, _P, _LL, _P, _P, _P, _P],
+    "lookup_kmers_packed": [_IX, _P, _P, _P, _LL, _P, _P, _P, _P],
     "compact_keys": [_SIDE, _SIDE, ctypes.POINTER(KeyOpts), _P, _P, _LL, _LL,
                      _I, _I, _P, _LL, _P],
     "gather_slim": [_SIDE, _SIDE, _P, _LL, _LL, _P, _P],
     "gather_exemplars": [_SIDE, _SIDE, _P, _LL, _LL] + [_I] * 5 + [_P, _P],
     "em_step_batch": [_P, _P],
-    "bias_hexamers": [_P] * 11 + [_LL, _LL, _I, _P, _P],
 }
 
 
@@ -730,7 +745,9 @@ def lookup_kmers(didx, canon: torch.Tensor, valid: torch.Tensor):
     """Kernel L, K2's probe alone: (slot int64, hit bool, EC row int32) of
     each canonical k-mer of `canon` (int64, any shape) under `valid` (bool,
     same shape), in either index layout; equal to the plain lookup_kmers
-    of ops/pseudoalign.py.  No run loop calls it."""
+    of ops/pseudoalign.py.  A bucketed index is probed through its packed
+    (key, EC row) entries (packed_entries), a padded one through its bucket
+    rows.  No run loop calls it."""
     dev = didx.device
     shape = tuple(canon.shape)
     _check(canon, "canon", torch.int64, shape, dev)
@@ -741,9 +758,39 @@ def lookup_kmers(didx, canon: torch.Tensor, valid: torch.Tensor):
     ec = torch.empty(shape, dtype=torch.int32, device=dev)
     if canon.numel() == 0:
         return idx, hit, ec
-    _launch("lookup_kmers", dev, ctypes.byref(ix), _ptr(canon), _ptr(valid),
-            canon.numel(), _ptr(idx), _ptr(hit), _ptr(ec))
+    if not ix.S:
+        ent = packed_entries(didx)
+        _launch("lookup_kmers_packed", dev, ctypes.byref(ix), _ptr(ent),
+                _ptr(canon), _ptr(valid), canon.numel(), _ptr(idx),
+                _ptr(hit), _ptr(ec), count="lookup_kmers")
+    else:
+        _launch("lookup_kmers", dev, ctypes.byref(ix), _ptr(canon),
+                _ptr(valid), canon.numel(), _ptr(idx), _ptr(hit), _ptr(ec))
     return idx, hit, ec
+
+
+# kernel L's packed entries, one array per bucketed DeviceIndex: (its
+# key table's data pointer, device) -> (weak reference to the key table,
+# [N, 2] int64); an entry goes when its key table is freed
+_ENTRIES: Dict[tuple, tuple] = {}
+
+
+def packed_entries(didx) -> torch.Tensor:
+    """The [N, 2] int64 (mixed key, EC row) entries of a bucketed
+    DeviceIndex in slot order (ops/pseudoalign.py packed_entries_plain),
+    16 bytes a k-mer, built on the index's device at the first call and
+    kept while its key table lives."""
+    keys = didx.kmer_hkeys
+    key = (keys.data_ptr(), keys.device.index)
+    hit = _ENTRIES.get(key)
+    if hit is not None and hit[0]() is keys:
+        return hit[1]
+    from .pseudoalign import packed_entries_plain
+
+    ent = packed_entries_plain(didx)
+    _ENTRIES[key] = (weakref.ref(keys), ent)
+    weakref.finalize(keys, _ENTRIES.pop, key, None)
+    return ent
 
 
 # ---------------------------------------------------------------- kernel B
@@ -769,25 +816,87 @@ def _key_side(s, name: str, dev, B: int, with_fields: bool) -> KeySide:
     return KeySide(*ptrs, *(None,) * (8 - len(ptrs)), rows.shape[1])
 
 
-def read_keys(s1, s2, k: int):
-    """Kernel B, the per-read form: (h [B, 2] int64, tl [B] int32 or None).
-    h is the key with every option off; tl the mapPair fragment length
-    (paired only).  Both in one allocation.  B = 0 launches nothing."""
+def read_keys(s1, s2, k: int, bias=None):
+    """Kernel B, the per-read form: (h [B, 2] int64, tl [B] int32 or None,
+    hx [B] int32 or None).  h is the key with every option off; tl the
+    mapPair fragment length (paired only); with bias (a BiasTables on the
+    card) hx is kernel H, each read's 5' hexamer id from mate 1 (valid:
+    mate 2's has_hits, every single-end read), computed by the same
+    launch.  The three in one allocation.  B = 0 launches nothing; a
+    launch counts as read_keys, and with bias as bias_hexamers too."""
     dev = s1.rows.device
     B = int(s1.rows.shape[0])
     paired = s2 is not None
-    ks1 = _key_side(s1, "1", dev, B, paired)
+    ks1 = _key_side(s1, "1", dev, B, paired or bias is not None)
     ks2 = _key_side(s2, "2", dev, B, True) if paired else None
-    buf = torch.empty(2 * B + ((B + 1) // 2 if paired else 0),
-                      dtype=torch.int64, device=dev)
+    n_tl = (B + 1) // 2 if paired else 0
+    if bias is None:
+        # bias off: B alone, no hexamer slot and no tables
+        buf = torch.empty(2 * B + n_tl, dtype=torch.int64, device=dev)
+        h = buf.as_strided((B, 2), (2, 1))
+        tl = buf.view(torch.int32).as_strided((B,), (1,), 4 * B) \
+            if paired else None
+        if B:
+            _launch("read_keys", dev, ctypes.byref(ks1),
+                    ctypes.byref(ks2) if paired else None, B, k, _ptr(h),
+                    _ptr(tl), None, None, None)
+        return h, tl, None
+    bv = _bias_view(bias, dev)
+    _check(s1.f_uid, "f_uid1", torch.int32, (B,), dev)
+    buf = torch.empty(2 * B + n_tl + (B + 1) // 2, dtype=torch.int64,
+                      device=dev)
     h = buf.as_strided((B, 2), (2, 1))
-    tl = buf.view(torch.int32).as_strided((B,), (1,), 4 * B) \
-        if paired else None
+    w32 = buf.view(torch.int32)
+    tl = w32.as_strided((B,), (1,), 4 * B) if paired else None
+    hx = w32.as_strided((B,), (1,), 4 * B + 2 * n_tl)
     if B:
         _launch("read_keys", dev, ctypes.byref(ks1),
                 ctypes.byref(ks2) if paired else None, B, k, _ptr(h),
-                _ptr(tl))
-    return h, tl
+                _ptr(tl), ctypes.byref(bv), _ptr(s1.f_uid), _ptr(hx),
+                count=("read_keys", "bias_hexamers"))
+    return h, tl, hx
+
+
+# kernel H's checked tables, one per BiasTables: (data pointers, device)
+# -> (BiasView, weak references to the tables, the padded copy of
+# unitig_seq or None)
+_BIAS_VIEWS: Dict[tuple, tuple] = {}
+
+
+def _bias_view(bt, dev) -> BiasView:
+    """The checked BiasView of a BiasTables on dev, built once per tables
+    (keyed by their data pointers and device, the tables held by weak
+    reference, so that a freed table's pointer names no stale view).
+    The kernel reads unitig_seq as aligned 8-byte words, so its storage
+    must reach the next multiple of 8 bytes past the S bases
+    (bias_tables_from_host pads it so); tables that do not are copied
+    once into a padded buffer."""
+    ts = (bt.block_start, bt.block_end, bt.useq_off, bt.useq)
+    key = (*(t.data_ptr() for t in ts), dev.index)
+    hit = _BIAS_VIEWS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[1], ts)):
+        return hit[0]
+    NB = int(bt.block_start.shape[0])
+    _check(bt.block_start, "block_start", torch.int32, (NB,), dev)
+    _check(bt.block_end, "block_end", torch.int32, (NB,), dev)
+    _check(bt.useq_off, "useq_off", torch.int64, None, dev)
+    _check(bt.useq, "useq", torch.uint8, None, dev)
+    S = int(bt.useq.shape[0])
+    if S < 6:
+        raise ValueError("unitig sequences shorter than one hexamer")
+    useq = bt.useq
+    room = useq.untyped_storage().nbytes() - useq.storage_offset()
+    if useq.data_ptr() % 8 or room < -(-S // 8) * 8:
+        useq = torch.zeros(-(-S // 8) * 8, dtype=torch.uint8, device=dev)
+        useq[:S] = bt.useq
+    bv = BiasView(_ptr(bt.block_start), _ptr(bt.block_end),
+                  _ptr(bt.useq_off), _ptr(useq), S)
+    for kk in [kk for kk, v in _BIAS_VIEWS.items()
+               if any(r() is None for r in v[1])]:
+        del _BIAS_VIEWS[kk]
+    _BIAS_VIEWS[key] = (bv, tuple(weakref.ref(t) for t in ts),
+                        useq if useq is not bt.useq else None)
+    return bv
 
 
 # ---------------------------------------------------------------- kernel E
@@ -1000,37 +1109,3 @@ class EmGraph:
                 err = _aux_fn("em_step_batch", "em_graph_destroy")(self.exec)
             self.exec = ctypes.c_void_p()
             _raise_on(err, "em_step_batch (graph destroy)")
-
-
-# ---------------------------------------------------------------- kernel H
-
-
-def bias_hexamers(bt, s1, valid: torch.Tensor, k: int) -> torch.Tensor:
-    """Kernel H: the 5' hexamer id [B] int32 of each read from mate 1's
-    SideResult `s1` (-1 where `valid & has_hits` fails or the context
-    leaves the block); `bt` is a BiasTables on the card."""
-    dev = s1.f_block.device
-    B = int(s1.f_block.shape[0])
-    for nm in ("f_block", "f_upos", "f_rpos", "f_uid"):
-        _check(getattr(s1, nm), nm, torch.int32, (B,), dev)
-    for nm in ("f_strand", "has_hits"):
-        _check(getattr(s1, nm), nm, torch.bool, (B,), dev)
-    _check(valid, "valid", torch.bool, (B,), dev)
-    NB = int(bt.block_start.shape[0])
-    _check(bt.block_start, "block_start", torch.int32, (NB,), dev)
-    _check(bt.block_end, "block_end", torch.int32, (NB,), dev)
-    _check(bt.useq_off, "useq_off", torch.int64, None, dev)
-    _check(bt.useq, "useq", torch.uint8, None, dev)
-    S = int(bt.useq.shape[0])
-    if S < 6:
-        raise ValueError("unitig sequences shorter than one hexamer")
-    out = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return out
-    _launch(
-        "bias_hexamers", dev,
-        _ptr(s1.f_block), _ptr(s1.f_upos), _ptr(s1.f_rpos), _ptr(s1.f_uid),
-        _ptr(s1.f_strand), _ptr(s1.has_hits), _ptr(valid),
-        _ptr(bt.block_start), _ptr(bt.block_end), _ptr(bt.useq_off),
-        _ptr(bt.useq), S, B, k, _ptr(out))
-    return out

@@ -433,6 +433,41 @@ def lookup_kmers(didx: AnyDeviceIndex, canon: torch.Tensor,
     return idx, hit, ec
 
 
+def packed_entries_plain(didx: "DeviceIndex") -> torch.Tensor:
+    """The packed (key, EC row) entries of a bucketed index: [N, 2] int64,
+    row i = (kmer_hkeys[i], kmer_ec[i]) in slot order, so that one 16-byte
+    read gives a probed key and its EC row (kernel L's bucketed table)."""
+    return torch.stack([didx.kmer_hkeys, didx.kmer_ec.to(torch.int64)],
+                       dim=1).contiguous()
+
+
+def lookup_kmers_packed_plain(didx: "DeviceIndex", ent: torch.Tensor,
+                              canon: torch.Tensor, valid: torch.Tensor):
+    """lookup_kmers's bucketed search over packed entries `ent`
+    (packed_entries_plain): keys from ent[:, 0], a hit's EC row from
+    ent[:, 1] of its slot.  Equal to lookup_kmers in every output."""
+    q = mix64(torch.where(valid, canon, torch.zeros_like(canon)))
+    b = _lshr(q, 64 - didx.p)
+    lo = didx.bucket_start[b].to(torch.int64)
+    n = didx.bucket_start[b + 1].to(torch.int64) - lo
+    N = ent.shape[0]
+    keys = ent[:, 0]
+    for _ in range(_BUCKET_SEARCH_DEPTH):
+        nz = n > 0
+        half = n >> 1
+        m = torch.clamp(lo + half, max=N - 1)
+        go = _ult(keys[m], q) & nz
+        lo = torch.where(go, m + 1, lo)
+        n = torch.where(go, n - half - 1,
+                        torch.where(nz, half, torch.zeros_like(n)))
+    idx = torch.clamp(lo, max=N - 1)
+    e = ent[idx]
+    hit = valid & (e[..., 0] == q)
+    ec = torch.where(hit, e[..., 1].to(torch.int32),
+                     torch.full_like(idx, -1, dtype=torch.int32))
+    return idx, hit, ec
+
+
 def _pseudoalign_core(didx: AnyDeviceIndex, codes: torch.Tensor,
                       lens: torch.Tensor, k: int, max_rows: int) -> SideResult:
     canon, is_fw, valid = rolling_canonical_kmers(codes, lens, k)
@@ -845,10 +880,17 @@ def bias_tables_from_host(index, device=None) -> BiasTables:
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
+    # unitig_seq's storage runs to the next multiple of 8 bytes (zeros),
+    # so that kernel H reads it as aligned 8-byte words; useq is the view
+    # of its S bases
+    seq = np.asarray(index.unitig_seq, np.uint8)
+    S = int(seq.shape[0])
+    padded = np.zeros(-(-S // 8) * 8, np.uint8)
+    padded[:S] = seq
     return BiasTables(
         block_start=put(index.block_start, np.int32),
         block_end=put(index.block_end, np.int32),
-        useq=put(index.unitig_seq, np.uint8),
+        useq=put(padded, np.uint8)[:S],
         useq_off=put(index.unitig_seq_off, np.int64),
     )
 
@@ -892,9 +934,13 @@ def bias_hexamers_plain(bt: BiasTables, s1: SideResult, valid: torch.Tensor,
 
 def bias_hexamers(bt: BiasTables, s1: SideResult, valid: torch.Tensor,
                   k: int) -> torch.Tensor:
-    """5' hexamer id [B] int32 of each read (see bias_hexamers_plain)."""
+    """5' hexamer id [B] int32 of each read (see bias_hexamers_plain).  On
+    the card kernel H runs only as kernel B's epilogue, whose valid is mate
+    2's has_hits: the launch takes mate 1 as both mates with `valid` as
+    the second one's has_hits (its key and fragment length are dropped)."""
     if s1.f_block.is_cuda:
-        return kernels.bias_hexamers(bt, s1, valid, k)
+        return kernels.read_keys(s1, s1._replace(has_hits=valid), k,
+                                 bias=bt)[2]
     return bias_hexamers_plain(bt, s1, valid, k)
 
 
@@ -946,11 +992,22 @@ def pseudoalign_long_packed(didx: AnyDeviceIndex, packed: torch.Tensor,
                                   max_groups)
 
 
-def read_keys(s1: SideResult, s2: Optional[SideResult], k: int):
-    """(128-bit read keys [B, 2] int64, fragment lengths [B] int32 or None)."""
+def read_keys(s1: SideResult, s2: Optional[SideResult], k: int,
+              bias: Optional[BiasTables] = None):
+    """(128-bit read keys [B, 2] int64, fragment lengths [B] int32 or None,
+    5' hexamer ids [B] int32 or None): kernel B on the card, with bias
+    (BiasTables) kernel H in the same launch; on the CPU read_keys_plain
+    and bias_hexamers_plain (valid: mate 2's has_hits, or every
+    single-end read)."""
     if s1.rows.is_cuda:
-        return kernels.read_keys(s1, s2, k)
-    return read_keys_plain(s1, s2, k)
+        return kernels.read_keys(s1, s2, k, bias=bias)
+    h, tl = read_keys_plain(s1, s2, k)
+    hx = None
+    if bias is not None:
+        valid = s2.has_hits if s2 is not None else torch.ones_like(
+            s1.has_hits)
+        hx = bias_hexamers_plain(bias, s1, valid, k)
+    return h, tl, hx
 
 
 def gather_exemplars(idx: torch.Tensor, s1: SideResult,

@@ -3,7 +3,8 @@
 Read side: counts the 5' hexamer upstream of each counted fragment start on
 its unitig (reference: MinCollector::countBias + hexamerToInt,
 src/MinCollector.cpp:653-766) -- extraction happens on device
-(ops.pseudoalign.bias_hexamers), accumulation on host.
+(ops.pseudoalign.read_keys with bias=: kernel H in kernel B's launch),
+accumulation on host.
 
 Model side: `update_eff_lens` recomputes bias-corrected effective lengths
 from the current abundance estimates (reference: src/weights.cpp:81-218),

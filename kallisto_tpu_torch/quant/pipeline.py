@@ -135,7 +135,6 @@ from ..ops.host_fallback import host_side_rows
 from ..ops.pseudoalign import (
     KeySpec,
     SideResult,
-    bias_hexamers,
     bias_tables_from_host,
     ck_n_fail,
     gather_exemplars,
@@ -633,17 +632,12 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     def dispatch_full(b1: PackedBatch, b2: Optional[PackedBatch],
                       want_tl: bool, want_bias: bool = False):
         """Enqueue one batch on the per-read route (asynchronous on the
-        card); with want_bias kernel H adds each read's 5' hexamer, from
-        mate 1 of a pair whose mate 2 has hits (JAX :937) or of any
-        single-end read (:1403)."""
+        card); with want_bias kernel B's launch adds kernel H, each read's
+        5' hexamer, from mate 1 of a pair whose mate 2 has hits (JAX :937)
+        or of any single-end read (:1403)."""
         r1 = mesh.pseudoalign_batch(b1, k)
         r2 = None if b2 is None else mesh.pseudoalign_batch(b2, k)
-        h, tl = read_keys(r1, r2, k)
-        hx = None
-        if want_bias:
-            valid = r2.has_hits if r2 is not None else torch.ones_like(
-                r1.has_hits)
-            hx = bias_hexamers(bt, r1, valid, k)
+        h, tl, hx = read_keys(r1, r2, k, bias=bt if want_bias else None)
         return ("full", b1, b2, r1, r2, h, tl if want_tl else None, hx)
 
     def dispatch_compact(b1: PackedBatch, b2: Optional[PackedBatch]):

@@ -1169,7 +1169,7 @@ class _BusRun:
                 r1 = self.mesh.pseudoalign_batch(b1p, self.k)
                 r2 = self.mesh.pseudoalign_batch(b2p, self.k)
             # kernel B: the key and the mapPair length in one launch
-            h, tl = read_keys(r1, r2, self.k)
+            h, tl, _ = read_keys(r1, r2, self.k)
             h = h[:n].cpu().numpy()
             tl = tl[:n].cpu().numpy()
             s1, s2 = _host_side(r1, n), _host_side(r2, n)

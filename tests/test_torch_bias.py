@@ -118,6 +118,93 @@ def test_bias_hexamers_clip_matches_jax(port_index):
     assert len(np.unique(want)) > 100
 
 
+@pytest.mark.parametrize("paired", [True, False])
+def test_read_keys_with_bias_match_jax(port_index, monkeypatch, paired):
+    """read_keys(..., bias=) -- kernels B and H of one launch on the card,
+    their plain versions here -- equals JAX's pair_key_hash /
+    single_key_hash, pair_fragment_lengths and bias_hexamers (valid: mate
+    2's has_hits, or every single-end read); h and tl equal the call
+    without bias."""
+    (j1, t1), (j2, t2) = _sides(port_index, monkeypatch)
+    jbt = jpa.bias_tables_from_host(port_index)
+    tbt = tpa.bias_tables_from_host(port_index, "cpu")
+    if paired:
+        h, tl, hx = tpa.read_keys(t1, t2, K, bias=tbt)
+        jh = jpa.pair_key_hash(j1, j2)
+        np.testing.assert_array_equal(
+            tl.numpy(), np.asarray(jpa.pair_fragment_lengths(j1, j2, k=K)))
+        jv = j2.has_hits
+    else:
+        h, tl, hx = tpa.read_keys(t1, None, K, bias=tbt)
+        assert tl is None
+        jh = jpa.single_key_hash(j1)
+        jv = jnp.ones(j1.has_hits.shape[0], bool)
+    np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
+    want = np.asarray(jpa.bias_hexamers(jbt, j1, jv, k=K))
+    assert hx.dtype == torch.int32
+    np.testing.assert_array_equal(hx.numpy(), want)
+    assert (want >= 0).sum() > 500 and (want == -1).any()
+    h0, tl0, hx0 = tpa.read_keys(t1, t2 if paired else None, K)
+    assert hx0 is None and torch.equal(h0, h)
+    assert (tl0 is None and tl is None) or torch.equal(tl0, tl)
+
+
+@pytest.mark.parametrize("paired", [True, False])
+def test_read_keys_with_bias_clip_matches_jax(port_index, paired):
+    """test_bias_hexamers_clip_matches_jax's random first-hit fields (the
+    start clipped to [0, len(unitig_seq) - 6]) through read_keys with
+    bias: keys, fragment lengths and hexamer ids equal JAX's."""
+    rng = np.random.default_rng(2)
+    B = 5000
+    NB = port_index.block_start.shape[0]
+    U = port_index.unitig_seq_off.shape[0] - 1
+    S = int(port_index.unitig_seq.shape[0])
+
+    def side():
+        return dict(
+            rows=rng.integers(-1, 60, (B, 3)).astype(np.int32),
+            n_rows=np.zeros(B, np.int32), overflow=rng.random(B) < 0.1,
+            rng=np.zeros(B, np.int32),
+            f_block=rng.integers(-1, NB, B).astype(np.int32),
+            f_uid=rng.integers(-1, U, B).astype(np.int32),
+            f_upos=rng.integers(-50, S + 50, B).astype(np.int32),
+            f_rpos=rng.integers(0, 80, B).astype(np.int32),
+            f_strand=rng.random(B) < 0.5, has_hits=rng.random(B) < 0.9)
+
+    f1, f2 = side(), side()
+    js = [jpa.SideResult(**{k: jnp.asarray(v) for k, v in f.items()})
+          for f in (f1, f2)]
+    ts = [tpa.SideResult(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in f.items()}) for f in (f1, f2)]
+    jbt = jpa.bias_tables_from_host(port_index)
+    tbt = tpa.bias_tables_from_host(port_index, "cpu")
+    if paired:
+        h, tl, hx = tpa.read_keys(ts[0], ts[1], K, bias=tbt)
+        np.testing.assert_array_equal(h.numpy(),
+                                      np.asarray(jpa.pair_key_hash(*js)))
+        np.testing.assert_array_equal(
+            tl.numpy(), np.asarray(jpa.pair_fragment_lengths(*js, k=K)))
+        jv = js[1].has_hits
+    else:
+        h, tl, hx = tpa.read_keys(ts[0], None, K, bias=tbt)
+        np.testing.assert_array_equal(h.numpy(),
+                                      np.asarray(jpa.single_key_hash(js[0])))
+        jv = jnp.ones(B, bool)
+    want = np.asarray(jpa.bias_hexamers(jbt, js[0], jv, k=K))
+    np.testing.assert_array_equal(hx.numpy(), want)
+    assert len(np.unique(want)) > 100
+
+
+def test_bias_tables_pad_unitig_seq(port_index):
+    """unitig_seq on the device is the index's S bases, and its storage
+    runs on to the next multiple of 8 bytes (kernel H's word loads)."""
+    bt = tpa.bias_tables_from_host(port_index, "cpu")
+    S = int(port_index.unitig_seq.shape[0])
+    assert bt.useq.shape == (S,) and bt.useq.storage_offset() == 0
+    np.testing.assert_array_equal(bt.useq.numpy(), port_index.unitig_seq)
+    assert bt.useq.untyped_storage().nbytes() == -(-S // 8) * 8
+
+
 @pytest.mark.parametrize("strand", [None, "fr", "rf"])
 def test_update_eff_lens_bitwise_equal_to_jax(port_index, strand):
     rng = np.random.default_rng(7)
@@ -214,7 +301,8 @@ def test_bias_goal_with_jax_pipeline_depth(port_index, tmp_path, monkeypatch,
     reached a few batches in: bias5 and abundance.tsv equal JAX's, and so
     does the number of batches sent per read with hexamers -- two batches
     stay pending in both packages, so the batches dispatched before the
-    goal's batch is processed carry hexamers that are not counted."""
+    goal's batch is processed carry hexamers that are not counted (the
+    port's: its calls of read_keys with bias)."""
     monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", "0")
     monkeypatch.setattr(jpipe, "_BIAS_GOAL", 3000)
     monkeypatch.setattr(tpipe, "_BIAS_GOAL", 3000)
@@ -226,10 +314,17 @@ def test_bias_goal_with_jax_pipeline_depth(port_index, tmp_path, monkeypatch,
             return fn(*a, **k)
         return wrapped
 
+    def counting_bias(fn):
+        # the port computes the hexamers in kernel B's call (bias=)
+        def wrapped(*a, **k):
+            if k.get("bias") is not None:
+                calls["port"] += 1
+            return fn(*a, **k)
+        return wrapped
+
     monkeypatch.setattr(jpipe, "bias_hexamers",
                         counting("jax", jpipe.bias_hexamers))
-    monkeypatch.setattr(tpipe, "bias_hexamers",
-                        counting("port", tpipe.bias_hexamers))
+    monkeypatch.setattr(tpipe, "read_keys", counting_bias(tpipe.read_keys))
     kw = dict(files=[R1], single_end=True) if case == "single" else dict(
         files=[R1, R2])
     res, jres, pd, jd = _bias_runs(

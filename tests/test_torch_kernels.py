@@ -121,9 +121,13 @@ def test_kernel_a_matches_plain(cuda, port_index, layout, which):
 
 @pytest.mark.cuda
 def test_kernel_l_matches_plain(cuda, port_index, layout):
-    """Kernel L (the probe alone): slot, hit and EC row equal to the plain
-    lookup_kmers on index k-mers, random k-mers and invalid windows
-    (window 0 of an empty read: canon 0, q = mix64(0))."""
+    """Kernel L (the probe alone, four queries a lane): slot, hit and EC
+    row equal to the plain lookup_kmers on index k-mers, random k-mers and
+    invalid windows (window 0 of an empty read: canon 0, q = mix64(0)), as
+    a 2-D batch; on n = 1, 2, 3, 5 and 40,001 queries (not a multiple of
+    four); on views 8 bytes past a 16-byte boundary (element loads); n = 0
+    launches nothing.  The bucketed index is probed through its packed
+    (key, EC row) entries, which equal packed_entries_plain."""
     rng = np.random.default_rng(9)
     keys = port_index.kmer_keys.astype(np.int64)
     canon = np.concatenate([
@@ -134,14 +138,33 @@ def test_kernel_l_matches_plain(cuda, port_index, layout):
     c, v = torch.from_numpy(canon), torch.from_numpy(valid)
     dg = pa.device_index_from_host(port_index, cuda)
     assert isinstance(dg, layout)
+    dc = pa.device_index_from_host(port_index, "cpu")
     before = kernels.LAUNCHES["lookup_kmers"]
     g = kernels.lookup_kmers(dg, c.to(cuda), v.to(cuda))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["lookup_kmers"] == before + 1
-    want = pa.lookup_kmers(pa.device_index_from_host(port_index, "cpu"), c, v)
+    want = pa.lookup_kmers(dc, c, v)
     assert int(want[1].sum()) > 10000
     for a, b in zip(g, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    cases = [(c[:n], v[:n]) for n in (1, 2, 3, 5, 40001)]
+    cases.append((c[:40000].view(200, 200), v[:40000].view(200, 200)))
+    gc, gv = c.to(cuda), v.to(cuda)
+    cases.append((gc[1:40002], gv[1:40002]))   # 8 and 1 bytes off
+    for cc, vv in cases:
+        g = kernels.lookup_kmers(dg, cc.to(cuda), vv.to(cuda))
+        want = pa.lookup_kmers(dc, cc.cpu(), vv.cpu())
+        torch.cuda.synchronize()
+        for a, b in zip(g, want):
+            assert a.shape == b.shape and torch.equal(a.cpu(), b)
+    n0 = kernels.LAUNCHES["lookup_kmers"]
+    out = kernels.lookup_kmers(dg, gc[:0], gv[:0])
+    assert all(t.numel() == 0 for t in out)
+    assert kernels.LAUNCHES["lookup_kmers"] == n0
+    if layout is pa.DeviceIndex:
+        ent = kernels.packed_entries(dg)
+        assert ent is kernels.packed_entries(dg)
+        assert torch.equal(ent.cpu(), pa.packed_entries_plain(dc))
 
 
 @pytest.mark.cuda
@@ -155,9 +178,10 @@ def test_kernel_b_matches_plain(cuda, port_index, paired):
     g2 = c2 = None
     if paired:
         g2, c2 = _sides(dg, p2, cuda), _sides(dc, p2, "cpu")
-    hg, tg = pa.read_keys(g1, g2, K)
+    hg, tg, xg = pa.read_keys(g1, g2, K)
     torch.cuda.synchronize()
-    hc, tc = pa.read_keys(c1, c2, K)
+    hc, tc, xc = pa.read_keys(c1, c2, K)
+    assert xg is None and xc is None
     assert torch.equal(hg.cpu(), hc)
     if paired:
         assert torch.equal(tg.cpu(), tc)
@@ -199,18 +223,20 @@ def test_kernel_b_row_layouts_match_plain(cuda, port_index, rows):
         g2 = _with_rows(g2, _offset_rows(g2.rows, w))
         assert g1.rows.data_ptr() % 16 == 4 * w
     for b1, b2 in ((g1, g2), (g1, None)):
-        h, tl = kernels.read_keys(b1, b2, K)
+        h, tl, hx = kernels.read_keys(b1, b2, K)
         hp, tlp = pa.read_keys_plain(b1, b2, K)
         torch.cuda.synchronize()
-        assert torch.equal(h, hp)
+        assert torch.equal(h, hp) and hx is None
         assert (tl is None and tlp is None) or torch.equal(tl, tlp)
         one = pa.SideResult(*(t[:1] for t in b1))
         assert torch.equal(kernels.read_keys(one, None, K)[0],
                            pa.read_keys_plain(one, None, K)[0])
     before = kernels.LAUNCHES["read_keys"]
-    h0, tl0 = kernels.read_keys(pa.SideResult(*(t[:0] for t in g1)),
-                                pa.SideResult(*(t[:0] for t in g2)), K)
-    assert h0.shape == (0, 2) and tl0.shape == (0,)
+    bt = pa.bias_tables_from_host(port_index, cuda)
+    h0, tl0, hx0 = kernels.read_keys(pa.SideResult(*(t[:0] for t in g1)),
+                                     pa.SideResult(*(t[:0] for t in g2)), K,
+                                     bias=bt)
+    assert h0.shape == (0, 2) and tl0.shape == (0,) and hx0.shape == (0,)
     assert kernels.LAUNCHES["read_keys"] == before
 
 
@@ -258,6 +284,12 @@ def test_wrappers_refuse_cpu_tensors_and_count_launches(cuda, port_index):
             kernels.compact_keys(s, b, spec, 100)
     with pytest.raises(ValueError):
         kernels.read_keys(sc, None, K)
+    # kernel H's tables must lie on the card, with int32 block tables
+    bt = pa.bias_tables_from_host(port_index, cuda)
+    for b in (pa.bias_tables_from_host(port_index, "cpu"),
+              bt._replace(block_end=bt.block_end.long())):
+        with pytest.raises((ValueError, TypeError)):
+            kernels.read_keys(s, None, K, bias=b)
     with pytest.raises(ValueError):
         kernels.compact_keys(sc, None, spec, 100)
     kernels.compact_keys(s, s, spec, 100)
@@ -698,18 +730,92 @@ def test_kernel_g_bias_segments_bitwise(cuda, min_rounds):
 @pytest.mark.cuda
 @pytest.mark.parametrize("paired", [True, False])
 def test_kernel_h_matches_plain(cuda, port_index, paired):
+    """Kernel H, B's epilogue: read_keys(..., bias=) on the card gives the
+    plain key, fragment length and hexamer ids (read_keys_plain +
+    bias_hexamers_plain), and h and tl bitwise those of B without bias;
+    B = 1 and rows 4 bytes off a 16-byte boundary too; the launch counts
+    as read_keys and bias_hexamers; bias_hexamers on the card goes through
+    it with any valid mask; the tables are checked once."""
     bs = _batches(port_index)
     res = {}
     for dev in (cuda, "cpu"):
         d = pa.device_index_from_host(port_index, dev)
         s1 = _sides(d, bs["bundled_1"], dev)
-        valid = _sides(d, bs["bundled_2"], dev).has_hits if paired \
-            else torch.ones_like(s1.has_hits)
+        s2 = _sides(d, bs["bundled_2"], dev) if paired else None
         bt = pa.bias_tables_from_host(port_index, dev)
-        res[str(dev)] = pa.bias_hexamers(bt, s1, valid, K)
-    g, c = res[str(cuda)], res["cpu"]
-    assert g.dtype == c.dtype == torch.int32
-    assert torch.equal(g.cpu(), c) and bool((c >= 0).any())
+        if dev == cuda:
+            before = dict(kernels.LAUNCHES)
+        res[str(dev)] = (pa.read_keys(s1, s2, K, bias=bt),
+                         pa.read_keys(s1, s2, K), s1, s2, bt)
+    (g, gb, s1, s2, bt), (c, _, c1, c2, _) = res[str(cuda)], res["cpu"]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["read_keys"] == before["read_keys"] + 2
+    assert kernels.LAUNCHES["bias_hexamers"] == before["bias_hexamers"] + 1
+    valid = c2.has_hits if paired else torch.ones_like(c1.has_hits)
+    want = pa.bias_hexamers_plain(_cpu_bt(bt), c1, valid, K)
+    assert g[2].dtype == c[2].dtype == torch.int32
+    assert torch.equal(g[2].cpu(), c[2]) and torch.equal(c[2], want)
+    assert bool((want >= 0).any()) and bool((want == -1).any())
+    for a, b, x in zip(g[:2], gb[:2], c[:2]):
+        assert (a is None and b is None and x is None) or (
+            torch.equal(a, b) and torch.equal(a.cpu(), x))
+    one = pa.SideResult(*(t[:1] for t in s1))
+    two = None if s2 is None else pa.SideResult(*(t[:1] for t in s2))
+    assert torch.equal(kernels.read_keys(one, two, K, bias=bt)[2].cpu(),
+                       c[2][:1])
+    off = s1._replace(rows=_offset_rows(s1.rows, 1))
+    assert torch.equal(kernels.read_keys(off, s2, K, bias=bt)[2].cpu(), c[2])
+    # any valid mask through the fused launch
+    vmask = torch.from_numpy(np.random.default_rng(5).random(
+        c1.has_hits.shape[0]) < 0.7)
+    n0 = kernels.LAUNCHES["bias_hexamers"]
+    got = pa.bias_hexamers(bt, s1, vmask.to(cuda), K)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bias_hexamers"] == n0 + 1
+    assert torch.equal(got.cpu(), pa.bias_hexamers_plain(_cpu_bt(bt), c1,
+                                                         vmask, K))
+    assert len(kernels._BIAS_VIEWS) >= 1
+
+
+def _cpu_bt(bt):
+    return pa.BiasTables(*(t.cpu() for t in bt))
+
+
+@pytest.mark.cuda
+def test_kernel_h_clip_matches_plain(cuda, port_index):
+    """Random first-hit fields (many out of range: the start clipped to [0,
+    S - 6], the last unitig_seq word read) through the fused launch, paired
+    and single-end, against the plain version; tables whose unitig_seq is
+    not padded are copied once into a padded buffer."""
+    rng = np.random.default_rng(2)
+    B = 5000
+    NB = port_index.block_start.shape[0]
+    U = port_index.unitig_seq_off.shape[0] - 1
+    S = int(port_index.unitig_seq.shape[0])
+    f = dict(
+        rows=rng.integers(-1, 50, (B, 4)).astype(np.int32),
+        n_rows=np.zeros(B, np.int32),
+        has_hits=rng.random(B) < 0.9, overflow=rng.random(B) < 0.1,
+        f_uid=rng.integers(-1, U, B).astype(np.int32),
+        f_block=rng.integers(-1, NB, B).astype(np.int32),
+        f_upos=rng.integers(-50, S + 50, B).astype(np.int32),
+        f_rpos=rng.integers(0, 80, B).astype(np.int32),
+        f_strand=rng.random(B) < 0.5, rng=np.zeros(B, np.int32))
+    c1 = pa.SideResult(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                          for k, v in f.items()})
+    c2 = c1._replace(has_hits=torch.from_numpy(rng.random(B) < 0.9))
+    g1 = pa.SideResult(*(t.to(cuda) for t in c1))
+    g2 = pa.SideResult(*(t.to(cuda) for t in c2))
+    bt = pa.bias_tables_from_host(port_index, "cpu")
+    tight = pa.BiasTables(*(t.clone().to(cuda) for t in bt))
+    for gbt in (pa.bias_tables_from_host(port_index, cuda), tight):
+        for a, b, x, y in ((g1, g2, c1, c2), (g1, None, c1, None)):
+            got = kernels.read_keys(a, b, K, bias=gbt)
+            want = pa.read_keys(x, y, K, bias=bt)
+            torch.cuda.synchronize()
+            for u, v in zip(got, want):
+                assert (u is None and v is None) or torch.equal(u.cpu(), v)
+    assert len(np.unique(want[2].numpy())) > 100
 
 
 def _anchor_case(index, single, L, rl, dev, n=3000):

@@ -2,7 +2,9 @@
 multi-process `quant` writes the bytes of a one-process run.
 
 Each test starts this file twice as a script (`_rank_main` at the bottom),
-ranks 0 and 1 of a gloo group over tcp://127.0.0.1:<free port>; each rank
+ranks 0 and 1 of a gloo group that meet through a file store under the
+test's tmp_path (file://: no port is chosen ahead of the ranks, so no
+other process can take it first); each rank
 takes its contiguous share of two FASTQ pairs (bulkb0 = 1,500 pairs,
 bulkb1 = 2,000), and after the rank-order merge both report the global
 3,500 processed pairs while rank 0 writes.  abundance.tsv and counts.txt
@@ -15,12 +17,15 @@ cuda:<rank>.
 
     python tests/test_torch_multihost.py RANK WORLD ADDRESS INDEX OUT \\
         [--cuda] [--est-fld] FILES...
+
+(ADDRESS: an init_method, e.g. file:///tmp/x/rendezvous or
+tcp://127.0.0.1:PORT.)
 """
 
 import os
-import socket
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -31,14 +36,9 @@ FILES = [os.path.join(DATA, f) for f in (
     "bulkb0_1.fastq.gz", "bulkb0_2.fastq.gz",
     "bulkb1_1.fastq.gz", "bulkb1_2.fastq.gz")]
 COMPARED = ("abundance.tsv", "counts.txt")
-
-
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+# both ranks together: ~10 s alone on a CPU, a few times that beside a
+# full parallel test run
+RANK_TIMEOUT_S = 300
 
 
 def _options(files, out, est_fld, opt_cls):
@@ -58,25 +58,38 @@ def _run_ranks(tmp_path, est_fld, goal, world=2, cuda=False):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     if goal is not None:
         env["KALLISTO_TPU_FLEN_GOAL"] = str(goal)
-    addr = f"tcp://127.0.0.1:{_free_port()}"
+    addr = f"file://{tmp_path / 'rendezvous'}"
     out = str(tmp_path / "multi")
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(rank), str(world),
-         addr, idx, out] + (["--cuda"] if cuda else [])
-        + (["--est-fld"] if est_fld else []) + FILES,
-        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for rank in range(world)]
-    outs = []
+    # each rank writes to a file of its own, so that neither can block on
+    # a full pipe while the other waits for it in a collective
+    logs = [tmp_path / f"rank{rank}.log" for rank in range(world)]
+    procs = []
+    for rank in range(world):
+        with open(logs[rank], "wb") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), str(rank),
+                 str(world), addr, idx, out]
+                + (["--cuda"] if cuda else [])
+                + (["--est-fld"] if est_fld else []) + FILES,
+                env=env, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=300)[0].decode())
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for p, o in zip(procs, outs):
+                p.wait()
+    outs = [f.read_text(errors="replace") for f in logs]
+    for rank, p in enumerate(procs):
         if p.returncode != 0:
-            pytest.fail(o[-3000:])
+            pytest.fail(f"rank {rank} exited {p.returncode} (killed past "
+                        f"{RANK_TIMEOUT_S} s if negative):\n" + "\n".join(
+                            f"--- rank {r}:\n{x[-3000:]}"
+                            for r, x in enumerate(outs)))
     return outs, out
 
 

@@ -6,7 +6,10 @@ The port's device_index_from_host must choose JAX's layout (padded when
 tables must equal JAX's PaddedDeviceIndex bit for bit, and the plain
 lookup_kmers (kernel L's plain version, the probe of kernels A, D, I, J
 and K) must equal JAX's padded lookup_kmers in slot, hit and EC row on
-index k-mers, random k-mers and invalid windows.  Each case that forces
+index k-mers, random k-mers and invalid windows, and so must kernel L's
+bucketed search over packed (key, EC row) entries (packed_entries_plain
+and lookup_kmers_packed_plain) against JAX's bucketed lookup_kmers.
+Each case that forces
 a layout patches both packages' budgets together.  The bucketed run loop
 stays covered: `quant` forced to the bucketed layout gives the golden
 bytes.  The kernels themselves are held against these plain versions on
@@ -144,3 +147,46 @@ def test_bucketed_quant_is_golden(indexes, monkeypatch, tmp_path):
     with open(os.path.join(out, "abundance.tsv")) as f, \
             open(os.path.join(GOLDEN, "quant_paired", "abundance.tsv")) as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("which", ["hits", "misses", "invalid", "mixed"])
+def test_packed_lookup_matches_jax(indexes, monkeypatch, which):
+    """Kernel L's bucketed table: the packed (key, EC row) entries in slot
+    order, searched by the plain packed probe, give the slot, hit and EC
+    row of the plain lookup_kmers and of JAX's bucketed lookup_kmers."""
+    jindex, tindex = indexes
+    _set_budget(monkeypatch, 0)
+    jd = jpa.device_index_from_host(jindex)
+    td = tpa.device_index_from_host(tindex, "cpu")
+    assert isinstance(td, tpa.DeviceIndex)
+    ent = tpa.packed_entries_plain(td)
+    assert ent.shape == (td.kmer_hkeys.shape[0], 2)
+    assert ent.dtype == torch.int64 and ent.is_contiguous()
+    assert torch.equal(ent[:, 0], td.kmer_hkeys)
+    assert torch.equal(ent[:, 1], td.kmer_ec.long())
+    rng = np.random.default_rng(23)
+    n = 6000
+    keys = tindex.kmer_keys.astype(np.int64)
+    canon = {
+        "hits": keys[rng.integers(0, keys.shape[0], n)],
+        "misses": rng.integers(0, 2**62, n, dtype=np.int64),
+        "invalid": keys[rng.integers(0, keys.shape[0], n)],
+        "mixed": np.where(rng.random(n) < 0.5,
+                          keys[rng.integers(0, keys.shape[0], n)],
+                          rng.integers(0, 2**62, n, dtype=np.int64)),
+    }[which]
+    valid = {"invalid": np.zeros(n, bool),
+             "mixed": rng.random(n) < 0.8}.get(which, np.ones(n, bool))
+    canon, valid = canon.reshape(60, 100), valid.reshape(60, 100)
+    c, v = torch.from_numpy(canon), torch.from_numpy(valid)
+    got = tpa.lookup_kmers_packed_plain(td, ent, c, v)
+    plain = tpa.lookup_kmers(td, c, v)
+    want = jpa.lookup_kmers(jd, jnp.asarray(canon), jnp.asarray(valid))
+    for name, a, b, x in zip(("idx", "hit", "ec"), want, got, plain):
+        a = np.asarray(a)
+        assert b.shape == a.shape and b.dtype == x.dtype, name
+        assert torch.equal(b, x), name
+        np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
+    hit = got[1].numpy()
+    assert hit.all() if which == "hits" else (
+        not hit.any() if which in ("invalid", "misses") else 0 < hit.sum())

@@ -128,8 +128,8 @@ def test_pair_keys_and_fragment_lengths_match_jax(indexes, monkeypatch, pair,
     np.testing.assert_array_equal(
         np.asarray(jpa.pair_fragment_lengths(j1, j2, k=K)),
         tpa.pair_fragment_lengths(t1, t2, K).numpy())
-    h, tl = tpa.read_keys(t1, t2, K)
-    assert h.dtype == torch.int64 and tl.dtype == torch.int32
+    h, tl, hx = tpa.read_keys(t1, t2, K)
+    assert h.dtype == torch.int64 and tl.dtype == torch.int32 and hx is None
     assert (tl >= 0).any()
 
 

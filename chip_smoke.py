@@ -24,7 +24,12 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    the kernels (one nvcc per source, in parallel);
 2. set-up at realistic size: a 10,000-gene isoform-structured transcriptome
    (~29k targets, ~24M distinct 31-mers), its index built by the port's
-   numpy builder, and 1,000,000 simulated 2x100 bp pairs;
+   index build with its native helpers (csrc/ktio.cpp: k-mer scans, hashed
+   lookups, reverse complements on min(8, CPUs) threads; every helper
+   called, the seconds printed), and 1,000,000 simulated 2x100 bp pairs;
+2b. those pairs read through the native reader (quant's reader,
+   csrc/ktio.cpp) and through the Python reader (its plain version) at
+   quant's batch size: every batch equal, both read times printed;
 3. kernels A (pseudoalign_side: wave 1, then wave 2, from one call) and B
    (read_keys, the per-read form) on the card against their plain
    versions on the CPU, at
@@ -96,8 +101,10 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    torch.unique(h0, return_inverse=True) beside E's slots (stress slices:
    the kernels' rows are timed on phase 5f's own slices);
 3g. the padded layout: an 800-gene transcriptome (seed 42; ~1.9M k-mers,
-   p = 23, S = 8: 1 GiB of bucket rows, the JAX package's budget) whose
-   index must take the padded layout (M, S, row bytes and nbytes()
+   p = 23, S = 8: 1 GiB of bucket rows, the JAX package's budget), its
+   index built with the native helpers and with numpy (the threshold out
+   of reach), equal array for array, both times printed; the index must
+   take the padded layout (M, S, row bytes and nbytes()
    printed), the same index bucketed (budget 0) beside it, and 524,288
    simulated 2x100 bp pairs from it; kernels A, D, I, J and K against
    their plain versions on the padded index, each on one batch of at most
@@ -154,11 +161,18 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    with every launch count set to 0 just before and read just after, the
    kernels A, B, I (both waves), E, F (and its slim layout) and G all
    launched, and every A call's wave 1 listed reads for its wave 2 (its
-   list lengths read after the run, _side_lists); checks of its output; the same pairs again with every batch per read (equal EC counts and sets); kernel D's path:
+   list lengths read after the run, _side_lists); its FASTQs read by the
+   native reader (read_s printed); checks of its output; the same pairs again with every batch per read (equal EC counts and sets); kernel D's path:
    the first 65,536 pairs, mate 1 cut to mixed lengths (96-100 bp), with
    batch 8192 and an FLD goal of 1000, so that the turbo batches take
    kernel D, on the card (counts set to 0 just before, D launched, I not)
    and on the CPU (equal EC counts and sets);
+5i. (right after phase 5) the observability hooks: `quant` of the first
+   262,144 pairs with KALLISTO_TPU_PROFILE (a torch.profiler trace of the
+   read loop, CPU and CUDA activities) and KALLISTO_TPU_TIMING: the trace
+   file written, the card's busy time (the union of its CUDA kernel,
+   copy and set events) beside the loop's wall, one `[time] full:` line
+   of each tag per per-read batch;
 5b. the slice at realistic size: `quant --bias -b 100 --plaintext` of the
    same pairs with the launch counts set to 0 just before and read just
    after, kernels G and H launched; hexamers counted, effective lengths
@@ -248,6 +262,7 @@ import contextlib
 import gzip
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -258,6 +273,7 @@ from collections import Counter
 
 N_GENES = 10000
 N_PAIRS = 1_000_000
+PROFILE_PAIRS = 262_144  # phase 5i: quant of the first pairs, profiled
 READ_LEN = 100
 CPU_RERUN_PAIRS = 65536
 N_LONG = 100_000
@@ -452,6 +468,188 @@ def truncate_fastq(src, dst, n_records, ragged=False):
                 for j in (1, 3):
                     lines[j] = lines[j].rstrip(b"\n")[:-cut] + b"\n"
             g.write(b"".join(lines))
+
+
+@contextlib.contextmanager
+def _native_calls():
+    """Counts the calls of the index build's native helpers (io/native.py
+    kmer_scan, u64_lookup, revcomp64) while the block runs: yields
+    {name: calls}."""
+    from kallisto_tpu_torch.io import native
+
+    real = {n: getattr(native, n)
+            for n in ("kmer_scan", "u64_lookup", "revcomp64")}
+    calls = dict.fromkeys(real, 0)
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for name, fn in real.items():
+        setattr(native, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(native, name, fn)
+
+
+def build_timed(build_index, fasta, k, native_helpers):
+    """(index, seconds, helper calls): the port's index build with its
+    native helpers (threads = min(8, CPUs)), every helper called, or with
+    the native threshold out of reach (numpy only, the build's plain
+    version), none called."""
+    from kallisto_tpu_torch.index import kmers
+
+    old = kmers.NATIVE_MIN
+    if not native_helpers:
+        kmers.NATIVE_MIN = 1 << 62
+    try:
+        with _native_calls() as calls:
+            t0 = time.perf_counter()
+            index = build_index([fasta], k=k, threads=0)
+            secs = time.perf_counter() - t0
+    finally:
+        kmers.NATIVE_MIN = old
+    if native_helpers:
+        check(all(calls.values()), f"index build called every native "
+              f"helper {calls}")
+    else:
+        check(not any(calls.values()), "numpy index build: no native "
+              "helper called")
+    return index, secs, calls
+
+
+def same_index(np, a, b):
+    """Every array and field of two TpuIndexes equal."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_2b(np, fastx, r1p, r2p, batch, k):
+    """Phase 2's pairs through both readers: the native reader
+    (packed_paired_batches, quant's reader: csrc/ktio.cpp, BGZF blocks
+    inflated on 3 workers) and the Python reader (single_batches +
+    _read_batch_to_packed, its plain version) at quant's batch size;
+    every batch equal (n, Lp, packed, nmask, lens), both read times
+    printed.  Returns the summary."""
+    t0 = time.perf_counter()
+    nat = list(fastx.packed_paired_batches(r1p, r2p, batch, k))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = [(fastx._read_batch_to_packed(a, k), fastx._read_batch_to_packed(b, k))
+          for a, b in zip(fastx.single_batches(r1p, batch),
+                          fastx.single_batches(r2p, batch))]
+    python_s = time.perf_counter() - t0
+
+    def same(x, y):
+        return (x.n == y.n and x.Lp == y.Lp
+                and np.array_equal(x.packed, y.packed)
+                and np.array_equal(x.nmask, y.nmask)
+                and np.array_equal(x.lens, y.lens))
+
+    n = sum(b1.n for b1, _ in nat)
+    check(len(nat) == len(py) and all(
+        same(x, y) for bn, bp in zip(nat, py) for x, y in zip(bn, bp)),
+        f"phase 2b: {len(nat)} batches of {n} pairs equal, native reader "
+        "and Python reader")
+    log(f"reader: native {native_s:.3f} s, Python {python_s:.3f} s for "
+        f"{n} pairs in batches of {batch} ({n / native_s:,.0f} and "
+        f"{n / python_s:,.0f} pairs/s)")
+    return {"reader_native_s": native_s, "reader_python_s": python_s,
+            "reader_pairs": n}
+
+
+def _trace_busy(np, path):
+    """(kernel events, busy s of the card's kernels, busy s of kernels,
+    copies and sets, top kernels by time) from a torch.profiler Chrome
+    trace: the union of its events' [ts, ts + dur) intervals."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def union_s(cats):
+        iv = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                    if e.get("cat") in cats and e.get("ph") == "X")
+        busy, end = 0.0, -np.inf
+        for a, b in iv:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return busy / 1e6, len(iv)
+
+    kern_s, n_kern = union_s(("kernel",))
+    all_s, _ = union_s(("kernel", "gpu_memcpy", "gpu_memset"))
+    by_name = Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"][:60]] += e.get("dur", 0) / 1e3
+    return n_kern, kern_s, all_s, by_name.most_common(6)
+
+
+def phase_5i(torch, np, Options, run_quant, index, r1p, r2p, work, dev,
+             n_pairs):
+    """`quant` of the first n_pairs of phase 2's pairs with
+    KALLISTO_TPU_PROFILE (a torch.profiler trace of the read loop) and
+    KALLISTO_TPU_TIMING (the [time] lines) set: the trace written, the
+    card's busy time read from its CUDA kernel events beside the loop's
+    wall, the [time] lines counted against the routes.  Returns the
+    summary."""
+    import io
+
+    q1 = os.path.join(work, "prof_1.fastq.gz")
+    q2 = os.path.join(work, "prof_2.fastq.gz")
+    truncate_fastq(r1p, q1, n_pairs)
+    truncate_fastq(r2p, q2, n_pairs)
+    prof = os.path.join(work, "profile")
+    os.environ["KALLISTO_TPU_PROFILE"] = prof
+    os.environ["KALLISTO_TPU_TIMING"] = "1"
+    err = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            r = run_quant(Options(files=[q1, q2], plaintext=True),
+                          index=index, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["KALLISTO_TPU_PROFILE"]
+        del os.environ["KALLISTO_TPU_TIMING"]
+    files = os.listdir(prof)
+    check(files == [f"quant_{os.getpid()}.json"],
+          f"5i: the profile directory holds the trace ({files})")
+    n_kern, kern_s, busy_s, top = _trace_busy(
+        np, os.path.join(prof, files[0]))
+    loop_s = r.timings["pseudoalign_s"]
+    check(n_kern > 0, f"5i: the trace holds {n_kern} CUDA kernel events")
+    tags = Counter(re.findall(r"\[time\] (\S+) ", err.getvalue()))
+    t = r.timings
+    check(r.num_processed == n_pairs and t["full"] > 0
+          and tags["full:hashes"] == tags["full:resolve"]
+          == tags["full:overflow"] == t["full"],
+          f"5i: {n_pairs} pairs, a [time] full: line of each tag per "
+          f"per-read batch ({dict(tags)}, routes full {t['full']} turbo "
+          f"{t['turbo']})")
+    log(f"5i: quant wall {wall:.3f} s, read loop {loop_s:.3f} s; card busy "
+        f"in the trace: kernels {kern_s:.4f} s ({n_kern} events), kernels "
+        f"+ copies + sets {busy_s:.4f} s = {100 * busy_s / loop_s:.2f} % of "
+        f"the loop (idle {100 * (1 - busy_s / loop_s):.2f} %); read_s "
+        f"{t['read_s']:.3f}; top kernels (ms): {top}")
+    return {"profile_quant_s": wall, "profile_loop_s": loop_s,
+            "profile_kernel_busy_s": kern_s, "profile_busy_s": busy_s,
+            "profile_kernel_events": n_kern,
+            "profile_idle_share": 1 - busy_s / loop_s,
+            "profile_phases_s": t, "profile_top_kernels_ms": top}
 
 
 def ragged_batch(codes, lens_full, k, rng, fastx):
@@ -2367,8 +2565,15 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
     fasta = os.path.join(work, "padded_tx.fasta.gz")
     t0 = time.perf_counter()
     n_tx = generate_transcriptome(fasta, n_genes=PADDED_GENES, seed=42)
-    index = build_index([fasta], k=k)
-    build_s = time.perf_counter() - t0
+    tx_s = time.perf_counter() - t0
+    index, build_s, _ = build_timed(build_index, fasta, k, True)
+    inp, numpy_s, _ = build_timed(build_index, fasta, k, False)
+    check(same_index(np, index, inp), f"{PADDED_GENES} genes: the index "
+          "built with the native helpers equal to the numpy build, array "
+          "for array")
+    del inp
+    log(f"{PADDED_GENES}-gene index build: native helpers {build_s:.2f} s, "
+        f"numpy {numpy_s:.2f} s (transcriptome {tx_s:.1f} s)")
     M, S = pa.padded_shape(pa.cached_probe_layout(index))
     t0 = time.perf_counter()
     dp = pa.device_index_from_host(index, dev, with_pos_tables=True)
@@ -2509,7 +2714,8 @@ def phase_3g(torch, np, pa, kernels, fastx, build_index,
         f"{held['pseudoalign_halffail'][0]:.4f} ms)")
     del db
     ctx = dict(index=index, r1p=r1p, r2p=r2p, M=M, S=S, build_s=build_s,
-               nbytes=dp.nbytes(), row_bytes=dp.bucket_rows.numel() * 8)
+               numpy_build_s=numpy_s, nbytes=dp.nbytes(),
+               row_bytes=dp.bucket_rows.numel() * 8)
     return ctx, out
 
 
@@ -2571,7 +2777,8 @@ def phase_5h(torch, np, pa, kernels, Options, run_quant, ctx, n_pairs, dev):
     summary.update(padded_5h_pairs=n_pairs, padded_M=ctx["M"],
                    padded_S=ctx["S"], padded_row_bytes=ctx["row_bytes"],
                    padded_nbytes=ctx["nbytes"],
-                   padded_index_build_s=ctx["build_s"])
+                   padded_index_build_s=ctx["build_s"],
+                   padded_index_numpy_build_s=ctx["numpy_build_s"])
     return summary
 
 
@@ -3334,11 +3541,10 @@ def main(argv=None):
         n_tx = generate_transcriptome(fasta, n_genes=n_genes, seed=42)
         log(f"transcriptome: {n_tx} targets, "
             f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        index = build_index([fasta], k=k)
-        index_build_s = time.perf_counter() - t0
-        log(f"index build (numpy): {index_build_s:.1f} s, "
-            f"{index.num_kmers} k-mers, {index.num_trans} targets")
+        index, index_build_s, calls = build_timed(build_index, fasta, k, True)
+        log(f"index build (native helpers, {min(8, os.cpu_count() or 1)} "
+            f"threads): {index_build_s:.1f} s, {index.num_kmers} k-mers, "
+            f"{index.num_trans} targets; helper calls {calls}")
         t0 = time.perf_counter()
         didx = pa.device_index_from_host(index, dev, with_pos_tables=True)
         torch.cuda.synchronize()
@@ -3351,6 +3557,11 @@ def main(argv=None):
                         frag_mean=180.0, frag_sd=20.0, error_rate=0.005)
         log(f"reads: {n_pairs} pairs 2x{READ_LEN}, "
             f"{time.perf_counter() - t0:.1f} s")
+
+        # ----------------------------------------- 2b. the two readers
+        log("== phase 2b: the native reader against the Python reader")
+        reader_summary = phase_2b(np, fastx, r1p, r2p, Options().batch_size,
+                                  k)
 
         # ------------------------------------------ 3. kernels A and B
         log("== phase 3: kernels A and B against their plain versions")
@@ -3641,6 +3852,7 @@ def main(argv=None):
         _check_side_lists(a_lists, launches, "main path")
         n_uniq_mean = res.timings["n_uniq_sum"] / max(routes["turbo"], 1)
         log(f"quant wall {quant_s:.2f} s = {n_pairs / quant_s:,.0f} pairs/s, "
+            f"read_s {res.timings['read_s']:.3f} (native reader), "
             f"EM {res.em.n_rounds} rounds; routes {routes}, n_uniq max "
             f"{res.timings['n_uniq_max']} mean {n_uniq_mean:.1f} per turbo "
             "batch; host seconds by phase: " + json.dumps(res.timings))
@@ -3697,6 +3909,12 @@ def main(argv=None):
               == [s.tolist() for s in rc.ec_sets],
               f"first {n_sub} pairs: EC counts and sets equal, card vs CPU")
         del rg, rc
+
+        # ------------------------- 5i. the profiler and timing hooks
+        log(f"== phase 5i: quant with KALLISTO_TPU_PROFILE and "
+            f"KALLISTO_TPU_TIMING ({time.perf_counter() - t_start:.0f} s)")
+        prof_summary = phase_5i(torch, np, Options, run_quant, index, r1p,
+                                r2p, work, dev, PROFILE_PAIRS)
 
         # ------------------------------- 5b. --bias -b 100, full size
         log(f"== phase 5b: quant --bias -b 100 at realistic size "
@@ -4087,7 +4305,8 @@ def main(argv=None):
             **long_summary, "long_launches": launches_long, **tcc_summary,
             "tcc_launches": launches_tcc, **probe_summary, **hw1_summary,
             "hw1_launches": launches_hw1, "hw1_kernel_ms": hw1_busy,
-            **mesh_summary, **padded_summary,
+            **mesh_summary, **padded_summary, **reader_summary,
+            **prof_summary,
             "kernel_build_s": build_s, "n_targets": index.num_trans,
             "n_kmers": index.num_kmers, "card": smi,
             "smoke_s": time.perf_counter() - t_start,

@@ -17,14 +17,18 @@ device-friendly flat arrays instead of hash maps + Roaring bitmaps:
   fragment-length position filter (KmerIndex::findPosition).
 
 The construction itself is vectorized numpy: adjacency via sorted-array
-binary search, unitig chaining via simultaneous frontier stepping.
+binary search, unitig chaining via simultaneous frontier stepping; the
+k-mer scans, hashed lookups and reverse complements of large inputs run
+the native helpers (io/native.py), threaded by build_index(threads=).
 """
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import kmers as _kmers
 from .kmers import pack_kmers, revcomp_kmers, canonicalize
 from .sanitize import sanitize_transcripts
 from ..io.fastx import BASE_CODE
@@ -210,7 +214,7 @@ def _dlist_records(dlist_paths: Sequence[str], aa: bool):
 
 def _dlist_collect(
     dlist_paths: Sequence[str], keys: np.ndarray, k: int, overhang: int = 1,
-    aa: bool = False,
+    aa: bool = False, threads: int = 1,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Collect D-list k-mers (reference: KmerIndex::DListFlankingKmers,
     src/KmerIndex.cpp:682-1003).
@@ -236,7 +240,7 @@ def _dlist_collect(
             continue
         codes = BASE_CODE[np.frombuffer(s.encode(), dtype=np.uint8)]
         km, valid = pack_kmers(codes, k)
-        canon, _ = canonicalize(km, k)
+        canon, _ = canonicalize(km, k, threads)
         if name == "":
             special.append(canon[valid])
             continue
@@ -290,7 +294,7 @@ def _concat_codes(seqs: Sequence[str]):
 _STREAM_CHUNK = 1 << 23  # windows per vectorized chunk (64 MB of uint64)
 
 
-def _stream_kmers(codes: np.ndarray, k: int):
+def _stream_kmers(codes: np.ndarray, k: int, threads: int):
     """Yield (window_start, canon, is_fw, valid) over all windows of the
     concatenated code vector, in fixed-size chunks (windows overlap chunk
     boundaries by re-reading k-1 codes, so every window appears exactly
@@ -301,7 +305,8 @@ def _stream_kmers(codes: np.ndarray, k: int):
     n = L - k + 1
     for lo in range(0, max(n, 0), _STREAM_CHUNK):
         hi = min(lo + _STREAM_CHUNK, n)
-        canon, is_fw, valid = scan_canonical(codes[lo : hi + k - 1], k)
+        canon, is_fw, valid = scan_canonical(codes[lo : hi + k - 1], k,
+                                             threads)
         yield lo, canon, is_fw, valid
 
 
@@ -310,14 +315,17 @@ class _KmerLookup:
     lookup (ops/pseudoalign.py lookup_kmers): splitmix64 mix ->
     direct-address bucket -> fixed-depth branchless binary search.  ~4x
     faster than np.searchsorted over the raw sorted table at 1e8 keys
-    (bounded probes, bucket-local cache behavior)."""
+    (bounded probes, bucket-local cache behavior).  From kmers.NATIVE_MIN
+    queries on, the native lookup (io/native.py u64_lookup) on `threads`
+    threads."""
 
     _DEPTH = 6
 
-    def __init__(self, keys: np.ndarray):
+    def __init__(self, keys: np.ndarray, threads: int):
         from ..ops.pseudoalign import _mix64_np
 
         self.keys = keys
+        self.threads = threads
         mk = _mix64_np(keys)
         self.order = np.argsort(mk)
         self.mk = mk[self.order]
@@ -339,6 +347,14 @@ class _KmerLookup:
         """Returns (idx into the ORIGINAL sorted keys array, present)."""
         from ..ops.pseudoalign import _mix64_np
 
+        if q.shape[0] >= _kmers.NATIVE_MIN:
+            from ..io import native
+
+            idx, present = native.u64_lookup(self.mk, self.bucket_start,
+                                             self.p, q, self.threads)
+            idx = np.minimum(idx, max(self.mk.shape[0] - 1, 0))
+            return self.order[idx], present
+
         mq = _mix64_np(q)
         b = (mq >> np.uint64(64 - self.p)).astype(np.int64)
         lo = self.bucket_start[b].copy()
@@ -356,10 +372,11 @@ class _KmerLookup:
         return self.order[idx], present
 
 
-def _collect_canonical_kmers(seqs: Sequence[str], k: int) -> np.ndarray:
+def _collect_canonical_kmers(seqs: Sequence[str], k: int,
+                             threads: int) -> np.ndarray:
     codes, _ = _concat_codes(seqs)
     parts = []
-    for _, canon, _fw, valid in _stream_kmers(codes, k):
+    for _, canon, _fw, valid in _stream_kmers(codes, k, threads):
         parts.append(np.unique(canon[valid]))
     if not parts:
         return np.empty(0, np.uint64)
@@ -383,7 +400,7 @@ def _oriented_successors(
     base = (oriented << np.uint64(2)) & mask
     for b in range(4):
         cand = base | np.uint64(b)
-        canon, is_fw = canonicalize(cand, k)
+        canon, is_fw = canonicalize(cand, k, lookup.threads)
         idx_c, present = lookup.find(canon)
         outdeg += present
         succ_idx = np.where(present, idx_c, succ_idx)
@@ -391,7 +408,7 @@ def _oriented_successors(
     return outdeg, succ_idx, succ_orient
 
 
-def _build_unitigs(keys: np.ndarray, k: int):
+def _build_unitigs(keys: np.ndarray, k: int, threads: int):
     """Compact the k-mer de Bruijn graph into unitigs (maximal non-branching
     paths), vectorized: all chains advance one step per iteration.
 
@@ -409,8 +426,8 @@ def _build_unitigs(keys: np.ndarray, k: int):
             z32, z32, np.empty(0, bool), z32,
             np.zeros(1, np.int64), np.empty(0, np.int64), np.empty(0, np.uint8),
         )
-    rc = revcomp_kmers(keys, k)
-    lookup = _KmerLookup(keys)
+    rc = revcomp_kmers(keys, k, threads)
+    lookup = _KmerLookup(keys, threads)
 
     # orientation 0 walks the canonical k-mer forward, 1 walks its twin
     outdeg = np.empty((2, N), np.int32)
@@ -556,14 +573,15 @@ def _build_unitigs(keys: np.ndarray, k: int):
     return kmer_uid, kmer_pos, kmer_fw, unitig_nkmers, uc_ptr, uc_k, uc_o
 
 
-def _unitig_sequences(keys: np.ndarray, uc_ptr, uc_k, uc_o, k: int):
+def _unitig_sequences(keys: np.ndarray, uc_ptr, uc_k, uc_o, k: int,
+                      threads: int):
     """Reconstruct unitig base-code sequences from the flat k-mer chains
     (vectorized: first k-mer expands to k bases, every later chain step
     appends its last base)."""
     U = uc_ptr.shape[0] - 1
     if U == 0:
         return np.zeros(1, np.int64), np.empty(0, np.uint8)
-    rc_all = revcomp_kmers(keys, k)
+    rc_all = revcomp_kmers(keys, k, threads)
     ov = np.where(uc_o == 0, keys[uc_k], rc_all[uc_k])
     nk = np.diff(uc_ptr)
     lens = nk + k - 1
@@ -593,6 +611,7 @@ def _transcript_runs(
     kmer_uid: np.ndarray,
     kmer_pos: np.ndarray,
     kmer_fw: np.ndarray,
+    threads: int,
 ):
     """Walk every transcript through the graph, emitting coverage runs.
 
@@ -609,7 +628,7 @@ def _transcript_runs(
     chunks; runs spanning chunk boundaries are carried over.
     """
     codes, tstarts = _concat_codes(seqs)
-    lookup = _KmerLookup(keys)
+    lookup = _KmerLookup(keys, threads)
     outs: List[List[np.ndarray]] = [[], [], [], [], []]
     # pending (possibly continuing) last run of the previous chunk:
     # [uid, strand, p0, p1, g0, valid]
@@ -632,7 +651,7 @@ def _transcript_runs(
             wpos | np.where(strands, 0, 0x80000000).astype(np.uint32)
         )
 
-    for lo, canon, is_fw, valid in _stream_kmers(codes, k):
+    for lo, canon, is_fw, valid in _stream_kmers(codes, k, threads):
         idx, _present = lookup.find(canon)
         uid = kmer_uid[idx]
         upos = kmer_pos[idx].astype(np.int64)
@@ -907,19 +926,25 @@ def build_index(
     dlist_overhang: int = 1,
     aa: bool = False,
     distinguish: bool = False,
+    threads: int = 0,
 ) -> TpuIndex:
-    """Build the index with the numpy build path (no native helpers)."""
+    """Build the index.  The k-mer scans, hashed lookups and reverse
+    complements of large inputs run the native helpers on `threads`
+    threads (`index -t`; 0 = min(8, CPUs)), the rest in numpy (reference:
+    KmerIndex.cpp:574-679 threads its build stages)."""
     if k % 2 == 0 or k < 3 or k > 31:
         raise ValueError("k must be odd and in [3, 31]")
+    if threads <= 0:
+        threads = min(8, os.cpu_count() or 1)
     return _build_index_impl(
         fasta_paths, k, make_unique, max_ec_size, dlist_paths,
-        dlist_overhang, aa, distinguish,
+        dlist_overhang, aa, distinguish, threads,
     )
 
 
 def _build_index_impl(
     fasta_paths, k, make_unique, max_ec_size, dlist_paths,
-    dlist_overhang, aa, distinguish,
+    dlist_overhang, aa, distinguish, threads,
 ) -> TpuIndex:
 
     seq_color = seq_shade = None
@@ -938,7 +963,7 @@ def _build_index_impl(
         base_names = san.names
         base_lens = np.array(san.lens, np.uint32)
     num_targets = len(base_names)
-    keys = _collect_canonical_kmers(base_seqs, k)
+    keys = _collect_canonical_kmers(base_seqs, k, threads)
 
     # -- D-list (reference: KmerIndex::DListFlankingKmers,
     #    src/KmerIndex.cpp:682-1003): flanking k-mers of masked sequences
@@ -949,8 +974,8 @@ def _build_index_impl(
     dummy_canon = None
     if dlist_paths:
         flank, special = _dlist_collect(
-            dlist_paths, keys, k, overhang=dlist_overhang, aa=aa
-        )
+            dlist_paths, keys, k, overhang=dlist_overhang, aa=aa,
+            threads=threads)
         in_graph_fl = np.isin(flank, keys)
         dl_all = np.unique(np.concatenate([flank[~in_graph_fl], special]))
         not_in_graph = dl_all[~np.isin(dl_all, keys)]
@@ -962,9 +987,9 @@ def _build_index_impl(
 
     (
         kmer_uid, kmer_pos, kmer_fw, unitig_nkmers, uc_ptr, uc_k, uc_o,
-    ) = _build_unitigs(keys, k)
+    ) = _build_unitigs(keys, k, threads)
     n_unitigs = unitig_nkmers.shape[0]
-    useq_off, useq = _unitig_sequences(keys, uc_ptr, uc_k, uc_o, k)
+    useq_off, useq = _unitig_sequences(keys, uc_ptr, uc_k, uc_o, k, threads)
 
     walk_seqs = list(base_seqs)
     num_seqs = len(base_seqs)
@@ -987,7 +1012,8 @@ def _build_index_impl(
             [trid_remap, np.array(extra_ids, np.int64)]
         )
 
-    runs = _transcript_runs(walk_seqs, k, keys, kmer_uid, kmer_pos, kmer_fw)
+    runs = _transcript_runs(walk_seqs, k, keys, kmer_uid, kmer_pos, kmer_fw,
+                            threads)
     if distinguish and (seq_shade >= 0).any():
         # a shaded sequence contributes each run TWICE: once under its color
         # and once under its shade target (reference: src/KmerIndex.cpp:551-559)

@@ -6,9 +6,14 @@ integer comparison of packed k-mers equals lexicographic comparison and the
 canonical representative rep() = min(kmer, revcomp(kmer)).
 
 k <= 31 fits one uint64 (the reference's default MAX_KMER_SIZE build).
+
+From NATIVE_MIN elements on, revcomp_kmers and scan_canonical run the
+native helpers (io/native.py) on `threads` threads; below it, numpy.
 """
 
 import numpy as np
+
+NATIVE_MIN = 1 << 16
 
 
 def pack_kmers(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -31,8 +36,13 @@ def pack_kmers(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
     return km, w == 0
 
 
-def revcomp_kmers(kmers: np.ndarray, k: int) -> np.ndarray:
-    """Reverse complement of packed k-mers (numpy bit-twiddling)."""
+def revcomp_kmers(kmers: np.ndarray, k: int, threads: int = 1) -> np.ndarray:
+    """Reverse complement of packed k-mers (numpy bit-twiddling below
+    NATIVE_MIN k-mers)."""
+    if kmers.shape[0] >= NATIVE_MIN:
+        from ..io import native
+
+        return native.revcomp64(kmers, k, threads)
     x = ~kmers  # complement: A<->T, C<->G under the 2-bit code
     # reverse 2-bit groups within 64 bits
     x = ((x & np.uint64(0x3333333333333333)) << np.uint64(2)) | (
@@ -53,10 +63,11 @@ def revcomp_kmers(kmers: np.ndarray, k: int) -> np.ndarray:
     return x >> np.uint64(64 - 2 * k)
 
 
-def canonicalize(kmers: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+def canonicalize(kmers: np.ndarray, k: int,
+                 threads: int = 1) -> tuple[np.ndarray, np.ndarray]:
     """Return (canonical kmers, is_forward) where is_forward marks kmers
     already in canonical orientation (fw <= rc)."""
-    rc = revcomp_kmers(kmers, k)
+    rc = revcomp_kmers(kmers, k, threads)
     fw = kmers <= rc
     return np.where(fw, kmers, rc), fw
 
@@ -79,11 +90,17 @@ def seq_kmers_canonical(codes: np.ndarray, k: int):
     return canon, valid, fw
 
 
-def scan_canonical(codes: np.ndarray, k: int):
+def scan_canonical(codes: np.ndarray, k: int, threads: int = 1):
     """All windows of a code vector -> (canonical kmers, is_fw, valid).
 
-    numpy pack + canonicalize over the whole vector.
+    The native rolling scan from NATIVE_MIN codes on, else numpy pack +
+    canonicalize over the whole vector.  canon and is_fw agree between the
+    two where valid.
     """
+    if codes.shape[0] >= NATIVE_MIN:
+        from ..io import native
+
+        return native.kmer_scan(codes, k, threads)
     km, valid = pack_kmers(codes, k)
     canon, is_fw = canonicalize(km, k)
     return canon, is_fw, valid

@@ -4,7 +4,9 @@ The reference streams 8 MB read batches through kseq + zlib
 (reference: src/kseq.h, src/ProcessReads.cpp:3128-3267).  Here the host
 pipeline parses FASTQ into padded uint8 code matrices ready for device
 transfer; parsing is vectorized with numpy over whole decompressed chunks
-rather than per-record.
+rather than per-record.  `quant` reads its packed batches through the
+native reader (io/native.py) instead; this reader serves `bus` (comments),
+the BAM replay (qualities) and the tests, as the plain version.
 
 Base coding: A=0, C=1, G=2, T=3 (matching the 2-bit packing of the index),
 anything else (incl. N) = 4.
@@ -259,9 +261,27 @@ def _read_batch_to_packed(rb: ReadBatch, k: int, pad_to: int = 8):
 
 def packed_single_batches(path: str, batch_reads: int, k: int,
                           keep_names: bool = False, keep_quals: bool = False):
-    """Yield PackedBatch objects from the Python FASTQ reader."""
-    for rb in single_batches(path, batch_reads, keep_names, keep_quals):
-        yield _read_batch_to_packed(rb, k)
+    """Yield PackedBatch objects from the native reader (io/native.py:
+    inflate, parse and pack on native threads, batches prefetched; 4 I/O
+    threads, as in JAX).
+    keep_quals takes the Python reader, as in JAX (the quality lines serve
+    only the BAM replay)."""
+    if keep_quals:
+        for rb in single_batches(path, batch_reads, keep_names, True):
+            yield _read_batch_to_packed(rb, k)
+        return
+    from .native import NativeFastqReader
+
+    r = NativeFastqReader(path, batch_reads, pad_to=8, min_len=k,
+                          keep_names=keep_names)
+    try:
+        while True:
+            b = r.next_batch()
+            if b is None:
+                return
+            yield b
+    finally:
+        r.close()
 
 
 def packed_paired_batches(path1: str, path2: str, batch_reads: int, k: int,

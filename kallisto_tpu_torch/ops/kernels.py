@@ -769,9 +769,9 @@ def lookup_kmers(didx, canon: torch.Tensor, valid: torch.Tensor):
     return idx, hit, ec
 
 
-# kernel L's packed entries, one array per bucketed DeviceIndex: (its
-# key table's data pointer, device) -> (weak reference to the key table,
-# [N, 2] int64); an entry goes when its key table is freed
+# kernel L's packed entries, one array per bucketed DeviceIndex: (its key
+# table's and EC table's data pointers, device) -> (weak references to both
+# tables, [N, 2] int64); an entry goes when either table is freed
 _ENTRIES: Dict[tuple, tuple] = {}
 
 
@@ -779,17 +779,19 @@ def packed_entries(didx) -> torch.Tensor:
     """The [N, 2] int64 (mixed key, EC row) entries of a bucketed
     DeviceIndex in slot order (ops/pseudoalign.py packed_entries_plain),
     16 bytes a k-mer, built on the index's device at the first call and
-    kept while its key table lives."""
-    keys = didx.kmer_hkeys
-    key = (keys.data_ptr(), keys.device.index)
+    kept while its key and EC tables live (an index that shares the key
+    table with another but has its own EC table gets its own entries)."""
+    keys, ecs = didx.kmer_hkeys, didx.kmer_ec
+    key = (keys.data_ptr(), ecs.data_ptr(), keys.device.index)
     hit = _ENTRIES.get(key)
-    if hit is not None and hit[0]() is keys:
-        return hit[1]
+    if hit is not None and hit[0]() is keys and hit[1]() is ecs:
+        return hit[2]
     from .pseudoalign import packed_entries_plain
 
     ent = packed_entries_plain(didx)
-    _ENTRIES[key] = (weakref.ref(keys), ent)
-    weakref.finalize(keys, _ENTRIES.pop, key, None)
+    _ENTRIES[key] = (weakref.ref(keys), weakref.ref(ecs), ent)
+    for t in (keys, ecs):
+        weakref.finalize(t, _ENTRIES.pop, key, None)
     return ent
 
 

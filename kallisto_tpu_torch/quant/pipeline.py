@@ -108,6 +108,7 @@ in rank order and the processed count and hexamers are summed, so the
 outputs equal one process's; only rank 0 writes.
 """
 
+import contextlib
 import os
 import sys
 import time
@@ -192,6 +193,52 @@ def _flen_goal() -> int:
 
 def _log(msg: str, end: str = "\n"):
     print(msg, file=sys.stderr, end=end, flush=True)
+
+
+def _timing_log():
+    """KALLISTO_TPU_TIMING=1: `[time] <tag> <s>s` lines on stderr at the
+    counterparts of JAX's tags (pipeline.py:822-830): host wave 1's paired
+    steady state (`hw1`) writes `probe` and `w2dispatch nf=<failing
+    pairs>` at dispatch and `w2fetch` and `resolve` when processed; the
+    paired per-read route writes `full:hashes`, `full:resolve` and
+    `full:overflow`.  Single-end and --long batches, hw1pb, and the card's
+    compact routes write none, as in JAX.  JAX also sends a batch whose
+    wave-2 sub-batch overflowed its capacity back through the per-read
+    route (more `full:` lines); the port has no wave-2 capacity (Queue 3,
+    "Deliberate differences"), so its lines are those of a JAX run whose
+    capacity never overflows.  Returns tlog(tag, t) -> now: it writes the
+    line for the seconds since t when the variable is set."""
+    on = os.environ.get("KALLISTO_TPU_TIMING", "") == "1"
+
+    def tlog(tag: str, t: float) -> float:
+        now = time.perf_counter()
+        if on:
+            _log(f"[time] {tag} {now - t:.3f}s")
+        return now
+
+    return tlog
+
+
+@contextlib.contextmanager
+def _profiled(dev: torch.device):
+    """KALLISTO_TPU_PROFILE=<dir>: a torch.profiler trace of the read loop
+    (the loop JAX brackets with jax.profiler, pipeline.py:1596-1600, :1725),
+    CPU activities and, on a card, CUDA ones, without shapes or stacks,
+    written to <dir>/quant_<pid>.json as a Chrome trace."""
+    out = os.environ.get("KALLISTO_TPU_PROFILE", "")
+    if not out:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, record_shapes=False,
+                 with_stack=False) as prof:
+        yield
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, f"quant_{os.getpid()}.json"))
 
 
 # reads between two progress lines (reference: MasterProcessor::update,
@@ -628,6 +675,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
                               strand_key=spec.strand_key,
                               pos_key=spec.pos_key, pos_fl=spec.pos_fl)
     ec_cards = _EcCards(resolver)
+    tlog = _timing_log()
 
     def dispatch_full(b1: PackedBatch, b2: Optional[PackedBatch],
                       want_tl: bool, want_bias: bool = False):
@@ -749,13 +797,16 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
             compact = (not want_fld and not want_bias and b1.Lp == b2.Lp
                        and pbam is None)
         if compact and hw1_ok:
+            t1 = time.perf_counter()
             hk = probe(b1, b2, rl, False)
             if b2 is None:
                 devs = dispatch_wave2_single(hk.fail_idx, b1, rl)
                 if devs is not None:
                     return ("hw1s", b1, None, hk, devs)
             else:
+                t1 = tlog("probe", t1)
                 devs = dispatch_wave2_pair(hk, b1, b2, rl)
+                tlog(f"w2dispatch nf={len(hk.fail_idx)}", t1)
                 if devs is not None:
                     return ("hw1", b1, b2, hk, devs)
         if compact:
@@ -884,6 +935,8 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         got = hw1_device_parts(devs)
         t2 = time.perf_counter()
         timings["fetch_s"] += t2 - t1
+        if route == "hw1":
+            tlog("w2fetch", t1)
         if got is None:
             # rare: redo per read; unlike JAX (:1136-1145, which drops the
             # batch's fragment lengths here) with want_fld kept, so that
@@ -905,6 +958,8 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         key_ecs = resolver.process_compact_parts(
             parts, paired=paired_b, do_union=opt.do_union,
             return_key_ecs=route == "hw1pb")
+        if route == "hw1":
+            tlog("resolve", t2)
         nf = hk.fail_idx.shape[0]
         if paired_b:
             timings["wave2_reads"] += int(
@@ -1040,14 +1095,19 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
         hx_h = hx.cpu().numpy() if hx is not None else None
         t2 = time.perf_counter()
         timings["fetch_s"] += t2 - t1
+        # JAX writes these lines for pairs only (process_pair)
+        ftlog = tlog if paired else (lambda tag, t: time.perf_counter())
+        t3 = ftlog("full:hashes", t1)
         read_uidx, uniq_sets = resolver.resolve_batch_hashed(
             hh, _exemplar_fetcher(r1, r2, KeySpec()), int(s1.rows.shape[1]),
             paired=paired, do_union=opt.do_union,
         )
+        t3 = ftlog("full:resolve", t3)
         _apply_overflow_fallback(
             resolver, index, read_uidx, uniq_sets, opt.do_union, (s1, b1),
             (s2, b2) if paired else None,
         )
+        ftlog("full:overflow", t3)
         final_idx, final_sets = read_uidx, uniq_sets
         if opt.min_range > 1:
             # a mate whose hit span is under min_range empties its EC set
@@ -1202,23 +1262,24 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     # sent on hw1pb after the goal only carries unused lengths, and the
     # subsample still takes the first reads in read order).
     pend = deque()
-    t_read = time.perf_counter()
-    for b1, b2 in batch_iter:
-        t1 = time.perf_counter()
-        timings["read_s"] += t1 - t_read
-        if estimate_fld and tlencount < flen_goal and hostprobe is None:
-            while pend:
-                drain()
-            t1 = time.perf_counter()
-        want_fld = estimate_fld and tlencount < flen_goal
-        pend.append(dispatch_long(b1) if opt.long_read
-                    else dispatch(b1, b2, want_fld))
-        timings["dispatch_s"] += time.perf_counter() - t1
-        if len(pend) > 2:
-            drain()
+    with _profiled(dev):
         t_read = time.perf_counter()
-    while pend:
-        drain()
+        for b1, b2 in batch_iter:
+            t1 = time.perf_counter()
+            timings["read_s"] += t1 - t_read
+            if estimate_fld and tlencount < flen_goal and hostprobe is None:
+                while pend:
+                    drain()
+                t1 = time.perf_counter()
+            want_fld = estimate_fld and tlencount < flen_goal
+            pend.append(dispatch_long(b1) if opt.long_read
+                        else dispatch(b1, b2, want_fld))
+            timings["dispatch_s"] += time.perf_counter() - t1
+            if len(pend) > 2:
+                drain()
+            t_read = time.perf_counter()
+        while pend:
+            drain()
     if opt.long_read and opt.output_dir:
         os.makedirs(opt.output_dir, exist_ok=True)
         with open(os.path.join(opt.output_dir, "novel.fastq"), "w") as f:

@@ -101,3 +101,55 @@ def test_missing_index_matches_jax(capsys, tmp_path):
     want = _run(jcli.main, ["inspect", missing], capsys)
     got = _run(tcli.main, ["inspect", missing], capsys)
     assert got == want and want[0] == 1
+
+
+@pytest.mark.parametrize("tune", ["on", "opted_out"])
+@pytest.mark.parametrize("cmd", [["version"], ["cite"], ["pseudo"],
+                                 ["inspect", "missing.idx"]])
+def test_entry_module_matches_jax(tmp_path, cmd, tune):
+    """`python -m <package>.cli`: both CLIs re-execute themselves with
+    glibc's allocator settings (or not, under KALLISTO_TPU_NO_MALLOC_TUNE=1)
+    and give the same stdout, stderr and exit code."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MALLOC_MMAP_MAX_", "MALLOC_TRIM_THRESHOLD_",
+                        "KALLISTO_TPU_NO_MALLOC_TUNE")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    if tune == "opted_out":
+        env["KALLISTO_TPU_NO_MALLOC_TUNE"] = "1"
+    out = []
+    for mod in ("kallisto_tpu_torch.cli", "kallisto_tpu.cli"):
+        p = subprocess.run([sys.executable, "-m", mod] + cmd, env=env,
+                           cwd=str(tmp_path), capture_output=True, text=True)
+        out.append((p.returncode, p.stdout, p.stderr))
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("case", ["entry", "imported", "opted_out",
+                                  "already_on"])
+def test_malloc_tune_argv(monkeypatch, case):
+    """The re-exec decision: only this CLI as the entry module, without
+    the opt-out and with the settings not yet on, re-executes itself as
+    `python -m kallisto_tpu_torch.cli <its arguments>`."""
+    import types
+
+    name = "pytest" if case == "imported" else "kallisto_tpu_torch.cli"
+    main = types.ModuleType("__main__")
+    main.__spec__ = types.SimpleNamespace(name=name)
+    monkeypatch.setitem(sys.modules, "__main__", main)
+    monkeypatch.setattr(sys, "argv", ["cli.py", "quant", "-i", "x"])
+    for k in ("MALLOC_MMAP_MAX_", "KALLISTO_TPU_NO_MALLOC_TUNE"):
+        monkeypatch.delenv(k, raising=False)
+    if case == "opted_out":
+        monkeypatch.setenv("KALLISTO_TPU_NO_MALLOC_TUNE", "1")
+    if case == "already_on":
+        monkeypatch.setenv("MALLOC_MMAP_MAX_", "0")
+    got = tcli._malloc_tune_argv()
+    if case == "entry":
+        assert got == [sys.executable, "-m", "kallisto_tpu_torch.cli",
+                       "quant", "-i", "x"]
+    else:
+        assert got is None

@@ -1,6 +1,7 @@
-"""The port stands alone: importing any of its modules, chip_smoke.py or
-hw1_switch_ab.py loads neither jax nor the JAX package, and its entry
-points want the card unless the caller asks for the CPU."""
+"""The port stands alone: importing any of its modules, chip_smoke.py,
+hw1_switch_ab.py or malloc_tune_ab.py loads neither jax nor the JAX
+package, and its entry points want the card unless the caller asks for
+the CPU."""
 
 import json
 import os
@@ -37,7 +38,7 @@ def test_port_has_the_slice_modules():
               "quant.ecmap", "quant.fld", "quant.filters", "quant.em",
               "quant.bias", "quant.bootstrap", "quant.pipeline",
               "quant.longread", "quant.tcc", "quant.genemodel",
-              "io.pseudobam", "ops.hostprobe", "parallel",
+              "io.pseudobam", "ops.hostprobe", "io.native", "parallel",
               "parallel.mesh", "parallel.multihost", "parallel.dryrun"):
         assert f"kallisto_tpu_torch.{m}" in mods, m
 
@@ -50,6 +51,7 @@ def test_imports_load_no_jax_and_no_jax_package():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "import hw1_switch_ab\n"
+        "import malloc_tune_ab\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'jaxlib' or m.startswith('jaxlib.')\n"
         "             or m == 'kallisto_tpu' or m.startswith('kallisto_tpu.'))\n"
@@ -75,9 +77,12 @@ def test_sources_name_no_jax_package():
 
 
 def test_host_probe_loads_nothing_of_the_jax_native_library():
-    """The port's host probe is its own (csrc/hostprobe.cpp, built into
+    """The port's host probe and native reader are its own
+    (csrc/hostprobe.cpp and csrc/ktio.cpp, built into
     kallisto_tpu_torch/_kbuild/): after a quant run with host wave 1 on,
-    the process has mapped no library of kallisto_tpu/native/."""
+    which reads its FASTQs through the native reader, and a call of each
+    native build helper, the process has mapped no library of
+    kallisto_tpu/native/."""
     code = (
         "import json, os, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -89,6 +94,13 @@ def test_host_probe_loads_nothing_of_the_jax_native_library():
         "idx = build_index([os.path.join(d, 'transcripts.fasta.gz')])\n"
         "r = run_quant(Options(files=[os.path.join(d, 'reads_1.fastq.gz'),\n"
         "    os.path.join(d, 'reads_2.fastq.gz')]), index=idx, device='cpu')\n"
+        "import numpy as np\n"
+        "from kallisto_tpu_torch.io import native\n"
+        "c = np.zeros(1 << 16, np.uint8)\n"
+        "native.kmer_scan(c, 31, 2)\n"
+        "native.revcomp64(c.astype(np.uint64), 31, 2)\n"
+        "native.u64_lookup(np.zeros(1, np.uint64), np.array([0, 1]), 0,\n"
+        "                  c.astype(np.uint64), 2)\n"
         "maps = open('/proc/self/maps').read()\n"
         "libs = sorted({l.split()[-1] for l in maps.splitlines()\n"
         "               if l.split()[-1].endswith('.so')})\n"
@@ -99,9 +111,10 @@ def test_host_probe_loads_nothing_of_the_jax_native_library():
                        text=True, env=env, cwd=ROOT, check=True)
     hw1pb, libs = json.loads(p.stdout.strip().splitlines()[-1])
     assert hw1pb > 0
-    ours = [x for x in libs if "libhostprobe_" in x]
-    assert ours and all(
-        os.path.join("kallisto_tpu_torch", "_kbuild") in x for x in ours)
+    for name in ("libhostprobe_", "libktreader_"):
+        ours = [x for x in libs if name in x]
+        assert ours and all(
+            os.path.join("kallisto_tpu_torch", "_kbuild") in x for x in ours)
     native = os.path.join(ROOT, "kallisto_tpu", "native")
     assert not [x for x in libs if x.startswith(native) or "libktio" in x]
 
@@ -196,3 +209,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                         torch.zeros(7, dtype=torch.int64),
                         torch.zeros(1, dtype=torch.int32), 0, 1)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("module", ["io.native", "ops.hostprobe"])
+def test_host_library_without_its_compiler_raises(monkeypatch, tmp_path,
+                                                  module):
+    """No fallback: where g++ is missing the native reader (and the host
+    probe) raise instead of reading with Python."""
+    import importlib
+
+    mod = importlib.import_module(f"kallisto_tpu_torch.{module}")
+    monkeypatch.setattr(mod, "_BUILD_DIR", str(tmp_path))
+    if module == "io.native":
+        monkeypatch.setattr(mod, "_libs", {})
+        monkeypatch.setattr(mod, "_CXX", "no-such-g++")
+        with pytest.raises(OSError):
+            mod.NativeFastqReader(os.path.join(HERE, "data",
+                                               "reads_1.fastq.gz"), 10)
+        from kallisto_tpu_torch.io.fastx import packed_single_batches
+
+        with pytest.raises(OSError):
+            next(packed_single_batches(
+                os.path.join(HERE, "data", "reads_1.fastq.gz"), 10, 31))
+    else:
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setenv("PATH", str(tmp_path))
+        with pytest.raises(OSError):
+            mod.load()

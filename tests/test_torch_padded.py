@@ -190,3 +190,26 @@ def test_packed_lookup_matches_jax(indexes, monkeypatch, which):
     hit = got[1].numpy()
     assert hit.all() if which == "hits" else (
         not hit.any() if which in ("invalid", "misses") else 0 < hit.sum())
+
+
+def test_packed_entries_cache_keys_on_keys_and_ecs(indexes, monkeypatch):
+    """kernels.packed_entries keeps one entry array per (key table, EC
+    table): two bucketed DeviceIndexes that share kmer_hkeys but differ in
+    kmer_ec each get their own entries, equal to packed_entries_plain, and
+    a second call on either returns its cached array."""
+    from kallisto_tpu_torch.ops import kernels
+
+    _, tindex = indexes
+    _set_budget(monkeypatch, 0)
+    d1 = tpa.device_index_from_host(tindex, "cpu")
+    assert isinstance(d1, tpa.DeviceIndex)
+    d2 = d1._replace(kmer_ec=torch.flip(d1.kmer_ec, [0]).contiguous())
+    assert d2.kmer_hkeys is d1.kmer_hkeys
+    assert not torch.equal(d2.kmer_ec, d1.kmer_ec)
+    e1 = kernels.packed_entries(d1)
+    e2 = kernels.packed_entries(d2)
+    assert torch.equal(e1, tpa.packed_entries_plain(d1))
+    assert torch.equal(e2, tpa.packed_entries_plain(d2))
+    assert not torch.equal(e1, e2)
+    assert kernels.packed_entries(d1) is e1
+    assert kernels.packed_entries(d2) is e2

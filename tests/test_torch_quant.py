@@ -546,3 +546,73 @@ def test_cli_index_aa_and_distinguish(tmp_path, case):
     assert sorted(got) == sorted(exp)
     for k in exp:
         np.testing.assert_array_equal(got[k], exp[k], err_msg=k)
+
+
+TIME_TAG = re.compile(r"\[time\] (.+?) \d+\.\d{3}s")
+
+
+@pytest.mark.parametrize("w2cap", ["default", "one_read"])
+@pytest.mark.parametrize("hw1", ["0", "1"])
+def test_timing_tags_match_jax(port_index, monkeypatch, capsys, hw1, w2cap):
+    """KALLISTO_TPU_TIMING=1: the `[time]` tags of a run that learns the
+    FLD and then reaches the steady state, in order, equal JAX's on the
+    same run (the seconds masked) -- host wave 1 off (the per-read route's
+    `full:` lines while the FLD is learned) and on (hw1pb writes none,
+    then `probe`, `w2dispatch nf=<n>`, `w2fetch`, `resolve` per hw1
+    batch).  The port has no wave-2 capacity; with JAX's pinned at one
+    read JAX redoes its anchor batches through kernel D, which writes no
+    line, so the tags stay equal."""
+    monkeypatch.setenv("KALLISTO_TPU_TIMING", "1")
+    monkeypatch.setenv("KALLISTO_TPU_HOST_WAVE1", hw1)
+    monkeypatch.setenv("KALLISTO_TPU_FLEN_GOAL", "1000")
+    monkeypatch.setattr(jpipe, "_W2_HINTS", {})
+    if w2cap == "one_read":
+        monkeypatch.setattr(jpipe, "_w2_cap", lambda B2: 1)
+    kw = dict(files=[R1, R2], batch_size=1024)
+    capsys.readouterr()
+    jrun_quant(JOptions(**kw), index=port_index)
+    want = TIME_TAG.findall(capsys.readouterr().err)
+    res = run_quant(Options(**kw), index=port_index, device="cpu")
+    got = TIME_TAG.findall(capsys.readouterr().err)
+    assert got == want
+    t = res.timings
+    if hw1 == "0":
+        assert got == ["full:hashes", "full:resolve", "full:overflow"] \
+            * t["full"]
+        assert t["turbo"] > 0
+    else:
+        assert t["hw1"] > 0 and t["hw1pb"] > 0
+        assert got.count("w2fetch") == got.count("resolve") == t["hw1"]
+        assert [g for g in got if g.startswith("w2dispatch")] == \
+            [g for g in want if g.startswith("w2dispatch")]
+        assert got.count("probe") == t["hw1"]
+
+
+def test_timing_is_silent_without_the_variable(port_index, monkeypatch,
+                                               capsys):
+    monkeypatch.delenv("KALLISTO_TPU_TIMING", raising=False)
+    monkeypatch.setenv("KALLISTO_TPU_FLEN_GOAL", "1000")
+    run_quant(Options(files=[R1, R2], batch_size=1024), index=port_index,
+              device="cpu")
+    assert "[time]" not in capsys.readouterr().err
+
+
+def test_profile_writes_a_chrome_trace(port_index, monkeypatch, tmp_path):
+    """KALLISTO_TPU_PROFILE=<dir>: a torch.profiler Chrome trace of the
+    read loop lands in <dir> (CPU activities here); the outputs are
+    those of a run without it."""
+    import json
+
+    d = tmp_path / "prof"
+    monkeypatch.setenv("KALLISTO_TPU_PROFILE", str(d))
+    kw = dict(files=[R1], single_end=True, fld_mean=180, fld_sd=20,
+              batch_size=4096)
+    res = run_quant(Options(**kw), index=port_index, device="cpu")
+    files = os.listdir(d)
+    assert files == [f"quant_{os.getpid()}.json"]
+    with open(d / files[0]) as f:
+        trace = json.load(f)
+    assert trace["traceEvents"]
+    monkeypatch.delenv("KALLISTO_TPU_PROFILE")
+    plain = run_quant(Options(**kw), index=port_index, device="cpu")
+    np.testing.assert_array_equal(res.counts, plain.counts)

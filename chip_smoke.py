@@ -169,10 +169,11 @@ tests/data's indexes (phases 4-4e) and phase 3g's take the padded one:
    and on the CPU (equal EC counts and sets);
 5i. (right after phase 5) the observability hooks: `quant` of the first
    262,144 pairs with KALLISTO_TPU_PROFILE (a torch.profiler trace of the
-   read loop, CPU and CUDA activities) and KALLISTO_TPU_TIMING: the trace
-   file written, the card's busy time (the union of its CUDA kernel,
-   copy and set events) beside the loop's wall, one `[time] full:` line
-   of each tag per per-read batch;
+   whole run, CPU and CUDA activities, run_quant's spans its ranges) and
+   KALLISTO_TPU_TIMING: the trace file written, the card's busy time
+   inside the read loop's span (the union of its CUDA kernel, copy and
+   set events) beside the loop's wall, one `[time] full:` line of each
+   tag per per-read batch;
 5b. the slice at realistic size: `quant --bias -b 100 --plaintext` of the
    same pairs with the launch counts set to 0 just before and read just
    after, kernels G and H launched; hexamers counted, effective lengths
@@ -570,16 +571,24 @@ def phase_2b(np, fastx, r1p, r2p, batch, k):
             "reader_pairs": n}
 
 
-def _trace_busy(np, path):
+def _trace_busy(np, path, window="quant.read_loop"):
     """(kernel events, busy s of the card's kernels, busy s of kernels,
     copies and sets, top kernels by time) from a torch.profiler Chrome
-    trace: the union of its events' [ts, ts + dur) intervals."""
+    trace: the union of its events' [ts, ts + dur) intervals inside the
+    range named `window`."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
+    win = [e for e in events if e.get("name") == window
+           and e.get("cat") == "user_annotation"]
+    check(len(win) == 1, f"the trace holds one {window} range")
+    lo = win[0]["ts"]
+    hi = lo + win[0]["dur"]
 
     def union_s(cats):
-        iv = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-                    if e.get("cat") in cats and e.get("ph") == "X")
+        iv = sorted((max(e["ts"], lo), min(e["ts"] + e.get("dur", 0), hi))
+                    for e in events
+                    if e.get("cat") in cats and e.get("ph") == "X"
+                    and e["ts"] < hi and e["ts"] + e.get("dur", 0) > lo)
         busy, end = 0.0, -np.inf
         for a, b in iv:
             if b > end:
@@ -599,10 +608,10 @@ def _trace_busy(np, path):
 def phase_5i(torch, np, Options, run_quant, index, r1p, r2p, work, dev,
              n_pairs):
     """`quant` of the first n_pairs of phase 2's pairs with
-    KALLISTO_TPU_PROFILE (a torch.profiler trace of the read loop) and
+    KALLISTO_TPU_PROFILE (a torch.profiler trace of the whole run) and
     KALLISTO_TPU_TIMING (the [time] lines) set: the trace written, the
-    card's busy time read from its CUDA kernel events beside the loop's
-    wall, the [time] lines counted against the routes.  Returns the
+    card's busy time inside the read loop's span read from its CUDA
+    kernel events beside the loop's wall, the [time] lines counted against the routes.  Returns the
     summary."""
     import io
 

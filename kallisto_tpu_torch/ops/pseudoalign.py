@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import kernels
 
 INT32_MAX = 2**31 - 1
@@ -250,75 +251,90 @@ def device_index_from_host(index, device=None,
     one unless device='cpu').  with_pos_tables adds the FLD position-filter
     tables (pf_ptr, pf_base) that the position key column reads.  Returns
     a PaddedDeviceIndex when its bucket rows fit _PADDED_BYTES_BUDGET, else
-    a DeviceIndex."""
+    a DeviceIndex.  In a run (utils/spans.py) the host's gathers and casts
+    are the span `index_upload.prep` (timings["index_prep_s"]), each
+    table's before its copy."""
     from .. import resolve_device
 
     dev = resolve_device(device)
-    layout = cached_probe_layout(index)
-    order = layout.order
-    # anchor-kernel invariant: block ids are unitig-major and consecutive
-    # ascending with position, so a verified unitig stretch maps to the
-    # contiguous block-id range [block(p_lo), block(p_hi)]
-    bu = index.block_uid
-    if bu.shape[0] > 1:
-        assert ((np.diff(bu.astype(np.int64)) > 0)
-                | (np.diff(index.block_start.astype(np.int64)) > 0)).all(), \
-            "mosaic blocks must be unitig-major, position-ascending"
-    NB = index.block_ec.shape[0]
-    nb8 = ((NB + 9) + 7) // 8
-    be8 = np.full(nb8 * 8, -1, np.int32)
-    be8[:NB] = index.block_ec
-    kmer_block = index.kmer_block[order].astype(np.int32)
-    kmer_ec = np.where(
-        kmer_block >= 0, index.block_ec[np.maximum(kmer_block, 0)], -1
-    ).astype(np.int32)
+    with span("index_upload.prep", "index_prep_s"):
+        layout = cached_probe_layout(index)
+        order = layout.order
+        # anchor-kernel invariant: block ids are unitig-major and
+        # consecutive ascending with position, so a verified unitig stretch
+        # maps to the contiguous block-id range [block(p_lo), block(p_hi)]
+        bu = index.block_uid
+        if bu.shape[0] > 1:
+            assert ((np.diff(bu.astype(np.int64)) > 0)
+                    | (np.diff(index.block_start.astype(np.int64)) > 0)
+                    ).all(), \
+                "mosaic blocks must be unitig-major, position-ascending"
+        NB = index.block_ec.shape[0]
+        nb8 = ((NB + 9) + 7) // 8
+        be8 = np.full(nb8 * 8, -1, np.int32)
+        be8[:NB] = index.block_ec
+        kmer_block = index.kmer_block[order].astype(np.int32)
+        kmer_ec = np.where(
+            kmer_block >= 0, index.block_ec[np.maximum(kmer_block, 0)], -1
+        ).astype(np.int32)
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    def put(make) -> torch.Tensor:
+        """The host array make() returns (its gathers and casts timed as
+        the preparation) copied to the device."""
+        with span("index_upload.prep", "index_prep_s"):
+            a = np.ascontiguousarray(make())
+        return torch.from_numpy(a).to(dev)
 
     pf_ptr = pf_base = None
     if with_pos_tables:
-        ptr, base, _ = pos_tables_from_host(index)
-        pf_ptr, pf_base = put(ptr), put(base)
+        with span("index_upload.prep", "index_prep_s"):
+            ptr, base, _ = pos_tables_from_host(index)
+        pf_ptr, pf_base = put(lambda: ptr), put(lambda: base)
     M, S = padded_shape(layout)
     if M * S * 16 <= _PADDED_BYTES_BUDGET:
         # only the N keys and payloads cross to the device; the padded
         # tables (up to 1 GiB of rows) are filled and scattered there
         mk = layout.mk
-        bid = (mk >> np.uint64(64 - layout.p)).astype(np.int64)
-        flat = put(bid * S + (np.arange(mk.shape[0], dtype=np.int64)
-                              - layout.bucket_start[bid]))
+
+        def slots():
+            bid = (mk >> np.uint64(64 - layout.p)).astype(np.int64)
+            return bid * S + (np.arange(mk.shape[0], dtype=np.int64)
+                              - layout.bucket_start[bid])
+
+        flat = put(slots)
         at = flat // S * (2 * S) + flat % S
         rows = torch.full((M * 2 * S,), -1, dtype=torch.int64, device=dev)
-        rows[at] = put(mk.view(np.int64))
-        rows[at + S] = put(kmer_ec).to(torch.int64) & 0xFFFFFFFF
+        rows[at] = put(lambda: mk.view(np.int64))
+        rows[at + S] = put(lambda: kmer_ec).to(torch.int64) & 0xFFFFFFFF
 
-        def scatter(a, fill):
-            v = put(a)
+        def scatter(make, fill):
+            v = put(make)
             out = torch.full((M * S,), fill, dtype=v.dtype, device=dev)
             out[flat] = v
             return out
 
         return PaddedDeviceIndex(
             bucket_rows=rows.view(M, 2 * S),
-            kmer_uid=scatter(index.kmer_uid[order].astype(np.int32), -1),
-            kmer_pos=scatter(index.kmer_pos[order].astype(np.int32), -1),
-            kmer_fw=scatter(index.kmer_fw[order].astype(bool), False),
-            kmer_block=scatter(kmer_block, -1),
-            block_ec8=put(be8.reshape(nb8, 8)),
+            kmer_uid=scatter(
+                lambda: index.kmer_uid[order].astype(np.int32), -1),
+            kmer_pos=scatter(
+                lambda: index.kmer_pos[order].astype(np.int32), -1),
+            kmer_fw=scatter(lambda: index.kmer_fw[order].astype(bool), False),
+            kmer_block=scatter(lambda: kmer_block, -1),
+            block_ec8=put(lambda: be8.reshape(nb8, 8)),
             p=int(layout.p),
             pf_ptr=pf_ptr,
             pf_base=pf_base,
         )
     return DeviceIndex(
-        kmer_hkeys=put(layout.mk.view(np.int64)),
-        bucket_start=put(layout.bucket_start.astype(np.int32)),
-        kmer_uid=put(index.kmer_uid[order].astype(np.int32)),
-        kmer_pos=put(index.kmer_pos[order].astype(np.int32)),
-        kmer_fw=put(index.kmer_fw[order].astype(bool)),
-        kmer_block=put(kmer_block),
-        kmer_ec=put(kmer_ec),
-        block_ec8=put(be8.reshape(nb8, 8)),
+        kmer_hkeys=put(lambda: layout.mk.view(np.int64)),
+        bucket_start=put(lambda: layout.bucket_start.astype(np.int32)),
+        kmer_uid=put(lambda: index.kmer_uid[order].astype(np.int32)),
+        kmer_pos=put(lambda: index.kmer_pos[order].astype(np.int32)),
+        kmer_fw=put(lambda: index.kmer_fw[order].astype(bool)),
+        kmer_block=put(lambda: kmer_block),
+        kmer_ec=put(lambda: kmer_ec),
+        block_ec8=put(lambda: be8.reshape(nb8, 8)),
         p=int(layout.p),
         pf_ptr=pf_ptr,
         pf_base=pf_base,

@@ -24,6 +24,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import spans
+
 INT32_MAX = np.int32(2**31 - 1)
 
 
@@ -391,101 +393,104 @@ class EcResolver:
         h = np.ascontiguousarray(hs[order])
         vals, found = self._ec_cache.lookup(h)
         new_pos = np.flatnonzero(~found)
+        spans.count("ec_cache_lookups", h.shape[0])
+        spans.count("ec_cache_hits", h.shape[0] - new_pos.shape[0])
         if new_pos.size:
-            sel = order[new_pos]
-            n_new = new_pos.shape[0]
-            # vectorizable layer: at human scale nearly every key is NEW
-            # and carries <=1 EC row per mate, so per-key python
-            # resolution dominated the run.  When a part provides a SLIM
-            # fetch (first two rows per mate + flags; 20 B/key instead of
-            # the full exemplar) and no postfilter/special mode is active,
-            # single-row keys resolve through bulk numpy + dict lookups;
-            # only multi-row keys pay the full fetch + python resolver.
-            fast_ok = (
-                paired and not do_union and self.compact_postfilter is None
-                and not self.use_shade and not self.dfk_onlist
-                and not self.has_offlist
-            )
-            slim = np.zeros((n_new, 5), np.int64)
-            have_slim = np.zeros(n_new, bool)
-            fetched: Dict[int, np.ndarray] = {}
-            r_of: Dict[int, int] = {}
-            for i, p in enumerate(parts):
-                m = np.flatnonzero(pid[sel] == i)
-                if not m.size:
-                    continue
-                fslim = p[5] if len(p) > 5 else None
-                if fast_ok and fslim is not None:
-                    slim[m] = fslim(loc[sel[m]])
-                    have_slim[m] = True
-                else:
-                    ex = p[3](loc[sel[m]])
-                    for j, row in zip(m, ex):
-                        fetched[int(j)] = row
-                        r_of[int(j)] = p[4]
-            simple = (
-                have_slim & (slim[:, 1] == INT32_MAX)
-                & (slim[:, 3] == INT32_MAX)
-            )
-            # non-simple slim keys need the full exemplar after all
-            for i, p in enumerate(parts):
-                m = np.flatnonzero((pid[sel] == i) & have_slim & ~simple)
-                if m.size:
-                    ex = p[3](loc[sel[m]])
-                    for j, row in zip(m, ex):
-                        fetched[int(j)] = row
-                        r_of[int(j)] = p[4]
-            # classify simple keys: kind 0 = unmapped/vetoed, 1 = one
-            # index row (shared row, or one mate hit), 2 = two-row
-            # intersection (the non-strict pairing rules of
-            # MinCollector::intersectKmers reduced to the <=1-row case)
-            a, b, fl = slim[:, 0], slim[:, 2], slim[:, 4]
-            va = a != INT32_MAX
-            vb = b != INT32_MAX
-            kind = np.zeros(n_new, np.int8)
-            ia = np.where(va, a, 0).astype(np.int64)
-            ib = np.where(vb, b, 0).astype(np.int64)
-            m1 = simple & (fl == 1) & va
-            m2 = simple & (fl == 2) & vb
-            mb = simple & (fl == 3) & va & vb
-            kind[m1] = 1
-            kind[m2] = 1
-            ia[m2] = b[m2]
-            kind[mb & (a == b)] = 1
-            kind[mb & (a != b)] = 2
-            row_ec = self._row_ec
-            combo_ec = self._combo_ec
-            newvals = np.empty(n_new, np.int64)
-            for j in range(n_new):
-                if simple[j]:
-                    kj = kind[j]
-                    if kj == 0:
-                        newvals[j] = -1
-                        continue
-                    if kj == 1:
-                        key = int(ia[j])
-                        e = row_ec.get(key)
-                        if e is None:
-                            e = self.ec_id_for(self._row(key))
-                            row_ec[key] = e
-                    else:
-                        key2 = (int(ia[j]), int(ib[j]))
-                        e = combo_ec.get(key2)
-                        if e is None:
-                            u = _intersect_sorted(
-                                self._row(key2[0]), self._row(key2[1])
-                            )
-                            e = self.ec_id_for(u) if u.shape[0] else -1
-                            combo_ec[key2] = e
-                    newvals[j] = e
-                    continue
-                u = self._resolve_key(
-                    fetched[j], r_of[j], paired, do_union
+            with spans.span("resolve.new_keys", "resolve_new_s"):
+                sel = order[new_pos]
+                n_new = new_pos.shape[0]
+                # vectorizable layer: at human scale nearly every key is NEW
+                # and carries <=1 EC row per mate, so per-key python
+                # resolution dominated the run.  When a part provides a SLIM
+                # fetch (first two rows per mate + flags; 20 B/key instead of
+                # the full exemplar) and no postfilter/special mode is active,
+                # single-row keys resolve through bulk numpy + dict lookups;
+                # only multi-row keys pay the full fetch + python resolver.
+                fast_ok = (
+                    paired and not do_union and self.compact_postfilter is None
+                    and not self.use_shade and not self.dfk_onlist
+                    and not self.has_offlist
                 )
-                newvals[j] = self.ec_id_for(u) if u is not None else -1
-            self._ec_cache.insert(h[new_pos], newvals)
-            vals = vals.copy()
-            vals[new_pos] = newvals
+                slim = np.zeros((n_new, 5), np.int64)
+                have_slim = np.zeros(n_new, bool)
+                fetched: Dict[int, np.ndarray] = {}
+                r_of: Dict[int, int] = {}
+                for i, p in enumerate(parts):
+                    m = np.flatnonzero(pid[sel] == i)
+                    if not m.size:
+                        continue
+                    fslim = p[5] if len(p) > 5 else None
+                    if fast_ok and fslim is not None:
+                        slim[m] = fslim(loc[sel[m]])
+                        have_slim[m] = True
+                    else:
+                        ex = p[3](loc[sel[m]])
+                        for j, row in zip(m, ex):
+                            fetched[int(j)] = row
+                            r_of[int(j)] = p[4]
+                simple = (
+                    have_slim & (slim[:, 1] == INT32_MAX)
+                    & (slim[:, 3] == INT32_MAX)
+                )
+                # non-simple slim keys need the full exemplar after all
+                for i, p in enumerate(parts):
+                    m = np.flatnonzero((pid[sel] == i) & have_slim & ~simple)
+                    if m.size:
+                        ex = p[3](loc[sel[m]])
+                        for j, row in zip(m, ex):
+                            fetched[int(j)] = row
+                            r_of[int(j)] = p[4]
+                # classify simple keys: kind 0 = unmapped/vetoed, 1 = one
+                # index row (shared row, or one mate hit), 2 = two-row
+                # intersection (the non-strict pairing rules of
+                # MinCollector::intersectKmers reduced to the <=1-row case)
+                a, b, fl = slim[:, 0], slim[:, 2], slim[:, 4]
+                va = a != INT32_MAX
+                vb = b != INT32_MAX
+                kind = np.zeros(n_new, np.int8)
+                ia = np.where(va, a, 0).astype(np.int64)
+                ib = np.where(vb, b, 0).astype(np.int64)
+                m1 = simple & (fl == 1) & va
+                m2 = simple & (fl == 2) & vb
+                mb = simple & (fl == 3) & va & vb
+                kind[m1] = 1
+                kind[m2] = 1
+                ia[m2] = b[m2]
+                kind[mb & (a == b)] = 1
+                kind[mb & (a != b)] = 2
+                row_ec = self._row_ec
+                combo_ec = self._combo_ec
+                newvals = np.empty(n_new, np.int64)
+                for j in range(n_new):
+                    if simple[j]:
+                        kj = kind[j]
+                        if kj == 0:
+                            newvals[j] = -1
+                            continue
+                        if kj == 1:
+                            key = int(ia[j])
+                            e = row_ec.get(key)
+                            if e is None:
+                                e = self.ec_id_for(self._row(key))
+                                row_ec[key] = e
+                        else:
+                            key2 = (int(ia[j]), int(ib[j]))
+                            e = combo_ec.get(key2)
+                            if e is None:
+                                u = _intersect_sorted(
+                                    self._row(key2[0]), self._row(key2[1])
+                                )
+                                e = self.ec_id_for(u) if u.shape[0] else -1
+                                combo_ec[key2] = e
+                        newvals[j] = e
+                        continue
+                    u = self._resolve_key(
+                        fetched[j], r_of[j], paired, do_union
+                    )
+                    newvals[j] = self.ec_id_for(u) if u is not None else -1
+                self._ec_cache.insert(h[new_pos], newvals)
+                vals = vals.copy()
+                vals[new_pos] = newvals
         occ_o = occ[order]
         m = vals >= 0
         self.counts.add_at(vals[m], occ_o[m])

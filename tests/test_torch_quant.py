@@ -599,20 +599,26 @@ def test_timing_is_silent_without_the_variable(port_index, monkeypatch,
 
 def test_profile_writes_a_chrome_trace(port_index, monkeypatch, tmp_path):
     """KALLISTO_TPU_PROFILE=<dir>: a torch.profiler Chrome trace of the
-    read loop lands in <dir> (CPU activities here); the outputs are
-    those of a run without it."""
+    whole of run_quant lands in <dir> (CPU activities here), its spans
+    from the index upload to the writers among the trace's ranges; the
+    outputs are those of a run without it."""
     import json
 
     d = tmp_path / "prof"
     monkeypatch.setenv("KALLISTO_TPU_PROFILE", str(d))
     kw = dict(files=[R1], single_end=True, fld_mean=180, fld_sd=20,
               batch_size=4096)
-    res = run_quant(Options(**kw), index=port_index, device="cpu")
+    res = run_quant(Options(output_dir=str(tmp_path / "o"), plaintext=True,
+                            **kw), index=port_index, device="cpu")
     files = os.listdir(d)
     assert files == [f"quant_{os.getpid()}.json"]
     with open(d / files[0]) as f:
         trace = json.load(f)
     assert trace["traceEvents"]
+    ranges = {e["name"] for e in trace["traceEvents"]
+              if e.get("cat") == "user_annotation"}
+    assert {"quant.run", "quant.index_upload", "quant.read_loop",
+            "quant.em", "quant.write"} <= ranges
     monkeypatch.delenv("KALLISTO_TPU_PROFILE")
     plain = run_quant(Options(**kw), index=port_index, device="cpu")
     np.testing.assert_array_equal(res.counts, plain.counts)

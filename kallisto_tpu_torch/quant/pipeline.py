@@ -17,8 +17,9 @@ Port of kallisto_tpu/quant/pipeline.py with two routes per batch:
   rank ride in the key) and reduces the batch to a key table on the card
   in one C call; the host fetches the occupied rows, resolves each
   first-seen DISTINCT KEY once from exemplar rows that kernel F gathers
-  (pairs without filters first fetch F's slim rows, and single-row keys
-  resolve from those in bulk), and applies the filters per key.  Batches
+  (pairs without filters first fetch F's slim rows, enough for keys of
+  one row a mate; a batch's new keys resolve in one native call), and
+  applies the filters per key.  Batches
   with more Ns than the aux vector holds go through kernels A and E on
   bitmask slices instead ("compact").
 
@@ -594,9 +595,10 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     # update_eff_lens), the bootstrap EM, the output files, host wave 1's
     # probe, and what of the run no phase covers (_PHASES: unspanned_s);
     # then batch counts by route (long reads: `long`), the anchor kernel's
-    # wave-2 reads, the turbo batches' distinct keys, the novel long reads
-    # and the compact routes' keys looked up in and found in the
-    # resolver's key cache
+    # wave-2 reads, the turbo batches' distinct keys, the novel long reads,
+    # the compact routes' keys looked up in and found in the resolver's key
+    # cache, and the first-seen keys of either route resolved by the native
+    # call (quant/ecresolve.py)
     timings = dict.fromkeys(
         ("run_s", "index_upload_s", "index_prep_s", "read_s", "dispatch_s",
          "fetch_s", "resolve_s", "resolve_per_read_s", "resolve_new_s",
@@ -606,7 +608,7 @@ def run_quant(opt: Options, index: Optional[TpuIndex] = None,
     timings.update(dict.fromkeys(
         ("full", "turbo", "compact", "cmesh", "fallback", "long", "hw1pb",
          "hw1", "hw1s", "wave2_reads", "n_uniq_max", "n_uniq_sum", "novel",
-         "ec_cache_lookups", "ec_cache_hits"), 0))
+         "ec_cache_lookups", "ec_cache_hits", "ec_native_keys"), 0))
     with _profiled(dev), spans.recording("quant", timings, _PHASES):
         return _run_quant(opt, index, dev, timings)
 

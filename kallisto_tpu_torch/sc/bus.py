@@ -1344,14 +1344,14 @@ def run_bus(opt: Options, index=None, device=None) -> BusResult:
     # resolution + filters + counting (resolve), BUS record emission and
     # the output files (write), and what of the run none of them covers
     # (unspanned_s); then chunks by route (module docstring) and the
-    # resolver's key-cache counters, as in run_quant
+    # resolver's key-cache and native-key counters, as in run_quant
     timings = dict.fromkeys(
         ("run_s", "index_upload_s", "index_prep_s", "read_s", "extract_s",
          "pseudoalign_s", "resolve_s", "resolve_new_s", "write_s",
          "unspanned_s"), 0.0)
     timings.update(dict.fromkeys(
         ("anchor", "full", "fallback", "long", "wave2_reads",
-         "ec_cache_lookups", "ec_cache_hits"), 0))
+         "ec_cache_lookups", "ec_cache_hits", "ec_native_keys"), 0))
     with spans.recording("bus", timings, _PHASES):
         return _run_bus(opt, index, dev, timings)
 

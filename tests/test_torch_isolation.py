@@ -111,7 +111,7 @@ def test_host_probe_loads_nothing_of_the_jax_native_library():
                        text=True, env=env, cwd=ROOT, check=True)
     hw1pb, libs = json.loads(p.stdout.strip().splitlines()[-1])
     assert hw1pb > 0
-    for name in ("libhostprobe_", "libktreader_"):
+    for name in ("libhostprobe_", "libktreader_", "libecresolve_"):
         ours = [x for x in libs if name in x]
         assert ours and all(
             os.path.join("kallisto_tpu_torch", "_kbuild") in x for x in ours)
@@ -211,11 +211,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("module", ["io.native", "ops.hostprobe"])
+@pytest.mark.parametrize("module", ["io.native", "ops.hostprobe",
+                                    "quant.ecresolve"])
 def test_host_library_without_its_compiler_raises(monkeypatch, tmp_path,
                                                   module):
     """No fallback: where g++ is missing the native reader (and the host
-    probe) raise instead of reading with Python."""
+    probe, and the EC resolver) raise instead of reading with Python."""
     import importlib
 
     mod = importlib.import_module(f"kallisto_tpu_torch.{module}")

@@ -236,7 +236,8 @@ def test_long_reads_fetch_into_fetch_s(port_index, tmp_path):
 def test_bus_spans(port_index, tmp_path):
     """run_bus on the same helper: bus.* spans, nested and summing to its
     timings; emission is in bus.write (emit_s is gone); the resolver's
-    counters are there (the per-read resolver looks up no compact key)."""
+    counters are there (the per-read resolver looks up no compact key and
+    resolves its first-seen keys by the native call)."""
     kw = dict(files=SC, technology="10xv2", batch_size=4000)
     res, ann = _profiled(
         lambda: run_bus(Options(output_dir=str(tmp_path / "o"), **kw),
@@ -250,6 +251,7 @@ def test_bus_spans(port_index, tmp_path):
     _check_sums(ann, BUS_SPANS, t)
     assert 0 <= t["unspanned_s"] < t["run_s"]
     assert t["ec_cache_lookups"] == t["ec_cache_hits"] == 0
+    assert t["ec_native_keys"] > 0
     plain = run_bus(Options(output_dir=str(tmp_path / "p"), **kw),
                     index=port_index, device="cpu")
     for f in ("output.bus", "matrix.ec"):

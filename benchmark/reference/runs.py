@@ -1,7 +1,7 @@
 """The reference's answer for one `quant` sample and one `bus` library
 slice, computed in blocks of reads on the reference's device."""
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ class QuantAnswer(NamedTuple):
     flens: np.ndarray      # [MAX_FRAG_LEN] int64
     est_counts: np.ndarray  # [T] f64
     distinct_kmers: int    # distinct indexed k-mers of the sample's reads
+    boot: Any = None       # bootstrap.Replicates where the run draws them
 
 
 def _to(a: np.ndarray, dev):

@@ -2,7 +2,9 @@
 the look for a card: correct, every metric read; and with the timed path
 broken underneath, correct comes out false."""
 
+import ast
 import os
+import re
 import time
 
 import numpy as np
@@ -11,7 +13,9 @@ import pytest
 import tiny
 from kbench import calibrate, harness, traffic
 
-CELLS = ("bulk-pe100", "sc-10xv2")
+MANIFEST = harness.with_held(
+    harness.load_json(os.path.join(harness.ROOT, "BENCHMARK.json")))
+CELLS = tuple(w["name"] for w in MANIFEST["workloads"])
 
 
 def _run(cell, tmp_path, trace_on=False):
@@ -39,9 +43,13 @@ def test_a_run_is_correct_and_reports_its_metrics(name, tmp_path):
     assert all(p["process"]["wall_s"] > 0 and p["timings"] for p in per)
 
 
-def test_the_cache_fill_is_recorded_apart_from_setup(tmp_path):
+def test_the_cache_fill_is_recorded_apart_from_setup(tmp_path, monkeypatch):
     """A checkout's first run builds the index into the cache and says how
-    long that took; setup_s leaves it out, and the next run fills nothing."""
+    long that took; setup_s leaves it out, and the next run fills nothing.
+    The cache is the test's own, so that no other test has filled it."""
+    from kbench import deploy
+
+    monkeypatch.setattr(deploy, "CACHE_DIR", str(tmp_path / "cache"))
     cell = tiny.cell("bulk-pe100")
     first = _run(cell, tmp_path / "a")
     assert first["cache_fill_s"] > 0
@@ -74,28 +82,44 @@ def test_a_held_cell_is_not_run_and_its_rows_put_it_back():
                                                      "setup_s"}
 
 
+def _keys_named(path):
+    """The timings keys a reader's docstring names (timings["<key>"])."""
+    with open(path) as f:
+        doc = ast.get_docstring(ast.parse(f.read())) or ""
+    return set(re.findall(r'timings\["(\w+)"\]', doc))
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_layer_metrics_read_from_the_records(name, tmp_path):
-    """The per-layer readers of host phases read the run's timings; those
-    of the device trace read nothing without a trace."""
+    """Each per-layer reader of host phases reads the timings keys its
+    docstring names, and no other: every key has a value of its own, and a
+    reading moves when a named key changes and only then. Those of the
+    device trace read nothing without a trace."""
     cell = tiny.cell(name)
-    rec = {"entry": cell.wl["entry"], "fragments": 2_000_000, "trace": None,
-           "samples": [{"timings": {"index_upload_s": 2.0, "read_s": 1.0,
-                                    "fetch_s": 0.5, "resolve_s": 6.0,
-                                    "extract_s": 4.0}}] * 2}
-    got = {m: harness.read_metric(p, rec) for m, _, p in cell.metrics(True)}
-    assert got, "each cell has per-layer metrics"
-    for m, v in got.items():
-        if "idle" in m or "roofline" in m:
-            assert v is None
-        elif m.endswith("upload_s_per_sample"):
-            assert v == 2.0
-        else:
-            key = {"read": "read_s", "fetch": "fetch_s", "resolve":
-                   "resolve_s", "extract": "extract_s"}[
-                       m.split(".")[1].split("_")[0]]
-            assert v == pytest.approx(2 * rec["samples"][0]["timings"][key]
-                                      / 2.0)
+    source = {m["name"]: m["source"] for m in cell.manifest["per_layer"]}
+    readers = {m: p for m, _, p in cell.metrics(True)}
+    assert readers, "each cell has per-layer metrics"
+    named = {m: _keys_named(p) for m, p in readers.items()
+             if source[m] != "device_trace"}
+    keys = sorted(set().union(*named.values()) | {"run_s", "unspanned_s"})
+    timings = {k: float(2 ** i) for i, k in enumerate(keys, 1)}
+
+    def rec_with(t):
+        return {"entry": cell.wl["entry"], "fragments": 2_000_000,
+                "trace": None, "samples": [{"timings": t}] * 2}
+
+    for m, p in readers.items():
+        v = harness.read_metric(p, rec_with(timings))
+        if m not in named:
+            assert v is None, m
+            continue
+        assert named[m], f"{m}'s reader names no timings key"
+        if len(named[m]) == 1:  # a sum per sample or per million fragments
+            assert v == timings[next(iter(named[m]))], m
+        moved = {k for k in keys
+                 if harness.read_metric(p, rec_with(
+                     dict(timings, **{k: 3 * timings[k]}))) != v}
+        assert moved == named[m], m
 
 
 def _broken(monkeypatch, cell, fault):
@@ -159,8 +183,20 @@ def test_a_broken_timed_path_is_not_correct(name, fault, tmp_path,
     assert not out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("name,control", (("bulk-pe100", "em_float32"),
-                                          ("sc-10xv2", "fingerprint16")))
+# the control at the tests' tiny size, where it is not the cell's own: a
+# 32-bit fingerprint makes no collision among a 40-gene index's k-mers, a
+# 16-bit one does
+TINY_CONTROL = {"fingerprint32": "fingerprint16"}
+
+
+def _control(name):
+    control = harness.load_json(os.path.join(
+        harness.BENCH_DIR, "workloads", f"{name}.json"))["control"]
+    return TINY_CONTROL.get(control, control)
+
+
+@pytest.mark.parametrize("name,control", tuple((c, _control(c))
+                                               for c in CELLS))
 def test_the_control_is_not_correct(name, control, tmp_path):
     """The control (the reference one step below what the configuration
     states, in the program's place) fails a limit; the program passes on

@@ -31,13 +31,15 @@ def _loaded(body: str):
 def test_reference_loads_neither_jax_nor_any_kallisto_package():
     top = _loaded("""
 import os
-from reference import align, em, kmers, runs, seqio
+from reference import align, bootstrap, em, kmers, runs, seqio
 d = os.path.join({root!r}, "tests", "data")
 names, seqs, lens = seqio.read_transcripts(os.path.join(d, "transcripts.fasta.gz"))
 ref = kmers.build_ref_index(names, seqs, lens)
 c1, l1 = seqio.read_fastq(os.path.join(d, "reads_1.fastq.gz"))
 c2, l2 = seqio.read_fastq(os.path.join(d, "reads_2.fastq.gz"))
-runs.quant(ref, c1, l1, c2, l2)
+ans = runs.quant(ref, c1, l1, c2, l2)
+bootstrap.Replicates(ans.classes, ref.T, em.effective_lengths(ref.lens, ans.flens),
+                     2, 42, ans.est_counts).for_order(list(ans.classes))
 """.format(root=ROOT))
     assert not top & {"jax", "jaxlib", "flax", "kallisto_tpu",
                       "kallisto_tpu_torch"}
